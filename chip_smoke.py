@@ -1,20 +1,32 @@
-"""Drive the PyTorch port's serving path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU
+and check them.
 
     python3 chip_smoke.py
 
 Phases, each of which stops the script on failure:
 1. device: name, count, and nvidia-smi's name and power limit;
-2. build: nvcc builds both kernels of ``pipelinerl_tpu_torch/csrc/`` for
-   sm_90a (in parallel) and reports registers, shared memory and spills;
+2. build: nvcc builds the three sources of ``pipelinerl_tpu_torch/csrc/``
+   for sm_90a (in parallel) and reports registers, shared memory and spills
+   of the four kernels;
 3. the decode-attention kernel against its plain version at the engine's
    shapes, with its time, the plain version's, one SDPA call's and the bound;
-4. the GQA prefill-attention kernel against its plain version (prefill
-   shape, a packed 2048 row of 8 segments, and q_offset > 0 with Lq < Lkv);
-5. the slab engine at Qwen2.5-0.5B width (random weights from a seed) with
-   GRPO forks, an abort and an in-flight weight update, checked for budgets,
-   finite logprobs, the padded-vocabulary guard, kernel launch counts, and
-   against teacher forcing through the plain attention;
-6. the in-process client on a toy-width model.
+4. the GQA forward kernel against its plain version (prefill shape, a packed
+   2048 row of 8 segments, q_offset > 0 with Lq < Lkv, and the training row);
+5. the GQA backward kernels (dq, dk/dv) against the plain backward at the
+   training shape and four more, and the autograd function against autograd
+   through the plain forward, with times and bounds;
+6. a full-width Qwen2.5-0.5B train step through the port's ``TrainerLoop``
+   (L 4096 in 8 segments, remat, the GQA kernels): launch counts, gradient
+   parity with the plain attention, one pass through ``attn_impl="flash"``,
+   ms per step, tokens/s, MFU and a profile;
+7. the slab engine at Qwen2.5-0.5B width (random weights from a seed) with
+   GRPO forks, an abort and an in-flight push of the trained weights from
+   that ``TrainerLoop``, checked for budgets, finite logprobs, the
+   padded-vocabulary guard, kernel launch counts, and against teacher
+   forcing through the plain attention;
+8. the in-process client on a toy-width model;
+9. the bandit RL loop (``bandit_tpu``) through the port's ``launch.main``
+   with every attention on the kernels: it must learn.
 Then one JSON line of kernel numbers, and last the result line.
 
 It needs a CUDA device and raises without one; it never falls back to the CPU.
@@ -26,13 +38,17 @@ import asyncio
 import json
 import math
 import re
+import statistics
 import subprocess
+import tempfile
 import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from pipelinerl_tpu_torch import launch
+from pipelinerl_tpu_torch.config import compose
 from pipelinerl_tpu_torch.inference import EngineConfig, GenRequest, InferenceEngine, SamplingParams
 from pipelinerl_tpu_torch.inference.client import InProcessLLM, Prompt
 from pipelinerl_tpu_torch.models.toy_tokenizer import ToyTokenizer
@@ -40,6 +56,9 @@ from pipelinerl_tpu_torch.models.transformer import ModelConfig, forward, init_p
 from pipelinerl_tpu_torch.ops import _build
 from pipelinerl_tpu_torch.ops import decode_attention as dattn
 from pipelinerl_tpu_torch.ops import gqa_attention as gattn
+from pipelinerl_tpu_torch.streams import SingleStreamSpec, StreamReader, StreamWriter
+from pipelinerl_tpu_torch.train.trainer import TrainerLoop, param_leaves
+from pipelinerl_tpu_torch.types import TrainerBatch
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 flop/s
 PEAK_BYTES_S = 3.35e12
@@ -58,6 +77,17 @@ MAX_LEN = PROMPT_LEN + MAX_TOKENS + 72  # 328, as bench.py's headline engine
 DECODE_ATOL = 2e-2  # fp32 out; both sides bf16 operands, bf16 P, fp32 sums
 GQA_OUT_ATOL = 2e-2  # bf16 out (2^-8 relative rounding) over O(1) values
 GQA_LSE_ATOL = 2e-3  # fp32 scores from bf16 operands, summed in another order
+# backward kernels, bf16 dq/dk/dv against the plain backward from the same
+# inputs: 2^-8 relative output rounding, plus bf16 roundings of P and dS
+# that flip where fp32 sums run in another order; held to 1e-2 of the
+# largest reference value
+GQA_BWD_RTOL = 1e-2
+# train step at full width, per-tensor relative L2 error of the gradients
+# with the GQA kernels against the plain attention on the same bf16 weights:
+# the kernels round P and dS to bf16 where the plain path keeps fp32, and
+# bf16 activations carry the difference through 24 layers
+TRAIN_GRAD_REL_L2 = 5e-2
+TRAIN_L, TRAIN_STEPS = 4096, 5  # bench.py's training row; steps after one warm-up
 # engine logprobs (bf16 weights and KV, kernels, batched windows) against a
 # T=1 teacher-forced forward through the plain attention: bf16 rounding of
 # the 24-layer residual stream lands at different places in the two paths
@@ -118,16 +148,19 @@ def phase_device() -> dict:
     return info
 
 
+SOURCES = ["decode_attention", "gqa_attention_fwd", "gqa_attention_bwd"]
+
+
 def phase_build() -> None:
     t0 = time.monotonic()
-    infos = _build.build(["decode_attention", "gqa_attention_fwd"])
+    infos = _build.build(SOURCES)
     log(f"build: {time.monotonic() - t0:.1f} s wall for {len(infos)} kernels (nvcc, sm_90a, in parallel)")
     for info in infos:
         log(f"  {info.name}: {info.seconds:.1f} s -> {info.path.name}")
         for line in info.ptxas.splitlines():
             if re.search(r"registers|spill|Compiling entry", line):
                 log(f"    {line.strip()}")
-    for name in ("decode_attention", "gqa_attention_fwd"):
+    for name in SOURCES:
         _build.library(name)
 
 
@@ -224,6 +257,7 @@ def phase_gqa_kernel(dev) -> dict:
         ("prefill B=8 L=128", 8, BUCKET, BUCKET, 1),
         ("packed L=2048, 8 segments", 1, 2048, 2048, 8),
         ("q_offset=384, Lq=256 < Lkv=640", 2, 256, 640, 3),
+        ("training row L=4096, 8 segments", 1, TRAIN_L, TRAIN_L, 8),
     ]
     record = None
     max_err = 0.0
@@ -266,11 +300,289 @@ def phase_gqa_kernel(dev) -> dict:
                 "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": library_ms,
             }
+        if label.startswith("training"):  # the train step's shape, beside the prefill record
+            record["train_shape"] = {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                                     "bound_ms": bound_ms, "bound_by": bound_by}
     record["max_abs_err"] = max_err
     return record
 
 
-def phase_engine(dev, smi: str) -> tuple[int, int]:
+def reset_counts() -> None:
+    dattn.launches = gattn.launches = gattn.dq_launches = gattn.dkv_launches = 0
+
+
+def counts() -> dict[str, int]:
+    return {"decode": dattn.launches, "gqa_fwd": gattn.launches, "gqa_dq": gattn.dq_launches,
+            "gqa_dkv": gattn.dkv_launches}
+
+
+def _gqa_bwd_args(gen, B, Lq, Lkv, H, K, Dh, n_segs, dev, masked_row=None):
+    """(q, k, v, q_seg, kv_seg, q_offset, scale, out, lse, do, delta), out
+    and lse from kernel #2."""
+    q, k, v, q_seg, kv_seg, q_off = _gqa_inputs(gen, B, Lq, Lkv, H, K, Dh, n_segs, dev)
+    q_seg = q_seg.clone()  # at Lq == Lkv it is kv_seg itself
+    if masked_row is not None:
+        q_seg[0, masked_row] = n_segs + 7  # no key carries it
+    out, lse = gattn.mha_packed_gqa(q, k, v, q_seg, kv_seg, q_off)
+    do = torch.randn(q.shape, generator=gen, device=dev).to(torch.bfloat16)
+    delta = (do.float() * out.float()).sum(-1).reshape(B, Lq, K, H // K)
+    return q, k, v, q_seg, kv_seg, q_off, Dh**-0.5, out, lse, do, delta
+
+
+def _rel_err(got, ref) -> tuple[float, float]:
+    """(max abs error, max abs error over max(1, max |ref|))."""
+    err = (got.float() - ref.float()).abs().max().item()
+    return err, err / max(1.0, ref.float().abs().max().item())
+
+
+def time_events_ms(fn, iters: int = 10) -> float:
+    """Mean device time of ``fn`` from CUDA events around ``iters`` calls,
+    for calls that a CUDA graph cannot capture (autograd's backward)."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def phase_gqa_bwd_kernels(dev) -> list[dict]:
+    """Kernels #3 (dq) and #4 (dk/dv) against the plain backward, the
+    autograd function against autograd through the plain forward, and the
+    kernels' times at the training shape."""
+    H, K = QWEN05B.num_heads, QWEN05B.num_kv_heads
+    gen = torch.Generator(device=dev).manual_seed(4)
+    cases = [  # (label, B, Lq, Lkv, H, K, Dh, segments, fully masked query row)
+        ("(a) training row L=4096, 8 segments", 1, TRAIN_L, TRAIN_L, H, K, 64, 8, None),
+        ("(b) packed L=2048, 8 segments", 1, 2048, 2048, H, K, 64, 8, None),
+        ("(c) q_offset=384, Lq=256 < Lkv=640", 2, 256, 640, H, K, 64, 3, None),
+        ("(d) Dh=128, H=8 K=1, ragged L=1000", 2, 1000, 1000, 8, 1, 128, 3, None),
+        ("(e) a fully masked query row", 1, 512, 512, H, K, 64, 2, 300),
+    ]
+    max_err = {"dq": 0.0, "dkv": 0.0}
+    for label, B, Lq, Lkv, Hc, Kc, Dh, n_segs, masked in cases:
+        a = _gqa_bwd_args(gen, B, Lq, Lkv, Hc, Kc, Dh, n_segs, dev, masked)
+        dq, dk, dv = gattn.mha_packed_gqa_bwd(*a[:10])
+        torch.cuda.synchronize()
+        rq, rk, rv = gattn.mha_packed_gqa_bwd_plain(*a[:10])
+        errs = {n: _rel_err(g, r) for n, g, r in (("dq", dq, rq), ("dk", dk, rk), ("dv", dv, rv))}
+        log(f"gqa backward kernels vs plain, {label}: "
+            + ", ".join(f"{n} max abs err {e:.3e} ({rel:.2e} of max |ref|)" for n, (e, rel) in errs.items())
+            + f" (tolerance {GQA_BWD_RTOL} of max |ref|)")
+        for n, (e, rel) in errs.items():
+            check(math.isfinite(e) and rel <= GQA_BWD_RTOL, f"gqa backward {n} disagrees ({label})")
+        if masked is not None:
+            check(bool((a[8][0, masked] == -1e30).all() and (dq[0, masked] == 0).all()),
+                  "a fully masked query row must get lse = -1e30 and zero dq")
+        max_err["dq"] = max(max_err["dq"], errs["dq"][0])
+        max_err["dkv"] = max(max_err["dkv"], errs["dk"][0], errs["dv"][0])
+
+    # the autograd function (kernels #2-#4) against autograd through the
+    # plain forward in fp32, at the training shape
+    q, k, v, q_seg, kv_seg, q_off, scale, _, _, do, _ = _gqa_bwd_args(gen, 1, TRAIN_L, TRAIN_L, H, K, 64, 8, dev)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    gattn.mha_packed_gqa(*leaves, q_seg, kv_seg, q_off)[0].backward(do)
+    ref_leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    gattn.mha_packed_gqa_plain(*ref_leaves, q_seg, kv_seg, q_off, scale)[0].backward(do.float())
+    errs = [_rel_err(a.grad, b.grad) for a, b in zip(leaves, ref_leaves)]
+    del ref_leaves
+    log("gqa autograd function vs autograd through the plain forward (fp32), training shape: "
+        + ", ".join(f"d{n} {e:.3e} ({rel:.2e} of max |ref|)" for n, (e, rel) in zip("qkv", errs))
+        + f" (tolerance {GQA_BWD_RTOL})")
+    check(all(rel <= GQA_BWD_RTOL for _, rel in errs), "the autograd function's gradients disagree")
+
+    # times at the training shape
+    a = _gqa_bwd_args(gen, 1, TRAIN_L, TRAIN_L, H, K, 64, 8, dev)
+    q, k, lse, q_seg, kv_seg = a[0], a[1], a[8], a[3], a[4]
+    _, _, visible = _gqa_work(q, k, q_seg, kv_seg, 0)
+    product = 2 * 64 * H * visible  # one Dh-long product over every visible (query head, key) pair
+    in_bytes = 2 * q.numel() * 2 + 2 * k.numel() * 2 + 2 * lse.numel() * 4 + 4 * (q_seg.numel() + kv_seg.numel())
+    work = {"dq": (in_bytes + q.numel() * 2, 3 * product), "dkv": (in_bytes + 2 * k.numel() * 2, 4 * product)}
+    sets = [a] + [_gqa_bwd_args(gen, 1, TRAIN_L, TRAIN_L, H, K, 64, 8, dev) for _ in range(n_sets(work["dq"][0]) - 1)]
+    dq_ms = time_ms([lambda a=a: gattn.mha_packed_gqa_bwd_dq(*a[:7], a[8], a[10], a[9]) for a in sets])
+    dkv_ms = time_ms([lambda a=a: gattn.mha_packed_gqa_bwd_dkv(*a[:7], a[8], a[10], a[9]) for a in sets])
+    plain_ms = time_ms([lambda a=a: gattn.mha_packed_gqa_bwd_plain(*a[:10]) for a in sets[:2]], 4)
+    # yardstick only: the backward alone of one SDPA call with a boolean mask
+    i = torch.arange(TRAIN_L, device=dev)
+    mask = ((i[:, None] >= i[None, :])[None] & (q_seg[:, :, None] == kv_seg[:, None, :]))[:, None]
+    sq, sk, sv = (t.transpose(1, 2).detach().requires_grad_() for t in a[:3])
+    s_out = F.scaled_dot_product_attention(sq, sk, sv, attn_mask=mask, enable_gqa=True)
+    s_do = a[9].transpose(1, 2)
+    library_ms = time_events_ms(lambda: torch.autograd.grad(s_out, (sq, sk, sv), s_do, retain_graph=True))
+    del s_out, sets
+    least_ms, least_by = bound(in_bytes + q.numel() * 2 + 2 * k.numel() * 2, 5 * product)
+    log(f"gqa backward, training shape (H={H} K={K} Dh=64, {visible} visible pairs): least work of a flash "
+        f"backward 5 products = {5 * product / 1e9:.2f} GFLOP, the dq + dk/dv split computes 7 = "
+        f"{7 * product / 1e9:.2f} GFLOP; bound of the whole backward {least_ms:.4f} ms ({least_by}); "
+        f"dq + dkv {dq_ms + dkv_ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA backward {library_ms:.4f} ms")
+    records = []
+    for name, ms, src_line, what in (("dq", dq_ms, 225, "_bwd_dq_kernel"), ("dkv", dkv_ms, 302, "_bwd_dkv_kernel")):
+        bound_ms, bound_by = bound(*work[name])
+        log(f"gqa backward {name} kernel, training shape: {ms:.4f} ms, plain (whole backward) {plain_ms:.4f} ms, "
+            f"SDPA backward {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+            f"{work[name][1] / 1e9:.2f} GFLOP, {work[name][0] / 1e6:.1f} MB), roofline share {bound_ms / ms:.3f}")
+        records.append({
+            "name": f"mha_packed_gqa_bwd_{name} ({what})", "route": "cuda",
+            "source": "pipelinerl_tpu_torch/csrc/gqa_attention_bwd.cu",
+            "replaces": f"pipelinerl_tpu/ops/gqa_attention.py:{src_line}",
+            "max_abs_err": max_err[name], "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+        })
+    return records
+
+
+def _train_batch(L: int) -> TrainerBatch:
+    """bench.py's training row (bench.py:776-792): one packed row of 8
+    segments, every token labelled, advantages 1."""
+    rng = np.random.default_rng(1)
+    ids = rng.integers(1, 100_000, (1, L)).astype(np.int32)
+    seg_len = L // 8
+    ones = np.ones((1, L), np.float32)
+    return TrainerBatch(
+        input_ids=ids, labels=ids, position_ids=(np.arange(L) % seg_len)[None],
+        segment_ids=(np.arange(L) // seg_len)[None], rewards=ones, advantages=ones,
+        ref_logprobs=0 * ones, old_logprobs=-ones, group_tokens=seg_len * ones, num_labels=seg_len * ones,
+        overflow=0 * ones, num_sequences=8,
+    )
+
+
+def phase_train_step(dev, smi: str, exp_dir: str) -> tuple[TrainerLoop, dict]:
+    """A full-width Qwen2.5-0.5B train step through the port's TrainerLoop,
+    with bench.py's training settings (bench.py:760-826): reinforce,
+    batch_size 8, max_segments 64, AdamW at lr 1e-5, per-layer remat."""
+    cfg = compose("base", [
+        f"output_dir={exp_dir}", f"finetune.seq_length={TRAIN_L}", "finetune.rl.policy_loss=reinforce",
+        "finetune.rl.batch_size=8", "finetune.rl.max_segments=64", "finetune.learning_rate=1e-5",
+        "finetune.num_warmup_steps=0", "finetune.weight_decay=1e-4", "finetune.gradient_clipping_threshold=null",
+        "finetune.gradient_checkpointing=true", "finetune.param_dtype=bfloat16", "finetune.save_checkpoint_steps=0",
+    ])
+    params = init_params(torch.Generator(device=dev).manual_seed(0), QWEN05B, dev)
+    n_params = sum(p.numel() for _, p in param_leaves(params))
+    trainer = TrainerLoop(cfg, params, QWEN05B, exp_dir)
+    check(trainer.attn_impl == "gqa" and trainer.remat is True, f"auto picked {trainer.attn_impl}")
+    batch = _train_batch(TRAIN_L)
+    initial = {name: p.detach().clone() for name, p in param_leaves(params)}
+    L = QWEN05B.num_layers
+    per_pass = {"gqa_fwd": 2 * L, "gqa_dq": L, "gqa_dkv": L, "decode": 0}  # forward + remat recompute
+
+    def one_pass(impl: str) -> tuple[dict, dict, dict]:
+        trainer.attn_impl = impl
+        reset_counts()
+        metrics = trainer.train_pass(batch)
+        grads = {name: p.grad.float() for name, p in param_leaves(trainer.params)}
+        trainer.zero_grad()
+        return metrics, grads, counts()
+
+    # gradient parity at full width: the kernels against the plain attention
+    m_gqa, g_gqa, c_gqa = one_pass("gqa")
+    m_xla, g_xla, c_xla = one_pass("xla")
+    rel = {name: ((g_gqa[name] - g_xla[name]).norm() / g_xla[name].norm().clamp(min=1e-30)).item() for name in g_xla}
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:4]
+    log(f"train pass, gqa vs xla attention on the same weights (L={TRAIN_L}): loss {m_gqa['loss']:.6f} vs "
+        f"{m_xla['loss']:.6f}; per-tensor relative L2 error of the gradients, worst: "
+        + ", ".join(f"{n} {r:.2e}" for n, r in worst) + f" (tolerance {TRAIN_GRAD_REL_L2})")
+    check(max(rel.values()) <= TRAIN_GRAD_REL_L2, "train gradients with the kernels disagree with the plain attention")
+    check(c_gqa == per_pass, f"gqa pass launches {c_gqa} != {per_pass}")
+    check(not any(c_xla.values()), f"the plain pass launched kernels {c_xla}")
+    del g_gqa, g_xla
+    _, _, c_flash = one_pass("flash")
+    check(c_flash == per_pass, f"flash pass launches {c_flash} != {per_pass}")
+    log(f"launches per train pass: gqa {c_gqa}, flash {c_flash}: kernel #2 runs twice per layer "
+        f"(forward and the remat recompute), #3 and #4 once per layer")
+
+    trainer.attn_impl = "gqa"
+    times, losses, norms = [], [], []
+    reset_counts()
+    for _ in range(1 + TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        metrics = trainer.train_pass(batch)
+        trainer.optimizer_step()
+        torch.cuda.synchronize()
+        times.append(time.monotonic() - t0)
+        losses.append(metrics["loss"])
+        norms.append(trainer.metrics.grad_norm)
+    launches = counts()
+    check(launches == {k: v * (1 + TRAIN_STEPS) for k, v in per_pass.items()}, f"train launches {launches}")
+    check(all(math.isfinite(x) for x in losses + norms) and min(norms) > 0, f"loss {losses}, grad norm {norms}")
+    changed = sum(not torch.equal(p.detach(), initial[name]) for name, p in param_leaves(trainer.params))
+    check(changed > 0, "no parameter changed")
+    step_s = statistics.median(times[1:])
+    tok_s = TRAIN_L / step_s
+    mfu = 6 * n_params * TRAIN_L / (PEAK_BF16_FLOPS * step_s)
+    log(f"train step (TrainerLoop, Qwen2.5-0.5B, {n_params} params, L={TRAIN_L}, remat, gqa kernels): "
+        f"{step_s * 1e3:.1f} ms median of {TRAIN_STEPS} after warm-up ({', '.join(f'{t * 1e3:.1f}' for t in times)} ms), "
+        f"{tok_s:.0f} tokens/s, train MFU {mfu:.4f} (6 N tokens / 989 TFLOP/s) on {smi}; "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, grad norm {norms[0]:.4f} -> {norms[-1]:.4f}, "
+        f"{changed} of {len(initial)} tensors changed, peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    del initial
+    profile_train_step(trainer, batch)
+    return trainer, launches
+
+
+def profile_train_step(trainer: TrainerLoop, batch: TrainerBatch) -> None:
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        trainer.train_pass(batch)
+        trainer.optimizer_step()
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    report_profile(prof, wall_ms, 1, "train step")
+
+
+def report_profile(prof, wall_ms: float, n_steps: int, label: str) -> None:
+    """Device busy share and the top device kernels of a profiled window."""
+    from torch.autograd import DeviceType
+
+    # device events, without the user annotations (an optimizer's step range
+    # on the device timeline) that overlap the kernels they enclose
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy_ms <= 0:
+        log(f"{label} profile: the profiler saw no device time (not measured)")
+        return
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+    log(f"{label} profile: {n_steps} steps in {wall_ms:.1f} ms wall, device busy {busy_ms:.1f} ms "
+        f"(share {busy_ms / wall_ms:.3f}), {busy_ms / n_steps:.3f} device ms per step")
+    for e in top:
+        log(f"  {e.self_device_time_total / 1e3 / n_steps:8.4f} ms/step  {e.count // n_steps:5d}/step  {e.key[:90]}")
+
+
+def phase_rl_loop(exp_dir: str) -> dict:
+    """The bandit RL loop through the port's entry point, every attention on
+    the kernels; it must learn (tests/test_e2e_bandit.py:43-58)."""
+    reset_counts()
+    t0 = time.monotonic()
+    stats = launch.main(["--config-name=bandit_tpu", f"output_dir={exp_dir}", "finetune.save_checkpoint_steps=0",
+                         "engine.attn_impl=gqa", "finetune.attn_impl=gqa"])
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = counts()
+    snaps = list(StreamReader(SingleStreamSpec(exp_dir, "stats")).read_available())
+    rewards = [s["reward_mean"] for s in snaps if "reward_mean" in s]
+    check(len(rewards) >= 4, f"too few stats snapshots: {rewards}")
+    early, late = sum(rewards[:2]) / 2, sum(rewards[-2:]) / 2
+    log(f"bandit_tpu RL loop through launch.main: {wall:.1f} s wall, {stats['trainer']['completed_steps']} steps, "
+        f"version {stats['trainer']['last_broadcasted_version']}, reward {early:.3f} -> {late:.3f} "
+        f"(snapshots {[round(r, 3) for r in rewards]}), launches {launches}")
+    check(stats["trainer"]["completed_steps"] >= 10, "the RL loop trained fewer than 10 steps")
+    check(stats["trainer"]["last_broadcasted_version"] > 0, "the RL loop pushed no weights")
+    check(late > early + 0.1, f"the RL loop did not learn: reward {early:.3f} -> {late:.3f}")
+    check(all(launches.values()), f"a kernel did not run in the RL loop: {launches}")
+    return launches
+
+
+def phase_engine(dev, smi: str, trainer: TrainerLoop, exp_dir: str) -> tuple[int, int]:
+    """The engine at full width; at its sixth step, with requests live, the
+    phase-6 TrainerLoop pushes its trained weights through
+    ``weight_update_cb = engine.update_params``."""
     cfg = QWEN05B
     params = init_params(torch.Generator(device=dev).manual_seed(0), cfg, dev)
     engine = InferenceEngine(
@@ -297,8 +609,8 @@ def phase_engine(dev, smi: str) -> tuple[int, int]:
         p = prompt()
         reqs += [request(p) for _ in range(8)]
 
-    dattn.launches = 0
-    gattn.launches = 0
+    writer = StreamWriter(SingleStreamSpec(exp_dir, "weight_update_request"))
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.monotonic()
     futures = [engine.submit(r) for r in reqs]
@@ -313,8 +625,8 @@ def phase_engine(dev, smi: str) -> tuple[int, int]:
             aborted = True
         if n_steps == 6:
             check(engine.num_active > 0, "no live request at the weight update")
-            engine.update_params({k: v for k, v in params.items()}, engine.version + 1)
-            updated = True
+            trainer.weight_update_cb = engine.update_params
+            updated = trainer.maybe_push_weights(writer, force=True)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     decode_launches, gqa_launches = dattn.launches, gattn.launches
@@ -331,8 +643,17 @@ def phase_engine(dev, smi: str) -> tuple[int, int]:
         check(len(lp) == len(r.token_ids), "one logprob per token")
         check(bool(np.all(np.isfinite(lp)) and np.all(lp <= 0)), "logprobs finite and <= 0")
         check(all(t < cfg.valid_vocab for t in r.token_ids), "a padded-vocabulary id was emitted")
+    writer.close()
     check(any(r.model_version_end > r.model_version_start for r in results),
           "no request spanned the weight update")
+    check(engine.version == trainer.metrics.samples > 0, "the engine does not run the pushed version")
+    trained = dict(param_leaves(trainer.params))
+    check(all(t.data_ptr() != trained[name].data_ptr() and torch.equal(t, trained[name].detach())
+              for name, t in param_leaves(engine.params)),
+          "the engine's weights are not equal copies of the trainer's")
+    pushed = [m["version"] for m in StreamReader(SingleStreamSpec(exp_dir, "weight_update_request")).read_available()]
+    log(f"weight push: version {engine.version} = trained samples, live requests spanned it, "
+        f"engine tensors are copies (no shared storage); published versions {pushed}")
     L = cfg.num_layers
     check(decode_launches == L * engine.decode_steps,
           f"decode launches {decode_launches} != {L} x {engine.decode_steps} decode steps")
@@ -367,7 +688,6 @@ def phase_engine(dev, smi: str) -> tuple[int, int]:
 def profile_decode(engine: InferenceEngine, reqs: list[GenRequest]) -> None:
     """Where a steady decode window's time goes: two windows with every slot
     busy under torch.profiler; device busy share and the top kernels."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     futures = [engine.submit(r) for r in reqs]
@@ -384,16 +704,7 @@ def profile_decode(engine: InferenceEngine, reqs: list[GenRequest]) -> None:
     n_steps = (engine.windows_dispatched - steps0) * WINDOW
     while not all(f.done() for f in futures):
         engine.step()
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    if busy_ms <= 0:
-        log("decode profile: the profiler saw no device time (not measured)")
-        return
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    log(f"decode profile: {n_steps} steps in {wall_ms:.1f} ms wall, device busy {busy_ms:.1f} ms "
-        f"(share {busy_ms / wall_ms:.3f}), {busy_ms / n_steps:.3f} device ms per step")
-    for e in top:
-        log(f"  {e.self_device_time_total / 1e3 / n_steps:8.4f} ms/step  {e.count // n_steps:4d}/step  {e.key[:90]}")
+    report_profile(prof, wall_ms, n_steps, "decode")
 
 
 def phase_client(dev) -> None:
@@ -428,9 +739,19 @@ def main() -> None:
     info = phase_device()
     dev = torch.device("cuda")
     phase_build()
-    kernels = [phase_decode_kernel(dev), phase_gqa_kernel(dev)]
-    kernels[0]["launches"], kernels[1]["launches"] = phase_engine(dev, info["smi"])
-    phase_client(dev)
+    kernels = [phase_decode_kernel(dev), phase_gqa_kernel(dev), *phase_gqa_bwd_kernels(dev)]
+    paths = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer, paths["train_step"] = phase_train_step(dev, info["smi"], f"{tmp}/train")
+        decode_launches, gqa_launches = phase_engine(dev, info["smi"], trainer, f"{tmp}/train")
+        paths["engine"] = {"decode": decode_launches, "gqa_fwd": gqa_launches, "gqa_dq": 0, "gqa_dkv": 0}
+        del trainer
+        torch.cuda.empty_cache()
+        phase_client(dev)
+        paths["rl_loop"] = phase_rl_loop(f"{tmp}/bandit")
+    for record, key in zip(kernels, ("decode", "gqa_fwd", "gqa_dq", "gqa_dkv")):
+        record["launches_by_path"] = {path: c[key] for path, c in paths.items()}
+        record["launches"] = sum(record["launches_by_path"].values())
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": info["kind"], "count": info["count"]}}))
 

@@ -131,12 +131,16 @@ __device__ __forceinline__ void update(Smem<DH>& sm, State<DH>& st, int n, int G
     for (int e = 0; e < E; ++e) st.acc[j][e] *= alpha;
     for (int t = 0; t < n; ++t) {
       const float pt = sm.p[warp][t];
+      if constexpr (E == 1) {  // Dh 32: one value per lane
+        st.acc[j][0] = fmaf(pt, __bfloat162float(sm.v[t][lane]), st.acc[j][0]);
+      } else {
 #pragma unroll
-      for (int e = 0; e < E; e += 2) {
-        const float2 vv = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(&sm.v[t][lane * E + e]));
-        st.acc[j][e] = fmaf(pt, vv.x, st.acc[j][e]);
-        st.acc[j][e + 1] = fmaf(pt, vv.y, st.acc[j][e + 1]);
+        for (int e = 0; e < E; e += 2) {
+          const float2 vv = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&sm.v[t][lane * E + e]));
+          st.acc[j][e] = fmaf(pt, vv.x, st.acc[j][e]);
+          st.acc[j][e + 1] = fmaf(pt, vv.y, st.acc[j][e + 1]);
+        }
       }
     }
     __syncwarp();
@@ -229,7 +233,9 @@ extern "C" int decode_attention_staged_bf16(
       (const __nv_bfloat16*)k_cache, (const __nv_bfloat16*)v_cache, (const int*)lens,    \
       (const __nv_bfloat16*)k_band, (const __nv_bfloat16*)v_band, (float*)out, H, K,     \
       step, c_slot, c_t, b_w, b_slot, scale)
-  if (Dh == 64)
+  if (Dh == 32)
+    LAUNCH(32);
+  else if (Dh == 64)
     LAUNCH(64);
   else if (Dh == 128)
     LAUNCH(128);

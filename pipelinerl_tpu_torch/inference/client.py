@@ -2,7 +2,9 @@
 
 Port of the JAX package's ``inference/client.py`` without its VLM branch:
 ``Prompt(messages)`` in, ``LLMCall`` out with exact token ids and per-token
-sampler logprobs. Plain dataclasses take the place of the pydantic models.
+sampler logprobs, and ``make_training_text`` building the token-exact RL
+sample from one call. Plain dataclasses take the place of the pydantic
+models.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import uuid
 from dataclasses import dataclass, field
 from typing import Any
 
+from ..types import MASKED_TOKEN_ID, TrainingText
 from .engine import GenRequest, GenResult, InferenceEngine, SamplingParams
 
 
@@ -53,7 +56,18 @@ class LLMCall:
         return len(self.output_token_ids)
 
 
-class InProcessLLM:
+class BaseLLM:
+    """Interface of the clients: a tokenizer, sampling defaults and
+    ``agenerate``."""
+
+    tokenizer: Any
+    parameters: dict
+
+    async def agenerate(self, prompt: Prompt, **overrides) -> LLMCall:
+        raise NotImplementedError
+
+
+class InProcessLLM(BaseLLM):
     """Client bound directly to a local ``InferenceEngine``.
 
     ``parameters`` holds the sampling defaults (max_tokens, temperature,
@@ -115,3 +129,32 @@ class InProcessLLM:
             model_version_end=result.model_version_end,
             latency=time.monotonic() - start,
         )
+
+
+def make_training_text(llm: BaseLLM, llm_call: LLMCall) -> TrainingText:
+    """The token-exact RL sample of one generation: input_ids are the
+    chat-template prompt ids plus the sampled ids, the prompt masked out of
+    the labels."""
+    prompt_ids = llm_call.prompt_token_ids
+    completion_ids = llm_call.output_token_ids
+    input_ids = prompt_ids + completion_ids
+    output_text = llm.tokenizer.decode(completion_ids, skip_special_tokens=False)
+    return TrainingText(
+        text=llm.tokenizer.decode(input_ids, skip_special_tokens=False),
+        n_predicted=len(output_text),
+        input_ids=input_ids,
+        labels=[MASKED_TOKEN_ID] * len(prompt_ids) + completion_ids,
+        logprobs=list(llm_call.logprobs),
+        finished=llm_call.finish_reason != "length",
+        finish_reason=llm_call.finish_reason,
+        prompt_tokens=len(prompt_ids),
+        output_tokens=len(completion_ids),
+        # the version the engine generated under (a sample that spans an
+        # in-flight update keeps its start)
+        metadata={"model_version": llm_call.model_version_start},
+    )
+
+
+async def llm_async_generate(llm: BaseLLM, prompt: Prompt, session: Any = None, **overrides) -> LLMCall:
+    """The domains' name for ``llm.agenerate``."""
+    return await llm.agenerate(prompt, session=session, **overrides)

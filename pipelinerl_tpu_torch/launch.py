@@ -1,0 +1,243 @@
+"""Orchestrator: builds the model, engine and stages, and runs the RL loop.
+
+Port of the JAX package's ``launch.py`` inline mode: one process owns the
+card and runs the engine loop, the preprocessor and the trainer on threads
+beside the actor's asyncio scheduler, all decoupled through file streams.
+Weight updates are in-process swaps (``InferenceEngine.update_params``) of
+copies the trainer hands over. Left out: processes mode, eval
+interleaving, ``debug.mode`` stage subsets, HF checkpoints and VLM.
+
+    python3 -m pipelinerl_tpu_torch.launch --config-name=bandit_tpu \\
+        output_dir=/tmp/run finetune.save_checkpoint_steps=0
+
+prints the run's summary as one JSON line, last.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import json
+import logging
+import sys
+import threading
+import time
+from pathlib import Path
+from typing import Any
+
+import torch
+
+from .actor import ActorLoop
+from .config import Config, compose
+from .domains.registry import resolve
+from .inference import EngineConfig, InferenceEngine
+from .inference.client import InProcessLLM
+from .models.toy_tokenizer import ToyTokenizer
+from .models.transformer import ModelConfig, init_params
+from .preprocess import Preprocessor
+from .state import TrainerState
+from .streams import set_streams_backend
+from .train.rl_loss import RLLossConfig
+from .train.trainer import TrainerLoop, detached_copy, summary
+from .utils import setup_logging
+
+logger = logging.getLogger(__name__)
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def build_model(cfg: Config, device="cuda"):
+    """→ (params, model_cfg, tokenizer): the toy model from ``toy_model``,
+    random weights from ``seed``, in ``finetune.param_dtype``."""
+    if cfg.get("model_path") not in (None, "toy"):
+        raise NotImplementedError("HF checkpoints are not ported yet (ROADMAP Queue 1, item 4)")
+    if cfg.get("toy_vision") is not None or cfg.finetune.get("value_head", False):
+        raise NotImplementedError("the toy VLM and the value head are not ported yet")
+    tokenizer = ToyTokenizer()
+    toy = cfg.get("toy_model", Config({}))
+    model_cfg = ModelConfig(
+        vocab_size=int(toy.get("vocab_size", tokenizer.vocab_size)),
+        hidden_size=int(toy.get("hidden_size", 128)),
+        intermediate_size=int(toy.get("intermediate_size", 256)),
+        num_layers=int(toy.get("num_layers", 2)),
+        num_heads=int(toy.get("num_heads", 4)),
+        num_kv_heads=int(toy.get("num_kv_heads", 2)),
+        dtype=_DTYPES[cfg.finetune.get("param_dtype", "float32")],
+    )
+    generator = torch.Generator().manual_seed(int(cfg.get("seed", 0)))
+    return init_params(generator, model_cfg, device), model_cfg, tokenizer
+
+
+def build_engine(cfg: Config, params: dict, model_cfg: ModelConfig, tokenizer, device="cuda") -> InferenceEngine:
+    """The engine with the JAX package's defaults for keys the config leaves
+    out (prefill attention "xla", decode attention "auto")."""
+    ecfg = cfg.get("engine", Config({}))
+    for key in ("tp", "pp"):
+        if int(ecfg.get(key, 1)) != 1:
+            raise NotImplementedError(f"engine.{key} > 1 is not ported yet (ROADMAP Queue 1, item 8)")
+    if str(ecfg.get("kv_layout", "auto")) not in ("auto", "slab"):
+        raise NotImplementedError("the paged KV layout is not ported yet (ROADMAP Queue 1, item 1)")
+    return InferenceEngine(
+        params,
+        model_cfg,
+        EngineConfig(
+            max_slots=int(ecfg.get("max_slots", 32)),
+            max_len=int(ecfg.get("max_len", 2048)),
+            prefill_buckets=tuple(ecfg.get("prefill_buckets", (128, 256, 512, 1024))),
+            seed=int(cfg.get("seed", 0)),
+            cache_dtype=_DTYPES[ecfg.get("cache_dtype", "bfloat16")],
+            decode_window=int(ecfg.get("decode_window", 8)),
+            window_pipeline_depth=int(ecfg.get("window_pipeline_depth", 2)),
+            adaptive_window=bool(ecfg.get("adaptive_window", True)),
+            attn_impl=str(ecfg.get("attn_impl", "xla")),
+            decode_attn_impl=str(ecfg.get("decode_attn_impl", "auto")),
+            max_prefill_batch=int(ecfg.get("max_prefill_batch", 8)),
+        ),
+        eos_token_id=tokenizer.eos_token_id,
+        device=device,
+    )
+
+
+def validate_config(cfg: Config) -> None:
+    """Cross-cutting invariants, checked before anything starts."""
+    problems: list[str] = []
+    if str(cfg.get("launch_mode", "inline")) != "inline":
+        problems.append("the port runs launch_mode=inline only")
+    if cfg.select("debug.mode") or int(cfg.get("eval_every_n_versions", 0) or 0):
+        problems.append("debug.mode and eval interleaving are not ported yet")
+    seq_length = int(cfg.finetune.seq_length)
+    engine_max = int(cfg.select("engine.max_len", 0) or 0)
+    if engine_max > seq_length:
+        problems.append(
+            f"engine.max_len ({engine_max}) > finetune.seq_length ({seq_length}): "
+            "generated samples would not fit a packed trainer batch"
+        )
+    buckets = list(cfg.select("engine.prefill_buckets", []) or [])
+    if buckets and max(buckets) > engine_max:
+        problems.append(f"largest prefill bucket ({max(buckets)}) exceeds engine.max_len ({engine_max})")
+    attempts = int(cfg.get("attempts", 1))
+    if attempts < 2:
+        problems.append("attempts < 2: leave-one-out advantages are always zero (nothing to learn from)")
+    samples_per_step = int(cfg.finetune.samples_per_step)
+    if samples_per_step % attempts != 0:
+        logger.warning(
+            "finetune.samples_per_step (%d) is not a multiple of attempts (%d); "
+            "group boundaries will straddle optimizer steps", samples_per_step, attempts,
+        )
+    max_tokens = int(cfg.select("llm.parameters.max_tokens", 0) or 0)
+    if max_tokens >= engine_max:
+        problems.append(
+            f"llm.parameters.max_tokens ({max_tokens}) >= engine.max_len ({engine_max}): "
+            "no room for any prompt in the KV cache"
+        )
+    if buckets and max_tokens and max_tokens + min(buckets) > engine_max:
+        problems.append(
+            f"llm.parameters.max_tokens ({max_tokens}) + smallest prefill bucket ({min(buckets)}) "
+            f"exceeds engine.max_len ({engine_max}): no prompt can receive its full completion budget"
+        )
+    policy = cfg.select("finetune.rl.policy_loss", "reinforce")
+    if policy not in ("reinforce", "ppo", "gspo"):
+        problems.append(f"unknown finetune.rl.policy_loss {policy!r}")
+    rl_node = cfg.select("finetune.rl")
+    if rl_node:
+        unknown = [k for k in rl_node.keys() if k not in RLLossConfig.__dataclass_fields__]
+        if unknown:
+            problems.append(f"unknown finetune.rl key(s): {unknown}")
+    if problems:
+        raise ValueError("Invalid config:\n- " + "\n- ".join(problems))
+
+
+def _stage(target, failures: list, trainer_state: TrainerState, name: str):
+    """A stage thread's body: a stage that raises records the error and ends
+    the run (the actor stops on ``training_done``); ``run_inline`` re-raises
+    it after the other stages stop."""
+
+    def run(*args):
+        try:
+            target(*args)
+        except BaseException as e:  # noqa: BLE001 - re-raised by run_inline
+            logger.exception("stage %s failed", name)
+            failures.append(e)
+            trainer_state.training_done = True
+
+    return run
+
+
+def run_inline(cfg: Config, device="cuda") -> dict[str, Any]:
+    """Engine, actor, preprocessor and trainer in one process, decoupled
+    through streams. Returns the run's summary."""
+    validate_config(cfg)
+    exp_path = str(cfg.output_dir)
+    Path(exp_path).mkdir(parents=True, exist_ok=True)
+    setup_logging(Path(exp_path) / "logs")
+    set_streams_backend(cfg.select("streams.backend", "files"))
+    cfg.save(Path(exp_path) / "conf" / "exp_config.json")
+
+    params, model_cfg, tokenizer = build_model(cfg, device)
+    # the engine owns copies: AdamW updates the trainer's tensors in place
+    engine = build_engine(cfg, detached_copy(params), model_cfg, tokenizer, device)
+    engine.start()
+    trainer_state = TrainerState(exp_path)
+    trainer_state.start_listening()
+    failures: list[BaseException] = []
+
+    preprocessor = Preprocessor(cfg, exp_path, trainer_state, eos_token_id=tokenizer.eos_token_id)
+    trainer = TrainerLoop(
+        cfg, params, model_cfg, exp_path,
+        weight_update_cb=lambda new_params, version: engine.update_params(new_params, version),
+    )
+    max_steps = int(cfg.finetune.get("max_train_steps", 100))
+    threads = [
+        threading.Thread(target=_stage(preprocessor.run, failures, trainer_state, "preprocessor"),
+                         name="preprocessor", daemon=True),
+        threading.Thread(target=_stage(trainer.run, failures, trainer_state, "trainer"), args=(max_steps,),
+                         name="trainer", daemon=True),
+    ]
+    llm = InProcessLLM(engine, tokenizer, dict(cfg.llm.parameters.items()))
+    problems = resolve(cfg.dataset_loader)(list(cfg.get("train_dataset_names", ["train"])))
+    if cfg.get("train_subset"):
+        problems = problems[: int(cfg.train_subset)]
+    actor = ActorLoop(cfg, [llm], problems, trainer_state, exp_path, resolve(cfg.rollout_policy))
+    for t in threads:
+        t.start()
+    try:
+        actor_stats = asyncio.run(actor.run(total_groups=cfg.get("total_groups")))
+        # the actor is done; let the trainer drain
+        deadline = time.monotonic() + float(cfg.get("drain_timeout_s", 120))
+        while not trainer_state.training_done and time.monotonic() < deadline:
+            time.sleep(0.1)
+    finally:
+        preprocessor.stop()
+        for t in threads:
+            t.join(timeout=30)
+        engine.stop()
+        trainer_state.stop()
+    if failures:
+        raise failures[0]
+    return {
+        "actor": actor_stats.snapshot(),
+        "trainer": summary(trainer.metrics),
+        "engine": engine.perf_counters(),
+    }
+
+
+def main(argv: list[str] | None = None) -> dict[str, Any]:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    config_name = "base"
+    overrides = []
+    for arg in argv:
+        if arg.startswith("--config-name="):
+            config_name = arg.split("=", 1)[1]
+        elif arg.startswith("--"):
+            raise ValueError(f"unknown option {arg!r}: the port's configs are the presets of presets.py")
+        else:
+            overrides.append(arg)
+    cfg = compose(config_name, overrides)
+    # the card unless the caller asks otherwise with device=cpu
+    stats = run_inline(cfg, device=str(cfg.get("device", "cuda")))
+    logger.info("Run complete: %s", stats)
+    print(json.dumps(stats), flush=True)
+    return stats
+
+
+if __name__ == "__main__":
+    main()

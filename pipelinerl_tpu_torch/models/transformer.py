@@ -10,6 +10,8 @@ takes the place of ``lax.scan``.
   indices, never from a mask tensor.
 - FP32 output head: ``lm_head_logits`` computes the logits in fp32 and masks
   padded vocabulary rows there, the one funnel that sampler and trainer share.
+- Training: ``forward`` is differentiable on every attention path, and
+  ``remat`` recomputes a layer (or its MLP) in the backward pass.
 - Decode is staged: ``decode_step_staged`` attends over a frozen cache plus
   this window's staged band plus the token itself, and returns the new K/V
   for the caller to stage.
@@ -22,6 +24,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import decode_attention_staged, mha_packed
 
@@ -192,6 +195,10 @@ def lm_head_logits(params: dict, cfg: ModelConfig, x_normed: torch.Tensor) -> to
         w = params["lm_head"].float()
     logits = x_normed.float() @ w
     if cfg.valid_vocab is not None and cfg.valid_vocab < cfg.vocab_size:
+        # in place, where the JAX package takes a ``where``: the product saves
+        # its inputs, not its output, so autograd accepts the write (the
+        # masked logits get zero gradient either way) and no second [.., V]
+        # fp32 buffer is made
         logits[..., cfg.valid_vocab :] = _NEG_INF
     return logits
 
@@ -217,32 +224,52 @@ def forward(
     position_ids: torch.Tensor,  # [B, L]
     segment_ids: torch.Tensor,  # [B, L]
     return_kv: bool = False,
-    attn_impl: str = "xla",  # "xla" (plain torch) | "gqa" (CUDA kernel)
+    remat: bool | str = False,  # True: per layer; "mlp": the MLP only
+    attn_impl: str = "xla",  # "xla" (plain torch) | "gqa" | "flash" (CUDA kernels)
     skip_unembed: bool = False,
 ):
     """Full forward over packed rows. Returns fp32 logits [B, L, V]; with
     ``return_kv`` also the per-layer keys/values, each [L, B, T, K, Dh].
 
-    ``skip_unembed`` returns the final-norm'd hidden [B, L, D] in the logits
-    slot instead: prefill callers need one position's logits only."""
+    ``remat`` recomputes activations in the backward pass instead of keeping
+    them: ``True`` checkpoints each layer, ``"mlp"`` only each MLP (the
+    attention residuals stay). ``skip_unembed`` returns the final-norm'd
+    hidden [B, L, D] in the logits slot instead: prefill callers need one
+    position's logits only, and the chunked loss unembeds by pieces."""
     if attn_impl == "gqa":
         from ..ops.gqa_attention import mha_packed_gqa_simple as attn_fn
+    elif attn_impl == "flash":
+        from ..ops.flash_attention import mha_packed_flash as attn_fn
     elif attn_impl == "xla":
         attn_fn = mha_packed
     else:
         raise ValueError(f"unknown attn_impl {attn_impl!r}")
+    if remat not in (False, True, "mlp"):
+        raise ValueError(f"unknown remat {remat!r}")
     x = params["embed"][input_ids]
     cos, sin = rope_cos_sin(position_ids, cfg.head_dim_, cfg.rope_theta)
-    ks, vs = [], []
-    for l in range(cfg.num_layers):
-        layer = _layer(params, l)
-        normed = rms_norm(x, layer["ln1"], cfg.rms_norm_eps)
+
+    def mlp_block(h, layer):
+        return _mlp(layer, rms_norm(h, layer["ln2"], cfg.rms_norm_eps))
+
+    def layer_fn(h, layer):
+        normed = rms_norm(h, layer["ln1"], cfg.rms_norm_eps)
         q, k, v = _project_qkv(layer, cfg, normed)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         attn = attn_fn(q, k, v, segment_ids, position_ids)
-        x = x + attn.reshape(*x.shape[:-1], cfg.q_dim) @ layer["wo"]
-        x = x + _mlp(layer, rms_norm(x, layer["ln2"], cfg.rms_norm_eps))
+        h = h + attn.reshape(*h.shape[:-1], cfg.q_dim) @ layer["wo"]
+        if remat == "mlp":
+            return h + checkpoint(mlp_block, h, layer, use_reentrant=False), k, v
+        return h + mlp_block(h, layer), k, v
+
+    ks, vs = [], []
+    for l in range(cfg.num_layers):
+        layer = _layer(params, l)
+        if remat is True:
+            x, k, v = checkpoint(layer_fn, x, layer, use_reentrant=False)
+        else:
+            x, k, v = layer_fn(x, layer)
         if return_kv:
             ks.append(k)
             vs.append(v)

@@ -93,9 +93,11 @@ def decode_attention_staged_ragged(
     scale: float | None = None,
 ) -> torch.Tensor:
     """Drop-in for ``decode_attention_staged``. CPU tensors take the plain
-    version; CUDA tensors launch the kernel, which takes bf16 q, K/V, cache
-    and band, int32 lengths, Dh 64 or 128, G <= 16 and W < 64, and raises on
-    anything else."""
+    version; CUDA tensors launch the kernel, which takes int32 lengths, Dh
+    32, 64 or 128, G <= 16 and W < 64, and raises on anything else. Like the
+    JAX wrapper, it pre-scales a q that is not bf16 in fp32 and rounds it to
+    bf16 once, and casts K/V, cache and band to bf16 (a no-op, no copy, for
+    the bf16 engine)."""
     if q.device.type == "cpu":
         return decode_attention_staged_ragged_plain(
             q, k_new, v_new, k_cache, v_cache, base_lens, k_staged, v_staged, step, scale
@@ -104,10 +106,16 @@ def decode_attention_staged_ragged(
     S, H, Dh = q.shape
     T, K = k_cache.shape[1], k_cache.shape[2]
     W = k_staged.shape[0]
-    dev, bf = q.device, torch.bfloat16
+    dev, bf, out_dtype = q.device, torch.bfloat16, q.dtype
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
-    if Dh not in (64, 128) or H % K or H // K > 16 or W >= 64 or not 0 <= step < W:
+    scale = scale if scale is not None else Dh**-0.5
+    if q.dtype != bf:
+        q, scale = (q.float() * scale).to(bf), 1.0
+    k_new, v_new, k_cache, v_cache, k_staged, v_staged = (
+        t.to(bf) for t in (k_new, v_new, k_cache, v_cache, k_staged, v_staged)
+    )
+    if Dh not in (32, 64, 128) or H % K or H // K > 16 or W >= 64 or not 0 <= step < W:
         raise ValueError(f"unsupported shape H={H} K={K} Dh={Dh} W={W} step={step}")
     _check("q", q, (S, H, Dh), bf, dev)
     _check("k_new", k_new, (S, K, Dh), bf, dev)
@@ -132,13 +140,12 @@ def decode_attention_staged_ragged(
         v_cache.data_ptr(), base_lens.data_ptr(), k_staged.data_ptr(),
         v_staged.data_ptr(), out.data_ptr(), S, H, K, Dh, int(step),
         k_cache.stride(0), k_cache.stride(1), k_staged.stride(0), k_staged.stride(1),
-        float(scale if scale is not None else Dh**-0.5),
-        torch.cuda.current_stream(dev).cuda_stream,
+        float(scale), torch.cuda.current_stream(dev).cuda_stream,
     )
     if err:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA error {err}")
     launches += 1
-    return out.to(q.dtype)
+    return out.to(out_dtype)
 
 
 _build.declare(

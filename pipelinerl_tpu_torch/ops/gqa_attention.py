@@ -1,18 +1,22 @@
-"""GQA-folded packed causal flash attention, forward: a CUDA kernel and its
-plain version.
+"""GQA-folded packed causal flash attention, forward and backward: CUDA
+kernels, their plain versions and the autograd function over them.
 
-Port of the forward of the JAX package's Pallas kernel in
-``ops/gqa_attention.py`` (``_fwd_kernel`` via ``_fwd_call`` and
+Port of the JAX package's Pallas kernels in ``ops/gqa_attention.py``
+(``_fwd_kernel`` via ``_fwd_call``; ``_bwd_dq_kernel`` and
+``_bwd_dkv_kernel`` via ``_bwd_call``; the custom VJP of
 ``mha_packed_gqa``). A query at flat index i of its row (global index
 ``q_offset + i``) sees key j iff ``q_offset + i >= j`` and the two share a
-segment id. Outputs ``out`` [B, Lq, H, Dh] in q's dtype and ``lse``
-[B, Lq, K, G] in fp32; a row that sees no key gets out = 0, lse = -1e30.
+segment id. The forward gives ``out`` [B, Lq, H, Dh] in q's dtype and
+``lse`` [B, Lq, K, G] in fp32; a row that sees no key gets out = 0,
+lse = -1e30. The backward recomputes P from (q, k, lse), takes
+``delta = rowsum(dO * O)`` in fp32 as the JAX wrapper does, and gives dq,
+dk, dv in the inputs' dtypes.
 
-The kernel (``csrc/gqa_attention_fwd.cu``) folds the G = H/K query heads of
-a kv head into the rows, skips causally future and segment-disjoint tiles,
-and masks ragged edges itself, so every length runs on it. The backward
-kernels come with the training path; until then a CUDA call with inputs
-that require grad raises.
+The kernels (``csrc/gqa_attention_fwd.cu``, ``csrc/gqa_attention_bwd.cu``)
+fold the G = H/K query heads of a kv head into the rows, skip causally
+future and segment-disjoint tiles, and mask ragged edges themselves, so
+every length runs on them. ``mha_packed_gqa`` is differentiable: CPU tensors
+take the plain forward and backward, CUDA tensors the kernels or raise.
 """
 
 from __future__ import annotations
@@ -25,8 +29,10 @@ from . import _build
 
 _NEG_INF = -1e30
 
-# launches of the CUDA kernel (plain-version calls are not counted)
-launches = 0
+# launches of each CUDA kernel (plain-version calls are not counted)
+launches = 0  # forward
+dq_launches = 0
+dkv_launches = 0
 
 
 def mha_packed_gqa_plain(
@@ -47,10 +53,7 @@ def mha_packed_gqa_plain(
     scale = scale if scale is not None else Dh**-0.5
     q5 = q.reshape(B, Lq, K, G, Dh).float()
     s = torch.einsum("bikgd,bjkd->bkgij", q5, k.float()) * scale
-    i = torch.arange(Lq, device=q.device)[:, None] + q_offset
-    j = torch.arange(Lkv, device=q.device)[None, :]
-    mask = (i >= j)[None] & (q_segment_ids[:, :, None] == kv_segment_ids[:, None, :])
-    mask = mask[:, None, None]  # [B, 1, 1, Lq, Lkv]
+    mask = _mask(q_segment_ids, kv_segment_ids, q_offset)  # [B, 1, 1, Lq, Lkv]
     s = s.masked_fill(~mask, _NEG_INF)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m.clamp(min=-1e29)).masked_fill(~mask, 0.0)
@@ -61,30 +64,105 @@ def mha_packed_gqa_plain(
     return out, lse[..., 0].permute(0, 3, 1, 2).contiguous()
 
 
+def mha_packed_gqa_bwd_plain(
+    q: torch.Tensor,  # [B, Lq, H, Dh]
+    k: torch.Tensor,  # [B, Lkv, K, Dh]
+    v: torch.Tensor,
+    q_segment_ids: torch.Tensor,
+    kv_segment_ids: torch.Tensor,
+    q_offset: int,
+    scale: float,
+    out: torch.Tensor,  # [B, Lq, H, Dh], the forward's output
+    lse: torch.Tensor,  # [B, Lq, K, G] fp32
+    do: torch.Tensor,  # [B, Lq, H, Dh], the output's gradient
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernels' arithmetic in plain PyTorch: delta = rowsum(dO
+    * O) in fp32, then ``_bwd_plain``. Returns (dq, dk, dv) in the inputs'
+    dtypes."""
+    return _bwd_plain(q, k, v, q_segment_ids, kv_segment_ids, q_offset, scale, lse, _delta(out, do, k.shape[2]), do)
+
+
+def _delta(out: torch.Tensor, do: torch.Tensor, K: int) -> torch.Tensor:
+    """rowsum(dO * O) in fp32, [B, Lq, K, G] (an einsum outside the kernels
+    in the JAX package too)."""
+    B, Lq, H, _ = out.shape
+    return (do.float() * out.float()).sum(-1).reshape(B, Lq, K, H // K)
+
+
+def _bwd_plain(q, k, v, q_segment_ids, kv_segment_ids, q_offset, scale, lse, delta, do):
+    """P recomputed as exp(s - lse) where the mask holds, dS = P (dP -
+    delta); P rounded to dO's dtype for dV, dS to q's dtype for dK and to
+    k's dtype for dQ, as the kernels round."""
+    B, Lq, H, Dh = q.shape
+    K = k.shape[2]
+    G = H // K
+    q5 = q.reshape(B, Lq, K, G, Dh).float()
+    do5 = do.reshape(B, Lq, K, G, Dh).float()
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bikgd,bjkd->bkgij", q5, kf) * scale
+    mask = _mask(q_segment_ids, kv_segment_ids, q_offset)
+    rows = lse.permute(0, 2, 3, 1)[..., None]  # [B, K, G, Lq, 1]
+    p = torch.exp((s - rows).masked_fill(~mask, float("-inf")))
+    dp = torch.einsum("bikgd,bjkd->bkgij", do5, vf)
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    dv = torch.einsum("bkgij,bikgd->bjkd", p.to(do.dtype).float(), do5)
+    dk = torch.einsum("bkgij,bikgd->bjkd", ds.to(q.dtype).float(), q5) * scale
+    dq = torch.einsum("bkgij,bjkd->bikgd", ds.to(k.dtype).float(), kf) * scale
+    return dq.reshape(B, Lq, H, Dh).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _mask(q_segment_ids, kv_segment_ids, q_offset) -> torch.Tensor:
+    """[B, 1, 1, Lq, Lkv]: causal by global flat index and same segment."""
+    Lq, Lkv = q_segment_ids.shape[1], kv_segment_ids.shape[1]
+    i = torch.arange(Lq, device=q_segment_ids.device)[:, None] + q_offset
+    j = torch.arange(Lkv, device=q_segment_ids.device)[None, :]
+    mask = (i >= j)[None] & (q_segment_ids[:, :, None] == kv_segment_ids[:, None, :])
+    return mask[:, None, None]
+
+
+def _check_device(t) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"no kernel for device {t.device}")
+
+
+def _check(name, t, shape, dtype, dev) -> None:
+    if t.device != dev or t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        raise ValueError(
+            f"{name}: {t.dtype} {tuple(t.shape)} on {t.device}, the kernel takes "
+            f"{dtype} {tuple(shape)} on {dev}"
+        )
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+
+
+def _check_inputs(q, k, v, q_seg, kv_seg) -> None:
+    B, Lq, H, Dh = q.shape
+    Lkv, K = k.shape[1], k.shape[2]
+    if Dh not in (64, 128) or H % K:
+        raise ValueError(f"unsupported shape H={H} K={K} Dh={Dh}")
+    bf, dev = torch.bfloat16, q.device
+    _check("q", q, (B, Lq, H, Dh), bf, dev)
+    _check("k", k, (B, Lkv, K, Dh), bf, dev)
+    _check("v", v, (B, Lkv, K, Dh), bf, dev)
+    _check("q_segment_ids", q_seg, (B, Lq), torch.int32, dev)
+    _check("kv_segment_ids", kv_seg, (B, Lkv), torch.int32, dev)
+
+
+def _check_bwd_inputs(q, k, v, q_seg, kv_seg, lse, delta, do) -> None:
+    _check_inputs(q, k, v, q_seg, kv_seg)
+    B, Lq, H, Dh = q.shape
+    K = k.shape[2]
+    _check("do", do, (B, Lq, H, Dh), torch.bfloat16, q.device)
+    _check("lse", lse, (B, Lq, K, H // K), torch.float32, q.device)
+    _check("delta", delta, (B, Lq, K, H // K), torch.float32, q.device)
+
+
 def _gqa_fwd_cuda(q, k, v, q_seg, kv_seg, q_offset, scale):
     global launches
     B, Lq, H, Dh = q.shape
     Lkv, K = k.shape[1], k.shape[2]
     dev = q.device
-    if any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError("the GQA attention backward kernels are not ported yet")
-    if Dh not in (64, 128) or H % K:
-        raise ValueError(f"unsupported shape H={H} K={K} Dh={Dh}")
-    expect = {
-        "q": (q, (B, Lq, H, Dh), torch.bfloat16),
-        "k": (k, (B, Lkv, K, Dh), torch.bfloat16),
-        "v": (v, (B, Lkv, K, Dh), torch.bfloat16),
-        "q_segment_ids": (q_seg, (B, Lq), torch.int32),
-        "kv_segment_ids": (kv_seg, (B, Lkv), torch.int32),
-    }
-    for name, (t, shape, dtype) in expect.items():
-        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(
-                f"{name}: {t.dtype} {tuple(t.shape)} on {t.device}, the kernel takes "
-                f"{dtype} {shape} on {dev}"
-            )
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    _check_inputs(q, k, v, q_seg, kv_seg)
     out = torch.empty_like(q)
     lse = torch.empty((B, Lq, K, H // K), dtype=torch.float32, device=dev)
     lib = _build.library("gqa_attention_fwd")
@@ -99,6 +177,88 @@ def _gqa_fwd_cuda(q, k, v, q_seg, kv_seg, q_offset, scale):
     return out, lse
 
 
+def mha_packed_gqa_bwd_dq(q, k, v, q_seg, kv_seg, q_offset, scale, lse, delta, do) -> torch.Tensor:
+    """Kernel #3: dq [B, Lq, H, Dh]. CPU tensors take the plain version;
+    CUDA tensors launch the kernel (bf16 q/k/v/dO, fp32 lse and delta
+    [B, Lq, K, G], int32 segment ids) or raise."""
+    global dq_launches
+    if q.device.type == "cpu":
+        return _bwd_plain(q, k, v, q_seg, kv_seg, q_offset, scale, lse, delta, do)[0]
+    _check_device(q)
+    _check_bwd_inputs(q, k, v, q_seg, kv_seg, lse, delta, do)
+    B, Lq, H, Dh = q.shape
+    Lkv, K = k.shape[1], k.shape[2]
+    dq = torch.empty_like(q)
+    err = _build.library("gqa_attention_bwd").gqa_attention_bwd_dq_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), q_seg.data_ptr(), kv_seg.data_ptr(), dq.data_ptr(),
+        B, Lq, Lkv, H, K, Dh, int(q_offset), float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"gqa_attention_bwd dq kernel launch failed: CUDA error {err}")
+    dq_launches += 1
+    return dq
+
+
+def mha_packed_gqa_bwd_dkv(q, k, v, q_seg, kv_seg, q_offset, scale, lse, delta, do):
+    """Kernel #4: (dk, dv) [B, Lkv, K, Dh], summed over the G query heads
+    of each kv head. CPU tensors take the plain version; CUDA tensors launch
+    the kernel or raise."""
+    global dkv_launches
+    if q.device.type == "cpu":
+        return _bwd_plain(q, k, v, q_seg, kv_seg, q_offset, scale, lse, delta, do)[1:]
+    _check_device(q)
+    _check_bwd_inputs(q, k, v, q_seg, kv_seg, lse, delta, do)
+    B, Lq, H, Dh = q.shape
+    Lkv, K = k.shape[1], k.shape[2]
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    err = _build.library("gqa_attention_bwd").gqa_attention_bwd_dkv_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), q_seg.data_ptr(), kv_seg.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        B, Lq, Lkv, H, K, Dh, int(q_offset), float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"gqa_attention_bwd dkv kernel launch failed: CUDA error {err}")
+    dkv_launches += 1
+    return dk, dv
+
+
+def mha_packed_gqa_bwd(q, k, v, q_seg, kv_seg, q_offset, scale, out, lse, do):
+    """(dq, dk, dv): delta in plain torch, then kernels #3 and #4 (their
+    plain versions for CPU tensors)."""
+    delta = _delta(out, do, k.shape[2])
+    dq = mha_packed_gqa_bwd_dq(q, k, v, q_seg, kv_seg, q_offset, scale, lse, delta, do)
+    dk, dv = mha_packed_gqa_bwd_dkv(q, k, v, q_seg, kv_seg, q_offset, scale, lse, delta, do)
+    return dq, dk, dv
+
+
+class _GQAAttention(torch.autograd.Function):
+    """Forward: kernel #2 (or its plain version on the CPU), saving q, k, v,
+    out and lse. Backward: ``mha_packed_gqa_bwd``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_seg, kv_seg, q_offset, scale):
+        if q.device.type == "cpu":
+            out, lse = mha_packed_gqa_plain(q, k, v, q_seg, kv_seg, q_offset, scale)
+        else:
+            _check_device(q)
+            out, lse = _gqa_fwd_cuda(q, k, v, q_seg, kv_seg, q_offset, scale)
+        ctx.save_for_backward(q, k, v, q_seg, kv_seg, out, lse)
+        ctx.q_offset, ctx.scale = q_offset, scale
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, q_seg, kv_seg, out, lse = ctx.saved_tensors
+        dq, dk, dv = mha_packed_gqa_bwd(
+            q, k, v, q_seg, kv_seg, ctx.q_offset, ctx.scale, out, lse, dout.contiguous()
+        )
+        return dq, dk, dv, None, None, None, None
+
+
 def mha_packed_gqa(
     q: torch.Tensor,  # [B, Lq, H, Dh]
     k: torch.Tensor,  # [B, Lkv, K, Dh]
@@ -108,15 +268,11 @@ def mha_packed_gqa(
     q_offset: int = 0,
     scale: float | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Packed GQA attention forward → (out, lse). CPU tensors take the plain
-    version; CUDA tensors launch the kernel (bf16 q/k/v, int32 segment ids,
-    contiguous, Dh 64 or 128) or raise."""
+    """Packed GQA attention → (out, lse), differentiable in q, k and v. CPU
+    tensors take the plain versions; CUDA tensors launch the kernels (bf16
+    q/k/v, int32 segment ids, contiguous, Dh 64 or 128) or raise."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
-    if q.device.type == "cpu":
-        return mha_packed_gqa_plain(q, k, v, q_segment_ids, kv_segment_ids, q_offset, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"no kernel for device {q.device}")
-    return _gqa_fwd_cuda(q, k, v, q_segment_ids, kv_segment_ids, q_offset, scale)
+    return _GQAAttention.apply(q, k, v, q_segment_ids, kv_segment_ids, int(q_offset), float(scale))
 
 
 def mha_packed_gqa_simple(
@@ -135,4 +291,14 @@ _build.declare(
     "gqa_attention_fwd",
     "gqa_attention_fwd_bf16",
     [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p],
+)
+_build.declare(
+    "gqa_attention_bwd",
+    "gqa_attention_bwd_dq_bf16",
+    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p],
+)
+_build.declare(
+    "gqa_attention_bwd",
+    "gqa_attention_bwd_dkv_bf16",
+    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p],
 )

@@ -1,0 +1,187 @@
+"""The configs the port runs, as Python presets (the H100 host has no yaml).
+
+Each preset mirrors the JAX package's composed YAML of the same name key for
+key (``conf/base.yaml`` with ``conf/finetune/base.yaml`` and
+``conf/rewards/base.yaml``; ``conf/bandit_cpu.yaml``;
+``conf/bandit_tpu.yaml``), with dotted paths renamed from the JAX package
+to this one. ``tests/test_torch_config.py`` holds every preset against the
+JAX package's ``compose``, so the copies cannot drift.
+"""
+
+from __future__ import annotations
+
+import copy
+
+from .config import Config
+
+_FINETUNE_BASE = {
+    "seq_length": 1024,
+    "samples_per_step": 64,
+    "learning_rate": 1e-6,
+    "optim": "adamw",
+    "lr_scheduler_type": "constant_with_warmup",
+    "num_warmup_steps": 50,
+    "weight_decay": 0.01,
+    "gradient_clipping_threshold": 0.3,
+    "gradient_checkpointing": True,
+    "train_vision_tower": False,
+    "max_train_steps": 1000,
+    "weight_update_interval": "${finetune.samples_per_step}",
+    "max_lag": "${max_lag}",
+    "param_dtype": "bfloat16",
+    "save_checkpoint_steps": 100,
+    "rl": {
+        "policy_loss": "reinforce",
+        "use_advantages": True,
+        "divide_advantage_by_std": False,
+        "kl_coef": 0.0,
+        "final_kl_coef": 0.0,
+        "entropy_bonus": 0.0,
+        "final_entropy_bonus": 0.0,
+        "epsilon_low": 0.02,
+        "epsilon_high": 0.02,
+        "relu_log_p_weights": False,
+        "clamp_log_ratio_ref_new_value": 5,
+        "group_normalization": False,
+        "overlong_filtering": False,
+        "filter_zero_advantage_groups": False,
+        "temperature": "${llm.parameters.temperature}",
+        "value_loss_coef": 0.0,
+        "max_segments": 512,
+    },
+}
+
+_REWARDS_BASE = {
+    "correct_answer_finished": 1.0,
+    "wrong_answer_finished": -0.5,
+    "no_answer_finished": -1.0,
+    "correct_answer_not_finished": 0.5,
+    "wrong_answer_not_finished": -1.0,
+    "no_answer_not_finished": -1.0,
+    "unparsable_not_finished": -1.0,
+    "unparsable_finished": -1.0,
+    "buffer_tokens": 0,
+}
+
+_BASE = {
+    "seed": 42,
+    "output_dir": "???",
+    "launch_mode": "inline",
+    "model_path": None,
+    "toy_model": {
+        "vocab_size": 260,
+        "hidden_size": 128,
+        "intermediate_size": 256,
+        "num_layers": 2,
+        "num_heads": 4,
+        "num_kv_heads": 2,
+    },
+    "dataset_loader": "pipelinerl_tpu_torch.domains.guessing.load_problems",
+    "rollout_policy": "pipelinerl_tpu_torch.domains.registry.generate_dispatched_rollout",
+    "train_dataset_names": ["train"],
+    "test_dataset_names": ["test"],
+    "train_subset": None,
+    "total_groups": None,
+    "attempts": 8,
+    "max_lag": None,
+    "pop_old_data": True,
+    "eval_every_n_versions": 0,
+    "llm": {"parameters": {"max_tokens": 512, "temperature": 1.0}},
+    "test_llm": {"parameters": {"max_tokens": 512, "temperature": 1.0, "top_p": 0.95, "top_k": 50}},
+    "actor": {
+        "system_prompt": None,
+        "task_template": "{task}",
+        "discount_factor": 1.0,
+        "difficulty_aware_penalty": {"enabled": False, "gamma": 1.0, "failure_scale": 1.0},
+        "llm_max_rollouts": 64,
+        "max_parallel_groups": 16,
+        "max_rollout_retries": 2,
+        "throughput_window_size": 50,
+        "publish_stats_every_n_groups": 8,
+    },
+    "engine": {
+        "max_slots": 32,
+        "max_len": 2048,
+        "prefill_buckets": [128, 256, 512, 1024, 2048],
+        "cache_dtype": "bfloat16",
+        "replicas": 1,
+    },
+    "preprocess": {"ring_buffer_size": 128, "max_ready_samples_per_lead": 64},
+    "streams": {"backend": "files"},
+    "world": {
+        "replicas": 1,
+        "env_replicas": 1,
+        "actor_fraction": 4,
+        "finetune_fraction": 4,
+        "engine_start_port": 8080,
+        "environment_start_port": 7777,
+    },
+}
+
+_BANDIT_CPU = {
+    "model_path": None,
+    "dataset_loader": "pipelinerl_tpu_torch.domains.bandit.load_problems",
+    "attempts": 8,
+    "total_groups": 160,
+    "max_lag": 32,
+    "toy_model": {
+        "hidden_size": 64,
+        "intermediate_size": 128,
+        "num_layers": 2,
+        "num_heads": 2,
+        "num_kv_heads": 2,
+    },
+    "llm": {"parameters": {"max_tokens": 3, "temperature": 1.0}},
+    "engine": {
+        "max_slots": 8,
+        "max_len": 64,
+        "prefill_buckets": [32, 64],
+        "cache_dtype": "float32",
+        "decode_window": 4,
+        "adaptive_window": False,
+    },
+    "finetune": {
+        "seq_length": 256,
+        "samples_per_step": 16,
+        "learning_rate": 4e-3,
+        "num_warmup_steps": 0,
+        "max_train_steps": 40,
+        "param_dtype": "float32",
+        "gradient_checkpointing": False,
+        "rl": {"entropy_bonus": 0.05, "final_entropy_bonus": 0.005},
+    },
+}
+
+_BANDIT_TPU = {
+    "toy_model": {
+        "hidden_size": 256,
+        "intermediate_size": 512,
+        "num_layers": 4,
+        "num_heads": 4,
+        "num_kv_heads": 2,
+    },
+    "engine": {"cache_dtype": "bfloat16", "decode_window": 8, "max_slots": 16},
+    "finetune": {"param_dtype": "bfloat16", "learning_rate": 1e-2, "max_train_steps": 60},
+    "total_groups": 450,
+}
+
+# name -> (parent preset or None, own body); a body merges over its parent
+_PRESETS = {
+    "base": (None, {"finetune": _FINETUNE_BASE, "rewards": _REWARDS_BASE, **_BASE}),
+    "bandit_cpu": ("base", _BANDIT_CPU),
+    "bandit_tpu": ("bandit_cpu", _BANDIT_TPU),
+}
+
+
+def preset(name: str) -> Config:
+    """The unresolved config of preset ``name``."""
+    if name not in _PRESETS:
+        raise KeyError(f"no preset {name!r}; the port has {sorted(_PRESETS)}")
+    parent, body = _PRESETS[name]
+    cfg = preset(parent) if parent else Config()
+    cfg.merge(copy.deepcopy(body))
+    return cfg
+
+
+def names() -> list[str]:
+    return sorted(_PRESETS)

@@ -1,0 +1,53 @@
+"""The port's presets against the JAX package's composed YAML of the same
+name, key for key after the package-name mapping; overrides parse as the
+JAX CLI parses them."""
+
+import pytest
+
+from pipelinerl_tpu.config import _parse_scalar, compose as j_compose
+from pipelinerl_tpu_torch import presets
+from pipelinerl_tpu_torch.config import Config, compose, parse_value
+
+
+def renamed(node):
+    if isinstance(node, dict):
+        return {k: renamed(v) for k, v in node.items()}
+    if isinstance(node, list):
+        return [renamed(v) for v in node]
+    if isinstance(node, str):
+        return node.replace("pipelinerl_tpu.", "pipelinerl_tpu_torch.")
+    return node
+
+
+@pytest.mark.parametrize("name", presets.names())
+@pytest.mark.parametrize("resolve", [False, True])
+def test_preset_equals_jax_compose(name, resolve):
+    overrides = ["output_dir=/tmp/x"] if resolve else []
+    ours = compose(name, overrides, resolve=resolve).to_dict()
+    theirs = renamed(j_compose("conf", name, overrides, resolve=resolve).to_dict())
+    assert ours == theirs
+
+
+@pytest.mark.parametrize(
+    "text",
+    ["1", "-3", "1e-5", "4e-3", ".5", "0.25", "true", "False", "null", "~", "yes", "off", "[test]",
+     "[a, b]", "[1, 2]", "[]", '"quoted"', "plain", "pipelinerl_tpu_torch.domains.bandit.load_problems",
+     "gqa", "bfloat16", ""],
+)
+def test_override_values_parse_as_the_jax_cli(text):
+    assert parse_value(text) == _parse_scalar(text)
+
+
+def test_overrides_interpolation_and_access():
+    cfg = compose("bandit_tpu", ["output_dir=/tmp/r", "finetune.samples_per_step=32", "+new.key=7",
+                                 "engine.attn_impl=gqa"])
+    assert cfg.finetune.weight_update_interval == 32  # ${finetune.samples_per_step}
+    assert cfg.finetune.rl.temperature == 1.0  # ${llm.parameters.temperature}
+    assert cfg.select("new.key") == 7 and cfg.engine.attn_impl == "gqa"
+    assert cfg.get("absent", 3) == 3 and cfg.select("a.b.c") is None
+    c = Config({"a": {"b": 1}})
+    c.merge({"a": {"c": 2}})
+    c.set_dotted("d.e", [1])
+    assert c.to_dict() == {"a": {"b": 1, "c": 2}, "d": {"e": [1]}}
+    with pytest.raises(KeyError):
+        compose("nope")

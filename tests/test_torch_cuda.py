@@ -91,6 +91,127 @@ def test_gqa_kernel_matches_plain(cuda, B, Lq, Lkv, H, K, Dh, n_segs):
     assert (lse - ref_lse).abs().max().item() <= GQA_LSE_ATOL
 
 
+def _gqa_bwd_inputs(gen, B, Lq, Lkv, H, K, Dh, n_segs, dev):
+    q, k, v = _bf16(gen, B, Lq, H, Dh), _bf16(gen, B, Lkv, K, Dh), _bf16(gen, B, Lkv, K, Dh)
+    kv_seg = (torch.arange(Lkv, device=dev) * n_segs // Lkv).to(torch.int32)[None].expand(B, Lkv).contiguous()
+    q_seg = kv_seg[:, Lkv - Lq :].contiguous()
+    out, lse = gattn.mha_packed_gqa_plain(q, k, v, q_seg, kv_seg, Lkv - Lq)
+    return q, k, v, q_seg, kv_seg, Lkv - Lq, out.to(torch.bfloat16), lse, _bf16(gen, B, Lq, H, Dh)
+
+
+def _close(got, ref):
+    """bf16 outputs: 2^-8 relative rounding, plus a bf16 rounding of P or dS
+    that can flip where fp32 sums differ in order; held to 1e-2 of the
+    largest reference value."""
+    return (got.float() - ref.float()).abs().max().item() <= 1e-2 * max(1.0, ref.float().abs().max().item())
+
+
+@pytest.mark.parametrize(
+    "B,Lq,Lkv,H,K,Dh,n_segs",
+    [
+        (2, 100, 100, 6, 2, 64, 3),  # ragged edges, batch 2
+        (1, 2048, 2048, 14, 2, 64, 8),  # a packed training row
+        (2, 96, 320, 8, 1, 128, 2),  # q_offset > 0, Lq < Lkv, Dh 128
+    ],
+)
+def test_gqa_backward_kernels_match_plain(cuda, B, Lq, Lkv, H, K, Dh, n_segs):
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    args = _gqa_bwd_inputs(gen, B, Lq, Lkv, H, K, Dh, n_segs, cuda)
+    before = (gattn.dq_launches, gattn.dkv_launches)
+    dq, dk, dv = gattn.mha_packed_gqa_bwd(*args[:5], args[5], Dh**-0.5, *args[6:])
+    torch.cuda.synchronize()
+    assert (gattn.dq_launches, gattn.dkv_launches) == (before[0] + 1, before[1] + 1)
+    rq, rk, rv = gattn.mha_packed_gqa_bwd_plain(*args[:5], args[5], Dh**-0.5, *args[6:])
+    assert _close(dq, rq) and _close(dk, rk) and _close(dv, rv)
+
+
+def test_gqa_backward_fully_masked_row(cuda):
+    """A query whose segment has no key: lse = -1e30, zero gradient, no NaN."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v, q_seg, kv_seg, _, _, _, do = _gqa_bwd_inputs(gen, 1, 128, 128, 4, 2, 64, 1, cuda)
+    q_seg = q_seg.clone()  # at Lq == Lkv it is kv_seg itself
+    q_seg[0, 70] = 9
+    out, lse = gattn.mha_packed_gqa(q, k, v, q_seg, kv_seg)
+    dq, dk, dv = gattn.mha_packed_gqa_bwd(q, k, v, q_seg, kv_seg, 0, 0.125, out, lse, do)
+    rq, rk, rv = gattn.mha_packed_gqa_bwd_plain(q, k, v, q_seg, kv_seg, 0, 0.125, out, lse, do)
+    assert (lse[0, 70] == -1e30).all() and (dq[0, 70] == 0).all()
+    assert all(torch.isfinite(t).all() for t in (dq, dk, dv))
+    assert _close(dq, rq) and _close(dk, rk) and _close(dv, rv)
+
+
+def test_gqa_autograd_runs_the_kernels(cuda):
+    """Gradients through the autograd function (kernels #2-#4) against
+    autograd through the plain forward, in fp32 from the same bf16 inputs."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    q, k, v, q_seg, kv_seg, _, _, _, do = _gqa_bwd_inputs(gen, 1, 512, 512, 14, 2, 64, 4, cuda)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = (gattn.launches, gattn.dq_launches, gattn.dkv_launches)
+    out, _ = gattn.mha_packed_gqa(*leaves, q_seg, kv_seg)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert (gattn.launches, gattn.dq_launches, gattn.dkv_launches) == tuple(b + 1 for b in before)
+    ref_leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    ref_out, _ = gattn.mha_packed_gqa_plain(*ref_leaves, q_seg, kv_seg, 0)
+    ref_out.backward(do.float())
+    for got, ref in zip(leaves, ref_leaves):
+        assert _close(got.grad, ref.grad)
+
+
+def test_decode_kernel_takes_fp32_inputs_at_dh32(cuda):
+    """An fp32-cache engine (bandit_cpu's width: hidden 64, 2 heads, Dh 32)
+    runs the kernel; the wrapper casts where the JAX wrapper casts."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    S, H, K, Dh, T, W = 4, 2, 2, 32, 72, 4
+
+    def f32(*shape):
+        return torch.randn(shape, generator=gen, device=cuda)
+
+    args = (f32(S, H, Dh), f32(S, K, Dh), f32(S, K, Dh), f32(S, T, K, Dh), f32(S, T, K, Dh),
+            torch.tensor([0, 5, 33, 68], dtype=torch.int32, device=cuda), f32(W, S, K, Dh),
+            f32(W, S, K, Dh), 2)
+    before = dattn.launches
+    out = dattn.decode_attention_staged_ragged(*args)
+    torch.cuda.synchronize()
+    assert dattn.launches == before + 1 and out.dtype == torch.float32
+    ref = dattn.decode_attention_staged_ragged_plain(*args)
+    assert (out - ref).abs().max().item() <= DECODE_ATOL
+
+
+def test_fp32_engine_step_on_the_kernels(cuda):
+    """bandit_cpu's engine (fp32 weights and cache, Dh 32, decode_attn_impl
+    auto) runs the decode kernel; its logprobs agree with a teacher-forced
+    forward through the plain fp32 attention within the kernel's bf16
+    operand rounding (5e-2)."""
+    from pipelinerl_tpu_torch.inference import EngineConfig, GenRequest, InferenceEngine, SamplingParams
+    from pipelinerl_tpu_torch.models.transformer import ModelConfig, forward, init_params
+
+    cfg = ModelConfig(vocab_size=260, hidden_size=64, intermediate_size=128, num_layers=2,
+                      num_heads=2, num_kv_heads=2, dtype=torch.float32)
+    params = init_params(torch.Generator(device=cuda).manual_seed(0), cfg, cuda)
+    engine = InferenceEngine(
+        params, cfg,
+        EngineConfig(max_slots=4, max_len=64, prefill_buckets=(32, 64), cache_dtype=torch.float32,
+                     decode_window=4, attn_impl="xla"),
+        eos_token_id=-1, device=cuda,
+    )
+    assert engine.decode_attn_impl == "ragged"
+    prompts = [[5 + i, 9, 3] for i in range(4)]
+    before = dattn.launches
+    futures = [engine.submit(GenRequest(p, SamplingParams(temperature=1.0, max_tokens=12))) for p in prompts]
+    while not all(f.done() for f in futures):
+        engine.step()
+    assert dattn.launches > before
+    for p, f in zip(prompts, futures):
+        r = f.result()
+        ids = torch.tensor([p + r.token_ids], device=cuda)
+        T = ids.shape[1]
+        with torch.no_grad():
+            logits = forward(params, cfg, ids, torch.arange(T, device=cuda)[None],
+                             torch.zeros((1, T), dtype=torch.int32, device=cuda))
+        lp = torch.log_softmax(logits[0, len(p) - 1 : T - 1], -1).gather(-1, ids[0, len(p):, None])[:, 0]
+        assert (lp.cpu() - torch.tensor(r.logprobs)).abs().max().item() <= 5e-2
+
+
 def test_kernels_refuse_what_they_do_not_take(cuda):
     gen = torch.Generator(device=cuda).manual_seed(3)
     q = torch.randn((1, 64, 4, 64), generator=gen, device=cuda)  # fp32
@@ -98,10 +219,12 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     seg = torch.zeros((1, 64), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
         gattn.mha_packed_gqa(q, k, k, seg, seg)
-    with pytest.raises(NotImplementedError):
-        qb = q.to(torch.bfloat16).requires_grad_()
-        gattn.mha_packed_gqa(qb, k.to(torch.bfloat16), k.to(torch.bfloat16), seg, seg)
-    S, K, Dh, T, W = 2, 2, 32, 16, 4  # Dh 32 is not a kernel width
+    # inputs that require grad now run the autograd path (kernels #2-#4)
+    qb = q.to(torch.bfloat16).requires_grad_()
+    out, _ = gattn.mha_packed_gqa(qb, k.to(torch.bfloat16), k.to(torch.bfloat16), seg, seg)
+    out.sum().backward()
+    assert qb.grad is not None and torch.isfinite(qb.grad.float()).all()
+    S, K, Dh, T, W = 2, 2, 48, 16, 4  # Dh 48 is not a kernel width
     x = torch.zeros((S, 4, Dh), dtype=torch.bfloat16, device=cuda)
     kv = torch.zeros((S, K, Dh), dtype=torch.bfloat16, device=cuda)
     cache = torch.zeros((S, T, K, Dh), dtype=torch.bfloat16, device=cuda)
