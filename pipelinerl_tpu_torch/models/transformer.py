@@ -208,8 +208,13 @@ def unembed(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return lm_head_logits(params, cfg, rms_norm(x, params["final_norm"], cfg.rms_norm_eps))
 
 
-def _layer(params: dict, l: int) -> dict:
-    return {name: w[l] for name, w in params["layers"].items()}
+def _unbind_layers(params: dict) -> list[dict]:
+    """Per-layer weight dicts from one ``unbind`` of each stacked weight: its
+    backward stacks the layers' gradients once, where ``w[l]`` slices would
+    each add a zero-filled gradient of the whole ``[L, ...]`` tensor."""
+    names = list(params["layers"])
+    per_layer = zip(*(params["layers"][n].unbind(0) for n in names))
+    return [dict(zip(names, ws)) for ws in per_layer]
 
 
 # ---------------------------------------------------------------------------
@@ -264,8 +269,7 @@ def forward(
         return h + mlp_block(h, layer), k, v
 
     ks, vs = [], []
-    for l in range(cfg.num_layers):
-        layer = _layer(params, l)
+    for layer in _unbind_layers(params):
         if remat is True:
             x, k, v = checkpoint(layer_fn, x, layer, use_reentrant=False)
         else:
@@ -312,8 +316,7 @@ def decode_step_staged(
     x = params["embed"][tokens]  # [S, D]
     cos, sin = rope_cos_sin(positions, cfg.head_dim_, cfg.rope_theta)  # [S, Dh]
     ks, vs = [], []
-    for l in range(cfg.num_layers):
-        layer = _layer(params, l)
+    for l, layer in enumerate(_unbind_layers(params)):
         normed = rms_norm(x, layer["ln1"], cfg.rms_norm_eps)
         q, k, v = _project_qkv(layer, cfg, normed)
         q = apply_rope(q, cos, sin)

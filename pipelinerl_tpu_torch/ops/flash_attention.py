@@ -11,18 +11,8 @@ function (kernels #2-#4 on the card, their plain versions on the CPU).
 
 from __future__ import annotations
 
-import torch
+from .gqa_attention import mha_packed_gqa_simple
 
-from .gqa_attention import mha_packed_gqa
-
-
-def mha_packed_flash(
-    q: torch.Tensor,  # [B, L, H, Dh]
-    k: torch.Tensor,  # [B, L, K, Dh]
-    v: torch.Tensor,  # [B, L, K, Dh]
-    segment_ids: torch.Tensor,  # [B, L]
-    position_ids: torch.Tensor | None = None,  # unused: flat-index causality
-    scale: float | None = None,
-) -> torch.Tensor:
-    """Drop-in for ``mha_packed``; returns [B, L, H, Dh] in q's dtype."""
-    return mha_packed_gqa(q, k, v, segment_ids, segment_ids, 0, scale)[0]
+# drop-in for ``mha_packed``: (q, k, v, segment_ids, position_ids, scale) ->
+# [B, L, H, Dh] in q's dtype
+mha_packed_flash = mha_packed_gqa_simple
