@@ -7,11 +7,19 @@ Phases, each of which stops the script on failure:
 1. device: name, count, and nvidia-smi's name and power limit;
 2. build: nvcc builds the three sources of ``pipelinerl_tpu_torch/csrc/``
    for sm_90a (in parallel) and reports registers, shared memory and spills
-   of the four kernels;
-3. the decode-attention kernel against its plain version at the engine's
-   shapes, with its time, the plain version's, one SDPA call's and the bound;
+   of the five kernels;
+3. the decode-attention kernel (#1) against its plain version at the
+   engine's shapes, with its time, the plain version's, one SDPA call's and
+   the bound; then the paged decode-attention kernel (#5) against its plain
+   version at the paged engine's shape (pages out of order), at BT 16, on a
+   stale length with a released table row, at the bandit_tpu shapes and at
+   the prefix-cache engine's (S 8, W 16, tables 4 and 8 pages wide), with
+   its time beside the plain version's, a page gather plus one SDPA call,
+   kernel #1 on the same lengths over a contiguous cache, and the bound;
 4. the GQA forward kernel against its plain version (prefill shape, a packed
-   2048 row of 8 segments, q_offset > 0 with Lq < Lkv, and the training row);
+   2048 row of 8 segments, q_offset > 0 with Lq < Lkv, and the training row;
+   checked also at the paged engine's prefill buckets and on tails laid out
+   as ``forward_extend`` lays them out, a padded prefix before them);
 5. the GQA backward kernels (dq, dk/dv) against the plain backward at the
    training shape and four more, and the autograd function against autograd
    through the plain forward, with times and bounds;
@@ -27,8 +35,18 @@ Phases, each of which stops the script on failure:
    padded-vocabulary guard, kernel launch counts, and against teacher
    forcing through the plain attention;
 8. the in-process client on a toy-width model;
-9. the bandit RL loop (``bandit_tpu``) through the port's ``launch.main``
-   with every attention on the kernels: it must learn.
+9. the paged engine at Qwen2.5-0.5B width with the JAX package's paged
+   configuration (96 slots, max_len 4096, BT 128, a pool of half the slab's
+   pages): long-tail requests, two GRPO groups sharing prompt pages, an
+   abort; the peak of active slots, pages returned, kernel #5 launch counts,
+   teacher forcing and a decode profile; then kernel #5 against its plain
+   version and timed on the tables and lengths this engine gave it;
+10. the paged prefix cache at full width (8 lineages x 3 turns): prefix hits,
+   tails prefilled through ``forward_extend`` on kernel #2 at q_offset > 0,
+   teacher forcing;
+11. the bandit RL loop (``bandit_tpu``) through the port's ``launch.main``
+   with every attention on the kernels, on the slab layout and again on the
+   paged layout: it must learn both times.
 Then one JSON line of kernel numbers, and last the result line.
 
 It needs a CUDA device and raises without one; it never falls back to the CPU.
@@ -52,12 +70,15 @@ import torch.nn.functional as F
 from pipelinerl_tpu_torch import launch
 from pipelinerl_tpu_torch.config import compose
 from pipelinerl_tpu_torch.inference import EngineConfig, GenRequest, InferenceEngine, SamplingParams
+from pipelinerl_tpu_torch.inference import engine as engine_mod
 from pipelinerl_tpu_torch.inference.client import InProcessLLM, Prompt
 from pipelinerl_tpu_torch.models.toy_tokenizer import ToyTokenizer
-from pipelinerl_tpu_torch.models.transformer import ModelConfig, forward, init_params
+from pipelinerl_tpu_torch.models.transformer import ModelConfig, extend_segments, forward, init_params
 from pipelinerl_tpu_torch.ops import _build
 from pipelinerl_tpu_torch.ops import decode_attention as dattn
 from pipelinerl_tpu_torch.ops import gqa_attention as gattn
+from pipelinerl_tpu_torch.ops import paged_attention as pattn
+from pipelinerl_tpu_torch.inference.block_pool import BlockPool
 from pipelinerl_tpu_torch.streams import SingleStreamSpec, StreamReader, StreamWriter
 from pipelinerl_tpu_torch.train.trainer import TrainerLoop, param_leaves
 from pipelinerl_tpu_torch.types import TrainerBatch
@@ -99,6 +120,13 @@ TRAIN_L, TRAIN_STEPS = 4096, 5  # bench.py's training row; steps after one warm-
 # the 24-layer residual stream lands at different places in the two paths
 TF_MEAN_ATOL = 0.03
 TF_MAX_ATOL = 0.3
+# the JAX package's paged engine configuration (bench.py:577-621): 96 slots
+# at max_len 4096 in BT 128 pages, a pool of half the pages a 32-slot slab
+# engine would hold (32 * ceil(4128 / 128) / 2 = 528, 0.83 GB of bf16 K+V)
+P_SLOTS, P_MAX_LEN, P_BT, P_WINDOW, P_BUCKETS = 96, 4096, 128, 32, (256, 512)
+P_MAXB = -(-(P_MAX_LEN + P_WINDOW) // P_BT)  # 33 pages per slot
+P_POOL = 32 * P_MAXB // 2
+P_REQUESTS = 96  # long-tail requests: prompts 128-400 tokens, budgets 128-1024
 
 
 def bandit_shapes() -> dict:
@@ -266,6 +294,194 @@ def phase_decode_kernel(dev) -> dict:
     }
 
 
+def scattered_table(S, BT, MAXB, NB, lens, seed) -> torch.Tensor:
+    """A BlockPool table whose pages come out of order (every other slot's
+    first page is released and reused); a slot whose length passes MAXB * BT
+    is released, its row all -1, as an inactive slot's. The card's tests of
+    kernel #5 (tests/test_torch_cuda.py) build their tables with it too."""
+    rng = np.random.default_rng(seed)
+    pool = BlockPool(NB, BT, MAXB, S)
+    order = [int(s) for s in rng.permutation(S)]
+    for s in order:
+        pool.allocate(s, 1)
+    for s in order[::2]:
+        pool.release(s)
+    for i, s in enumerate(order):
+        need = min(max(lens[s], 1), MAXB * BT)
+        pool.allocate(s, need) if i % 2 == 0 else pool.extend(s, need)
+    for s in range(S):
+        if lens[s] > MAXB * BT:
+            pool.release(s)
+    return torch.from_numpy(pool.table.copy())
+
+
+def _paged_inputs(gen, S, H, K, Dh, BT, MAXB, NB, W, lens, step, dev):
+    bf = torch.bfloat16
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf)
+
+    return (
+        rnd(S, H, Dh), rnd(S, K, Dh), rnd(S, K, Dh), rnd(NB, BT, K, Dh), rnd(NB, BT, K, Dh),
+        scattered_table(S, BT, MAXB, NB, lens, 0).to(dev), torch.tensor(lens, dtype=torch.int32, device=dev),
+        rnd(W, S, K, Dh), rnd(W, S, K, Dh), step,
+    )
+
+
+def _paged_special_lens(S, BT, MAXB, W, high, seed) -> list[int]:
+    """Lengths 0, 1, BT, BT + 1 and MAXB * BT - W, then random ones below
+    ``high``."""
+    special = [0, 1, BT, BT + 1, MAXB * BT - W]
+    return special + [int(x) for x in np.random.default_rng(seed).integers(0, high, S - len(special))]
+
+
+def _paged_bound(a) -> tuple[float, float]:
+    """Bytes and flops of one call of kernel #5 on input set ``a``: each K/V
+    row it must read (min(len, MAXB * BT) cache rows and step + 1 band rows
+    per slot), q, the output, the lengths and the table."""
+    q, table, lens, step = a[0], a[5], a[6], a[9]
+    S, H, Dh = q.shape
+    K, BT, MAXB = a[3].shape[2], a[3].shape[1], table.shape[1]
+    rows = int(lens.clamp(max=MAXB * BT).sum()) + S * (step + 1)
+    return 2 * rows * K * Dh * 2 + S * H * Dh * (2 + 4) + S * 4 + S * MAXB * 4, 4 * H * Dh * rows
+
+
+def _time_paged(sets) -> dict:
+    """Mean device times of one call, each of ``sets`` in turn: kernel #5;
+    its plain version; the library yardstick, a page gather plus one SDPA
+    call with a boolean mask (never called by the port); kernel #1 on the
+    same lengths over the gathered, contiguous cache. With the mean bound of
+    one call. Kernel #1 there must give #5's output bit for bit."""
+    n = len(sets)
+    reps = -(-30 // n)
+    kernel_ms = time_ms([lambda a=a: pattn.paged_decode_attention(*a) for a in sets], reps * n)
+    plain_ms = time_ms([lambda a=a: pattn.paged_decode_attention_plain(*a) for a in sets], max(n, 4))
+
+    def library(a, mask):
+        q, kn, vn, kp, vp, table, _, ks, vs, _ = a
+        k_all = torch.cat([pattn.gather_pages(kp, table), ks.transpose(0, 1), kn[:, None]], 1)
+        v_all = torch.cat([pattn.gather_pages(vp, table), vs.transpose(0, 1), vn[:, None]], 1)
+        return F.scaled_dot_product_attention(q[:, :, None], k_all.transpose(1, 2), v_all.transpose(1, 2),
+                                              attn_mask=mask, enable_gqa=True)
+
+    masks = []
+    for a in sets:
+        T, W, step = a[5].shape[1] * a[3].shape[1], a[7].shape[0], a[9]
+        r = torch.arange(T + W + 1, device=a[0].device)
+        ln = a[6].long()
+        masks.append(torch.where(r[None] < T, r[None] < ln[:, None], (r[None] - T < step) | (r[None] == T + W))[:, None, None])
+    library_ms = time_ms([lambda a=a, m=m: library(a, m) for a, m in zip(sets, masks)], reps * n)
+    slab_sets = [(a[0], a[1], a[2], pattn.gather_pages(a[3], a[5]), pattn.gather_pages(a[4], a[5]), a[6], a[7], a[8], a[9])
+                 for a in sets]
+    slab_ms = time_ms([lambda a=a: dattn.decode_attention_staged_ragged(*a) for a in slab_sets], reps * n)
+    for a, s in zip(sets, slab_sets):
+        check(torch.equal(dattn.decode_attention_staged_ragged(*s), pattn.paged_decode_attention(*a)),
+              "kernel #1 over the gathered pages differs from kernel #5 through the table")
+    del slab_sets
+    bounds = [bound(*_paged_bound(a)) for a in sets]
+    return {
+        "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms, "slab_kernel_ms": slab_ms,
+        "bound_ms": sum(b for b, _ in bounds) / n, "bound_by": bounds[0][1],
+        "rows": sum(int(a[6].clamp(max=a[5].shape[1] * a[3].shape[1]).sum()) for a in sets) / n,
+    }
+
+
+def _log_paged_times(label: str, t: dict) -> None:
+    log(f"paged kernel {label}, {t['rows']:.0f} cache rows per call: {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+        f"page gather + SDPA {t['library_ms']:.4f} ms, kernel #1 on the same lengths (contiguous) "
+        f"{t['slab_kernel_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
+        f"roofline share {t['bound_ms'] / t['ms']:.3f}")
+
+
+def _check_paged(label: str, args) -> float:
+    """Kernel #5 against its plain version on ``args``; returns the error."""
+    out = pattn.paged_decode_attention(*args)
+    torch.cuda.synchronize()
+    ref = pattn.paged_decode_attention_plain(*args)
+    err = (out.float() - ref.float()).abs().max().item()
+    S, H, Dh = args[0].shape
+    NB, BT, K = args[3].shape[:3]
+    log(f"paged kernel vs plain, {label}: S={S} H={H} K={K} Dh={Dh} BT={BT} MAXB={args[5].shape[1]} NB={NB} "
+        f"W={args[7].shape[0]} step {args[9]}: max abs err {err:.3e} (tolerance {DECODE_ATOL})")
+    check(math.isfinite(err) and err <= DECODE_ATOL, f"paged kernel disagrees with its plain version ({label})")
+    return err
+
+
+def phase_paged_kernel(dev) -> dict:
+    """Kernel #5 against its plain version in five cases, and its times at
+    case (i). Phase 9 times it again on the paged engine's own tables and
+    lengths (``time_paged_working_set``)."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    H, K, Dh = QWEN05B.num_heads, QWEN05B.num_kv_heads, 64
+    S, BT, MAXB, W = P_SLOTS, P_BT, P_MAXB, P_WINDOW
+    engine_lens = _paged_special_lens(S, BT, MAXB, W, 1000, 5)
+    b = BANDIT
+    b_maxb = -(-b["T"] // 16)
+    b_lens = _paged_special_lens(b["S"], 16, b_maxb, b["W"], 64, 6)
+    # the prefix-cache phase's engine: 8 slots, W 16, tables sliced to 4 and
+    # 8 of its 17 pages, a pool of 8 * 17
+    x_nb = 8 * -(-(2048 + 16) // 128)
+    cases = [  # (label, S, H, K, Dh, BT, MAXB, NB, W, lens, steps)
+        ("(i) paged engine", S, H, K, Dh, BT, MAXB, P_POOL, W, engine_lens, (0, W - 1)),
+        ("(ii) BT 16 < the 64-row tile", 4, H, K, Dh, 16, 5, 24, 4, [0, 17, 33, 80], (0, 3)),
+        ("(iii) a stale length past MAXB*BT on a released row", 4, H, K, Dh, 16, 5, 24, 4, [87, 5, 0, 40], (2,)),
+        ("(iv) bandit_tpu engine, BT 16", b["S"], b["H"], b["K"], b["Dh"], 16, b_maxb, b["S"] * b_maxb, b["W"],
+         b_lens, (0, b["W"] - 1)),
+    ] + [
+        (f"(v) prefix-cache engine, table width {m}", 8, H, K, Dh, 128, m, x_nb, 16,
+         _paged_special_lens(8, 128, m, 16, m * 128 - 16, 7), (0, 15))
+        for m in (4, 8)
+    ]
+    max_err = 0.0
+    for label, Sc, Hc, Kc, Dc, BTc, MAXBc, NB, Wc, lens, steps in cases:
+        for step in steps:
+            args = _paged_inputs(gen, Sc, Hc, Kc, Dc, BTc, MAXBc, NB, Wc, lens, step, dev)
+            max_err = max(max_err, _check_paged(label, args))
+
+    # times at (i), the last step of a window
+    step = W - 1
+    first = _paged_inputs(gen, S, H, K, Dh, BT, MAXB, P_POOL, W, engine_lens, step, dev)
+    sets = [first] + [_paged_inputs(gen, S, H, K, Dh, BT, MAXB, P_POOL, W, engine_lens, step, dev)
+                      for _ in range(n_sets(_paged_bound(first)[0]) - 1)]
+    case_i = _time_paged(sets)
+    del sets
+    _log_paged_times(f"(i) S={S} H={H} K={K} Dh={Dh} BT={BT} MAXB={MAXB} NB={P_POOL} W={W} step={step}", case_i)
+    return {
+        "name": "paged_decode_attention", "route": "cuda",
+        "source": "pipelinerl_tpu_torch/csrc/decode_attention.cu",
+        "replaces": "pipelinerl_tpu/ops/paged_attention.py:41",
+        "max_abs_err": max_err, "case_i": case_i,
+    }
+
+
+def time_paged_working_set(dev, snapshots, record: dict) -> None:
+    """Kernel #5 on the tables and lengths the paged engine of phase 9 handed
+    its decode windows (one snapshot every few steps), at the last step of a
+    window, with random q, pools and band: first against its plain version
+    on every snapshot, then timed over all of them. These are the record's
+    times; case (i)'s stay beside them."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    H, K, Dh, W = QWEN05B.num_heads, QWEN05B.num_kv_heads, 64, P_WINDOW
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    sets = []
+    for table, lens in snapshots:
+        S = lens.shape[0]
+        sets.append((rnd(S, H, Dh), rnd(S, K, Dh), rnd(S, K, Dh), rnd(P_POOL, P_BT, K, Dh), rnd(P_POOL, P_BT, K, Dh),
+                     table, lens, rnd(W, S, K, Dh), rnd(W, S, K, Dh), W - 1))
+    err = max(_check_paged(f"paged engine snapshot {i}", a) for i, a in enumerate(sets))
+    record["max_abs_err"] = max(record["max_abs_err"], err)
+    t = _time_paged(sets)
+    widths = sorted({int(a[5].shape[1]) for a in sets})
+    _log_paged_times(f"on the paged engine's own tables and lengths ({len(sets)} snapshots, table widths {widths}, "
+                     f"W={W} step={W - 1})", t)
+    record.update(t)
+    record["kernel_ms"] = t["ms"]
+    record["snapshot_widths"] = widths
+
+
 def _gqa_inputs(gen, B, Lq, Lkv, H, K, Dh, segs, dev):
     """``segs``: a number of equal segments over the row, or their lengths."""
     bf = torch.bfloat16
@@ -281,6 +497,19 @@ def _gqa_inputs(gen, B, Lq, Lkv, H, K, Dh, segs, dev):
     kv_seg = seg[None].expand(B, Lkv).contiguous()
     q_seg = kv_seg[:, Lkv - Lq :].contiguous()
     return q, k, v, q_seg, kv_seg, Lkv - Lq
+
+
+def _extend_inputs(gen, Lt, Pfx, prefix_lens, H, K, Dh, dev):
+    """Kernel #2's inputs as ``forward_extend`` gives them: B = len(prefix_lens)
+    tails of Lt queries at q_offset = Pfx against [padded prefix | tail]
+    keys, the prefix pad in segment 1 between the valid prefix and the tail
+    in segment 0."""
+    bf, B = torch.bfloat16, len(prefix_lens)
+    q = torch.randn((B, Lt, H, Dh), generator=gen, device=dev).to(bf)
+    k = torch.randn((B, Pfx + Lt, K, Dh), generator=gen, device=dev).to(bf)
+    v = torch.randn((B, Pfx + Lt, K, Dh), generator=gen, device=dev).to(bf)
+    q_seg, kv_seg = extend_segments(torch.tensor(prefix_lens, device=dev), Pfx, Lt)
+    return q, k, v, q_seg, kv_seg, Pfx
 
 
 def _gqa_work(q, k, q_seg, kv_seg, q_offset):
@@ -326,6 +555,15 @@ def phase_gqa_kernel(dev) -> dict:
     for label, B, Lq, Lkv, segs in bandit_cases:
         args = _gqa_inputs(gen, B, Lq, Lkv, b["H"], b["K"], b["Dh"], segs, dev)
         max_err = max(max_err, _check_gqa_forward(f"{label} (H={b['H']} K={b['K']} Dh={b['Dh']})", args))
+    # checked only, at the paged phases' shapes: the paged engine's prefill
+    # buckets at the largest batch, and the prefix-cache phase's tails
+    for Lb in P_BUCKETS:
+        args = _gqa_inputs(gen, 8, Lb, Lb, H, K, Dh, 1, dev)
+        max_err = max(max_err, _check_gqa_forward(f"paged engine prefill B=8 L={Lb}", args))
+    for tail, prefix_lens in ((128, [384] * 8), (256, [384, 128, 512, 256, 384, 384, 512, 256])):
+        args = _extend_inputs(gen, tail, 4 * 128, prefix_lens, H, K, Dh, dev)
+        max_err = max(max_err, _check_gqa_forward(
+            f"forward_extend tail {tail} against a 512-token padded prefix, prefix lengths {prefix_lens}", args))
     record = None
     for label, B, Lq, Lkv, n_segs in cases:
         args = _gqa_inputs(gen, B, Lq, Lkv, H, K, Dh, n_segs, dev)
@@ -365,12 +603,12 @@ def phase_gqa_kernel(dev) -> dict:
 
 
 def reset_counts() -> None:
-    dattn.launches = gattn.launches = gattn.dq_launches = gattn.dkv_launches = 0
+    dattn.launches = gattn.launches = gattn.dq_launches = gattn.dkv_launches = pattn.launches = 0
 
 
 def counts() -> dict[str, int]:
     return {"decode": dattn.launches, "gqa_fwd": gattn.launches, "gqa_dq": gattn.dq_launches,
-            "gqa_dkv": gattn.dkv_launches}
+            "gqa_dkv": gattn.dkv_launches, "paged": pattn.launches}
 
 
 def _gqa_bwd_args(gen, B, Lq, Lkv, H, K, Dh, segs, dev, masked_row=None):
@@ -529,7 +767,7 @@ def phase_train_step(dev, smi: str, exp_dir: str) -> tuple[TrainerLoop, dict]:
     batch = _train_batch(TRAIN_L)
     initial = {name: p.detach().clone() for name, p in param_leaves(params)}
     L = QWEN05B.num_layers
-    per_pass = {"gqa_fwd": 2 * L, "gqa_dq": L, "gqa_dkv": L, "decode": 0}  # forward + remat recompute
+    per_pass = {"gqa_fwd": 2 * L, "gqa_dq": L, "gqa_dkv": L, "decode": 0, "paged": 0}  # forward + remat recompute
 
     def one_pass(impl: str) -> tuple[dict, dict, dict]:
         trainer.attn_impl = impl
@@ -619,13 +857,16 @@ def report_profile(prof, wall_ms: float, n_steps: int, label: str) -> None:
         log(f"  {e.self_device_time_total / 1e3 / n_steps:8.4f} ms/step  {e.count // n_steps:5d}/step  {e.key[:90]}")
 
 
-def phase_rl_loop(exp_dir: str) -> dict:
+def phase_rl_loop(exp_dir: str, paged: bool = False) -> dict:
     """The bandit RL loop through the port's entry point, every attention on
-    the kernels; it must learn (tests/test_e2e_bandit.py:43-58)."""
+    the kernels; it must learn (tests/test_e2e_bandit.py:43-58). ``paged``
+    runs its engine on the paged layout in 16-token pages (kernel #5 in
+    place of #1)."""
+    layout = ["engine.kv_layout=paged", "engine.kv_block_size=16"] if paged else []
     reset_counts()
     t0 = time.monotonic()
     stats = launch.main(["--config-name=bandit_tpu", f"output_dir={exp_dir}", "finetune.save_checkpoint_steps=0",
-                         "engine.attn_impl=gqa", "finetune.attn_impl=gqa"])
+                         "engine.attn_impl=gqa", "finetune.attn_impl=gqa", *layout])
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = counts()
@@ -633,13 +874,17 @@ def phase_rl_loop(exp_dir: str) -> dict:
     rewards = [s["reward_mean"] for s in snaps if "reward_mean" in s]
     check(len(rewards) >= 4, f"too few stats snapshots: {rewards}")
     early, late = sum(rewards[:2]) / 2, sum(rewards[-2:]) / 2
-    log(f"bandit_tpu RL loop through launch.main: {wall:.1f} s wall, {stats['trainer']['completed_steps']} steps, "
+    log(f"bandit_tpu RL loop through launch.main ({'paged, BT 16' if paged else 'slab'}): {wall:.1f} s wall, {stats['trainer']['completed_steps']} steps, "
         f"version {stats['trainer']['last_broadcasted_version']}, reward {early:.3f} -> {late:.3f} "
         f"(snapshots {[round(r, 3) for r in rewards]}), launches {launches}")
     check(stats["trainer"]["completed_steps"] >= 10, "the RL loop trained fewer than 10 steps")
     check(stats["trainer"]["last_broadcasted_version"] > 0, "the RL loop pushed no weights")
     check(late > early + 0.1, f"the RL loop did not learn: reward {early:.3f} -> {late:.3f}")
-    check(all(launches.values()), f"a kernel did not run in the RL loop: {launches}")
+    decode_kernel, unused = ("paged", "decode") if paged else ("decode", "paged")
+    check(all(launches[k] for k in ("gqa_fwd", "gqa_dq", "gqa_dkv", decode_kernel)) and not launches[unused],
+          f"the RL loop's kernel launches are wrong: {launches}")
+    check(stats["engine"].get("kv_pages_total", 0) > 0 if paged else "kv_pages_total" not in stats["engine"],
+          f"the RL loop's engine ran the wrong layout: {stats['engine']}")
     return launches
 
 
@@ -693,7 +938,8 @@ def phase_engine(dev, smi: str, trainer: TrainerLoop, exp_dir: str) -> tuple[int
             updated = trainer.maybe_push_weights(writer, force=True)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
-    decode_launches, gqa_launches = dattn.launches, gattn.launches
+    launches = counts()
+    decode_launches, gqa_launches = launches["decode"], launches["gqa_fwd"]
     counters = engine.perf_counters()
     results = [f.result() for f in futures]
 
@@ -723,6 +969,7 @@ def phase_engine(dev, smi: str, trainer: TrainerLoop, exp_dir: str) -> tuple[int
           f"decode launches {decode_launches} != {L} x {engine.decode_steps} decode steps")
     check(gqa_launches == L * engine.prefill_batches,
           f"gqa launches {gqa_launches} != {L} x {engine.prefill_batches} prefill batches")
+    check(not launches["paged"], "the slab engine launched the paged kernel")
     useful = sum(len(r.token_ids) for r in results[1:])
     log(f"engine: {len(reqs)} requests, {useful} tokens in {wall:.2f} s: {useful / wall:.1f} useful tokens/s, "
         f"{wall / engine.decode_steps * 1e3:.2f} ms per decode step (wall, prefill included) on {smi}")
@@ -746,7 +993,187 @@ def phase_engine(dev, smi: str, trainer: TrainerLoop, exp_dir: str) -> tuple[int
         f"max {errs.max():.4f} (tolerance {TF_MAX_ATOL}) over {errs.size} tokens")
     check(errs.mean() <= TF_MEAN_ATOL and errs.max() <= TF_MAX_ATOL, "engine logprobs disagree with teacher forcing")
     profile_decode(engine, [request(prompt()) for _ in range(SLOTS)])
-    return decode_launches, gqa_launches
+    return launches
+
+
+def teacher_forcing(engine: InferenceEngine, pairs, label: str) -> None:
+    """Engine logprobs against a teacher-forced forward over prompt +
+    completion through the plain attention (tests/test_engine.py:96)."""
+    dev = engine.device
+    errs = []
+    for prompt_ids, r in pairs:
+        ids = torch.tensor([list(prompt_ids) + r.token_ids], device=dev)
+        n, T = len(prompt_ids), ids.shape[1]
+        with torch.no_grad():
+            logits = forward(engine.params, engine.model_cfg, ids, torch.arange(T, device=dev)[None],
+                             torch.zeros((1, T), dtype=torch.int32, device=dev), attn_impl="xla")
+        lp = torch.log_softmax(logits[0, n - 1 : T - 1], -1)
+        tf = lp.gather(-1, ids[0, n:, None])[:, 0].double().cpu().numpy()
+        errs.append(np.abs(tf - np.asarray(r.logprobs)))
+        del logits, lp
+    errs = np.concatenate(errs)
+    log(f"{label} teacher forcing: mean abs err {errs.mean():.4f} (tolerance {TF_MEAN_ATOL}), "
+        f"max {errs.max():.4f} (tolerance {TF_MAX_ATOL}) over {errs.size} tokens in {len(pairs)} requests")
+    check(errs.mean() <= TF_MEAN_ATOL and errs.max() <= TF_MAX_ATOL,
+          f"{label} logprobs disagree with teacher forcing")
+
+
+def check_results(results, budgets, cfg: ModelConfig) -> None:
+    """Every budget met, logprobs finite and <= 0, no padded-vocabulary id."""
+    for r, budget in zip(results, budgets):
+        check(r.finish_reason == "length" and len(r.token_ids) == budget,
+              f"request finished {r.finish_reason} with {len(r.token_ids)} of {budget} tokens")
+    for r in results:
+        lp = np.asarray(r.logprobs, np.float64)
+        check(len(lp) == len(r.token_ids), "one logprob per token")
+        check(bool(np.all(np.isfinite(lp)) and np.all(lp <= 0)), "logprobs finite and <= 0")
+        check(all(t < cfg.valid_vocab for t in r.token_ids), "a padded-vocabulary id was emitted")
+
+
+def phase_paged_engine(dev, smi: str) -> dict:
+    """The paged engine at Qwen2.5-0.5B width with the JAX package's paged
+    configuration (bench.py:577-621): long-tail requests, two GRPO groups of
+    8 whose 300-token prompts share two full pages, and one abort."""
+    cfg = QWEN05B
+    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    engine = InferenceEngine(
+        params, cfg,
+        EngineConfig(
+            max_slots=P_SLOTS, max_len=P_MAX_LEN, prefill_buckets=P_BUCKETS, seed=0,
+            cache_dtype=torch.bfloat16, decode_window=P_WINDOW, window_pipeline_depth=2,
+            kv_layout="paged", kv_block_size=P_BT, kv_pool_blocks=P_POOL, prefix_cache=False,
+        ),
+        eos_token_id=-1,  # random weights: run every request to its budget
+        device=dev,
+    )
+    check(engine.paged and engine.attn_impl == "gqa" and engine.decode_attn_impl == "ragged",
+          "auto did not pick the kernels")
+    kv_bytes = engine.k_pool.nbytes + engine.v_pool.nbytes
+    rng = np.random.default_rng(3)
+
+    def request(n, budget, rid=""):
+        prompt = rng.integers(1, 100_000, n).tolist()
+        return GenRequest(prompt, SamplingParams(temperature=1.0, max_tokens=budget), rid)
+
+    # the groups and the abort first, so each group is admitted in one wave
+    reqs = [request(200, 1024, "abort-me")]
+    groups = []
+    for _ in range(2):
+        r = request(300, 256)
+        groups.append(r.prompt_ids)
+        reqs += [GenRequest(r.prompt_ids, r.params) for _ in range(8)]
+    reqs += [request(int(rng.integers(128, 400)), int(rng.integers(128, 1024))) for _ in range(P_REQUESTS)]
+    pool = engine.block_pool
+    # every fourth decode window's table and starting lengths, kernel #5's
+    # inputs on this path, for time_paged_working_set
+    snapshots, window_fn = [], engine_mod._decode_window_paged_fn
+
+    def spy(*args, **kw):
+        if engine.windows_dispatched % 4 == 1:
+            snapshots.append((args[6], args[8].clone()))
+        return window_fn(*args, **kw)
+
+    engine_mod._decode_window_paged_fn = spy
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    futures = [engine.submit(r) for r in reqs]
+    n_steps, peak, shared_checked, aborted = 0, 0, False, False
+    while not all(f.done() for f in futures):
+        engine.step()
+        n_steps += 1
+        peak = max(peak, engine.num_active)
+        if not shared_checked:
+            for prompt in groups:
+                slots = [i for i, s in enumerate(engine._slots) if s is not None and s.request.prompt_ids == prompt]
+                check(len(slots) == 8, f"a GRPO group is live in {len(slots)} slots, not 8")
+                rows = pool.table[slots]
+                check(all((rows[:, j] == rows[0, j]).all() and pool.refs[rows[0, j]] == 8 for j in (0, 1)),
+                      "the group's two full prompt pages are not shared with refcount 8")
+                check(len(set(rows[:, 2].tolist())) == 8, "the group's tail pages are not each its own")
+            shared_checked = True
+        if n_steps == 3:
+            check(any(s is not None and s.request.request_id == "abort-me" for s in engine._slots),
+                  "the request to abort is not in flight")
+            engine.abort("abort-me")
+            aborted = True
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    engine_mod._decode_window_paged_fn = window_fn
+    launches = counts()
+    counters = engine.perf_counters()
+    results = [f.result() for f in futures]
+    check(aborted and results[0].finish_reason == "abort", f"aborted request finished {results[0].finish_reason}")
+    check_results(results[1:], [r.params.max_tokens for r in reqs[1:]], cfg)
+    pool.check_invariants()
+    check(pool.free_blocks == pool.n_blocks, f"{pool.n_blocks - pool.free_blocks} pages not returned")
+    check(peak > 32, f"peak of active slots {peak} is not above the 32 of a slab engine at twice the bytes")
+    L = cfg.num_layers
+    check(launches["paged"] == L * engine.decode_steps,
+          f"paged launches {launches['paged']} != {L} x {engine.decode_steps} decode steps")
+    check(launches["decode"] == 0, f"kernel #1 ran on the paged engine {launches['decode']} times")
+    check(launches["gqa_fwd"] == L * engine.prefill_batches,
+          f"gqa launches {launches['gqa_fwd']} != {L} x {engine.prefill_batches} prefill batches")
+    useful = sum(len(r.token_ids) for r in results[1:])
+    log(f"paged engine: {len(reqs)} requests, {useful} tokens in {wall:.2f} s: {useful / wall:.1f} useful tokens/s, "
+        f"{wall / engine.decode_steps * 1e3:.2f} ms per decode step (wall, prefill included), peak {peak} active "
+        f"of {P_SLOTS} slots, KV pool {kv_bytes / 1e9:.3f} GB ({P_POOL} pages of {P_BT}) on {smi}")
+    log(f"paged engine counters: {json.dumps(counters)}")
+    log(f"paged engine launches: paged {launches['paged']} = {L} x {engine.decode_steps} steps, "
+        f"gqa {launches['gqa_fwd']} = {L} x {engine.prefill_batches} prefill batches, decode {launches['decode']}")
+    picks = [1, 9, int(np.argmax([len(r.token_ids) for r in results])), len(reqs) - 1]
+    teacher_forcing(engine, [(reqs[i].prompt_ids, results[i]) for i in picks], "paged engine")
+    prof_rng = np.random.default_rng(4)
+    profile_decode(engine, [GenRequest(prof_rng.integers(1, 100_000, 200).tolist(),
+                                       SamplingParams(temperature=1.0, max_tokens=128)) for _ in range(P_SLOTS)])
+    return launches, snapshots
+
+
+def phase_prefix_cache(dev) -> dict:
+    """The paged prefix cache at full width, the shape of the JAX package's
+    bench_multiturn (bench.py:673-733): 8 lineages x 3 turns from 384 tokens,
+    24 new tokens and 56 more prompt tokens per turn."""
+    cfg = QWEN05B
+    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    engine = InferenceEngine(
+        params, cfg,
+        EngineConfig(
+            max_slots=8, max_len=2048, prefill_buckets=(128, 256, 512, 1024, 2048), seed=0,
+            cache_dtype=torch.bfloat16, decode_window=16, window_pipeline_depth=2,
+            kv_layout="paged", kv_block_size=128, prefix_cache=True,
+        ),
+        eos_token_id=-1, device=dev,
+    )
+    rng = np.random.default_rng(5)
+    transcripts = [rng.integers(1, 100_000, 384).tolist() for _ in range(8)]
+    last = []
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(3):
+        prompts = [list(t) for t in transcripts]
+        futures = [engine.submit(GenRequest(p, SamplingParams(temperature=1.0, max_tokens=24))) for p in prompts]
+        while not all(f.done() for f in futures):
+            engine.step()
+        last = [(p, f.result()) for p, f in zip(prompts, futures)]
+        transcripts = [p + r.token_ids + rng.integers(1, 100_000, 56).tolist() for p, r in last]
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = counts()
+    c = engine.perf_counters()
+    check_results([r for _, r in last], [24] * 8, cfg)
+    check(c["prefix_cache_hits"] >= 16 and c["prefix_cache_reused_tokens"] > 0, f"prefix cache: {c}")
+    check(c["prefill_extend_batches"] > 0, "no tail went through forward_extend")
+    L = cfg.num_layers
+    check(launches["gqa_fwd"] == L * engine.prefill_batches,
+          f"gqa launches {launches['gqa_fwd']} != {L} x {engine.prefill_batches} prefill batches")
+    check(launches["paged"] == L * engine.decode_steps and not launches["decode"], f"decode launches {launches}")
+    log(f"paged prefix cache: 8 lineages x 3 turns in {wall:.2f} s, {c['prefill_tokens']} tokens prefilled, "
+        f"{c['prefill_reused_tokens']} reused, {c['prefix_cache_hits']} hits; {c['prefill_extend_batches']} of "
+        f"{engine.prefill_batches} prefill batches were tails through forward_extend (kernel #2 at "
+        f"q_offset = the padded prefix length: {L * c['prefill_extend_batches']} of {launches['gqa_fwd']} launches)")
+    teacher_forcing(engine, last[:3], "paged prefix cache, third turn,")
+    return launches
 
 
 def profile_decode(engine: InferenceEngine, reqs: list[GenRequest]) -> None:
@@ -765,7 +1192,7 @@ def profile_decode(engine: InferenceEngine, reqs: list[GenRequest]) -> None:
         engine.step()
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t0) * 1e3
-    n_steps = (engine.windows_dispatched - steps0) * WINDOW
+    n_steps = (engine.windows_dispatched - steps0) * engine.cfg.decode_window
     while not all(f.done() for f in futures):
         engine.step()
     report_profile(prof, wall_ms, n_steps, "decode")
@@ -803,17 +1230,26 @@ def main() -> None:
     info = phase_device()
     dev = torch.device("cuda")
     phase_build()
-    kernels = [phase_decode_kernel(dev), phase_gqa_kernel(dev), *phase_gqa_bwd_kernels(dev)]
+    kernels = [phase_decode_kernel(dev), phase_gqa_kernel(dev), *phase_gqa_bwd_kernels(dev),
+               phase_paged_kernel(dev)]
+    torch.cuda.empty_cache()
     paths = {}
     with tempfile.TemporaryDirectory() as tmp:
         trainer, paths["train_step"] = phase_train_step(dev, info["smi"], f"{tmp}/train")
-        decode_launches, gqa_launches = phase_engine(dev, info["smi"], trainer, f"{tmp}/train")
-        paths["engine"] = {"decode": decode_launches, "gqa_fwd": gqa_launches, "gqa_dq": 0, "gqa_dkv": 0}
+        paths["engine"] = phase_engine(dev, info["smi"], trainer, f"{tmp}/train")
         del trainer
+        torch.cuda.empty_cache()
+        paths["paged_engine"], snapshots = phase_paged_engine(dev, info["smi"])
+        torch.cuda.empty_cache()
+        time_paged_working_set(dev, snapshots, kernels[-1])
+        del snapshots
+        torch.cuda.empty_cache()
+        paths["prefix_cache"] = phase_prefix_cache(dev)
         torch.cuda.empty_cache()
         phase_client(dev)
         paths["rl_loop"] = phase_rl_loop(f"{tmp}/bandit")
-    for record, key in zip(kernels, ("decode", "gqa_fwd", "gqa_dq", "gqa_dkv")):
+        paths["rl_loop_paged"] = phase_rl_loop(f"{tmp}/bandit_paged", paged=True)
+    for record, key in zip(kernels, ("decode", "gqa_fwd", "gqa_dq", "gqa_dkv", "paged")):
         record["launches_by_path"] = {path: c[key] for path, c in paths.items()}
         record["launches"] = sum(record["launches_by_path"].values())
     log(json.dumps({"kernels": kernels}))

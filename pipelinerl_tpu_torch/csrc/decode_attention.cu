@@ -1,30 +1,44 @@
-// Staged GQA decode attention, one query token per slot, for sm_90a.
+// Staged GQA decode attention, one query token per slot, for sm_90a: over a
+// contiguous per-slot cache (kernel #1) and over a shared page pool through a
+// block table (kernel #5). Both share one kernel body; only the addressing
+// of cache rows differs.
 //
-// Replaces the JAX package's Pallas kernel `_kernel` in
+// Replaces the JAX package's Pallas kernels `_kernel` in
 // pipelinerl_tpu/ops/decode_attention.py (reached through
-// `decode_attention_staged_ragged`). Contract: for slot s and query head h,
-// softmax attention over [cache rows < lens[s] | band rows < step | self],
-// with the query pre-scaled and rounded to bf16, bf16 operands, fp32 scores,
-// running max/sum and accumulators, and an fp32 output [S, H, Dh].
+// `decode_attention_staged_ragged`) and `_build_paged_call` in
+// pipelinerl_tpu/ops/paged_attention.py (reached through
+// `paged_decode_attention`, which reuses `_kernel` with another index map).
+// Contract: for slot s and query head h, softmax attention over
+// [cache rows < len | band rows < step | self], with the query pre-scaled
+// and rounded to bf16, bf16 operands, fp32 scores, running max/sum and
+// accumulators, and an fp32 output [S, H, Dh]. Slab: len = lens[s], row t at
+// cache[s, t]. Paged: len = min(lens[s], MAXB * BT), row t in page
+// clip(table[s, t / BT], 0, NB - 1) at offset t % BT.
 //
 // What bounds it on an H100: bytes. Each slot's K and V rows are read once
-// (2 * len * K * Dh * 2 bytes per slot per layer) and every score costs Dh
-// multiply-adds, about 1.75 flop per byte read at G = 7, far below the
-// ~295 flop/byte at which the tensor cores would become the limit.
+// (2 * len * K * Dh * 2 bytes per slot per layer; paged adds one int32 table
+// entry per page) and every score costs Dh multiply-adds, about 1.75 flop
+// per byte read at G = 7, far below the ~295 flop/byte at which the tensor
+// cores would become the limit.
 //
 // Design:
 // - one block per (slot, kv head): the G query heads that share a kv head
 //   share every K/V tile loaded into shared memory, so K/V leave device
 //   memory once per kv head and not once per query head;
-// - the loop runs over 64-row cache tiles up to lens[s] only. This ragged
-//   bound is what the TPU kernel's clamped index map emulated: a short slot
-//   reads only its own rows, whatever the slab's capacity;
+// - the loop runs over 64-row cache tiles up to the slot's own length only.
+//   This ragged bound is what the TPU kernels' clamped index maps emulated:
+//   a short slot reads only its own rows, whatever the capacity;
+// - the row addressing is a template parameter (SlabRows, PagedRows). The
+//   paged form looks the page up per row, not per tile, since a 64-row tile
+//   spans several pages when BT < 64; its length cap keeps a stale length
+//   (an inactive slot whose released table row is all -1, or a table sliced
+//   to the active working set) from reading table[s, MAXB] or page -1;
 // - tiles load as 16-byte vectors into rows padded by 8 bf16 values, so a
 //   warp reading one row per lane hits 32 distinct banks;
 // - rows past the valid length are zero-filled, so V rows past `len` can
 //   never bring NaN or Inf into the accumulator (p = 0 times garbage);
 // - the band rows < step and the self row form one last tile;
-// - it reads the engine's per-layer cache slice [S, T_alloc, K, Dh] and band
+// - it reads the engine's per-layer cache or pool slice and band
 //   [W, S, K, Dh] in place through the strides it is given.
 // A first, simple version: no cp.async or TMA pipelining yet, and one block
 // per (slot, kv head) leaves the card part-empty when S * K is small.
@@ -60,6 +74,27 @@ __device__ __forceinline__ float warp_sum(float x) {
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
 }
+
+// Cache row t of a slot: the element offset of its (kv head 0) row, and the
+// number of rows the slot holds.
+struct SlabRows {
+  int64_t c_slot, c_t;  // cache strides, in elements
+  __device__ __forceinline__ int length(int slot, int len) const { return len; }
+  __device__ __forceinline__ int64_t offset(int slot, int t) const {
+    return slot * c_slot + t * c_t;
+  }
+};
+
+struct PagedRows {
+  const int* table;     // [S, maxb] physical page ids, -1 where unused
+  int nb, bt, maxb;
+  int64_t p_page, p_t;  // pool strides, in elements
+  __device__ __forceinline__ int length(int slot, int len) const { return min(len, maxb * bt); }
+  __device__ __forceinline__ int64_t offset(int slot, int t) const {
+    const int page = min(max(table[(int64_t)slot * maxb + t / bt], 0), nb - 1);
+    return page * p_page + (t % bt) * p_t;
+  }
+};
 
 // Fill the K/V tile rows [0, kTile) from `row_k(r)` / `row_v(r)` for r < n,
 // zeros for r >= n.
@@ -147,19 +182,19 @@ __device__ __forceinline__ void update(Smem<DH>& sm, State<DH>& st, int n, int G
   }
 }
 
-template <int DH>
+template <int DH, typename Rows>
 __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
     const __nv_bfloat16* __restrict__ q,      // [S, H, DH]
     const __nv_bfloat16* __restrict__ k_new,  // [S, K, DH]
     const __nv_bfloat16* __restrict__ v_new,
-    const __nv_bfloat16* __restrict__ k_cache,  // slot, t strides given
+    const __nv_bfloat16* __restrict__ k_cache,  // rows addressed by `rows`
     const __nv_bfloat16* __restrict__ v_cache,
+    Rows rows,
     const int* __restrict__ lens,               // [S]
     const __nv_bfloat16* __restrict__ k_band,   // w, slot strides given
     const __nv_bfloat16* __restrict__ v_band,
     float* __restrict__ out,                    // [S, H, DH]
-    int H, int K, int step, int64_t c_slot, int64_t c_t, int64_t b_w,
-    int64_t b_slot, float scale) {
+    int H, int K, int step, int64_t b_w, int64_t b_slot, float scale) {
   __shared__ __align__(16) Smem<DH> sm;
   const int slot = blockIdx.x, kh = blockIdx.y;
   const int G = H / K;
@@ -181,14 +216,14 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
     for (int e = 0; e < E; ++e) st.acc[j][e] = 0.f;
   }
 
-  const int len = lens[slot];
-  const __nv_bfloat16* kc = k_cache + slot * c_slot + kh * DH;
-  const __nv_bfloat16* vc = v_cache + slot * c_slot + kh * DH;
+  const int len = rows.length(slot, lens[slot]);
+  const __nv_bfloat16* kc = k_cache + kh * DH;
+  const __nv_bfloat16* vc = v_cache + kh * DH;
   for (int t0 = 0; t0 < len; t0 += kTile) {
     __syncthreads();  // previous tile fully consumed (and q written)
     load_tile<DH>(sm, min(kTile, len - t0),
-                  [&](int r) { return kc + (t0 + r) * c_t; },
-                  [&](int r) { return vc + (t0 + r) * c_t; });
+                  [&](int r) { return kc + rows.offset(slot, t0 + r); },
+                  [&](int r) { return vc + rows.offset(slot, t0 + r); });
     __syncthreads();
     update<DH>(sm, st, min(kTile, len - t0), G);
   }
@@ -215,24 +250,22 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
   }
 }
 
-}  // namespace
-
-extern "C" int decode_attention_staged_bf16(
-    const void* q, const void* k_new, const void* v_new, const void* k_cache,
-    const void* v_cache, const void* lens, const void* k_band, const void* v_band,
-    void* out, int S, int H, int K, int Dh, int step, long long c_slot, long long c_t,
-    long long b_w, long long b_slot, float scale, void* stream) {
+template <typename Rows>
+int launch(const void* q, const void* k_new, const void* v_new, const void* k_cache,
+           const void* v_cache, Rows rows, const void* lens, const void* k_band,
+           const void* v_band, void* out, int S, int H, int K, int Dh, int step,
+           long long b_w, long long b_slot, float scale, void* stream) {
   if (S <= 0 || K <= 0 || H % K != 0 || H / K > kWarps * kMaxGPerWarp || step < 0 ||
       step >= kTile)
     return (int)cudaErrorInvalidValue;
   const dim3 grid(S, K);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define LAUNCH(DH)                                                                      \
-  decode_attention_kernel<DH><<<grid, kThreads, 0, st>>>(                              \
+  decode_attention_kernel<DH, Rows><<<grid, kThreads, 0, st>>>(                        \
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_new, (const __nv_bfloat16*)v_new, \
-      (const __nv_bfloat16*)k_cache, (const __nv_bfloat16*)v_cache, (const int*)lens,    \
-      (const __nv_bfloat16*)k_band, (const __nv_bfloat16*)v_band, (float*)out, H, K,     \
-      step, c_slot, c_t, b_w, b_slot, scale)
+      (const __nv_bfloat16*)k_cache, (const __nv_bfloat16*)v_cache, rows,                \
+      (const int*)lens, (const __nv_bfloat16*)k_band, (const __nv_bfloat16*)v_band,      \
+      (float*)out, H, K, step, b_w, b_slot, scale)
   if (Dh == 32)
     LAUNCH(32);
   else if (Dh == 64)
@@ -243,4 +276,27 @@ extern "C" int decode_attention_staged_bf16(
     return (int)cudaErrorInvalidValue;
 #undef LAUNCH
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int decode_attention_staged_bf16(
+    const void* q, const void* k_new, const void* v_new, const void* k_cache,
+    const void* v_cache, const void* lens, const void* k_band, const void* v_band,
+    void* out, int S, int H, int K, int Dh, int step, long long c_slot, long long c_t,
+    long long b_w, long long b_slot, float scale, void* stream) {
+  return launch(q, k_new, v_new, k_cache, v_cache, SlabRows{(int64_t)c_slot, (int64_t)c_t}, lens, k_band,
+                v_band, out, S, H, K, Dh, step, b_w, b_slot, scale, stream);
+}
+
+extern "C" int paged_decode_attention_bf16(
+    const void* q, const void* k_new, const void* v_new, const void* k_pool,
+    const void* v_pool, const void* table, const void* lens, const void* k_band,
+    const void* v_band, void* out, int S, int H, int K, int Dh, int step, int NB, int BT,
+    int MAXB, long long p_page, long long p_t, long long b_w, long long b_slot, float scale,
+    void* stream) {
+  if (NB <= 0 || BT <= 0 || MAXB <= 0) return (int)cudaErrorInvalidValue;
+  return launch(q, k_new, v_new, k_pool, v_pool,
+                PagedRows{(const int*)table, NB, BT, MAXB, (int64_t)p_page, (int64_t)p_t}, lens, k_band,
+                v_band, out, S, H, K, Dh, step, b_w, b_slot, scale, stream);
 }

@@ -1,4 +1,4 @@
-"""Slab continuous-batching engine and the in-process client."""
+"""Continuous-batching engine (slab and paged KV layouts) and the in-process client."""
 
 from .engine import EngineConfig, GenRequest, GenResult, InferenceEngine, SamplingParams
 

@@ -1,10 +1,19 @@
-"""Continuous-batching inference engine, slab KV layout, in PyTorch.
+"""Continuous-batching inference engine, slab and paged KV layouts, in PyTorch.
 
-Port of the JAX package's ``inference/engine.py`` (slab layout). A fixed
-number of decode slots S share one contiguous KV cache of capacity
-``max_len`` per slot; prompts prefill in padded buckets; decoding runs in
+Port of the JAX package's ``inference/engine.py``. A fixed number of decode
+slots S decode together; prompts prefill in padded buckets; decoding runs in
 windows of W steps that stage new K/V in a small band and merge it into the
-cache once per window, with one device-to-host read per window.
+cache once per window, with one device-to-host read per window. Two KV
+layouts:
+
+- slab (the default): each slot owns a contiguous cache of capacity
+  ``max_len``;
+- paged (``kv_layout="paged"``): fixed-size pages from one shared pool
+  (``block_pool.BlockPool``). Admission reserves prompt + budget + one
+  window of pages, so a request never runs out mid-flight; a GRPO group's
+  forks share the prompt's full pages; finished transcripts' full pages stay
+  in an LRU prefix cache, and a later prompt that extends one prefills only
+  its tail (``forward_extend``).
 
 - In-flight weight updates never pause decoding: ``update_params`` swaps the
   parameter dict between windows; requests in flight continue on the new
@@ -32,8 +41,16 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..models.transformer import ModelConfig, decode_step_staged, forward, lm_head_logits
+from ..models.transformer import (
+    ModelConfig,
+    decode_step_staged,
+    forward,
+    forward_extend,
+    lm_head_logits,
+)
+from ..ops.paged_attention import gather_pages, paged_append, paged_decode_attention
 from ..ops.sampling import sample_fast, sample_masked
+from .block_pool import BlockPool, PrefixCache
 
 logger = logging.getLogger(__name__)
 
@@ -60,6 +77,17 @@ class EngineConfig:
     decode_attn_impl: str = "auto"
     # same-bucket admissions prefill together, in batches of 8/4/2/1 up to this
     max_prefill_batch: int = 8
+    # KV layout: "slab" reserves a contiguous [max_len] cache per slot;
+    # "paged" allocates kv_block_size-token pages from a shared pool, so the
+    # device holds only tokens that exist. "auto" resolves to slab.
+    kv_layout: str = "auto"
+    kv_block_size: int = 128  # tokens per page
+    # paged layout: keep finished transcripts' full pages in an LRU cache and
+    # prefill only the tail of a prompt that extends one. No effect on slab
+    # (slab prefix parking is not ported yet).
+    prefix_cache: bool = True
+    # pool size in pages; None sizes it to slab parity, S * ceil(T_alloc / BT)
+    kv_pool_blocks: int | None = None
 
 
 @dataclass
@@ -164,8 +192,27 @@ class InferenceEngine:
         # position max_len - 1; the tail is speculative scratch)
         self.T_alloc = T + max(1, cfg.decode_window)
         dev = self.device
-        self.k_cache = torch.zeros((L, S, self.T_alloc, K, Dh), dtype=cfg.cache_dtype, device=dev)
-        self.v_cache = torch.zeros_like(self.k_cache)
+        if cfg.kv_layout not in ("auto", "slab", "paged"):
+            raise ValueError(f"unknown kv_layout {cfg.kv_layout!r}")
+        self.paged = cfg.kv_layout == "paged"
+        self.prefix_cache: PrefixCache | None = None
+        if self.paged:
+            BT = cfg.kv_block_size
+            max_blocks = -(-self.T_alloc // BT)
+            self.block_pool = BlockPool(
+                n_blocks=cfg.kv_pool_blocks or S * max_blocks, block_size=BT,
+                max_blocks_per_slot=max_blocks, n_slots=S,
+            )
+            NB = self.block_pool.n_blocks
+            self.k_pool = torch.zeros((L, NB, BT, K, Dh), dtype=cfg.cache_dtype, device=dev)
+            self.v_pool = torch.zeros_like(self.k_pool)
+            # tokens reserved per slot at admission (its pages' capacity)
+            self._slot_capacity = np.zeros(S, np.int64)
+            if cfg.prefix_cache:
+                self.prefix_cache = PrefixCache(self.block_pool)
+        else:
+            self.k_cache = torch.zeros((L, S, self.T_alloc, K, Dh), dtype=cfg.cache_dtype, device=dev)
+            self.v_cache = torch.zeros_like(self.k_cache)
         self.cache_lens = torch.zeros(S, dtype=torch.int32, device=dev)
         # per-slot (first sampled token, bitcast logprob) written by prefill
         # on the device, read back as row 0 of the next packed window
@@ -192,6 +239,7 @@ class InferenceEngine:
         self.total_prefill_tokens = 0
         self.prefill_reused_tokens = 0  # prompt tokens served by KV fork
         self.prefill_batches = 0
+        self.prefill_extend_batches = 0  # of them, tails against cached prefixes
         self.decode_steps = 0
         self.speculative_wasted_tokens = 0
         self.windows_dispatched = 0
@@ -288,7 +336,22 @@ class InferenceEngine:
             "num_active": self.num_active,
             "num_pending": self.num_pending,
             "num_retiring": len(self._retiring),
+            **(self._paged_counters() if self.paged else {}),
         }
+
+    def _paged_counters(self) -> dict:
+        out = {
+            "kv_pages_free": self.block_pool.free_blocks,
+            "kv_pages_total": self.block_pool.n_blocks,
+            "prefill_extend_batches": self.prefill_extend_batches,
+        }
+        if self.prefix_cache is not None:
+            out.update(
+                prefix_cache_hits=self.prefix_cache.hits,
+                prefix_cache_reused_tokens=self.prefix_cache.reused_tokens,
+                prefix_cache_pages=self.prefix_cache.pages_held,
+            )
+        return out
 
     # ------------------------------------------------------------------
     # engine loop
@@ -361,11 +424,75 @@ class InferenceEngine:
                 continue
             self._slots[i] = None
             self._retiring[(i, s.gen)] = s
+            if self.paged:
+                # registers the committed tokens only, a true prefix of the
+                # final transcript: in-flight windows write past it
+                self._release_pages(i, s)
+
+    def _release_pages(self, slot: int, state: _Slot) -> None:
+        """Register the slot's transcript in the prefix cache, then drop its
+        pages. Safe while windows are in flight: they hold the table as it
+        was at dispatch, and every write to a page reallocated from here is
+        queued on the engine's one stream after theirs.
+
+        The final sampled token is left out, as the JAX slab engine's parked
+        transcripts leave it out: no step may have fed it yet, so its K/V
+        row can be unwritten (the JAX paged engine registers it; ROADMAP
+        Queue 3)."""
+        if self.prefix_cache is not None and state.token_ids:
+            self.prefix_cache.register(
+                state.request.prompt_ids + state.token_ids[:-1], self.block_pool.table[slot]
+            )
+        self.block_pool.release(slot)
+        self._slot_capacity[slot] = 0
+
+    def _reserve_tokens(self, request: GenRequest) -> int:
+        """Tokens reserved at admission: the prompt, the request's own budget
+        and one window of speculative overshoot."""
+        n = len(request.prompt_ids)
+        max_new = min(request.params.max_tokens, self.cfg.max_len - n)
+        return min(n + max_new + max(1, self.cfg.decode_window), self.T_alloc)
+
+    def _fit_pool(self, pairs: list[tuple]) -> list[tuple]:
+        """FIFO fit check against the page pool: keep the longest prefix of
+        ``pairs`` whose reservations fit (forks counted like primaries),
+        evicting prefix-cache pages before giving up, and requeue the rest in
+        order. Admission never runs out of pages mid-flight."""
+        budget = self.block_pool.free_blocks
+        fit = 0
+        for request, _ in pairs:
+            need = self.block_pool.blocks_for(self._reserve_tokens(request))
+            if need > budget and self.prefix_cache is not None:
+                before = self.block_pool.free_blocks
+                self.prefix_cache.evict_for(before + (need - budget))
+                budget += self.block_pool.free_blocks - before
+            if need > budget:
+                break
+            budget -= need
+            fit += 1
+        if fit < len(pairs):
+            with self._queue_lock:
+                self._queue.extendleft(reversed(pairs[fit:]))
+        return pairs[:fit]
+
+    def _batches(self, group: list) -> list[list]:
+        """``group`` cut into consecutive batches of 8/4/2/1."""
+        out, pos = [], 0
+        while pos < len(group):
+            batch = next(
+                b for b in (8, 4, 2, 1)
+                if b == 1 or (b <= self.cfg.max_prefill_batch and pos + b <= len(group))
+            )
+            out.append(group[pos : pos + batch])
+            pos += batch
+        return out
 
     def _admit(self) -> bool:
         """Admit queued requests into free slots. Identical prompts (the
         attempts of a GRPO group) prefill once and fork the KV to their
-        siblings; the rest prefill together per bucket in batches of
+        siblings; prompts that extend a cached transcript (paged layout)
+        prefill only their tails, batched by (tail bucket, prefix-page
+        bucket); the rest prefill together per bucket in batches of
         8/4/2/1."""
         free_slots = [i for i, s in enumerate(self._slots) if s is None]
         if not free_slots:
@@ -373,27 +500,35 @@ class InferenceEngine:
         with self._queue_lock:
             take = min(len(free_slots), len(self._queue))
             pairs = [self._queue.popleft() for _ in range(take)]
+        if self.paged:
+            pairs = self._fit_pool(pairs)
         if not pairs:
             return False
         clusters: dict[tuple, list[tuple]] = {}
         for pair in pairs:
             clusters.setdefault(tuple(pair[0].prompt_ids), []).append(pair)
         by_bucket: dict[int, list] = {}
+        extends: dict[tuple[int, int], list] = {}
         for members in clusters.values():
             request, future = members[0]
-            bucket = next(b for b in self.buckets if b >= len(request.prompt_ids))
+            n = len(request.prompt_ids)
             entry = [free_slots.pop(0), request, future, members[1:],
                      [free_slots.pop(0) for _ in members[1:]]]
-            by_bucket.setdefault(bucket, []).append(entry)
+            hit = None if self.prefix_cache is None else self.prefix_cache.lookup(request.prompt_ids)
+            if hit is None:
+                bucket = next(b for b in self.buckets if b >= n)
+                by_bucket.setdefault(bucket, []).append(entry)
+            else:
+                pages, n_prefix = hit
+                tail_bucket = next(b for b in self.buckets if b >= n - n_prefix)
+                page_bucket = 1 << (len(pages) - 1).bit_length()
+                extends.setdefault((tail_bucket, page_bucket), []).append((entry, pages, n_prefix))
+        for (tail_bucket, page_bucket), group in extends.items():
+            for batch in self._batches(group):
+                self._prefill_extend(tail_bucket, page_bucket, batch)
         for bucket, group in by_bucket.items():
-            pos = 0
-            while pos < len(group):
-                batch = next(
-                    b for b in (8, 4, 2, 1)
-                    if b == 1 or (b <= self.cfg.max_prefill_batch and pos + b <= len(group))
-                )
-                self._prefill_batch(bucket, group[pos : pos + batch])
-                pos += batch
+            for batch in self._batches(group):
+                self._prefill_batch(bucket, batch)
         return True
 
     def _new_slot(self, slot: int, request: GenRequest, future: Future) -> None:
@@ -424,16 +559,75 @@ class InferenceEngine:
             padded[b, :n] = request.prompt_ids
             lengths[b] = n
         slots = [row[0] for row in group]
-        last_logits = _prefill_fn(
-            self.params, self.model_cfg, self.attn_impl, self.k_cache, self.v_cache,
-            self.cache_lens, torch.from_numpy(padded).to(self.device),
-            torch.from_numpy(lengths).to(self.device),
-            torch.tensor(slots, dtype=torch.int64, device=self.device),
-        )
+        dev = self.device
+        ids = torch.from_numpy(padded).to(dev)
+        lens = torch.from_numpy(lengths).to(dev)
+        slots_t = torch.tensor(slots, dtype=torch.int64, device=dev)
+        if self.paged:
+            # every page the request can touch, reserved up front
+            # (_fit_pool made sure they are free)
+            for slot, request, _, _, _ in group:
+                reserve = self._reserve_tokens(request)
+                self.block_pool.allocate(slot, reserve)
+                self._slot_capacity[slot] = reserve
+            table_rows = torch.from_numpy(self.block_pool.table[slots]).to(dev)
+            last_logits = _prefill_paged_fn(
+                self.params, self.model_cfg, self.attn_impl, self.k_pool, self.v_pool,
+                self.cache_lens, ids, lens, slots_t, table_rows,
+            )
+        else:
+            last_logits = _prefill_fn(
+                self.params, self.model_cfg, self.attn_impl, self.k_cache, self.v_cache,
+                self.cache_lens, ids, lens, slots_t,
+            )
         self.prefill_batches += 1
         self._sample_first_tokens(last_logits, slots, [row[1] for row in group])
         for b, (slot, request, future, siblings, sibling_slots) in enumerate(group):
             self.total_prefill_tokens += len(request.prompt_ids)
+            self._new_slot(slot, request, future)
+            if siblings:
+                self._fork_slots(slot, last_logits[b], siblings, sibling_slots)
+
+    def _prefill_extend(self, tail_bucket: int, page_bucket: int, group: list[tuple]) -> None:
+        """Admit clusters whose prompts extend cached transcripts, in one
+        batch: attach each prefix's pages (refcount + 1), reserve the rest,
+        and prefill only the tails against the gathered prefix K/V. Identical
+        siblings fork off their primary afterwards. ``group`` rows are
+        (entry, prefix pages, prefix tokens)."""
+        B = len(group)
+        tails = np.zeros((B, tail_bucket), np.int64)
+        tail_lens = np.zeros(B, np.int64)
+        prefix_lens = np.zeros(B, np.int64)
+        prefix_pages = np.zeros((B, page_bucket), np.int64)
+        slots = []
+        for i, (entry, pages, n_prefix) in enumerate(group):
+            slot, request = entry[0], entry[1]
+            tail = request.prompt_ids[n_prefix:]
+            self.block_pool.attach(slot, pages)
+            reserve = self._reserve_tokens(request)
+            self.block_pool.extend(slot, reserve)
+            self._slot_capacity[slot] = reserve
+            tails[i, : len(tail)] = tail
+            tail_lens[i] = len(tail)
+            prefix_lens[i] = n_prefix
+            # pad entries repeat a real page; prefix_lens masks them
+            prefix_pages[i] = pages[-1]
+            prefix_pages[i, : len(pages)] = pages
+            slots.append(slot)
+        dev = self.device
+        last_logits = _prefill_extend_fn(
+            self.params, self.model_cfg, self.attn_impl, self.k_pool, self.v_pool,
+            self.cache_lens, torch.from_numpy(tails).to(dev), torch.from_numpy(tail_lens).to(dev),
+            torch.from_numpy(prefix_lens).to(dev), torch.tensor(slots, dtype=torch.int64, device=dev),
+            torch.from_numpy(prefix_pages).to(dev),
+            torch.from_numpy(self.block_pool.table[slots]).to(dev),
+        )
+        self.prefill_batches += 1
+        self.prefill_extend_batches += 1
+        self._sample_first_tokens(last_logits, slots, [entry[1] for entry, _, _ in group])
+        for b, ((slot, request, future, siblings, sibling_slots), _, n_prefix) in enumerate(group):
+            self.total_prefill_tokens += int(tail_lens[b])
+            self.prefill_reused_tokens += n_prefix
             self._new_slot(slot, request, future)
             if siblings:
                 self._fork_slots(slot, last_logits[b], siblings, sibling_slots)
@@ -455,10 +649,27 @@ class InferenceEngine:
         siblings: list[tuple[GenRequest, Future]],
         dst_slots: list[int],
     ) -> None:
-        """Populate ``dst_slots`` from ``src_slot``'s fresh prefill: one KV
-        row copy each plus an independent first-token sample, no second
-        prefill of the shared prompt."""
-        _fork_fn(self.k_cache, self.v_cache, self.cache_lens, src_slot, dst_slots)
+        """Populate ``dst_slots`` from ``src_slot``'s fresh prefill with an
+        independent first-token sample each, and no second prefill of the
+        shared prompt. Slab: one KV row copy each. Paged: the prompt's full
+        pages are shared by refcount and only a partial tail page is copied;
+        each sibling reserves its own decode pages (_fit_pool counted them)."""
+        if self.paged:
+            n_prompt = len(siblings[0][0].prompt_ids)
+            tail_pages = []
+            for (request, _), dst in zip(siblings, dst_slots):
+                tail, _ = self.block_pool.fork(src_slot, dst, n_prompt)
+                reserve = self._reserve_tokens(request)
+                self.block_pool.extend(dst, reserve)
+                self._slot_capacity[dst] = reserve
+                tail_pages.extend(int(p) for p in tail)
+            if tail_pages:
+                src_tail = int(self.block_pool.table[src_slot, n_prompt // self.cfg.kv_block_size])
+                _copy_pages_fn(self.k_pool, self.v_pool, src_tail, tail_pages)
+        else:
+            _fork_fn(self.k_cache, self.v_cache, src_slot, dst_slots)
+        idx = torch.tensor(dst_slots, dtype=torch.int64, device=self.device)
+        self.cache_lens[idx] = self.cache_lens[src_slot].clone()
         F = len(dst_slots)
         self._sample_first_tokens(
             logits_row[None].expand(F, -1), dst_slots, [r for r, _ in siblings]
@@ -492,6 +703,8 @@ class InferenceEngine:
     def _finish_slot(self, slot: int, finish: str) -> None:
         state = self._slots[slot]
         self._slots[slot] = None
+        if self.paged:
+            self._release_pages(slot, state)
         self._resolve(state, finish)
 
     def _resolve(self, state: _Slot, finish: str) -> None:
@@ -561,12 +774,30 @@ class InferenceEngine:
             top_k = torch.tensor([p.top_k for p in params], dtype=torch.int64).to(dev)
         pending_mask = np.zeros(S, np.bool_)
         pending_mask[fresh] = True
-        packed, self._device_tokens = _decode_window_fn(
-            self.params, self.model_cfg, self.decode_attn_impl, window, self.cfg.max_len,
-            self.k_cache, self.v_cache, self.cache_lens, self._device_tokens,
-            torch.from_numpy(active).to(dev), torch.from_numpy(pending_mask).to(dev),
-            self.first_info, self._generator, temperature, top_p, top_k,
+        window_args = (
+            self.cache_lens, self._device_tokens, torch.from_numpy(active).to(dev),
+            torch.from_numpy(pending_mask).to(dev), self.first_info, self._generator,
+            temperature, top_p, top_k,
         )
+        if self.paged:
+            # the table snapshot, sliced to the power-of-two bucket of the
+            # most pages any active slot holds: attention and the "xla"
+            # route's gather view cover the active working set, not MAXB.
+            # Copied before the transfer: the live table changes on release
+            # while this window is still queued.
+            most = max(1, int(self.block_pool.slot_blocks[active].max()))
+            width = min(1 << (most - 1).bit_length(), self.block_pool.max_blocks_per_slot)
+            table = torch.from_numpy(self.block_pool.table[:, :width].copy()).to(dev)
+            capacity = torch.from_numpy(self._slot_capacity.astype(np.int32)).to(dev)
+            packed, self._device_tokens = _decode_window_paged_fn(
+                self.params, self.model_cfg, self.decode_attn_impl, window,
+                self.k_pool, self.v_pool, table, capacity, *window_args,
+            )
+        else:
+            packed, self._device_tokens = _decode_window_fn(
+                self.params, self.model_cfg, self.decode_attn_impl, window, self.cfg.max_len,
+                self.k_cache, self.v_cache, *window_args,
+            )
         self.windows_dispatched += 1
         self.window_slots_dispatched += int(active.sum())
         self.window_size_counts[window] = self.window_size_counts.get(window, 0) + 1
@@ -661,6 +892,57 @@ def _merge_staged(
     cache[:, s_idx, t_idx] = staged.permute(0, 2, 1, 3, 4)
 
 
+def _decode_steps(
+    params: dict,
+    model_cfg: ModelConfig,
+    attn_impl,
+    n_steps: int,
+    cache_k: torch.Tensor,  # [L, S, T, K, Dh] frozen cache, or [L, NB, BT, K, Dh] pool
+    cache_v: torch.Tensor,
+    base_lens: torch.Tensor,  # [S]
+    max_position: int,
+    tokens: torch.Tensor,  # [S] — the tokens to feed at step 0
+    active: torch.Tensor,  # [S] bool
+    generator: torch.Generator,
+    temperature: torch.Tensor,  # [S]
+    top_p: torch.Tensor | None,  # [S]; None: no top-p/top-k in this window
+    top_k: torch.Tensor | None,
+):
+    """``n_steps`` decode steps with no host read: each sampled token feeds
+    the next step on the device, and new K/V go to a [L, W, S, K, Dh] band.
+    Returns (k_staged, v_staged, tokens [N, S], logprobs [N, S], carry)."""
+    L, S = cache_k.shape[0], tokens.shape[0]
+    K, Dh = model_cfg.num_kv_heads, model_cfg.head_dim_
+    k_staged = torch.zeros((L, n_steps, S, K, Dh), dtype=cache_k.dtype, device=cache_k.device)
+    v_staged = torch.zeros_like(k_staged)
+    win_tokens, win_logprobs = [], []
+    for step in range(n_steps):
+        positions = (base_lens + step).clamp(max=max_position)
+        logits, k_new, v_new = decode_step_staged(
+            params, model_cfg, tokens, positions, cache_k, cache_v,
+            base_lens, k_staged, v_staged, step, attn_impl=attn_impl,
+        )
+        k_staged[:, step] = k_new
+        v_staged[:, step] = v_new
+        if top_p is not None:
+            new_tokens, logprobs = sample_masked(logits, generator, temperature, top_p, top_k)
+        else:
+            new_tokens, logprobs = sample_fast(logits, generator, temperature)
+        tokens = torch.where(active, new_tokens, tokens)
+        win_tokens.append(tokens)
+        win_logprobs.append(logprobs)
+    return k_staged, v_staged, torch.stack(win_tokens), torch.stack(win_logprobs), tokens
+
+
+def _pack_window(first_info: torch.Tensor, win_tokens: torch.Tensor, win_logprobs: torch.Tensor):
+    """The int32 [2, N+1, S] window output: row 0 the prefill first-token
+    info, rows 1..N the window's tokens and bitcast fp32 logprobs."""
+    lp_bits = win_logprobs.float().view(torch.int32)
+    tok_rows = torch.cat([first_info[None, :, 0], win_tokens.to(torch.int32)])
+    lp_rows = torch.cat([first_info[None, :, 1], lp_bits])
+    return torch.stack([tok_rows, lp_rows])
+
+
 def _decode_window_fn(
     params: dict,
     model_cfg: ModelConfig,
@@ -679,38 +961,91 @@ def _decode_window_fn(
     top_p: torch.Tensor | None,  # [S]; None: no top-p/top-k in this window
     top_k: torch.Tensor | None,
 ):
-    """``n_steps`` decode steps with no host read: each sampled token feeds
-    the next step on the device. New K/V go to a [L, W, S, K, Dh] band that
-    merges into the cache once at window end. Returns the packed int32
-    [2, N+1, S] window output and the new token carry."""
-    L, S, T_alloc, K, Dh = k_cache.shape
+    """A slab decode window: ``_decode_steps`` over the frozen cache, then
+    the band merges into the cache once. Returns the packed window output
+    and the new token carry."""
+    T_alloc = k_cache.shape[2]
     tokens = torch.where(pending_mask, first_info[:, 0].to(torch.int64), tokens)
     base_lens = cache_lens.clone()  # frozen for the whole window
-    k_staged = torch.zeros((L, n_steps, S, K, Dh), dtype=k_cache.dtype, device=k_cache.device)
-    v_staged = torch.zeros_like(k_staged)
-    win_tokens, win_logprobs = [], []
-    for step in range(n_steps):
-        positions = (base_lens + step).clamp(max=T_alloc - 1)
-        logits, k_new, v_new = decode_step_staged(
-            params, model_cfg, tokens, positions, k_cache, v_cache,
-            base_lens, k_staged, v_staged, step, attn_impl=attn_impl,
-        )
-        k_staged[:, step] = k_new
-        v_staged[:, step] = v_new
-        if top_p is not None:
-            new_tokens, logprobs = sample_masked(logits, generator, temperature, top_p, top_k)
-        else:
-            new_tokens, logprobs = sample_fast(logits, generator, temperature)
-        tokens = torch.where(active, new_tokens, tokens)
-        win_tokens.append(tokens)
-        win_logprobs.append(logprobs)
+    k_staged, v_staged, win_tokens, win_logprobs, tokens = _decode_steps(
+        params, model_cfg, attn_impl, n_steps, k_cache, v_cache, base_lens, T_alloc - 1,
+        tokens, active, generator, temperature, top_p, top_k,
+    )
     _merge_staged(k_cache, k_staged, base_lens)
     _merge_staged(v_cache, v_staged, base_lens)
     cache_lens.copy_(torch.where(active, (base_lens + n_steps).clamp(max=capacity - 1), base_lens))
-    lp_bits = torch.stack(win_logprobs).float().view(torch.int32)
-    tok_rows = torch.cat([first_info[None, :, 0], torch.stack(win_tokens).to(torch.int32)])
-    lp_rows = torch.cat([first_info[None, :, 1], lp_bits])
-    return torch.stack([tok_rows, lp_rows]), tokens
+    return _pack_window(first_info, win_tokens, win_logprobs), tokens
+
+
+def _decode_window_paged_fn(
+    params: dict,
+    model_cfg: ModelConfig,
+    attn_impl: str,  # "xla" | "ragged"
+    n_steps: int,
+    k_pool: torch.Tensor,  # [L, NB, BT, K, Dh], updated in place
+    v_pool: torch.Tensor,
+    block_table: torch.Tensor,  # [S, MAXB] int32 — host snapshot at dispatch
+    capacity: torch.Tensor,  # [S] int32 — tokens reserved per slot
+    cache_lens: torch.Tensor,  # [S] int32, updated in place
+    tokens: torch.Tensor,
+    active: torch.Tensor,
+    pending_mask: torch.Tensor,
+    first_info: torch.Tensor,
+    generator: torch.Generator,
+    temperature: torch.Tensor,
+    top_p: torch.Tensor | None,
+    top_k: torch.Tensor | None,
+):
+    """A paged decode window. "ragged" runs kernel #5 through the table at
+    every step; "xla" gathers each slot's pages once per window into a
+    contiguous view (the pool is frozen for the window, so the gather is
+    loop-invariant) and runs the plain staged attention over it. The band
+    then appends through the table; inactive slots append nothing, since
+    their table rows may already be released. Lengths clamp at each slot's
+    reserved capacity - 1."""
+    BT = k_pool.shape[2]
+    MAXB = block_table.shape[1]
+    tokens = torch.where(pending_mask, first_info[:, 0].to(torch.int64), tokens)
+    base_lens = cache_lens.clone()
+    if attn_impl == "ragged":
+
+        def attn(q, k, v, kc, vc, lens, ks, vs, step):
+            return paged_decode_attention(q, k, v, kc, vc, block_table, lens, ks, vs, step)
+
+        cache_k, cache_v = k_pool, v_pool
+    elif attn_impl == "xla":
+        attn = "xla"
+        cache_k, cache_v = gather_pages(k_pool, block_table), gather_pages(v_pool, block_table)
+    else:
+        raise ValueError(f"unknown attention implementation {attn_impl!r}")
+    k_staged, v_staged, win_tokens, win_logprobs, tokens = _decode_steps(
+        params, model_cfg, attn, n_steps, cache_k, cache_v, base_lens, MAXB * BT - 1,
+        tokens, active, generator, temperature, top_p, top_k,
+    )
+    count = torch.where(active, n_steps, 0)
+    paged_append(k_pool, k_staged.transpose(1, 2), block_table, base_lens, count)
+    paged_append(v_pool, v_staged.transpose(1, 2), block_table, base_lens, count)
+    cache_lens.copy_(torch.where(active, torch.minimum(base_lens + n_steps, capacity - 1), base_lens))
+    return _pack_window(first_info, win_tokens, win_logprobs), tokens
+
+
+def _prefill_forward(params, model_cfg, attn_impl, input_ids, lengths):
+    """Forward over B padded prompts. Returns (fp32 logits [B, V] of each
+    row's last prompt token, k [L, B, P, K, Dh], v): the lm_head runs at one
+    position per row, not over the whole bucket."""
+    B, P = input_ids.shape
+    positions = torch.arange(P, device=input_ids.device)[None, :].expand(B, P)
+    segments = torch.zeros((B, P), dtype=torch.int32, device=input_ids.device)
+    normed, (k_new, v_new) = forward(
+        params, model_cfg, input_ids, positions, segments, return_kv=True,
+        attn_impl=attn_impl, skip_unembed=True,
+    )
+    return _last_logits(params, model_cfg, normed, lengths), k_new, v_new
+
+
+def _last_logits(params, model_cfg, normed, lengths):
+    last = normed[torch.arange(normed.shape[0], device=normed.device), lengths - 1]  # [B, D]
+    return lm_head_logits(params, model_cfg, last)
 
 
 def _prefill_fn(
@@ -725,31 +1060,86 @@ def _prefill_fn(
     slots: torch.Tensor,  # [B]
 ) -> torch.Tensor:
     """Prefill B padded prompts into their slots' cache prefixes. Returns the
-    fp32 logits [B, V] of each row's last prompt token: the lm_head runs at
-    one position per row, not over the whole bucket."""
-    B, P = input_ids.shape
-    positions = torch.arange(P, device=input_ids.device)[None, :].expand(B, P)
-    segments = torch.zeros((B, P), dtype=torch.int32, device=input_ids.device)
-    normed, (k_new, v_new) = forward(
-        params, model_cfg, input_ids, positions, segments, return_kv=True,
-        attn_impl=attn_impl, skip_unembed=True,
-    )
+    fp32 logits [B, V] of each row's last prompt token."""
+    last_logits, k_new, v_new = _prefill_forward(params, model_cfg, attn_impl, input_ids, lengths)
+    P = input_ids.shape[1]
     k_cache[:, slots, :P] = k_new.to(k_cache.dtype)
     v_cache[:, slots, :P] = v_new.to(v_cache.dtype)
     cache_lens[slots] = lengths.to(torch.int32)
-    last = normed[torch.arange(B, device=normed.device), lengths - 1]  # [B, D]
-    return lm_head_logits(params, model_cfg, last)
+    return last_logits
+
+
+def _prefill_paged_fn(
+    params: dict,
+    model_cfg: ModelConfig,
+    attn_impl: str,
+    k_pool: torch.Tensor,  # [L, NB, BT, K, Dh], updated in place
+    v_pool: torch.Tensor,
+    cache_lens: torch.Tensor,  # [S], updated in place
+    input_ids: torch.Tensor,  # [B, P]
+    lengths: torch.Tensor,  # [B]
+    slots: torch.Tensor,  # [B]
+    table_rows: torch.Tensor,  # [B, MAXB] — the rows' freshly allocated pages
+) -> torch.Tensor:
+    """Paged prefill: the forward of ``_prefill_fn``, then each row's prompt
+    K/V appended into its pages (pad rows dropped by ``count``)."""
+    last_logits, k_new, v_new = _prefill_forward(params, model_cfg, attn_impl, input_ids, lengths)
+    zero = torch.zeros_like(lengths)
+    paged_append(k_pool, k_new, table_rows, zero, lengths)
+    paged_append(v_pool, v_new, table_rows, zero, lengths)
+    cache_lens[slots] = lengths.to(torch.int32)
+    return last_logits
+
+
+def _prefill_extend_fn(
+    params: dict,
+    model_cfg: ModelConfig,
+    attn_impl: str,
+    k_pool: torch.Tensor,  # [L, NB, BT, K, Dh], updated in place
+    v_pool: torch.Tensor,
+    cache_lens: torch.Tensor,  # [S], updated in place
+    tail_ids: torch.Tensor,  # [B, Tb] — prompt tokens past the cached prefixes
+    tail_lens: torch.Tensor,  # [B]
+    prefix_lens: torch.Tensor,  # [B] — tokens covered by each row's prefix pages
+    slots: torch.Tensor,  # [B]
+    prefix_pages: torch.Tensor,  # [B, n_pages] physical page ids (pad = repeat)
+    table_rows: torch.Tensor,  # [B, MAXB] — each slot's full table (for the append)
+) -> torch.Tensor:
+    """Prefill of B tails against their cached prefix pages: gather the
+    prefixes, run ``forward_extend`` over [prefix | tail], append the tail
+    K/V at ``prefix_lens``. Returns the fp32 last-token logits [B, V]."""
+    k_pre, v_pre = gather_pages(k_pool, prefix_pages), gather_pages(v_pool, prefix_pages)
+    positions = prefix_lens[:, None] + torch.arange(tail_ids.shape[1], device=tail_ids.device)[None, :]
+    normed, (k_new, v_new) = forward_extend(
+        params, model_cfg, tail_ids, positions, k_pre, v_pre, prefix_lens,
+        attn_impl=attn_impl, skip_unembed=True,
+    )
+    paged_append(k_pool, k_new, table_rows, prefix_lens, tail_lens)
+    paged_append(v_pool, v_new, table_rows, prefix_lens, tail_lens)
+    cache_lens[slots] = (prefix_lens + tail_lens).to(torch.int32)
+    return _last_logits(params, model_cfg, normed, tail_lens)
 
 
 def _fork_fn(
     k_cache: torch.Tensor,  # [L, S, T_alloc, K, Dh], updated in place
     v_cache: torch.Tensor,
-    cache_lens: torch.Tensor,  # [S], updated in place
     src: int,
     dsts: list[int],
 ) -> None:
-    """Clone a freshly prefilled slot's KV rows and length into ``dsts``."""
+    """Clone a freshly prefilled slot's KV rows into ``dsts``."""
     idx = torch.tensor(dsts, dtype=torch.int64, device=k_cache.device)
     k_cache[:, idx] = k_cache[:, src : src + 1]
     v_cache[:, idx] = v_cache[:, src : src + 1]
-    cache_lens[idx] = cache_lens[src].clone()
+
+
+def _copy_pages_fn(
+    k_pool: torch.Tensor,  # [L, NB, BT, K, Dh], updated in place
+    v_pool: torch.Tensor,
+    src: int,
+    dsts: list[int],
+) -> None:
+    """Copy one page to each of ``dsts`` (a fork's partial tail page; full
+    pages are shared by refcount)."""
+    idx = torch.tensor(dsts, dtype=torch.int64, device=k_pool.device)
+    k_pool[:, idx] = k_pool[:, src : src + 1]
+    v_pool[:, idx] = v_pool[:, src : src + 1]

@@ -74,8 +74,6 @@ def build_engine(cfg: Config, params: dict, model_cfg: ModelConfig, tokenizer, d
     for key in ("tp", "pp"):
         if int(ecfg.get(key, 1)) != 1:
             raise NotImplementedError(f"engine.{key} > 1 is not ported yet (ROADMAP Queue 1, item 8)")
-    if str(ecfg.get("kv_layout", "auto")) not in ("auto", "slab"):
-        raise NotImplementedError("the paged KV layout is not ported yet (ROADMAP Queue 1, item 1)")
     return InferenceEngine(
         params,
         model_cfg,
@@ -91,6 +89,10 @@ def build_engine(cfg: Config, params: dict, model_cfg: ModelConfig, tokenizer, d
             attn_impl=str(ecfg.get("attn_impl", "xla")),
             decode_attn_impl=str(ecfg.get("decode_attn_impl", "auto")),
             max_prefill_batch=int(ecfg.get("max_prefill_batch", 8)),
+            kv_layout=str(ecfg.get("kv_layout", "auto")),
+            kv_block_size=int(ecfg.get("kv_block_size", 128)),
+            kv_pool_blocks=int(ecfg.kv_pool_blocks) if ecfg.get("kv_pool_blocks") else None,
+            prefix_cache=bool(ecfg.get("prefix_cache", True)),
         ),
         eos_token_id=tokenizer.eos_token_id,
         device=device,

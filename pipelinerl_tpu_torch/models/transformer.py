@@ -15,6 +15,8 @@ takes the place of ``lax.scan``.
 - Decode is staged: ``decode_step_staged`` attends over a frozen cache plus
   this window's staged band plus the token itself, and returns the new K/V
   for the caller to stage.
+- Prefix reuse: ``forward_extend`` runs only a tail's layers against cached
+  prefix K/V.
 """
 
 from __future__ import annotations
@@ -291,6 +293,68 @@ def forward(
 # ---------------------------------------------------------------------------
 
 
+def extend_segments(prefix_len: torch.Tensor, Pfx: int, Lt: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Segment ids of a tail prefill against a padded prefix: (q_seg [B, Lt],
+    kv_seg [B, Pfx + Lt]), int32. The tail is segment 0; prefix keys at
+    index >= ``prefix_len`` (the pad) are segment 1, so the valid prefix and
+    the tail form one segment with the pad between them."""
+    dev = prefix_len.device
+    q_seg = torch.zeros((prefix_len.shape[0], Lt), dtype=torch.int32, device=dev)
+    pre_seg = (torch.arange(Pfx, device=dev)[None, :] >= prefix_len[:, None]).to(torch.int32)
+    return q_seg, torch.cat([pre_seg, q_seg], 1)
+
+
+def forward_extend(
+    params: dict,
+    cfg: ModelConfig,
+    input_ids: torch.Tensor,  # [B, Lt] — tail tokens (padded bucket)
+    position_ids: torch.Tensor,  # [B, Lt] — absolute positions (prefix_len + i)
+    k_prefix: torch.Tensor,  # [L, B, Pfx, K, Dh] — cached prefix K (rope applied)
+    v_prefix: torch.Tensor,
+    prefix_len: torch.Tensor,  # [B] — valid prefix tokens (the rest of Pfx is pad)
+    attn_impl: str = "xla",  # "xla" (plain torch) | "gqa" (CUDA kernel)
+    skip_unembed: bool = False,
+):
+    """Prefill of a tail against a cached prefix: only the tail's layers run,
+    attending over [prefix | tail]. Tail queries sit at global flat indices
+    Pfx.. (``q_offset = Pfx``), so every prefix key is visible and the tail
+    is causal; prefix pad keys (index >= prefix_len) are masked by a segment
+    mismatch (segment 1 against the tail's 0). Tail pad tokens sit after the
+    valid ones, causally invisible to them.
+
+    Returns (fp32 logits [B, Lt, V], or the final-norm'd hidden with
+    ``skip_unembed``; (k_tail, v_tail) [L, B, Lt, K, Dh])."""
+    if attn_impl == "gqa":
+        from ..ops.gqa_attention import mha_packed_gqa as attn_fn
+    elif attn_impl == "xla":
+        from ..ops.gqa_attention import mha_packed_gqa_plain as attn_fn
+    else:
+        raise ValueError(f"unknown attn_impl {attn_impl!r}")
+    B, Lt = input_ids.shape
+    Pfx = k_prefix.shape[2]
+    x = params["embed"][input_ids]
+    cos, sin = rope_cos_sin(position_ids, cfg.head_dim_, cfg.rope_theta)
+    q_seg, kv_seg = extend_segments(prefix_len.to(input_ids.device), Pfx, Lt)
+    ks, vs = [], []
+    for layer, k_pre, v_pre in zip(_unbind_layers(params), k_prefix, v_prefix):
+        normed = rms_norm(x, layer["ln1"], cfg.rms_norm_eps)
+        q, k, v = _project_qkv(layer, cfg, normed)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        k_all = torch.cat([k_pre.to(k.dtype), k], 1)
+        v_all = torch.cat([v_pre.to(v.dtype), v], 1)
+        attn = attn_fn(q, k_all, v_all, q_seg, kv_seg, Pfx)[0]
+        x = x + attn.reshape(B, Lt, cfg.q_dim) @ layer["wo"]
+        x = x + _mlp(layer, rms_norm(x, layer["ln2"], cfg.rms_norm_eps))
+        ks.append(k)
+        vs.append(v)
+    if skip_unembed:
+        out = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    else:
+        out = unembed(params, cfg, x)
+    return out, (torch.stack(ks), torch.stack(vs))
+
+
 def decode_step_staged(
     params: dict,
     cfg: ModelConfig,
@@ -302,12 +366,16 @@ def decode_step_staged(
     k_staged: torch.Tensor,  # [L, W, S, K, Dh] — this window's earlier tokens
     v_staged: torch.Tensor,
     step: int,  # index within the window; band rows < step are valid
-    attn_impl: str = "xla",  # "xla" (plain torch) | "ragged" (CUDA kernel)
+    attn_impl="xla",  # "xla" (plain torch) | "ragged" (CUDA kernel) | a callable
+    # with the signature of ops/attention.decode_attention_staged (the
+    # engine's paged layout closes a block table over it)
 ):
     """One decode step attending over frozen cache + staged band + self.
     Returns (fp32 logits [S, V], k_new [L, S, K, Dh], v_new [L, S, K, Dh]);
     the caller stages the new K/V and merges the band once per window."""
-    if attn_impl == "ragged":
+    if callable(attn_impl):
+        attn_fn = attn_impl
+    elif attn_impl == "ragged":
         from ..ops.decode_attention import decode_attention_staged_ragged as attn_fn
     elif attn_impl == "xla":
         attn_fn = decode_attention_staged

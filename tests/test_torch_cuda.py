@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain versions, on the card.
 
-Run on a machine with an NVIDIA Hopper GPU and nvcc:
+Run on a machine with an NVIDIA Hopper GPU and nvcc, from the repo's root
+(kernel #5's tables come from ``chip_smoke.scattered_table``, so that the
+tests and the smoke script check one table layout):
 
     python -m pytest -m cuda tests/test_torch_cuda.py
 
@@ -8,11 +10,15 @@ Whether there is a card is decided in a fixture, so every worker collects
 the same tests; without one they skip.
 """
 
+import numpy as np
 import pytest
 import torch
 
+from chip_smoke import scattered_table
+from pipelinerl_tpu_torch.models.transformer import extend_segments
 from pipelinerl_tpu_torch.ops import decode_attention as dattn
 from pipelinerl_tpu_torch.ops import gqa_attention as gattn
+from pipelinerl_tpu_torch.ops import paged_attention as pattn
 
 pytestmark = pytest.mark.cuda
 
@@ -75,6 +81,8 @@ def test_decode_kernel_reads_strided_layer_slices(cuda):
         (8, 128, 128, 14, 2, 64, 1),  # the prefill shape
         (1, 2048, 2048, 14, 2, 64, 8),  # a packed row
         (2, 96, 320, 8, 1, 128, 2),  # q_offset > 0, Lq < Lkv, Dh 128
+        (8, 256, 256, 14, 2, 64, 1),  # the paged engine's prefill buckets
+        (8, 512, 512, 14, 2, 64, 1),
     ],
 )
 def test_gqa_kernel_matches_plain(cuda, B, Lq, Lkv, H, K, Dh, n_segs):
@@ -87,6 +95,21 @@ def test_gqa_kernel_matches_plain(cuda, B, Lq, Lkv, H, K, Dh, n_segs):
     torch.cuda.synchronize()
     assert gattn.launches == before + 1
     ref_out, ref_lse = gattn.mha_packed_gqa_plain(q, k, v, q_seg, kv_seg, Lkv - Lq)
+    assert (out.float() - ref_out.float()).abs().max().item() <= GQA_OUT_ATOL
+    assert (lse - ref_lse).abs().max().item() <= GQA_LSE_ATOL
+
+
+@pytest.mark.parametrize("Lt,prefix_lens", [(128, [384] * 8), (256, [384, 128, 512, 256, 384, 384, 512, 256])])
+def test_gqa_kernel_matches_plain_on_extend_tails(cuda, Lt, prefix_lens):
+    """Tails at q_offset = Pfx against [padded prefix | tail] as
+    ``forward_extend`` lays them out: the prefix pad, segment 1, sits
+    between the valid prefix and the tail, both segment 0."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    B, Pfx, H, K, Dh = len(prefix_lens), 512, 14, 2, 64
+    q, k, v = _bf16(gen, B, Lt, H, Dh), _bf16(gen, B, Pfx + Lt, K, Dh), _bf16(gen, B, Pfx + Lt, K, Dh)
+    q_seg, kv_seg = extend_segments(torch.tensor(prefix_lens, device=cuda), Pfx, Lt)
+    out, lse = gattn.mha_packed_gqa(q, k, v, q_seg, kv_seg, Pfx)
+    ref_out, ref_lse = gattn.mha_packed_gqa_plain(q, k, v, q_seg, kv_seg, Pfx)
     assert (out.float() - ref_out.float()).abs().max().item() <= GQA_OUT_ATOL
     assert (lse - ref_lse).abs().max().item() <= GQA_LSE_ATOL
 
@@ -112,6 +135,8 @@ def _close(got, ref):
         (2, 100, 100, 6, 2, 64, 3),  # ragged edges, batch 2
         (1, 2048, 2048, 14, 2, 64, 8),  # a packed training row
         (2, 96, 320, 8, 1, 128, 2),  # q_offset > 0, Lq < Lkv, Dh 128
+        (8, 256, 256, 14, 2, 64, 1),  # the paged engine's prefill buckets
+        (8, 512, 512, 14, 2, 64, 1),
     ],
 )
 def test_gqa_backward_kernels_match_plain(cuda, B, Lq, Lkv, H, K, Dh, n_segs):
@@ -212,6 +237,98 @@ def test_fp32_engine_step_on_the_kernels(cuda):
         assert (lp.cpu() - torch.tensor(r.logprobs)).abs().max().item() <= 5e-2
 
 
+def _engine_lens(S, BT, MAXB, W, seed):
+    special = [0, 1, BT, BT + 1, MAXB * BT - W]
+    return special + [int(x) for x in np.random.default_rng(seed).integers(0, 6 * BT, S - len(special))]
+
+
+@pytest.mark.parametrize(
+    "S,H,K,Dh,BT,MAXB,NB,W,lens,step",
+    [
+        # the paged engine's shape (Qwen2.5-0.5B heads, 96 slots, BT 128)
+        (96, 14, 2, 64, 128, 33, 528, 32, _engine_lens(96, 128, 33, 32, 0), 0),
+        (96, 14, 2, 64, 128, 33, 528, 32, _engine_lens(96, 128, 33, 32, 0), 31),
+        # BT 16 < the 64-row tile: a tile spans four pages
+        (4, 6, 2, 64, 16, 5, 24, 4, [0, 17, 33, 80], 3),
+        # a stale length past MAXB * BT on a released (-1) table row
+        (4, 6, 2, 64, 16, 5, 24, 4, [87, 5, 0, 40], 2),
+        # the bandit_tpu engine with engine.kv_block_size=16 (H 4, K 2, 16 slots, W 8)
+        (16, 4, 2, 64, 16, 5, 80, 8, [0, 1, 16, 17, 72] + list(range(20, 64, 4)), 7),
+        # the prefix-cache engine (8 slots, W 16), its table sliced to 4 and 8 pages
+        (8, 14, 2, 64, 128, 4, 136, 16, [0, 1, 128, 129, 496, 407, 464, 300], 15),
+        (8, 14, 2, 64, 128, 8, 136, 16, [0, 1, 128, 129, 1008, 487, 544, 900], 15),
+    ],
+)
+def test_paged_kernel_matches_plain(cuda, S, H, K, Dh, BT, MAXB, NB, W, lens, step):
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    args = (_bf16(gen, S, H, Dh), _bf16(gen, S, K, Dh), _bf16(gen, S, K, Dh),
+            _bf16(gen, NB, BT, K, Dh), _bf16(gen, NB, BT, K, Dh),
+            scattered_table(S, BT, MAXB, NB, lens, 0).to(cuda), torch.tensor(lens, dtype=torch.int32, device=cuda),
+            _bf16(gen, W, S, K, Dh), _bf16(gen, W, S, K, Dh), step)
+    before = (pattn.launches, dattn.launches)
+    out = pattn.paged_decode_attention(*args)
+    torch.cuda.synchronize()
+    assert (pattn.launches, dattn.launches) == (before[0] + 1, before[1])
+    ref = pattn.paged_decode_attention_plain(*args)
+    assert (out.float() - ref.float()).abs().max().item() <= DECODE_ATOL
+
+
+def test_paged_kernel_reads_strided_layer_slices_and_fp32(cuda):
+    """The engine hands the kernel per-layer slices of [L, NB, BT, K, Dh] and
+    [L, W, S, K, Dh]; an fp32 engine's inputs are cast where JAX casts."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    L, S, H, K, Dh, BT, MAXB, NB, W = 3, 4, 4, 2, 32, 16, 5, 24, 4
+    lens = [3, 0, 79, 20]
+    table = scattered_table(S, BT, MAXB, NB, lens, 1).to(cuda)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    kp, vp = _bf16(gen, L, NB, BT, K, Dh), _bf16(gen, L, NB, BT, K, Dh)
+    ks, vs = _bf16(gen, L, W, S, K, Dh), _bf16(gen, L, W, S, K, Dh)
+    q, kn, vn = _bf16(gen, S, H, Dh), _bf16(gen, S, K, Dh), _bf16(gen, S, K, Dh)
+    for dtype in (torch.bfloat16, torch.float32):
+        args = [t.to(dtype) for t in (q, kn, vn, kp[1], vp[1])] + [table, lens_t] + [t.to(dtype) for t in (ks[2], vs[2])]
+        out = pattn.paged_decode_attention(*args, 2)
+        ref = pattn.paged_decode_attention_plain(*args, 2)
+        assert out.dtype == dtype and (out.float() - ref.float()).abs().max().item() <= DECODE_ATOL
+
+
+def test_paged_engine_on_the_kernel(cuda):
+    """A paged fp32 engine (decode_attn_impl auto: kernel #5) with a GRPO
+    group: logprobs agree with a teacher-forced forward through the plain
+    fp32 attention within the kernel's bf16 operand rounding (5e-2); kernel
+    #1 never runs, and every page returns to the pool."""
+    from pipelinerl_tpu_torch.inference import EngineConfig, GenRequest, InferenceEngine, SamplingParams
+    from pipelinerl_tpu_torch.models.transformer import ModelConfig, forward, init_params
+
+    cfg = ModelConfig(vocab_size=260, hidden_size=64, intermediate_size=128, num_layers=2,
+                      num_heads=2, num_kv_heads=2, dtype=torch.float32)
+    params = init_params(torch.Generator(device=cuda).manual_seed(0), cfg, cuda)
+    engine = InferenceEngine(
+        params, cfg,
+        EngineConfig(max_slots=6, max_len=96, prefill_buckets=(32, 64), cache_dtype=torch.float32,
+                     decode_window=4, attn_impl="xla", kv_layout="paged", kv_block_size=16),
+        eos_token_id=-1, device=cuda,
+    )
+    assert engine.decode_attn_impl == "ragged"
+    prompts = [[5 + i, 9, 3] * (i + 1) for i in range(3)] + [[7] * 20] * 3
+    before = (pattn.launches, dattn.launches)
+    futures = [engine.submit(GenRequest(p, SamplingParams(temperature=1.0, max_tokens=30))) for p in prompts]
+    while not all(f.done() for f in futures):
+        engine.step()
+    assert pattn.launches - before[0] == cfg.num_layers * engine.decode_steps
+    assert dattn.launches == before[1]
+    engine.block_pool.check_invariants()
+    assert engine.prefix_cache.evict_for(engine.block_pool.n_blocks)  # only the cache held pages
+    for p, f in zip(prompts, futures):
+        r = f.result()
+        ids = torch.tensor([p + r.token_ids], device=cuda)
+        T = ids.shape[1]
+        with torch.no_grad():
+            logits = forward(params, cfg, ids, torch.arange(T, device=cuda)[None],
+                             torch.zeros((1, T), dtype=torch.int32, device=cuda))
+        lp = torch.log_softmax(logits[0, len(p) - 1 : T - 1], -1).gather(-1, ids[0, len(p):, None])[:, 0]
+        assert (lp.cpu() - torch.tensor(r.logprobs)).abs().max().item() <= 5e-2
+
+
 def test_kernels_refuse_what_they_do_not_take(cuda):
     gen = torch.Generator(device=cuda).manual_seed(3)
     q = torch.randn((1, 64, 4, 64), generator=gen, device=cuda)  # fp32
@@ -232,3 +349,13 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     lens = torch.zeros(S, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
         dattn.decode_attention_staged_ragged(x, kv, kv, cache, cache, lens, band, band, 0)
+    pool = torch.zeros((3, 16, K, Dh), dtype=torch.bfloat16, device=cuda)
+    table = torch.zeros((S, 2), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        pattn.paged_decode_attention(x, kv, kv, pool, pool, table, lens, band, band, 0)
+    with pytest.raises(ValueError):  # an int64 table
+        ok = torch.zeros((S, 4, 64), dtype=torch.bfloat16, device=cuda)
+        okv = torch.zeros((S, K, 64), dtype=torch.bfloat16, device=cuda)
+        okp = torch.zeros((3, 16, K, 64), dtype=torch.bfloat16, device=cuda)
+        okb = torch.zeros((W, S, K, 64), dtype=torch.bfloat16, device=cuda)
+        pattn.paged_decode_attention(ok, okv, okv, okp, okp, table.long(), lens, okb, okb, 0)

@@ -135,3 +135,36 @@ def test_lm_head_masks_padded_vocab_and_params_from_bf16():
     logits = tt.lm_head_logits(tp, tcfg, torch.randn(3, 32))
     assert logits.dtype == torch.float32
     assert bool((logits[:, 100:] == -1e30).all()) and bool((logits[:, :100] > -1e29).all())
+
+
+@pytest.mark.parametrize("H,K,Dh,qk_norm", [(4, 2, 8, False), (4, 2, 8, True), (7, 1, 16, False)])
+def test_forward_extend_matches_jax(H, K, Dh, qk_norm):
+    """Tails against cached prefixes of 10, 4 and 0 valid rows out of 10 (the
+    rest pad, masked by segment), at global positions prefix_len + i."""
+    jcfg, jp, tcfg, tp = make_models(9, H, K, Dh, qk_norm=qk_norm)
+    rng = np.random.default_rng(10)
+    B, Lt, Pfx, L = 3, 6, 10, 2
+    ids = rng.integers(0, 128, (B, Lt))
+    prefix_len = np.array([10, 4, 0], np.int32)
+    pos = prefix_len[:, None] + np.arange(Lt)[None]
+    kp, vp = (rng.normal(size=(L, B, Pfx, K, Dh)).astype(np.float32) for _ in range(2))
+    for skip in (False, True):
+        j_out, (jk, jv) = jt.forward_extend(jp, jcfg, jnp.asarray(ids), jnp.asarray(pos), jnp.asarray(kp),
+                                            jnp.asarray(vp), jnp.asarray(prefix_len), skip_unembed=skip)
+        t_out, (tk, tv) = tt.forward_extend(tp, tcfg, torch.from_numpy(ids), torch.from_numpy(pos), torch.from_numpy(kp),
+                                            torch.from_numpy(vp), torch.from_numpy(prefix_len), skip_unembed=skip)
+        np.testing.assert_allclose(t_out.numpy(), np.asarray(j_out), rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(tk.numpy(), np.asarray(jk), rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=RTOL, atol=ATOL)
+
+
+def test_forward_extend_equals_forward_over_the_whole_prompt():
+    """Prefill of a prompt's head, then forward_extend of its tail against the
+    head's K/V, reproduces the full forward's logits on the tail."""
+    _, _, tcfg, tp = make_models(11)
+    seq = torch.from_numpy(np.random.default_rng(12).integers(0, 128, 13))[None]
+    zeros = lambda n: torch.zeros((1, n), dtype=torch.int32)
+    full = tt.forward(tp, tcfg, seq, torch.arange(13)[None], zeros(13))
+    _, (k, v) = tt.forward(tp, tcfg, seq[:, :8], torch.arange(8)[None], zeros(8), return_kv=True)
+    tail, _ = tt.forward_extend(tp, tcfg, seq[:, 8:], torch.arange(8, 13)[None], k, v, torch.tensor([8]))
+    np.testing.assert_allclose(tail[0].numpy(), full[0, 8:].numpy(), rtol=RTOL, atol=ATOL)
