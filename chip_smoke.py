@@ -9,13 +9,17 @@ Phases, each of which stops the script on failure:
    for sm_90a (in parallel) and reports registers, shared memory and spills
    of the five kernels;
 3. the decode-attention kernel (#1) against its plain version at the
-   engine's shapes, with its time, the plain version's, one SDPA call's and
-   the bound; then the paged decode-attention kernel (#5) against its plain
-   version at the paged engine's shape (pages out of order), at BT 16, on a
-   stale length with a released table row, at the bandit_tpu shapes and at
-   the prefix-cache engine's (S 8, W 16, tables 4 and 8 pages wide), with
-   its time beside the plain version's, a page gather plus one SDPA call,
-   kernel #1 on the same lengths over a contiguous cache, and the bound;
+   engine's shapes and on lengths at the edges of its splits, with its
+   time, the plain version's, one SDPA call's and the bound; then the paged
+   decode-attention kernel (#5) against its plain version at the paged
+   engine's shape (pages out of order), at BT 16, on a stale length with a
+   released table row, at the bandit_tpu shapes, at the prefix-cache
+   engine's (S 8, W 16, tables 4 and 8 pages wide) and on split edges at
+   BT 128 and 16, each case also bit for bit against #1 over the gathered
+   pages and against a second launch; with its time beside the plain
+   version's, a page gather plus one SDPA call, kernel #1 on the same
+   lengths over a contiguous cache, and the bound. Each shape logs its grid
+   (S, K, splits);
 4. the GQA forward kernel against its plain version (prefill shape, a packed
    2048 row of 8 segments, q_offset > 0 with Lq < Lkv, and the training row;
    checked also at the paged engine's prefill buckets and on tails laid out
@@ -40,7 +44,8 @@ Phases, each of which stops the script on failure:
    pages): long-tail requests, two GRPO groups sharing prompt pages, an
    abort; the peak of active slots, pages returned, kernel #5 launch counts,
    teacher forcing and a decode profile; then kernel #5 against its plain
-   version and timed on the tables and lengths this engine gave it;
+   version and timed on the tables and lengths this engine gave it, with
+   the share of the rows it reads that belong to inactive slots;
 10. the paged prefix cache at full width (8 lineages x 3 turns): prefix hits,
    tails prefilled through ``forward_extend`` on kernel #2 at q_offset > 0,
    teacher forcing;
@@ -235,25 +240,44 @@ def _decode_lens(S, T, W, seed):
     return special + [int(x) for x in np.random.default_rng(seed).integers(0, T - W + 1, S - 4)]
 
 
+def split_edge_lens(S, cap, seed) -> list[int]:
+    """Lengths on the edges of the decode kernels' splits of C rows: 0,
+    C - 1, C, C + 1 and 2C + 1 where the cap allows, the cap itself, then
+    random ones below it."""
+    C = dattn.SPLIT_ROWS
+    special = [n for n in (0, C - 1, C, C + 1, 2 * C + 1) if n < cap] + [cap]
+    return special + [int(x) for x in np.random.default_rng(seed).integers(0, cap + 1, S - len(special))]
+
+
+def grid_note(S, K, cap) -> str:
+    splits = dattn.split_plan(cap)
+    return f"grid ({S}, {K}, {splits}): {splits} split{'s' if splits > 1 else ''} of {dattn.SPLIT_ROWS} rows"
+
+
 def phase_decode_kernel(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(1)
     b = BANDIT
-    cases = [  # (label, S, H, K, Dh, W, T_alloc): the engine cell's, then the bandit_tpu engine's
-        ("Qwen2.5-0.5B engine", SLOTS, QWEN05B.num_heads, QWEN05B.num_kv_heads, 64, WINDOW, MAX_LEN + WINDOW),
-        ("bandit_tpu engine", b["S"], b["H"], b["K"], b["Dh"], b["W"], b["T"]),
+    H, K = QWEN05B.num_heads, QWEN05B.num_kv_heads
+    T_engine = MAX_LEN + WINDOW
+    cases = [  # (label, S, H, K, Dh, W, T_alloc, lens): the engine cell's, then the bandit_tpu engine's
+        ("Qwen2.5-0.5B engine", SLOTS, H, K, 64, WINDOW, T_engine, _decode_lens(SLOTS, T_engine, WINDOW, 1)),
+        ("Qwen2.5-0.5B engine, split edges", SLOTS, H, K, 64, WINDOW, T_engine, split_edge_lens(SLOTS, T_engine, 2)),
+        ("split edges at T_alloc 1024", 16, H, K, 64, WINDOW, 1024, split_edge_lens(16, 1024, 3)),
+        ("bandit_tpu engine", b["S"], b["H"], b["K"], b["Dh"], b["W"], b["T"], _decode_lens(b["S"], b["T"], b["W"], 1)),
     ]
     max_err = 0.0
-    for label, S, H, K, Dh, W, T in cases:
-        lens = _decode_lens(S, T, W, 1)
+    for label, S, H, K, Dh, W, T, lens in cases:
         for step in (0, W - 1):
             args = _decode_inputs(gen, S, H, K, Dh, T, W, lens, step, dev)
             out = dattn.decode_attention_staged_ragged(*args)
             torch.cuda.synchronize()
             ref = dattn.decode_attention_staged_ragged_plain(*args)
             err = (out.float() - ref.float()).abs().max().item()
-            log(f"decode kernel vs plain, {label} S={S} H={H} K={K} Dh={Dh} W={W} T_alloc={T}, step {step}: "
-                f"max abs err {err:.3e} (tolerance {DECODE_ATOL})")
+            log(f"decode kernel vs plain, {label} S={S} H={H} K={K} Dh={Dh} W={W} T_alloc={T}, step {step}, "
+                f"{grid_note(S, K, T)}, lengths {lens[:6]}...: max abs err {err:.3e} "
+                f"(tolerance {DECODE_ATOL})")
             check(math.isfinite(err) and err <= DECODE_ATOL, f"decode kernel disagrees with its plain version ({label})")
+            check(torch.equal(out, dattn.decode_attention_staged_ragged(*args)), f"decode kernel is not deterministic ({label})")
             max_err = max(max_err, err)
 
     # times at the engine cell's shape
@@ -282,7 +306,7 @@ def phase_decode_kernel(dev) -> dict:
     bound_ms, bound_by = bound(set_bytes, flops)
     log(
         f"decode kernel S={S} H={H} K={K} Dh={Dh} W={W} T_alloc={T} step={step}: "
-        f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, "
+        f"{grid_note(S, K, T)}: {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, "
         f"bound {bound_ms:.4f} ms ({bound_by}), roofline share {bound_ms / kernel_ms:.3f}"
     )
     return {
@@ -394,16 +418,24 @@ def _log_paged_times(label: str, t: dict) -> None:
 
 
 def _check_paged(label: str, args) -> float:
-    """Kernel #5 against its plain version on ``args``; returns the error."""
+    """Kernel #5 against its plain version on ``args``, bit for bit against
+    kernel #1 over the gathered pages and against a second launch; returns
+    the error."""
     out = pattn.paged_decode_attention(*args)
     torch.cuda.synchronize()
     ref = pattn.paged_decode_attention_plain(*args)
     err = (out.float() - ref.float()).abs().max().item()
     S, H, Dh = args[0].shape
     NB, BT, K = args[3].shape[:3]
-    log(f"paged kernel vs plain, {label}: S={S} H={H} K={K} Dh={Dh} BT={BT} MAXB={args[5].shape[1]} NB={NB} "
-        f"W={args[7].shape[0]} step {args[9]}: max abs err {err:.3e} (tolerance {DECODE_ATOL})")
+    MAXB = args[5].shape[1]
+    log(f"paged kernel vs plain, {label}: S={S} H={H} K={K} Dh={Dh} BT={BT} MAXB={MAXB} NB={NB} "
+        f"W={args[7].shape[0]} step {args[9]}, {grid_note(S, K, MAXB * BT)}: max abs err {err:.3e} "
+        f"(tolerance {DECODE_ATOL})")
     check(math.isfinite(err) and err <= DECODE_ATOL, f"paged kernel disagrees with its plain version ({label})")
+    slab = (*args[:3], pattn.gather_pages(args[3], args[5]), pattn.gather_pages(args[4], args[5]), *args[6:])
+    check(torch.equal(dattn.decode_attention_staged_ragged(*slab), out),
+          f"kernel #1 over the gathered pages differs from kernel #5 through the table ({label})")
+    check(torch.equal(pattn.paged_decode_attention(*args), out), f"paged kernel is not deterministic ({label})")
     return err
 
 
@@ -421,8 +453,13 @@ def phase_paged_kernel(dev) -> dict:
     # the prefix-cache phase's engine: 8 slots, W 16, tables sliced to 4 and
     # 8 of its 17 pages, a pool of 8 * 17
     x_nb = 8 * -(-(2048 + 16) // 128)
+    C = dattn.SPLIT_ROWS
     cases = [  # (label, S, H, K, Dh, BT, MAXB, NB, W, lens, steps)
         ("(i) paged engine", S, H, K, Dh, BT, MAXB, P_POOL, W, engine_lens, (0, W - 1)),
+        ("(vi) split edges, BT 128, a stale length past MAXB*BT", 8, H, K, Dh, BT, MAXB, P_POOL, W,
+         [0, C - 1, C, C + 1, 2 * C + 1, MAXB * BT, MAXB * BT + 50, 1456], (0, W - 1)),
+        ("(vii) split edges, BT 16, a stale length past MAXB*BT", 8, H, K, Dh, 16, 40, 320, W,
+         [0, C - 1, C, C + 1, 2 * C + 1, 40 * 16, 40 * 16 + 10, 100], (0, W - 1)),
         ("(ii) BT 16 < the 64-row tile", 4, H, K, Dh, 16, 5, 24, 4, [0, 17, 33, 80], (0, 3)),
         ("(iii) a stale length past MAXB*BT on a released row", 4, H, K, Dh, 16, 5, 24, 4, [87, 5, 0, 40], (2,)),
         ("(iv) bandit_tpu engine, BT 16", b["S"], b["H"], b["K"], b["Dh"], 16, b_maxb, b["S"] * b_maxb, b["W"],
@@ -467,19 +504,27 @@ def time_paged_working_set(dev, snapshots, record: dict) -> None:
         return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
 
     sets = []
-    for table, lens in snapshots:
+    rows_read = rows_inactive = 0
+    for table, lens, active in snapshots:
         S = lens.shape[0]
         sets.append((rnd(S, H, Dh), rnd(S, K, Dh), rnd(S, K, Dh), rnd(P_POOL, P_BT, K, Dh), rnd(P_POOL, P_BT, K, Dh),
                      table, lens, rnd(W, S, K, Dh), rnd(W, S, K, Dh), W - 1))
+        rows = lens.long().clamp(max=table.shape[1] * P_BT)
+        rows_read += int(rows.sum())
+        rows_inactive += int(rows[~active[:S].bool()].sum())
     err = max(_check_paged(f"paged engine snapshot {i}", a) for i, a in enumerate(sets))
     record["max_abs_err"] = max(record["max_abs_err"], err)
     t = _time_paged(sets)
     widths = sorted({int(a[5].shape[1]) for a in sets})
     _log_paged_times(f"on the paged engine's own tables and lengths ({len(sets)} snapshots, table widths {widths}, "
-                     f"W={W} step={W - 1})", t)
+                     f"W={W} step={W - 1}, {grid_note(P_SLOTS, K, widths[-1] * P_BT)} at the widest)", t)
+    share = rows_inactive / max(1, rows_read)
+    log(f"paged engine snapshots: {rows_inactive} of the {rows_read} cache rows kernel #5 reads belong to "
+        f"inactive slots (share {share:.3f}), stale lengths capped at the table's width")
     record.update(t)
     record["kernel_ms"] = t["ms"]
     record["snapshot_widths"] = widths
+    record["inactive_row_share"] = share
 
 
 def _gqa_inputs(gen, B, Lq, Lkv, H, K, Dh, segs, dev):
@@ -855,6 +900,11 @@ def report_profile(prof, wall_ms: float, n_steps: int, label: str) -> None:
         f"(share {busy_ms / wall_ms:.3f}), {busy_ms / n_steps:.3f} device ms per step")
     for e in top:
         log(f"  {e.self_device_time_total / 1e3 / n_steps:8.4f} ms/step  {e.count // n_steps:5d}/step  {e.key[:90]}")
+    attn = [e for e in kernels if re.search(r"decode_attention_kernel|merge_splits_kernel", e.key)]
+    if attn:
+        log(f"{label} profile: decode attention (kernel #1 or #5 with its split merge) "
+            f"{sum(e.self_device_time_total for e in attn) / 1e3 / n_steps:.4f} ms/step in "
+            f"{sum(e.count for e in attn) // n_steps} launches/step")
 
 
 def phase_rl_loop(exp_dir: str, paged: bool = False) -> dict:
@@ -1064,13 +1114,13 @@ def phase_paged_engine(dev, smi: str) -> dict:
         reqs += [GenRequest(r.prompt_ids, r.params) for _ in range(8)]
     reqs += [request(int(rng.integers(128, 400)), int(rng.integers(128, 1024))) for _ in range(P_REQUESTS)]
     pool = engine.block_pool
-    # every fourth decode window's table and starting lengths, kernel #5's
-    # inputs on this path, for time_paged_working_set
+    # every fourth decode window's table, starting lengths and active mask,
+    # kernel #5's inputs on this path, for time_paged_working_set
     snapshots, window_fn = [], engine_mod._decode_window_paged_fn
 
     def spy(*args, **kw):
         if engine.windows_dispatched % 4 == 1:
-            snapshots.append((args[6], args[8].clone()))
+            snapshots.append((args[6], args[8].clone(), args[10].clone()))
         return window_fn(*args, **kw)
 
     engine_mod._decode_window_paged_fn = spy

@@ -8,9 +8,10 @@ window's staged band + the token's own K/V, GQA, softmax over
 bf16, operands are bf16, scores and sums fp32, and the result is computed in
 fp32 and returned in q's dtype.
 
-The kernel (``csrc/decode_attention.cu``) runs one block per (slot, kv head)
-and loops over cache tiles up to each slot's own length; its source note
-says what bounds it and why it is shaped so.
+The kernel (``csrc/decode_attention.cu``) splits each slot's cache rows over
+blocks in chunks of ``SPLIT_ROWS`` (``split_plan``), runs Q·Kᵀ and P·V on the
+tensor cores, and merges the splits' partials in a second small kernel; its
+source note says what bounds it and why it is shaped so.
 """
 
 from __future__ import annotations
@@ -25,6 +26,30 @@ _NEG_INF = -1e30
 
 # launches of the CUDA kernel (plain-version calls are not counted)
 launches = 0
+
+# cache rows per split: csrc/decode_attention.cu's kSplitRows, which the
+# kernel checks against the value it is given
+SPLIT_ROWS = 256
+
+
+def split_plan(rows: int) -> int:
+    """Blocks per (slot, kv head) for a cap of ``rows`` cache rows per slot:
+    T for the slab layout, MAXB * BT for the paged one. Split j owns cache
+    rows [j * SPLIT_ROWS, (j + 1) * SPLIT_ROWS); the band-plus-self tile
+    belongs to split ``min(len // SPLIT_ROWS, splits - 1)``, and splits past
+    it exit at once. Taken from the static shape, never from the lengths, so
+    the launch reads nothing back from the card."""
+    return max(1, -(-rows // SPLIT_ROWS))
+
+
+def split_scratch(S: int, K: int, G: int, Dh: int, splits: int, device) -> torch.Tensor | None:
+    """fp32 scratch for the splits' partials: per (slot, kv head, split) the
+    kernel's record, the running max and sum of 16 heads (G of them used)
+    and the unnormalised [G, Dh] accumulator. None when a shape has one
+    split (no merge)."""
+    if splits == 1:
+        return None
+    return torch.empty(S * K * splits * (32 + G * Dh), dtype=torch.float32, device=device)
 
 
 def decode_attention_staged_ragged_plain(
@@ -97,7 +122,13 @@ def decode_attention_staged_ragged(
     32, 64 or 128, G <= 16 and W < 64, and raises on anything else. Like the
     JAX wrapper, it pre-scales a q that is not bf16 in fp32 and rounds it to
     bf16 once, and casts K/V, cache and band to bf16 (a no-op, no copy, for
-    the bf16 engine)."""
+    the bf16 engine). A length past T reads the T rows, as the plain version
+    does.
+
+    The launch runs ``split_plan(T)`` blocks per (slot, kv head); with more
+    than one, the splits' partials go to ``split_scratch`` (allocated here,
+    so a CUDA-graph capture takes it from its pool) and a second kernel
+    merges them in split order. One launch is counted per call."""
     if q.device.type == "cpu":
         return decode_attention_staged_ragged_plain(
             q, k_new, v_new, k_cache, v_cache, base_lens, k_staged, v_staged, step, scale
@@ -134,11 +165,14 @@ def decode_attention_staged_ragged(
     if k_cache.stride() != v_cache.stride() or k_staged.stride() != v_staged.stride():
         raise ValueError("K and V must share strides")
     out = torch.empty((S, H, Dh), dtype=torch.float32, device=dev)
+    splits = split_plan(T)
+    part = split_scratch(S, K, H // K, Dh, splits, dev)
     lib = _build.library("decode_attention")
     err = lib.decode_attention_staged_bf16(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
         v_cache.data_ptr(), base_lens.data_ptr(), k_staged.data_ptr(),
-        v_staged.data_ptr(), out.data_ptr(), S, H, K, Dh, int(step),
+        v_staged.data_ptr(), out.data_ptr(), None if part is None else part.data_ptr(),
+        splits, SPLIT_ROWS, S, H, K, Dh, T, int(step),
         k_cache.stride(0), k_cache.stride(1), k_staged.stride(0), k_staged.stride(1),
         float(scale), torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -151,8 +185,8 @@ def decode_attention_staged_ragged(
 _build.declare(
     "decode_attention",
     "decode_attention_staged_bf16",
-    [ctypes.c_void_p] * 9
-    + [ctypes.c_int] * 5
+    [ctypes.c_void_p] * 10
+    + [ctypes.c_int] * 8
     + [ctypes.c_longlong] * 4
     + [ctypes.c_float, ctypes.c_void_p],
 )

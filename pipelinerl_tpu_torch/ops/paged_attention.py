@@ -14,7 +14,8 @@ Port of the JAX package's ``ops/paged_attention.py``: the Pallas kernel
 The attention is that of ``ops/decode_attention.py`` (softmax over
 [pages(:len) | band(:step) | self]); only where the cache rows come from
 differs. The kernel is a second entry of ``csrc/decode_attention.cu`` that
-shares kernel #1's body; its source note says what bounds it.
+shares kernel #1's body, its split plan and its merge; its source note says
+what bounds it.
 """
 
 from __future__ import annotations
@@ -24,7 +25,9 @@ import ctypes
 import torch
 
 from . import _build
-from .decode_attention import _check, _check_rows, decode_attention_staged_ragged_plain
+from .decode_attention import (
+    SPLIT_ROWS, _check, _check_rows, decode_attention_staged_ragged_plain, split_plan, split_scratch,
+)
 
 # launches of the CUDA kernel (plain-version calls are not counted)
 launches = 0
@@ -71,7 +74,13 @@ def paged_decode_attention(
     which takes int32 lengths and table, Dh 32, 64 or 128, G <= 16 and
     W < 64, and raises on anything else. Like the JAX wrapper, it pre-scales
     a q that is not bf16 in fp32 and rounds it to bf16 once, and casts the
-    pools, band and K/V to bf16 (a no-op, no copy, for a bf16 engine)."""
+    pools, band and K/V to bf16 (a no-op, no copy, for a bf16 engine).
+
+    The launch runs ``split_plan(MAXB * BT)`` blocks per (slot, kv head),
+    the same partition as kernel #1 over the gathered view, so the two agree
+    bit for bit; with more than one split, the partials go to
+    ``split_scratch`` (allocated here) and a second kernel merges them in
+    split order. One launch is counted per call."""
     if q.device.type == "cpu":
         return paged_decode_attention_plain(
             q, k_new, v_new, k_pool, v_pool, block_table, lens, k_staged, v_staged, step, scale
@@ -111,11 +120,14 @@ def paged_decode_attention(
     if k_pool.stride() != v_pool.stride() or k_staged.stride() != v_staged.stride():
         raise ValueError("K and V must share strides")
     out = torch.empty((S, H, Dh), dtype=torch.float32, device=dev)
+    splits = split_plan(MAXB * BT)
+    part = split_scratch(S, K, H // K, Dh, splits, dev)
     lib = _build.library("decode_attention")
     err = lib.paged_decode_attention_bf16(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_pool.data_ptr(),
         v_pool.data_ptr(), block_table.data_ptr(), lens.data_ptr(), k_staged.data_ptr(),
-        v_staged.data_ptr(), out.data_ptr(), S, H, K, Dh, int(step), NB, BT, MAXB,
+        v_staged.data_ptr(), out.data_ptr(), None if part is None else part.data_ptr(),
+        splits, SPLIT_ROWS, S, H, K, Dh, int(step), NB, BT, MAXB,
         k_pool.stride(0), k_pool.stride(1), k_staged.stride(0), k_staged.stride(1),
         float(scale), torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -167,8 +179,8 @@ def paged_append(
 _build.declare(
     "decode_attention",
     "paged_decode_attention_bf16",
-    [ctypes.c_void_p] * 10
-    + [ctypes.c_int] * 8
+    [ctypes.c_void_p] * 11
+    + [ctypes.c_int] * 10
     + [ctypes.c_longlong] * 4
     + [ctypes.c_float, ctypes.c_void_p],
 )

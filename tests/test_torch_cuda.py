@@ -61,6 +61,38 @@ def test_decode_kernel_matches_plain(cuda, S, H, K, Dh, T, W, lens, step):
     assert (out.float() - ref.float()).abs().max().item() <= DECODE_ATOL
 
 
+C = dattn.SPLIT_ROWS
+SPLIT_EDGES = [0, C - 1, C, C + 1, 2 * C + 1]
+
+
+@pytest.mark.parametrize(
+    "S,H,K,Dh,T,W,lens,step",
+    [
+        # lengths on the split edges, the longest the shape allows (T), and
+        # one past it (read as T, as the plain version does)
+        (8, 14, 2, 64, 1024, 16, SPLIT_EDGES + [1024, 1030, 700], 0),
+        (8, 14, 2, 64, 1024, 16, SPLIT_EDGES + [1024, 1030, 700], 15),
+        (7, 8, 1, 128, 600, 8, SPLIT_EDGES + [600, 3], 5),
+        (7, 4, 2, 32, 600, 4, SPLIT_EDGES + [600, 3], 2),
+        # the slab engine's T_alloc: 2 splits
+        (8, 14, 2, 64, 344, 16, [0, C - 1, C, C + 1, 328, 344, 100, 37], 15),
+    ],
+)
+def test_decode_kernel_matches_plain_on_split_edges(cuda, S, H, K, Dh, T, W, lens, step):
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    args = (_bf16(gen, S, H, Dh), _bf16(gen, S, K, Dh), _bf16(gen, S, K, Dh),
+            _bf16(gen, S, T, K, Dh), _bf16(gen, S, T, K, Dh),
+            torch.tensor(lens, dtype=torch.int32, device=cuda),
+            _bf16(gen, W, S, K, Dh), _bf16(gen, W, S, K, Dh), step)
+    before = dattn.launches
+    out = dattn.decode_attention_staged_ragged(*args)
+    torch.cuda.synchronize()
+    assert dattn.launches == before + 1
+    ref = dattn.decode_attention_staged_ragged_plain(*args)
+    assert (out.float() - ref.float()).abs().max().item() <= DECODE_ATOL
+    assert torch.equal(dattn.decode_attention_staged_ragged(*args), out)  # no atomics on the sums
+
+
 def test_decode_kernel_reads_strided_layer_slices(cuda):
     """The engine hands the kernel per-layer slices of [L, S, T, K, Dh]."""
     gen = torch.Generator(device=cuda).manual_seed(1)
@@ -271,6 +303,34 @@ def test_paged_kernel_matches_plain(cuda, S, H, K, Dh, BT, MAXB, NB, W, lens, st
     assert (pattn.launches, dattn.launches) == (before[0] + 1, before[1])
     ref = pattn.paged_decode_attention_plain(*args)
     assert (out.float() - ref.float()).abs().max().item() <= DECODE_ATOL
+
+
+@pytest.mark.parametrize(
+    "BT,MAXB,NB,lens,step",
+    [
+        # the paged engine's pages: 17 splits; the longest length the table
+        # allows and a stale one past it on a released row
+        (128, 33, 264, SPLIT_EDGES + [33 * 128, 33 * 128 + 50, 1456], 0),
+        (128, 33, 264, SPLIT_EDGES + [33 * 128, 33 * 128 + 50, 1456], 31),
+        # BT 16: a split spans 16 pages
+        (16, 40, 320, SPLIT_EDGES + [640, 650, 100], 3),
+    ],
+)
+def test_paged_kernel_matches_plain_on_split_edges(cuda, BT, MAXB, NB, lens, step):
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    S, H, K, Dh, W = len(lens), 14, 2, 64, 32
+    args = (_bf16(gen, S, H, Dh), _bf16(gen, S, K, Dh), _bf16(gen, S, K, Dh),
+            _bf16(gen, NB, BT, K, Dh), _bf16(gen, NB, BT, K, Dh),
+            scattered_table(S, BT, MAXB, NB, lens, 2).to(cuda), torch.tensor(lens, dtype=torch.int32, device=cuda),
+            _bf16(gen, W, S, K, Dh), _bf16(gen, W, S, K, Dh), step)
+    out = pattn.paged_decode_attention(*args)
+    torch.cuda.synchronize()
+    ref = pattn.paged_decode_attention_plain(*args)
+    assert (out.float() - ref.float()).abs().max().item() <= DECODE_ATOL
+    assert torch.equal(pattn.paged_decode_attention(*args), out)  # no atomics on the sums
+    # one split partition for both kernels: #1 over the gathered pages is #5
+    slab = (*args[:3], pattn.gather_pages(args[3], args[5]), pattn.gather_pages(args[4], args[5]), *args[6:])
+    assert torch.equal(dattn.decode_attention_staged_ragged(*slab), out)
 
 
 def test_paged_kernel_reads_strided_layer_slices_and_fp32(cuda):

@@ -1,7 +1,9 @@
 """The port's paged decode attention and ``paged_append`` against the JAX
 package's: the plain version of kernel #5 against the Pallas kernel
 (interpret mode off TPU) and against the XLA reference, and the indexed
-append against JAX's dropping scatter, on the same numpy inputs."""
+append against JAX's dropping scatter, on the same numpy inputs. Also the
+CUDA kernel's split plan over MAXB * BT rows, and the plain model of its
+split-and-merge arithmetic over the gathered pages."""
 
 import numpy as np
 import pytest
@@ -13,6 +15,7 @@ from pipelinerl_tpu.ops import paged_attention as jpa
 from pipelinerl_tpu_torch.inference.block_pool import BlockPool
 from pipelinerl_tpu_torch.ops import decode_attention as dattn
 from pipelinerl_tpu_torch.ops import paged_attention as tpa
+from tests.test_torch_decode_attention import split_merge_model
 
 torch.set_num_threads(1)
 S, H, K, Dh = 4, 4, 2, 8
@@ -33,21 +36,21 @@ LENS = {
 }
 
 
-def make_inputs(seed, lens):
+def make_inputs(seed, lens, nb=NB, maxb=MAXB):
     """Pool, a table whose pages come out of order, and the step's inputs."""
     rng = np.random.default_rng(seed)
-    pool = BlockPool(n_blocks=NB, block_size=BT, max_blocks_per_slot=MAXB, n_slots=S)
+    pool = BlockPool(n_blocks=nb, block_size=BT, max_blocks_per_slot=maxb, n_slots=S)
     pool.allocate(S - 1, 3 * BT)  # a first occupant, released below: pages reused
     pool.release(S - 1)
     for s, n in enumerate(lens):
-        pool.allocate(s, min(max(n, 1), MAXB * BT))
+        pool.allocate(s, min(max(n, 1), maxb * BT))
     for s, n in enumerate(lens):
-        if n > MAXB * BT:
+        if n > maxb * BT:
             pool.release(s)
     mk = lambda *shape: rng.normal(size=shape).astype(np.float32)
     return dict(
-        q=mk(S, H, Dh), k_new=mk(S, K, Dh), v_new=mk(S, K, Dh), k_pool=mk(NB, BT, K, Dh),
-        v_pool=mk(NB, BT, K, Dh), block_table=pool.table.copy(), lens=np.asarray(lens, np.int32),
+        q=mk(S, H, Dh), k_new=mk(S, K, Dh), v_new=mk(S, K, Dh), k_pool=mk(nb, BT, K, Dh),
+        v_pool=mk(nb, BT, K, Dh), block_table=pool.table.copy(), lens=np.asarray(lens, np.int32),
         k_staged=mk(W, S, K, Dh), v_staged=mk(W, S, K, Dh),
     )
 
@@ -89,6 +92,44 @@ def test_wrapper_sends_cpu_tensors_to_the_plain_version():
     out = tpa.paged_decode_attention(*a, 2)
     assert tpa.launches == before
     assert torch.equal(out, tpa.paged_decode_attention_plain(*a, 2))
+
+
+@pytest.mark.parametrize(
+    "bt,maxb,splits",
+    # the paged engine's snapshots (16 pages of 128) and case (i) (33 pages);
+    # BT 16 at the bandit_tpu engine's 5 pages and at 33 pages
+    [(128, 16, 8), (128, 33, 17), (16, 5, 1), (16, 33, 3)],
+)
+def test_split_plan_over_the_table(bt, maxb, splits):
+    assert tpa.split_plan(maxb * bt) == splits
+
+
+C = tpa.SPLIT_ROWS
+# (label, table width, lengths, chunk rows, tile rows): lengths on the split
+# edges at the kernel's chunk (a 40-page table of BT 16 holds 640 rows),
+# and at 32-row chunks of 16-row tiles over 5 pages; stale lengths on
+# released rows in both
+SPLIT_CASES = {
+    "C edges, 40 pages": (40, [0, C - 1, C, C + 1], 256, 64),
+    "2C + 1, the longest, a stale length": (40, [2 * C + 1, 40 * BT, 40 * BT + 9, 0], 256, 64),
+    "32-row chunks": (MAXB, [MAXB * BT + 7, 31, 33, MAXB * BT], 32, 16),
+}
+
+
+@pytest.mark.parametrize("step", [0, 3])
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+def test_split_merge_model_matches_plain_and_pallas(case, step):
+    maxb, lens, split_rows, tile = SPLIT_CASES[case]
+    a = make_inputs(6, lens, nb=S * maxb, maxb=maxb)
+    t = {k: torch.from_numpy(v) for k, v in a.items()}
+    view = [tpa.gather_pages(t[name], t["block_table"]) for name in ("k_pool", "v_pool")]
+    model = split_merge_model(t["q"], t["k_new"], t["v_new"], *view, t["lens"], t["k_staged"], t["v_staged"],
+                              step, split_rows=split_rows, tile=tile)
+    _, j_out = run_both(jpa.paged_decode_attention, a, step)
+    plain = tpa.paged_decode_attention_plain(*t.values(), step)
+    # P is rounded against each chunk's running max, not the row's max
+    np.testing.assert_allclose(model.numpy(), plain.numpy(), rtol=0, atol=PALLAS_ATOL)
+    np.testing.assert_allclose(model.numpy(), j_out, rtol=0, atol=PALLAS_ATOL)
 
 
 APPEND_CASES = {
