@@ -25,8 +25,12 @@ Phases, each of which stops the script on failure:
    checked also at the paged engine's prefill buckets and on tails laid out
    as ``forward_extend`` lays them out, a padded prefix before them);
 5. the GQA backward kernels (dq, dk/dv) against the plain backward at the
-   training shape and four more, and the autograd function against autograd
-   through the plain forward, with times and bounds;
+   training shape and six more (unsorted segment ids, one 4,096-token
+   segment among them), each also bit for bit against a second call and
+   with its tile schedule against the plain one; the autograd function
+   against autograd through the plain forward; each kernel's grid, cluster,
+   registers, shared memory and spills; times and bounds, and a gate that
+   dq + dk/dv beats one SDPA backward;
    phases 3-5 also check each kernel at the shapes of phase 9's bandit_tpu
    loop (H 4, K 2; its engine's slots, window and buckets; its packed row);
 6. a full-width Qwen2.5-0.5B train step through the port's ``TrainerLoop``
@@ -209,7 +213,9 @@ def phase_device() -> dict:
 SOURCES = ["decode_attention", "gqa_attention_fwd", "gqa_attention_bwd"]
 
 
-def phase_build() -> None:
+def phase_build() -> dict[str, str]:
+    """Builds the sources; returns each one's ``-Xptxas -v`` report (empty
+    for a library built before this run)."""
     t0 = time.monotonic()
     infos = _build.build(SOURCES)
     log(f"build: {time.monotonic() - t0:.1f} s wall for {len(infos)} kernels (nvcc, sm_90a, in parallel)")
@@ -220,6 +226,21 @@ def phase_build() -> None:
                 log(f"    {line.strip()}")
     for name in SOURCES:
         _build.library(name)
+    return {info.name: info.ptxas for info in infos}
+
+
+def ptxas_entry(report: str, symbol: str) -> str:
+    """The registers and spills ptxas reported for the entry whose mangled
+    name contains ``symbol``."""
+    entries = report.split("Compiling entry")
+    for entry in entries[1:]:
+        if symbol in entry.splitlines()[0]:
+            stats = " ".join(entry.splitlines()[1:])
+            regs = re.search(r"Used (\d+) registers", stats)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", stats)
+            if regs and spill:
+                return f"ptxas: {regs.group(1)} registers, {spill.group(1)} / {spill.group(2)} bytes spill stores / loads"
+    return "ptxas: not reported (library built before this run)"
 
 
 def _decode_inputs(gen, S, H, K, Dh, T, W, lens, step, dev):
@@ -528,12 +549,16 @@ def time_paged_working_set(dev, snapshots, record: dict) -> None:
 
 
 def _gqa_inputs(gen, B, Lq, Lkv, H, K, Dh, segs, dev):
-    """``segs``: a number of equal segments over the row, or their lengths."""
+    """``segs``: a number of equal segments over the row, their lengths, or
+    (a numpy array) the id of every position."""
     bf = torch.bfloat16
     q = torch.randn((B, Lq, H, Dh), generator=gen, device=dev).to(bf)
     k = torch.randn((B, Lkv, K, Dh), generator=gen, device=dev).to(bf)
     v = torch.randn((B, Lkv, K, Dh), generator=gen, device=dev).to(bf)
-    if isinstance(segs, int):
+    if isinstance(segs, np.ndarray):
+        check(segs.shape == (Lkv,), f"segment ids of shape {segs.shape} do not cover {Lkv}")
+        seg = torch.from_numpy(segs.astype(np.int32)).to(dev)
+    elif isinstance(segs, int):
         seg = (torch.arange(Lkv, device=dev) * segs // Lkv).to(torch.int32)
     else:
         check(sum(segs) == Lkv, f"segment lengths {segs} do not cover {Lkv}")
@@ -690,10 +715,23 @@ def time_events_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def phase_gqa_bwd_kernels(dev) -> list[dict]:
-    """Kernels #3 (dq) and #4 (dk/dv) against the plain backward, the
-    autograd function against autograd through the plain forward, and the
-    kernels' times at the training shape."""
+def unsorted_segments(L: int, n: int, seed: int) -> np.ndarray:
+    """Ids of n segments of random lengths (at least 16) in shuffled order,
+    and one position in 64 given a random id of the n: ids that are neither
+    sorted nor contiguous."""
+    rng = np.random.default_rng(seed)
+    ids = np.repeat(rng.permutation(n), rng.multinomial(L - 16 * n, np.ones(n) / n) + 16)
+    stray = rng.choice(L, L // 64, replace=False)
+    ids[stray] = rng.integers(0, n, stray.size)
+    return ids
+
+
+def phase_gqa_bwd_kernels(dev, ptxas: str) -> list[dict]:
+    """Kernels #3 (dq) and #4 (dk/dv) against the plain backward, bit for bit
+    against a second call, and their tile schedule against the plain one;
+    the autograd function against autograd through the plain forward; the
+    kernels' build and launch shapes, and their times at the training
+    shape."""
     H, K = QWEN05B.num_heads, QWEN05B.num_kv_heads
     b, Lb = BANDIT, BANDIT["seq_length"]
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -705,6 +743,9 @@ def phase_gqa_bwd_kernels(dev) -> list[dict]:
         ("(e) a fully masked query row", 1, 512, 512, H, K, 64, 2, 300),
         (f"(f) bandit_tpu training row L={Lb}, {len(BANDIT_ROW)} segments, H={b['H']} K={b['K']}",
          1, Lb, Lb, b["H"], b["K"], b["Dh"], BANDIT_ROW, None),
+        ("(g) unsorted segment ids, L=4096, 8 segments shuffled, 1 id in 64 stray", 1, TRAIN_L, TRAIN_L, H, K, 64,
+         unsorted_segments(TRAIN_L, 8, 4), None),
+        ("(h) one 4096-token segment (the longest spans)", 1, TRAIN_L, TRAIN_L, H, K, 64, 1, None),
     ]
     max_err = {"dq": 0.0, "dkv": 0.0}
     for label, B, Lq, Lkv, Hc, Kc, Dh, n_segs, masked in cases:
@@ -713,11 +754,21 @@ def phase_gqa_bwd_kernels(dev) -> list[dict]:
         torch.cuda.synchronize()
         rq, rk, rv = gattn.mha_packed_gqa_bwd_plain(*a[:10])
         errs = {n: _rel_err(g, r) for n, g, r in (("dq", dq, rq), ("dk", dk, rk), ("dv", dv, rv))}
+        del rq, rk, rv
+        G = Hc // Kc
+        spans = gattn.bwd_tile_spans(a[3], a[4], a[5], G, Dh)
+        same_spans = all(torch.equal(x, y) for x, y in zip(spans, gattn.bwd_tile_spans_plain(a[3], a[4], a[5], G, Dh)))
+        repeat = all(torch.equal(x, y) for x, y in zip(gattn.mha_packed_gqa_bwd(*a[:10]), (dq, dk, dv)))
+        visits = [int((s[..., 1] - s[..., 0] + 1).clamp(min=0).sum()) for s in spans]
         log(f"gqa backward kernels vs plain, {label}: "
             + ", ".join(f"{n} max abs err {e:.3e} ({rel:.2e} of max |ref|)" for n, (e, rel) in errs.items())
-            + f" (tolerance {GQA_BWD_RTOL} of max |ref|)")
+            + f" (tolerance {GQA_BWD_RTOL} of max |ref|); a second call bit for bit: {repeat}; "
+            f"tile schedule = plain: {same_spans} ({visits[0]} dq and {visits[1]} dk/dv tile visits per "
+            f"kv head, dk/dv split over {gattn.dkv_splits(B, Lq, Lkv, Kc, G, Dh)} blocks)")
         for n, (e, rel) in errs.items():
             check(math.isfinite(e) and rel <= GQA_BWD_RTOL, f"gqa backward {n} disagrees ({label})")
+        check(repeat, f"gqa backward kernels are not deterministic ({label})")
+        check(same_spans, f"the device's tile schedule differs from the plain one ({label})")
         if masked is not None:
             check(bool((a[8][0, masked] == -1e30).all() and (dq[0, masked] == 0).all()),
                   "a fully masked query row must get lse = -1e30 and zero dq")
@@ -739,6 +790,19 @@ def phase_gqa_bwd_kernels(dev) -> list[dict]:
             + ", ".join(f"d{n} {e:.3e} ({rel:.2e} of max |ref|)" for n, (e, rel) in zip("qkv", errs))
             + f" (tolerance {GQA_BWD_RTOL})")
         check(all(rel <= GQA_BWD_RTOL for _, rel in errs), f"the autograd function's gradients disagree ({label})")
+
+    # what each kernel is built and launched as (grid and cluster at the training shape)
+    G, S = H // K, gattn.dkv_splits(1, TRAIN_L, TRAIN_L, K, H // K, 64)
+    grids = {"dq": f"grid ({-(-TRAIN_L * G // gattn.TILE)}, {K}), no cluster",
+             "dkv": f"grid ({-(-TRAIN_L // gattn.TILE)}, {K}, {S}), cluster (1, 1, {S})"}
+    symbols = {("dq", 64): "gqa_bwd_dq_kernelILi64E", ("dq", 128): "gqa_bwd_dq_kernelILi128E",
+               ("dkv", 64): "gqa_bwd_dkv_kernelILi64ELi64E", ("dkv", 128): "gqa_bwd_dkv_kernelILi128ELi32E"}
+    for (name, Dh), symbol in symbols.items():
+        info = gattn.bwd_kernel_info(name, Dh)
+        log(f"gqa backward {name} kernel, Dh={Dh}: {grids[name]} at the training shape; {ptxas_entry(ptxas, symbol)}; "
+            f"card: {info['registers']} registers, {info['local_bytes']} local bytes, "
+            f"{info['smem_bytes']} bytes of dynamic shared memory, {info['blocks_per_sm']} blocks per SM")
+        check(info["local_bytes"] == 0, f"gqa backward {name} kernel at Dh={Dh} spills")
 
     # times at the training shape
     a = _gqa_bwd_args(gen, 1, TRAIN_L, TRAIN_L, H, K, 64, 8, dev)
@@ -763,7 +827,9 @@ def phase_gqa_bwd_kernels(dev) -> list[dict]:
     log(f"gqa backward, training shape (H={H} K={K} Dh=64, {visible} visible pairs): least work of a flash "
         f"backward 5 products = {5 * product / 1e9:.2f} GFLOP, the dq + dk/dv split computes 7 = "
         f"{7 * product / 1e9:.2f} GFLOP; bound of the whole backward {least_ms:.4f} ms ({least_by}); "
-        f"dq + dkv {dq_ms + dkv_ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA backward {library_ms:.4f} ms")
+        f"dq + dkv {dq_ms + dkv_ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA backward {library_ms:.4f} ms "
+        f"({(dq_ms + dkv_ms) / library_ms:.3f} of it)")
+    check(dq_ms + dkv_ms < library_ms, "dq + dk/dv is not faster than one SDPA backward in the same call")
     records = []
     for name, ms, src_line, what in (("dq", dq_ms, 225, "_bwd_dq_kernel"), ("dkv", dkv_ms, 302, "_bwd_dkv_kernel")):
         bound_ms, bound_by = bound(*work[name])
@@ -900,11 +966,13 @@ def report_profile(prof, wall_ms: float, n_steps: int, label: str) -> None:
         f"(share {busy_ms / wall_ms:.3f}), {busy_ms / n_steps:.3f} device ms per step")
     for e in top:
         log(f"  {e.self_device_time_total / 1e3 / n_steps:8.4f} ms/step  {e.count // n_steps:5d}/step  {e.key[:90]}")
-    attn = [e for e in kernels if re.search(r"decode_attention_kernel|merge_splits_kernel", e.key)]
-    if attn:
-        log(f"{label} profile: decode attention (kernel #1 or #5 with its split merge) "
-            f"{sum(e.self_device_time_total for e in attn) / 1e3 / n_steps:.4f} ms/step in "
-            f"{sum(e.count for e in attn) // n_steps} launches/step")
+    for what, pattern in (("decode attention (kernel #1 or #5 with its split merge)",
+                           r"decode_attention_kernel|merge_splits_kernel"),
+                          ("GQA backward (kernels #3 and #4)", r"gqa_bwd_dq_kernel|gqa_bwd_dkv_kernel")):
+        attn = [e for e in kernels if re.search(pattern, e.key)]
+        if attn:
+            log(f"{label} profile: {what} {sum(e.self_device_time_total for e in attn) / 1e3 / n_steps:.4f} "
+                f"ms/step in {sum(e.count for e in attn) // n_steps} launches/step")
 
 
 def phase_rl_loop(exp_dir: str, paged: bool = False) -> dict:
@@ -1279,8 +1347,8 @@ def phase_client(dev) -> None:
 def main() -> None:
     info = phase_device()
     dev = torch.device("cuda")
-    phase_build()
-    kernels = [phase_decode_kernel(dev), phase_gqa_kernel(dev), *phase_gqa_bwd_kernels(dev),
+    ptxas = phase_build()
+    kernels = [phase_decode_kernel(dev), phase_gqa_kernel(dev), *phase_gqa_bwd_kernels(dev, ptxas["gqa_attention_bwd"]),
                phase_paged_kernel(dev)]
     torch.cuda.empty_cache()
     paths = {}

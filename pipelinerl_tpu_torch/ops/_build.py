@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` compiles on first use, for ``sm_90a``, into a shared
 library with a plain C interface under ``_build/`` (git-ignored), named by
-the hash of its source so an edited source never loads a stale library.
+the hash of its source and of every header in ``csrc/`` (which each source
+may include), so an edited source or header never loads a stale library.
 Only sources in this package are built. Nothing here runs at import time.
 """
 
@@ -53,11 +54,19 @@ def _nvcc() -> str:
     return nvcc
 
 
+def nvcc_command(src: Path, out: Path) -> list[str]:
+    """nvcc building ``src`` into the shared library ``out``, with the
+    headers of ``csrc/`` on the include path (also for a copy of a source
+    elsewhere, as the sweeps build)."""
+    return [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(out), str(src)]
+
+
 def _target(name: str) -> tuple[Path, Path]:
     src = CSRC_DIR / f"{name}.cu"
     if not src.is_file():
         raise FileNotFoundError(f"no kernel source {src}")
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    text = src.read_bytes() + b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha1(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return src, BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -73,8 +82,7 @@ def build(names: list[str]) -> list[BuildInfo]:
             infos.append(BuildInfo(name, lib, 0.0, ""))
             continue
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        proc = subprocess.Popen(nvcc_command(src, tmp), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         jobs.append((name, lib, tmp, proc, time.monotonic()))
     failures = []
     for name, lib, tmp, proc, t0 in jobs:

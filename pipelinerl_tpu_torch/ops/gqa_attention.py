@@ -15,8 +15,11 @@ dk, dv in the inputs' dtypes.
 The kernels (``csrc/gqa_attention_fwd.cu``, ``csrc/gqa_attention_bwd.cu``)
 fold the G = H/K query heads of a kv head into the rows, skip causally
 future and segment-disjoint tiles, and mask ragged edges themselves, so
-every length runs on them. ``mha_packed_gqa`` is differentiable: CPU tensors
-take the plain forward and backward, CUDA tensors the kernels or raise.
+every length runs on them. The backward kernels walk a tile schedule
+(``bwd_tile_spans_plain`` is its plain version), and the dk/dv kernel splits
+each key tile's span over the blocks of a cluster (``dkv_splits``,
+``dkv_split``). ``mha_packed_gqa`` is differentiable: CPU tensors take the
+plain forward and backward, CUDA tensors the kernels or raise.
 """
 
 from __future__ import annotations
@@ -33,6 +36,127 @@ _NEG_INF = -1e30
 launches = 0  # forward
 dq_launches = 0
 dkv_launches = 0
+
+# the backward kernels' tiles (csrc/gqa_attention_bwd.cu): dq takes 64
+# folded q rows per block and 64 keys per tile, dk/dv 64 keys per block and
+# dkv_q_rows(Dh) folded q rows per tile
+TILE = 64
+# dk/dv blocks per key tile at most: the portable thread-block cluster size
+# (the kernel's kMaxSplits)
+MAX_SPLITS = 8
+# dk/dv blocks a launch aims at: about two resident blocks on each of an
+# H100's 132 SMs, twice over
+DKV_TARGET_BLOCKS = 512
+
+
+def dkv_q_rows(Dh: int) -> int:
+    """Folded q rows per dk/dv tile: 32 at Dh 128, so that kernel's K/V
+    fragments and dk/dv sums fit the registers."""
+    return 64 if Dh == 64 else 32
+
+
+def dkv_splits(B: int, Lq: int, Lkv: int, K: int, G: int, Dh: int) -> int:
+    """Blocks (one cluster) per key tile of the dk/dv kernel, from the
+    static shape alone, so the launch reads nothing back from the card:
+    enough to bring the grid to ``DKV_TARGET_BLOCKS``, at most
+    ``MAX_SPLITS`` and at most one per q tile."""
+    base = -(-Lkv // TILE) * B * K
+    n_qt = -(-(Lq * G) // dkv_q_rows(Dh))
+    return max(1, min(MAX_SPLITS, n_qt, -(-DKV_TARGET_BLOCKS // base)))
+
+
+def dkv_split(first: int, last: int, splits: int, rank: int) -> tuple[int, int]:
+    """The q tiles [begin, end) that block ``rank`` of a key tile's cluster
+    walks, of the span [first, last] (empty when last < first)."""
+    n = max(0, last - first + 1)
+    return first + rank * n // splits, first + (rank + 1) * n // splits
+
+
+def _first_last(cand: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """First and last index along the last axis where ``cand`` holds; -1 as
+    the last where it never does."""
+    idx = torch.arange(cand.shape[-1], device=cand.device)
+    first = torch.where(cand, idx, cand.shape[-1]).amin(-1)
+    last = torch.where(cand, idx, -1).amax(-1)
+    return first, last
+
+
+def bwd_tile_spans_plain(q_seg, kv_seg, q_offset: int, G: int, Dh: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The backward kernels' tile schedule in plain PyTorch: (dq_spans
+    [B, ceil(Lq G / 64), 2], dkv_spans [B, ceil(Lkv / 64), 2]) int32, each
+    row an inclusive span [first, last], [0, -1] when empty.
+
+    dq's q tile t (folded rows [64 t, 64 t + 63], positions [r0 // G,
+    r_end // G]) walks the key tiles holding the first and last key j <=
+    q_offset + its last position whose id lies in the positions' [min, max]
+    ids. dk/dv's key tile (keys [64 j, 64 j + 63]) walks the q tiles of
+    ``dkv_q_rows(Dh)`` rows holding the first and last position i >= 64 j -
+    q_offset whose id lies in the keys' [min, max]. Any visible pair of
+    ``_mask`` lies in both spans; the kernels test each tile inside."""
+    B, Lq = q_seg.shape
+    Lkv = kv_seg.shape[1]
+    QR = dkv_q_rows(Dh)
+    dev = q_seg.device
+    qs, ks = q_seg.long(), kv_seg.long()
+    big = torch.iinfo(torch.int64).max
+    pos, key = torch.arange(Lq, device=dev), torch.arange(Lkv, device=dev)
+
+    def id_range(ids, member):  # ids [B, N], member [T, N] -> [B, T] min and max
+        mn = torch.where(member[None], ids[:, None], big).amin(-1)
+        mx = torch.where(member[None], ids[:, None], -big).amax(-1)
+        return mn, mx
+
+    n_rows = Lq * G
+    r0 = torch.arange(-(-n_rows // TILE), device=dev) * TILE
+    i_hi = (r0 + TILE - 1).clamp(max=n_rows - 1) // G
+    q_mn, q_mx = id_range(qs, (pos[None] >= (r0 // G)[:, None]) & (pos[None] <= i_hi[:, None]))
+    first, last = _first_last((key[None, None] <= (q_offset + i_hi)[None, :, None])
+                              & (ks[:, None] >= q_mn[..., None]) & (ks[:, None] <= q_mx[..., None]))
+    dq = torch.stack([first // TILE, last // TILE], -1)
+    dq[last < 0] = torch.tensor([0, -1], device=dev)
+
+    kv0 = torch.arange(-(-Lkv // TILE), device=dev) * TILE
+    k_mn, k_mx = id_range(ks, (key[None] >= kv0[:, None]) & (key[None] < kv0[:, None] + TILE))
+    first, last = _first_last((pos[None, None] >= (kv0 - q_offset)[None, :, None])
+                              & (qs[:, None] >= k_mn[..., None]) & (qs[:, None] <= k_mx[..., None]))
+    dkv = torch.stack([first * G // QR, (last * G + G - 1) // QR], -1)
+    dkv[last < 0] = torch.tensor([0, -1], device=dev)
+    return dq.to(torch.int32), dkv.to(torch.int32)
+
+
+def bwd_tile_spans(q_seg, kv_seg, q_offset: int, G: int, Dh: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The tile schedule of the backward kernels: on CUDA tensors as the
+    kernels compute it (``gqa_attention_bwd_schedule``, the same device
+    functions), on CPU tensors ``bwd_tile_spans_plain``."""
+    if q_seg.device.type == "cpu":
+        return bwd_tile_spans_plain(q_seg, kv_seg, q_offset, G, Dh)
+    _check_device(q_seg)
+    B, Lq = q_seg.shape
+    Lkv = kv_seg.shape[1]
+    _check("q_segment_ids", q_seg, (B, Lq), torch.int32, q_seg.device)
+    _check("kv_segment_ids", kv_seg, (B, Lkv), torch.int32, q_seg.device)
+    if Dh not in (64, 128):
+        raise ValueError(f"unsupported Dh={Dh}")
+    dq = torch.empty((B, -(-(Lq * G) // TILE), 2), dtype=torch.int32, device=q_seg.device)
+    dkv = torch.empty((B, -(-Lkv // TILE), 2), dtype=torch.int32, device=q_seg.device)
+    err = _build.library("gqa_attention_bwd").gqa_attention_bwd_schedule(
+        q_seg.data_ptr(), kv_seg.data_ptr(), dq.data_ptr(), dkv.data_ptr(), B, Lq, Lkv, G, Dh,
+        int(q_offset), torch.cuda.current_stream(q_seg.device).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"gqa_attention_bwd schedule kernel launch failed: CUDA error {err}")
+    return dq, dkv
+
+
+def bwd_kernel_info(which: str, Dh: int) -> dict[str, int]:
+    """What the card reports of backward kernel ``which`` ("dq" or "dkv") at
+    Dh: registers and local (spill) bytes per thread, dynamic shared memory
+    per block, and resident blocks per SM."""
+    out = (ctypes.c_int * 4)()
+    err = _build.library("gqa_attention_bwd").gqa_attention_bwd_kernel_info(("dq", "dkv").index(which), Dh, out)
+    if err:
+        raise RuntimeError(f"gqa_attention_bwd_kernel_info failed: CUDA error {err}")
+    return dict(zip(("registers", "local_bytes", "smem_bytes", "blocks_per_sm"), out))
 
 
 def mha_packed_gqa_plain(
@@ -204,7 +328,7 @@ def mha_packed_gqa_bwd_dq(q, k, v, q_seg, kv_seg, q_offset, scale, lse, delta, d
 def mha_packed_gqa_bwd_dkv(q, k, v, q_seg, kv_seg, q_offset, scale, lse, delta, do):
     """Kernel #4: (dk, dv) [B, Lkv, K, Dh], summed over the G query heads
     of each kv head. CPU tensors take the plain version; CUDA tensors launch
-    the kernel or raise."""
+    the kernel, ``dkv_splits`` blocks per key tile in one cluster, or raise."""
     global dkv_launches
     if q.device.type == "cpu":
         return _bwd_plain(q, k, v, q_seg, kv_seg, q_offset, scale, lse, delta, do)[1:]
@@ -216,7 +340,7 @@ def mha_packed_gqa_bwd_dkv(q, k, v, q_seg, kv_seg, q_offset, scale, lse, delta, 
     err = _build.library("gqa_attention_bwd").gqa_attention_bwd_dkv_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), q_seg.data_ptr(), kv_seg.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        B, Lq, Lkv, H, K, Dh, int(q_offset), float(scale),
+        B, Lq, Lkv, H, K, Dh, int(q_offset), float(scale), dkv_splits(B, Lq, Lkv, K, H // K, Dh),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err:
@@ -300,5 +424,15 @@ _build.declare(
 _build.declare(
     "gqa_attention_bwd",
     "gqa_attention_bwd_dkv_bf16",
-    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p],
+    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+)
+_build.declare(
+    "gqa_attention_bwd",
+    "gqa_attention_bwd_schedule",
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+)
+_build.declare(
+    "gqa_attention_bwd",
+    "gqa_attention_bwd_kernel_info",
+    [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
 )

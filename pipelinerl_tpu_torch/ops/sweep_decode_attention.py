@@ -57,8 +57,7 @@ def _build_variants() -> dict:
             "constexpr int kSplitRows = 256;", f"constexpr int kSplitRows = {rows};")
         cu, so = out / f"s{stages}_c{rows}.cu", out / f"s{stages}_c{rows}.so"
         cu.write_text(text)
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)]
-        jobs[(stages, rows)] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        jobs[(stages, rows)] = (so, subprocess.Popen(_build.nvcc_command(cu, so), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for key, (so, proc) in jobs.items():
         log, _ = proc.communicate()

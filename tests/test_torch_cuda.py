@@ -182,6 +182,85 @@ def test_gqa_backward_kernels_match_plain(cuda, B, Lq, Lkv, H, K, Dh, n_segs):
     assert _close(dq, rq) and _close(dk, rk) and _close(dv, rv)
 
 
+def _segment_ids(lengths, B, dev):
+    seg = torch.repeat_interleave(torch.arange(len(lengths), dtype=torch.int32), torch.tensor(lengths))
+    return seg[None].expand(B, -1).contiguous().to(dev)
+
+
+def _bwd_with_segments(gen, B, L, H, K, Dh, kv_seg, dev):
+    """Kernel inputs at q_offset 0 over ``kv_seg``, out and lse from the plain
+    forward."""
+    q, k, v = _bf16(gen, B, L, H, Dh), _bf16(gen, B, L, K, Dh), _bf16(gen, B, L, K, Dh)
+    out, lse = gattn.mha_packed_gqa_plain(q, k, v, kv_seg, kv_seg, 0)
+    return q, k, v, kv_seg, kv_seg, 0, Dh**-0.5, out.to(torch.bfloat16), lse, _bf16(gen, B, L, H, Dh)
+
+
+def _check_bwd_kernels(args):
+    """One call of each wrapper (one launch each) against the plain backward,
+    a second call bit for bit equal to the first, and the device's tile
+    schedule equal to its plain version."""
+    before = (gattn.dq_launches, gattn.dkv_launches)
+    dq, dk, dv = gattn.mha_packed_gqa_bwd(*args)
+    torch.cuda.synchronize()
+    assert (gattn.dq_launches, gattn.dkv_launches) == (before[0] + 1, before[1] + 1)
+    rq, rk, rv = gattn.mha_packed_gqa_bwd_plain(*args)
+    assert _close(dq, rq) and _close(dk, rk) and _close(dv, rv)
+    again = gattn.mha_packed_gqa_bwd(*args)
+    assert all(torch.equal(a, b) for a, b in zip(again, (dq, dk, dv)))  # no atomics on the sums
+    q, k, q_seg, kv_seg, q_offset = args[0], args[1], args[3], args[4], args[5]
+    G, Dh = q.shape[2] // k.shape[2], q.shape[3]
+    for got, ref in zip(gattn.bwd_tile_spans(q_seg, kv_seg, q_offset, G, Dh),
+                        gattn.bwd_tile_spans_plain(q_seg, kv_seg, q_offset, G, Dh)):
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("extra", [0, 1])
+@pytest.mark.parametrize("Dh,H,K", [(64, 14, 2), (128, 8, 1)])
+def test_gqa_backward_on_split_edges(cuda, extra, Dh, H, K):
+    """The first key tile's q span is exactly S * 2 tiles (extra 0) or S * 2 +
+    1 (extra 1), S the shape's dk/dv split count: its blocks take equal
+    shares, or one takes a tile more."""
+    B, L = 1, 2048
+    G, QR = H // K, gattn.dkv_q_rows(Dh)
+    S = gattn.dkv_splits(B, L, L, K, G, Dh)
+    first = S * 2 * QR // G + extra  # a segment whose rows fill S * 2 q tiles, or reach one more
+    kv_seg = _segment_ids([first, 700, L - 700 - first], B, cuda)
+    span = gattn.bwd_tile_spans_plain(kv_seg.cpu(), kv_seg.cpu(), 0, G, Dh)[1][0, 0].tolist()
+    assert S > 1 and span == [0, S * 2 - 1 + extra]
+    _check_bwd_kernels(_bwd_with_segments(torch.Generator(device=cuda).manual_seed(12), B, L, H, K, Dh, kv_seg, cuda))
+
+
+@pytest.mark.parametrize(
+    "B,L,H,K,Dh,layout",
+    [
+        (1, 1024, 14, 2, 64, "shuffled"),  # segments out of order
+        (2, 600, 6, 2, 64, "random"),  # an id drawn at random for each position
+        (1, 777, 8, 1, 128, "shuffled"),  # Dh 128, ragged
+        (1, 4096, 14, 2, 64, "one"),  # one segment: the longest spans
+    ],
+)
+def test_gqa_backward_on_unsorted_segment_ids(cuda, B, L, H, K, Dh, layout):
+    rng = np.random.default_rng(L)
+    if layout == "shuffled":
+        lengths = rng.multinomial(L - 8 * 16, np.ones(8) / 8) + 16
+        ids = np.repeat(rng.permutation(8), lengths)
+    elif layout == "random":
+        ids = rng.integers(0, 3, L)
+    else:
+        ids = np.zeros(L, np.int64)
+    kv_seg = torch.from_numpy(ids.astype(np.int32))[None].expand(B, L).contiguous().to(cuda)
+    _check_bwd_kernels(_bwd_with_segments(torch.Generator(device=cuda).manual_seed(13), B, L, H, K, Dh, kv_seg, cuda))
+
+
+def test_gqa_backward_schedule_at_an_offset(cuda):
+    """q_offset > 0 with Lq < Lkv, three segments: the device's schedule
+    equals its plain version, and the kernels agree with the plain
+    backward bit for bit on a second call."""
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    args = _gqa_bwd_inputs(gen, 2, 96, 320, 8, 1, 128, 3, cuda)
+    _check_bwd_kernels((*args[:5], args[5], 128**-0.5, *args[6:]))
+
+
 def test_gqa_backward_fully_masked_row(cuda):
     """A query whose segment has no key: lse = -1e30, zero gradient, no NaN."""
     gen = torch.Generator(device=cuda).manual_seed(5)
