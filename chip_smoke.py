@@ -20,10 +20,16 @@ Phases, each of which stops the script on failure:
    version's, a page gather plus one SDPA call, kernel #1 on the same
    lengths over a contiguous cache, and the bound. Each shape logs its grid
    (S, K, splits);
-4. the GQA forward kernel against its plain version (prefill shape, a packed
-   2048 row of 8 segments, q_offset > 0 with Lq < Lkv, and the training row;
-   checked also at the paged engine's prefill buckets and on tails laid out
-   as ``forward_extend`` lays them out, a padded prefix before them);
+4. the GQA forward kernel (#2) against its plain version and bit for bit
+   against a second call (prefill shape, a packed 2048 row of 8 segments,
+   q_offset > 0 with Lq < Lkv, a ``forward_extend`` tail, the training row
+   and a resumed turn that splits over a cluster, each timed beside SDPA
+   and its bound; checked also at the paged
+   engine's prefill buckets, on tails laid out as ``forward_extend`` lays
+   them out, on unsorted segment ids, with a fully masked row, at Dh 128,
+   and on lengths at the edges of its cluster split with S forced from 1 to
+   8); each shape logs its grid, and the kernel's registers, shared memory
+   and spills at Dh 64 and 128 (it fails on a spill);
 5. the GQA backward kernels (dq, dk/dv) against the plain backward at the
    training shape and six more (unsorted segment ids, one 4,096-token
    segment among them), each also bit for bit against a second call and
@@ -583,39 +589,86 @@ def _extend_inputs(gen, Lt, Pfx, prefix_lens, H, K, Dh, dev):
 
 
 def _gqa_work(q, k, q_seg, kv_seg, q_offset):
-    """Bytes in and out, and flops over the visible (query, key) pairs."""
+    """Bytes in and out, and flops over the visible (query, key) pairs. K
+    and V count only the keys that some query of their batch row sees; q,
+    out, lse and every id count in full."""
     B, Lq, H, Dh = q.shape
     Lkv, K = k.shape[1], k.shape[2]
     i = torch.arange(Lq, device=q.device)[:, None] + q_offset
     j = torch.arange(Lkv, device=q.device)[None, :]
-    visible = ((i >= j)[None] & (q_seg[:, :, None] == kv_seg[:, None, :])).sum().item()
-    n_bytes = 2 * q.numel() * 2 + 2 * k.numel() * 2 + B * Lq * H * 4 + 4 * (q_seg.numel() + kv_seg.numel())
+    mask = (i >= j)[None] & (q_seg[:, :, None] == kv_seg[:, None, :])  # [B, Lq, Lkv]
+    visible = mask.sum().item()
+    seen_keys = mask.any(1).sum().item()
+    n_bytes = (2 * q.numel() * 2 + 2 * seen_keys * K * Dh * 2 + B * Lq * H * 4
+               + 4 * (q_seg.numel() + kv_seg.numel()))
     return n_bytes, 4 * H * Dh * visible, visible
 
 
-def _check_gqa_forward(label, args) -> float:
-    """Kernel #2 against its plain version on ``args``; returns the out error."""
+def gqa_grid(args) -> str:
+    """Kernel #2's grid and cluster for ``args``."""
+    B, Lq, H, Dh = args[0].shape
+    Lkv, K = args[1].shape[1], args[1].shape[2]
+    S = gattn.fwd_splits(B, Lq, Lkv, K, H // K, Dh)
+    return f"grid ({-(-Lq * (H // K) // gattn.TILE)}, {B * K}, {S}), cluster (1, 1, {S})"
+
+
+def _check_gqa_forward(label, args, masked_row=None) -> float:
+    """Kernel #2 against its plain version on ``args`` and bit for bit
+    against a second call; ``masked_row`` (b, i) must get out 0 and lse
+    -1e30. Returns the out error."""
     out, lse = gattn.mha_packed_gqa(*args)
     torch.cuda.synchronize()
     ref_out, ref_lse = gattn.mha_packed_gqa_plain(*args)
     e_out = (out.float() - ref_out.float()).abs().max().item()
     e_lse = (lse - ref_lse).abs().max().item()
-    log(f"gqa kernel vs plain, {label}: out max abs err {e_out:.3e} (tolerance {GQA_OUT_ATOL}), "
-        f"lse {e_lse:.3e} (tolerance {GQA_LSE_ATOL})")
+    again = gattn.mha_packed_gqa(*args)
+    repeat = torch.equal(again[0], out) and torch.equal(again[1], lse)
+    log(f"gqa kernel vs plain, {label}, {gqa_grid(args)}: out max abs err {e_out:.3e} (tolerance "
+        f"{GQA_OUT_ATOL}), lse {e_lse:.3e} (tolerance {GQA_LSE_ATOL}); a second call bit for bit: {repeat}")
     check(math.isfinite(e_out) and e_out <= GQA_OUT_ATOL, f"gqa out disagrees ({label})")
     check(math.isfinite(e_lse) and e_lse <= GQA_LSE_ATOL, f"gqa lse disagrees ({label})")
+    check(repeat, f"gqa forward is not deterministic ({label})")
+    if masked_row is not None:
+        check(bool((lse[masked_row] == -1e30).all() and (out[masked_row] == 0).all()),
+              f"a fully masked query row must get out 0 and lse -1e30 ({label})")
     return e_out
 
 
-def phase_gqa_kernel(dev) -> dict:
+def phase_gqa_kernel(dev, ptxas: str) -> dict:
+    """Kernel #2 against its plain version at every shape the main paths
+    give it and at the edges of its design; its build; its times, SDPA's
+    and its bound at seven shapes. The prefill shape is the record's own;
+    the q_offset row, the forward_extend tail, the training row, a partial
+    batch of extends and a resumed turn (both cluster splits) sit beside
+    it."""
     H, K, Dh = QWEN05B.num_heads, QWEN05B.num_kv_heads, 64
     gen = torch.Generator(device=dev).manual_seed(2)
-    cases = [  # (label, B, Lq, Lkv, segments)
-        ("prefill B=8 L=128", 8, BUCKET, BUCKET, 1),
-        ("packed L=2048, 8 segments", 1, 2048, 2048, 8),
-        ("q_offset=384, Lq=256 < Lkv=640", 2, 256, 640, 3),
-        ("training row L=4096, 8 segments", 1, TRAIN_L, TRAIN_L, 8),
+    timed = [  # (label, record key, inputs)
+        ("prefill B=8 L=128", None, lambda: _gqa_inputs(gen, 8, BUCKET, BUCKET, H, K, Dh, 1, dev)),
+        ("packed L=2048, 8 segments", None, lambda: _gqa_inputs(gen, 1, 2048, 2048, H, K, Dh, 8, dev)),
+        ("q_offset=384, Lq=256 < Lkv=640", "offset_shape", lambda: _gqa_inputs(gen, 2, 256, 640, H, K, Dh, 3, dev)),
+        ("forward_extend tail B=8 Lt=128 at q_offset 512, prefix lengths 384", "extend_tail_shape",
+         lambda: _extend_inputs(gen, 128, 4 * 128, [384] * 8, H, K, Dh, dev)),
+        ("training row L=4096, 8 segments", "train_shape", lambda: _gqa_inputs(gen, 1, TRAIN_L, TRAIN_L, H, K, Dh, 8, dev)),
+        # short grids over long spans, where fwd_splits splits: a partial
+        # batch of the paged engine's extends, and a resumed turn (no path
+        # gives it yet; slab prefix parking will, ROADMAP Queue 1 [2])
+        ("forward_extend tail B=1 Lt=128 at q_offset 2048, prefix length 1920", "partial_extend_shape",
+         lambda: _extend_inputs(gen, 128, 16 * 128, [15 * 128], H, K, Dh, dev)),
+        ("resumed turn B=1 Lt=128 at q_offset 3968, one segment", "resumed_turn_shape",
+         lambda: _gqa_inputs(gen, 1, 128, TRAIN_L, H, K, Dh, 1, dev)),
     ]
+    for Dc, symbol in ((64, "gqa_fwd_kernelILi64E"), (128, "gqa_fwd_kernelILi128E")):
+        info = gattn.fwd_kernel_info(Dc)
+        log(f"gqa forward kernel, Dh={Dc}: {ptxas_entry(ptxas, symbol)}; card: {info['registers']} registers, "
+            f"{info['local_bytes']} local bytes, {info['smem_bytes']} bytes of dynamic shared memory, "
+            f"{info['blocks_per_sm']} blocks per SM")
+        check(info["local_bytes"] == 0, f"gqa forward kernel at Dh={Dc} spills")
+        check(info["blocks_per_sm"] == gattn.FWD_BLOCKS_PER_SM[Dc],
+              f"fwd_splits counts {gattn.FWD_BLOCKS_PER_SM[Dc]} resident blocks per SM at Dh={Dc}, the card "
+              f"holds {info['blocks_per_sm']}")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    check(sms == gattn.SM_COUNT, f"fwd_splits counts {gattn.SM_COUNT} SMs, the card has {sms}")
     # the bandit_tpu loop's shapes, checked only: its engine's prefill
     # buckets at the largest prefill batch, and its trainer's packed row
     b, L = BANDIT, BANDIT["seq_length"]
@@ -634,13 +687,43 @@ def phase_gqa_kernel(dev) -> dict:
         args = _extend_inputs(gen, tail, 4 * 128, prefix_lens, H, K, Dh, dev)
         max_err = max(max_err, _check_gqa_forward(
             f"forward_extend tail {tail} against a 512-token padded prefix, prefix lengths {prefix_lens}", args))
+    # the engine's partial batches of extends (fewer than 8 of one tail and
+    # page bucket), where fwd_splits splits: page buckets of 8 and 16
+    for B, pages in ((1, 16), (2, 16), (4, 8)):
+        args = _extend_inputs(gen, 128, pages * 128, [(pages - 1) * 128] * B, H, K, Dh, dev)
+        max_err = max(max_err, _check_gqa_forward(
+            f"forward_extend tail 128, B={B}, against a {pages * 128}-token padded prefix", args))
+    # the design's edges: unsorted ids, a fully masked row, Dh 128, and
+    # lengths that are not multiples of 64 at every cluster size
+    for label, B, Lq, Lkv, segs in (
+            ("unsorted segment ids, L=4096, 8 segments shuffled, 1 id in 64 stray", 1, TRAIN_L, TRAIN_L,
+             unsorted_segments(TRAIN_L, 8, 4)),
+            ("unsorted segment ids, q_offset=384, Lq=256 < Lkv=640", 2, 256, 640, unsorted_segments(640, 3, 5))):
+        max_err = max(max_err, _check_gqa_forward(label, _gqa_inputs(gen, B, Lq, Lkv, H, K, Dh, segs, dev)))
+    args = list(_gqa_inputs(gen, 2, 256, 640, H, K, Dh, 2, dev))
+    args[3] = args[3].clone()
+    args[3][1, 100] = int(args[4].max()) + 7  # no key carries it
+    max_err = max(max_err, _check_gqa_forward("a fully masked query row at q_offset=384", args, (1, 100)))
+    max_err = max(max_err, _check_gqa_forward("Dh=128, H=8 K=1, ragged L=1000",
+                                              _gqa_inputs(gen, 2, 1000, 1000, 8, 1, 128, 3, dev)))
+    auto_splits = gattn.fwd_splits
+    try:
+        for S in range(1, gattn.MAX_SPLITS + 1):
+            gattn.fwd_splits = lambda *_, s=S: s
+            for Hc, Kc, Dc in ((H, K, Dh), (8, 1, 128)):
+                max_err = max(max_err, _check_gqa_forward(
+                    f"split edges, Lq=201 at q_offset 576, Lkv=777, H={Hc} K={Kc} Dh={Dc}, S forced to {S}",
+                    _gqa_inputs(gen, 2, 201, 777, Hc, Kc, Dc, [300, 260, 217], dev)))
+    finally:
+        gattn.fwd_splits = auto_splits
     record = None
-    for label, B, Lq, Lkv, n_segs in cases:
-        args = _gqa_inputs(gen, B, Lq, Lkv, H, K, Dh, n_segs, dev)
+    for label, key, make in timed:
+        args = make()
         max_err = max(max_err, _check_gqa_forward(label, args))
+        Lq, Lkv = args[0].shape[1], args[1].shape[1]
 
         n_bytes, flops, visible = _gqa_work(args[0], args[1], args[3], args[4], args[5])
-        sets = [_gqa_inputs(gen, B, Lq, Lkv, H, K, Dh, n_segs, dev) for _ in range(n_sets(n_bytes))]
+        sets = [args] + [make() for _ in range(n_sets(n_bytes) - 1)]
         kernel_ms = time_ms([lambda a=a: gattn.mha_packed_gqa(*a) for a in sets])
         plain_ms = time_ms([lambda a=a: gattn.mha_packed_gqa_plain(*a) for a in sets[:2]], 10)
         lib_sets = []
@@ -654,8 +737,8 @@ def phase_gqa_kernel(dev) -> dict:
             for a in lib_sets
         ])
         bound_ms, bound_by = bound(n_bytes, flops)
-        log(f"gqa kernel {label} (H={H} K={K} Dh={Dh}, {visible} visible pairs): {kernel_ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        log(f"gqa kernel {label} (H={H} K={K} Dh={Dh}, {visible} visible pairs, {gqa_grid(args)}): "
+            f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
             f"({bound_by}), roofline share {bound_ms / kernel_ms:.3f}")
         if record is None:  # the prefill shape is the main path's
             record = {
@@ -665,9 +748,9 @@ def phase_gqa_kernel(dev) -> dict:
                 "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": library_ms,
             }
-        if label.startswith("training"):  # the train step's shape, beside the prefill record
-            record["train_shape"] = {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                                     "bound_ms": bound_ms, "bound_by": bound_by}
+        if key is not None:  # another shape of the main paths, beside the prefill record
+            record[key] = {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                           "bound_ms": bound_ms, "bound_by": bound_by}
     record["max_abs_err"] = max_err
     return record
 
@@ -968,6 +1051,7 @@ def report_profile(prof, wall_ms: float, n_steps: int, label: str) -> None:
         log(f"  {e.self_device_time_total / 1e3 / n_steps:8.4f} ms/step  {e.count // n_steps:5d}/step  {e.key[:90]}")
     for what, pattern in (("decode attention (kernel #1 or #5 with its split merge)",
                            r"decode_attention_kernel|merge_splits_kernel"),
+                          ("GQA forward (kernel #2)", r"gqa_fwd_kernel"),
                           ("GQA backward (kernels #3 and #4)", r"gqa_bwd_dq_kernel|gqa_bwd_dkv_kernel")):
         attn = [e for e in kernels if re.search(pattern, e.key)]
         if attn:
@@ -1348,7 +1432,8 @@ def main() -> None:
     info = phase_device()
     dev = torch.device("cuda")
     ptxas = phase_build()
-    kernels = [phase_decode_kernel(dev), phase_gqa_kernel(dev), *phase_gqa_bwd_kernels(dev, ptxas["gqa_attention_bwd"]),
+    kernels = [phase_decode_kernel(dev), phase_gqa_kernel(dev, ptxas.get("gqa_attention_fwd", "")),
+               *phase_gqa_bwd_kernels(dev, ptxas.get("gqa_attention_bwd", "")),
                phase_paged_kernel(dev)]
     torch.cuda.empty_cache()
     paths = {}

@@ -42,7 +42,8 @@
 //   walks only the span and tests each tile's ids as it lands (a counting
 //   barrier), so unsorted ids stay exact. `gqa_attention_bwd_schedule`
 //   writes the same spans for the tests (ops/gqa_attention.py has the
-//   plain version);
+//   plain version). The scan lives in gqa_tile_schedule.cuh, whose dq span
+//   the forward (#2) walks too;
 // - dk/dv splits each key tile's q span over the S blocks of a thread-block
 //   cluster: grid (Lkv / 64, B * K, S), cluster (1, 1, S). Block (rank r)
 //   sums its 1/S of the span for its 64 keys in registers, all G heads
@@ -84,100 +85,19 @@
 
 #include <type_traits>
 
-#include "sm90_helpers.cuh"
+#include "gqa_tile_schedule.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kTile = 64;  // dq: folded rows per block and keys per tile; dk/dv: keys per block
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
 constexpr int kStages = 2;     // tiles in flight in each kernel's ring
 constexpr int kKeyChunk = 32;  // dq: keys per S/dP chunk
-constexpr int kMaxSplits = 8;  // dk/dv: blocks per cluster, the portable cluster size
-constexpr float kLog2e = 1.4426950408889634f;
 
 // dk/dv: folded q rows per streamed tile (Dh 128 takes 32 so its K/V
 // fragments and sums fit the registers), and rows per S^T/dP^T chunk
 __host__ __device__ constexpr int dkv_q_rows(int dh) { return dh == 64 ? 64 : 32; }
 __host__ __device__ constexpr int dkv_row_chunk(int dh) { return dh == 64 ? 32 : 16; }
-
-// A fragment (16 x 16, row major) of columns [16 kk, 16 kk + 16) from the C
-// fragments of two adjacent 8-column mma tiles, rounded to bf16
-__device__ __forceinline__ void c_to_a(float (*c)[4], int kk, uint32_t* a) {
-  a[0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
-  a[1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
-  a[2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-  a[3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
-}
-
-// min and max of ids[lo..hi] (inclusive), the same on every lane of the warp
-__device__ __forceinline__ void warp_range(const int* ids, int lo, int hi, int& mn, int& mx) {
-  mn = INT32_MAX;
-  mx = INT32_MIN;
-  for (int i = lo + threadIdx.x % 32; i <= hi; i += 32) {
-    mn = min(mn, ids[i]);
-    mx = max(mx, ids[i]);
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    mn = min(mn, __shfl_xor_sync(0xffffffffu, mn, o));
-    mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-  }
-}
-
-// The first and last position p in [lo, hi] with ids[p] in [mn, mx], the
-// same on every thread of the block; last = -1 when there is none. Every
-// thread of the block must call it.
-__device__ __forceinline__ int2 block_match(const int* ids, int lo, int hi, int mn, int mx) {
-  constexpr int kBatch = 8;  // loads each thread keeps in flight
-  __shared__ int red[2][kWarps];
-  int first = INT32_MAX, last = -1;
-  for (int base = lo + (int)threadIdx.x; base <= hi; base += kBatch * kThreads) {
-    int s[kBatch];
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int p = base + u * kThreads;
-      s[u] = p <= hi ? __ldg(ids + p) : 0;
-    }
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int p = base + u * kThreads;
-      if ((p <= hi) & (s[u] >= mn) & (s[u] <= mx)) {
-        first = min(first, p);
-        last = max(last, p);
-      }
-    }
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    first = min(first, __shfl_xor_sync(0xffffffffu, first, o));
-    last = max(last, __shfl_xor_sync(0xffffffffu, last, o));
-  }
-  if (threadIdx.x % 32 == 0) {
-    red[0][threadIdx.x / 32] = first;
-    red[1][threadIdx.x / 32] = last;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
-    first = min(first, red[0][w]);
-    last = max(last, red[1][w]);
-  }
-  __syncthreads();  // red is free for the next call
-  return make_int2(first, last);
-}
-
-// dq's span: the key tiles [first, last] that folded q rows [r0, r_end] of
-// one batch row can see, and the rows' id range; {0, -1} when none
-__device__ __forceinline__ int2 dq_span(const int* qs, const int* ks, int r0, int r_end, int G,
-                                        int Lkv, int q_offset, int& q_mn, int& q_mx) {
-  const int i_hi = r_end / G;
-  warp_range(qs, r0 / G, i_hi, q_mn, q_mx);
-  const int2 m = block_match(ks, 0, min(Lkv - 1, q_offset + i_hi), q_mn, q_mx);
-  return m.y < 0 ? make_int2(0, -1) : make_int2(m.x / kTile, m.y / kTile);
-}
 
 // dk/dv's span: the q tiles of QR folded rows [first, last] that can see
 // keys [kv0, kv0 + n_kv) of one batch row, and the keys' id range
@@ -539,9 +459,8 @@ __global__ void __launch_bounds__(kThreads, 2) gqa_bwd_dkv_kernel(
   // this rank's share of the key tile's q span
   int k_mn, k_mx;
   const int2 span = dkv_span(qs, ks, kv0, n_kv, G, QR, Lq, q_offset, k_mn, k_mx);
-  const int n_span = span.y - span.x + 1;
-  const int t_begin = span.x + rank * n_span / S;
-  const int n_tiles = span.x + (rank + 1) * n_span / S - t_begin;
+  const int2 share = rank_share(span, rank, S);
+  const int t_begin = share.x, n_tiles = share.y - share.x;
 
   // tile i of this rank into ring stage i % kStages, by all threads
   auto issue = [&](int i) {
@@ -700,12 +619,6 @@ __global__ void __launch_bounds__(kThreads) bwd_schedule_kernel(
   }
 }
 
-// Dynamic shared memory above 48 KB needs the attribute set once per kernel.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
 template <int DH>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
               const void* delta, const void* q_seg, const void* kv_seg, void* dq, int B, int Lq,
@@ -746,23 +659,6 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
                                  (const __nv_bfloat16*)dout, (const float*)lse, (const float*)delta,
                                  (const int*)q_seg, (const int*)kv_seg, (__nv_bfloat16*)dk,
                                  (__nv_bfloat16*)dv, Lq, Lkv, H, K, q_offset, scale);
-}
-
-template <typename Kernel>
-int kernel_info(Kernel kernel, size_t smem, int* out) {
-  cudaFuncAttributes a;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, kernel);
-  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[3], kernel, kThreads, smem);
-  if (err != cudaSuccess) return (int)err;
-  out[0] = a.numRegs;
-  out[1] = (int)a.localSizeBytes;
-  out[2] = (int)smem;
-  return 0;
-}
-
-bool bad_shape(int B, int Lq, int Lkv, int H, int K, int q_offset) {
-  return B <= 0 || Lq <= 0 || Lkv <= 0 || K <= 0 || H % K != 0 || q_offset < 0;
 }
 
 }  // namespace

@@ -13,13 +13,14 @@ lse = -1e30. The backward recomputes P from (q, k, lse), takes
 dk, dv in the inputs' dtypes.
 
 The kernels (``csrc/gqa_attention_fwd.cu``, ``csrc/gqa_attention_bwd.cu``)
-fold the G = H/K query heads of a kv head into the rows, skip causally
-future and segment-disjoint tiles, and mask ragged edges themselves, so
-every length runs on them. The backward kernels walk a tile schedule
-(``bwd_tile_spans_plain`` is its plain version), and the dk/dv kernel splits
-each key tile's span over the blocks of a cluster (``dkv_splits``,
-``dkv_split``). ``mha_packed_gqa`` is differentiable: CPU tensors take the
-plain forward and backward, CUDA tensors the kernels or raise.
+fold the G = H/K query heads of a kv head into the rows, walk a tile
+schedule (``csrc/gqa_tile_schedule.cuh``; ``bwd_tile_spans_plain`` is its
+plain version, whose dq half the forward walks too), and mask ragged edges
+themselves, so every length runs on them. The forward splits a q tile's key
+span over the blocks of a cluster on short grids (``fwd_splits``), the
+dk/dv kernel a key tile's q span (``dkv_splits``), both by ``rank_share``.
+``mha_packed_gqa`` is differentiable: CPU tensors take the plain forward and
+backward, CUDA tensors the kernels or raise.
 """
 
 from __future__ import annotations
@@ -37,16 +38,25 @@ launches = 0  # forward
 dq_launches = 0
 dkv_launches = 0
 
-# the backward kernels' tiles (csrc/gqa_attention_bwd.cu): dq takes 64
-# folded q rows per block and 64 keys per tile, dk/dv 64 keys per block and
-# dkv_q_rows(Dh) folded q rows per tile
+# the kernels' tiles (csrc/gqa_tile_schedule.cuh): the forward and dq take
+# 64 folded q rows per block and 64 keys per tile, dk/dv 64 keys per block
+# and dkv_q_rows(Dh) folded q rows per tile
 TILE = 64
-# dk/dv blocks per key tile at most: the portable thread-block cluster size
-# (the kernel's kMaxSplits)
+# blocks per tile at most (one cluster): the portable thread-block cluster
+# size (the kernels' kMaxSplits)
 MAX_SPLITS = 8
 # dk/dv blocks a launch aims at: about two resident blocks on each of an
 # H100's 132 SMs, twice over
 DKV_TARGET_BLOCKS = 512
+# an H100 SXM's SMs
+SM_COUNT = 132
+# forward blocks an SM holds at once, by Dh: the minimum that the kernel's
+# __launch_bounds__ asks for (gqa_attention_fwd.cu); chip_smoke.py holds
+# both numbers against what the card reports
+FWD_BLOCKS_PER_SM = {64: 3, 128: 2}
+# key tiles a forward rank keeps at least: below it a split costs more in
+# its merge than it saves in the walk (ops/sweep_gqa_attention_fwd.py)
+FWD_MIN_TILES = 4
 
 
 def dkv_q_rows(Dh: int) -> int:
@@ -65,9 +75,28 @@ def dkv_splits(B: int, Lq: int, Lkv: int, K: int, G: int, Dh: int) -> int:
     return max(1, min(MAX_SPLITS, n_qt, -(-DKV_TARGET_BLOCKS // base)))
 
 
-def dkv_split(first: int, last: int, splits: int, rank: int) -> tuple[int, int]:
-    """The q tiles [begin, end) that block ``rank`` of a key tile's cluster
-    walks, of the span [first, last] (empty when last < first)."""
+def fwd_splits(B: int, Lq: int, Lkv: int, K: int, G: int, Dh: int) -> int:
+    """Blocks (one cluster) per q tile of the forward kernel, from the
+    static shape alone: as many as keep the grid within one wave and each
+    rank at ``FWD_MIN_TILES`` of a q tile's mean key span, at most
+    ``MAX_SPLITS``. The span counts the queries as the row's last Lq
+    positions (prefill, extend tails): ceil((Lkv - Lq / 2) / 64) tiles. The
+    wave counts 7/8 of the resident blocks (``FWD_BLOCKS_PER_SM`` on each
+    of ``SM_COUNT`` SMs): a cluster's blocks share one GPC, so clusters do
+    not fill every slot (on an H100 the sweep read S 7 at 392 of 396
+    blocks half as fast as S 6 at 336). 1 at the training row, whose grid fills the card,
+    and wherever the keys are few; more on a short grid over a long
+    prefix."""
+    base = -(-(Lq * G) // TILE) * B * K
+    wave = FWD_BLOCKS_PER_SM[Dh] * SM_COUNT * 7 // 8
+    span = -(-(Lkv - Lq // 2) // TILE)
+    return max(1, min(MAX_SPLITS, wave // base, span // FWD_MIN_TILES))
+
+
+def rank_share(first: int, last: int, splits: int, rank: int) -> tuple[int, int]:
+    """The tiles [begin, end) that block ``rank`` of a cluster of ``splits``
+    walks, of the span [first, last] (empty when last < first): a key tile's
+    q span in dk/dv, a q tile's key span in the forward."""
     n = max(0, last - first + 1)
     return first + rank * n // splits, first + (rank + 1) * n // splits
 
@@ -92,7 +121,8 @@ def bwd_tile_spans_plain(q_seg, kv_seg, q_offset: int, G: int, Dh: int) -> tuple
     ids. dk/dv's key tile (keys [64 j, 64 j + 63]) walks the q tiles of
     ``dkv_q_rows(Dh)`` rows holding the first and last position i >= 64 j -
     q_offset whose id lies in the keys' [min, max]. Any visible pair of
-    ``_mask`` lies in both spans; the kernels test each tile inside."""
+    ``_mask`` lies in both spans; the kernels test each tile inside. The
+    forward kernel's q tile is dq's, and dq_spans is its schedule too."""
     B, Lq = q_seg.shape
     Lkv = kv_seg.shape[1]
     QR = dkv_q_rows(Dh)
@@ -146,6 +176,17 @@ def bwd_tile_spans(q_seg, kv_seg, q_offset: int, G: int, Dh: int) -> tuple[torch
     if err:
         raise RuntimeError(f"gqa_attention_bwd schedule kernel launch failed: CUDA error {err}")
     return dq, dkv
+
+
+def fwd_kernel_info(Dh: int) -> dict[str, int]:
+    """What the card reports of the forward kernel at Dh: registers and
+    local (spill) bytes per thread, dynamic shared memory per block, and
+    resident blocks per SM."""
+    out = (ctypes.c_int * 4)()
+    err = _build.library("gqa_attention_fwd").gqa_attention_fwd_kernel_info(Dh, out)
+    if err:
+        raise RuntimeError(f"gqa_attention_fwd_kernel_info failed: CUDA error {err}")
+    return dict(zip(("registers", "local_bytes", "smem_bytes", "blocks_per_sm"), out))
 
 
 def bwd_kernel_info(which: str, Dh: int) -> dict[str, int]:
@@ -293,7 +334,7 @@ def _gqa_fwd_cuda(q, k, v, q_seg, kv_seg, q_offset, scale):
     err = lib.gqa_attention_fwd_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q_seg.data_ptr(), kv_seg.data_ptr(),
         out.data_ptr(), lse.data_ptr(), B, Lq, Lkv, H, K, Dh, int(q_offset),
-        float(scale), torch.cuda.current_stream(dev).cuda_stream,
+        float(scale), fwd_splits(B, Lq, Lkv, K, H // K, Dh), torch.cuda.current_stream(dev).cuda_stream,
     )
     if err:
         raise RuntimeError(f"gqa_attention_fwd kernel launch failed: CUDA error {err}")
@@ -359,7 +400,8 @@ def mha_packed_gqa_bwd(q, k, v, q_seg, kv_seg, q_offset, scale, out, lse, do):
 
 
 class _GQAAttention(torch.autograd.Function):
-    """Forward: kernel #2 (or its plain version on the CPU), saving q, k, v,
+    """Forward: kernel #2, ``fwd_splits`` blocks per q tile in one cluster
+    (or its plain version on the CPU), saving q, k, v,
     out and lse. Backward: ``mha_packed_gqa_bwd``."""
 
     @staticmethod
@@ -414,8 +456,9 @@ def mha_packed_gqa_simple(
 _build.declare(
     "gqa_attention_fwd",
     "gqa_attention_fwd_bf16",
-    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p],
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
 )
+_build.declare("gqa_attention_fwd", "gqa_attention_fwd_kernel_info", [ctypes.c_int, ctypes.c_void_p])
 _build.declare(
     "gqa_attention_bwd",
     "gqa_attention_bwd_dq_bf16",

@@ -146,6 +146,73 @@ def test_gqa_kernel_matches_plain_on_extend_tails(cuda, Lt, prefix_lens):
     assert (lse - ref_lse).abs().max().item() <= GQA_LSE_ATOL
 
 
+def _gqa_fwd_inputs(gen, B, Lq, Lkv, H, K, Dh, ids, dev):
+    """Kernel #2's inputs: ``ids`` (numpy) the segment id of each key, the
+    queries the last Lq keys' positions (q_offset = Lkv - Lq)."""
+    q, k, v = _bf16(gen, B, Lq, H, Dh), _bf16(gen, B, Lkv, K, Dh), _bf16(gen, B, Lkv, K, Dh)
+    kv_seg = torch.from_numpy(ids.astype(np.int32))[None].expand(B, Lkv).contiguous().to(dev)
+    return q, k, v, kv_seg[:, Lkv - Lq :].contiguous(), kv_seg, Lkv - Lq
+
+
+def _check_fwd_kernel(args):
+    """One launch of kernel #2 against its plain version, and a second call
+    bit for bit equal to the first; returns (out, lse)."""
+    before = gattn.launches
+    out, lse = gattn.mha_packed_gqa(*args)
+    torch.cuda.synchronize()
+    assert gattn.launches == before + 1
+    ref_out, ref_lse = gattn.mha_packed_gqa_plain(*args)
+    assert (out.float() - ref_out.float()).abs().max().item() <= GQA_OUT_ATOL
+    assert (lse - ref_lse).abs().max().item() <= GQA_LSE_ATOL
+    again = gattn.mha_packed_gqa(*args)
+    assert torch.equal(again[0], out) and torch.equal(again[1], lse)  # no atomics in the split merge
+    return out, lse
+
+
+@pytest.mark.parametrize("splits", range(1, gattn.MAX_SPLITS + 1))
+@pytest.mark.parametrize("Dh,H,K", [(64, 14, 2), (128, 8, 1)])
+def test_gqa_forward_on_split_edges(cuda, monkeypatch, splits, Dh, H, K):
+    """Lq G and Lkv not multiples of 64 (201 queries at q_offset 576, 777
+    keys in 3 segments), each q tile's key span split over every cluster
+    size S from 1 to MAX_SPLITS (``fwd_splits`` overridden): ranks with
+    empty shares and uneven ones."""
+    monkeypatch.setattr(gattn, "fwd_splits", lambda *_: splits)
+    ids = np.repeat(np.arange(3), [300, 260, 217])
+    _check_fwd_kernel(_gqa_fwd_inputs(torch.Generator(device=cuda).manual_seed(15), 2, 201, 777, H, K, Dh, ids, cuda))
+
+
+@pytest.mark.parametrize(
+    "B,Lq,Lkv,H,K,Dh,layout",
+    [
+        (1, 4096, 4096, 14, 2, 64, "shuffled"),  # the training row's size, segments out of order
+        (2, 256, 640, 14, 2, 64, "shuffled"),  # q_offset 384 with Lq < Lkv
+        (2, 600, 600, 6, 2, 64, "random"),  # an id drawn at random for each position
+        (1, 777, 777, 8, 1, 128, "shuffled"),  # Dh 128, ragged
+    ],
+)
+def test_gqa_forward_on_unsorted_segment_ids(cuda, B, Lq, Lkv, H, K, Dh, layout):
+    rng = np.random.default_rng(Lkv)
+    if layout == "shuffled":
+        ids = np.repeat(rng.permutation(8), rng.multinomial(Lkv - 8 * 16, np.ones(8) / 8) + 16)
+    else:
+        ids = rng.integers(0, 3, Lkv)
+    _check_fwd_kernel(_gqa_fwd_inputs(torch.Generator(device=cuda).manual_seed(16), B, Lq, Lkv, H, K, Dh, ids, cuda))
+
+
+@pytest.mark.parametrize("splits", [1, 4])
+@pytest.mark.parametrize("Dh,H,K", [(64, 14, 2), (128, 8, 1)])
+def test_gqa_forward_fully_masked_row(cuda, monkeypatch, splits, Dh, H, K):
+    """A query whose segment has no key (q_offset 384), with one block per
+    q tile and with four that merge: out 0 and lse -1e30."""
+    monkeypatch.setattr(gattn, "fwd_splits", lambda *_: splits)
+    args = list(_gqa_fwd_inputs(torch.Generator(device=cuda).manual_seed(17), 2, 256, 640, H, K, Dh,
+                                np.repeat(np.arange(2), [400, 240]), cuda))
+    args[3] = args[3].clone()
+    args[3][1, 100] = 9  # no key carries it
+    out, lse = _check_fwd_kernel(args)
+    assert (lse[1, 100] == -1e30).all() and (out[1, 100] == 0).all()
+
+
 def _gqa_bwd_inputs(gen, B, Lq, Lkv, H, K, Dh, n_segs, dev):
     q, k, v = _bf16(gen, B, Lq, H, Dh), _bf16(gen, B, Lkv, K, Dh), _bf16(gen, B, Lkv, K, Dh)
     kv_seg = (torch.arange(Lkv, device=dev) * n_segs // Lkv).to(torch.int32)[None].expand(B, Lkv).contiguous()

@@ -1,8 +1,12 @@
-"""The backward kernels' tile schedule (``bwd_tile_spans_plain``, the plain
-version of what kernels #3 and #4 compute on the card) against the mask of
-the port's plain attention, and a backward summed tile by tile over that
-schedule, split as the dk/dv kernel splits it, against the JAX package's
-Pallas backward in interpret mode."""
+"""The GQA kernels' tile schedule (``bwd_tile_spans_plain``, the plain
+version of what kernels #2, #3 and #4 compute on the card) against the mask
+of the port's plain attention; a forward summed tile by tile over that
+schedule, split as kernel #2 splits it, against the JAX package's Pallas
+forward in interpret mode; and a backward summed the same way, split as the
+dk/dv kernel splits it, against the Pallas backward."""
+
+import itertools
+import math
 
 import numpy as np
 import pytest
@@ -81,11 +85,11 @@ def test_schedule_covers_every_visible_pair(case):
     for S in sorted({1, 2, 3, S_shape, tgqa.MAX_SPLITS}):
         holders = np.zeros(t.size, np.int64)
         for first, last in dkv_spans.reshape(-1, 2).tolist():
-            parts = [tgqa.dkv_split(first, last, S, r) for r in range(S)]
+            parts = [tgqa.rank_share(first, last, S, r) for r in range(S)]
             assert parts[0][0] == first and parts[-1][1] == max(first, last + 1)
             assert all(a[1] == c[0] and a[0] <= a[1] for a, c in zip(parts, parts[1:]))
         for r in range(S):
-            begin, end = np.array([tgqa.dkv_split(f, l, S, r) for f, l in dkv.tolist()]).T
+            begin, end = np.array([tgqa.rank_share(f, l, S, r) for f, l in dkv.tolist()]).T
             holders += (begin <= t) & (t < end)
         assert (holders == 1).all()
     if masked_row is not None:  # the row sees no key: its tile's span may still hold the rest
@@ -149,7 +153,7 @@ def scheduled_backward(q, k, v, q_seg, kv_seg, q_offset, scale, do, splits):
                 parts = []
                 for r in range(splits):
                     pk, pv = torch.zeros(j1 - j0, Dh), torch.zeros(j1 - j0, Dh)
-                    for t in range(*tgqa.dkv_split(first, last, splits, r)):
+                    for t in range(*tgqa.rank_share(first, last, splits, r)):
                         r0, r1 = t * QR, min((t + 1) * QR, Lq * G)
                         p, ds = grads(r0, r1, j0, j1)
                         pv += p.T @ dof[r0:r1]
@@ -211,3 +215,125 @@ def test_scheduled_backward_matches_plain(case):
     out, lse = tgqa.mha_packed_gqa_plain(tq, tk, tv, q_seg, kv_seg, q_offset, scale)
     for g, r in zip(got, tgqa.mha_packed_gqa_bwd_plain(tq, tk, tv, q_seg, kv_seg, q_offset, scale, out, lse, tdo)):
         np.testing.assert_allclose(g.numpy(), r.numpy(), rtol=1e-4, atol=1e-4)
+
+
+def scheduled_forward(q, k, v, q_seg, kv_seg, q_offset, scale, splits):
+    """out and lse summed tile by tile over the schedule in fp32, as kernel
+    #2 sums them: each 64-row q tile's key span (dq's) in ``splits`` rank
+    shares, scores in log2 units through exp2, a tile holding no key of the
+    rows' id range skipped and a ``full`` tile run unmasked (the mask is
+    asserted to hold on all of it), then the ranks' (m, l, O) partials
+    merged in rank order."""
+    B, Lq, H, Dh = q.shape
+    Lkv, K = k.shape[1], k.shape[2]
+    G, T, neg = H // K, tgqa.TILE, tgqa._NEG_INF
+    n_rows = Lq * G
+    scale2 = scale * math.log2(math.e)
+    dq_spans, _ = tgqa.bwd_tile_spans_plain(q_seg, kv_seg, q_offset, G, Dh)
+    mask = tgqa._mask(q_seg, kv_seg, q_offset)[:, 0, 0]  # [B, Lq, Lkv]
+    out, lse = torch.zeros_like(q), torch.zeros(B, Lq, K, G)
+    for b in range(B):
+        for kh in range(K):
+            qf = q[b, :, kh * G : (kh + 1) * G].reshape(n_rows, Dh)  # folded rows r = i * G + g
+            mask_f = mask[b].repeat_interleave(G, 0)
+            of, lf = torch.zeros(n_rows, Dh), torch.zeros(n_rows)
+            for t, (first, last) in enumerate(dq_spans[b].tolist()):
+                r0, r1 = t * T, min((t + 1) * T, n_rows)
+                ids = q_seg[b, r0 // G : (r1 - 1) // G + 1]
+                q_mn, q_mx = int(ids.min()), int(ids.max())
+                parts = []
+                for rank in range(splits):
+                    m, l, o = torch.full((r1 - r0,), neg), torch.zeros(r1 - r0), torch.zeros(r1 - r0, Dh)
+                    for jt in range(*tgqa.rank_share(first, last, splits, rank)):
+                        j0, j1 = jt * T, min((jt + 1) * T, Lkv)
+                        vis = mask_f[r0:r1, j0:j1]
+                        hits = int(((kv_seg[b, j0:j1] >= q_mn) & (kv_seg[b, j0:j1] <= q_mx)).sum())
+                        if hits == 0:
+                            assert not vis.any()
+                            continue
+                        x = qf[r0:r1] @ k[b, j0:j1, kh].T * scale2
+                        if hits == T and q_mn == q_mx and j0 + T - 1 <= q_offset + r0 // G:
+                            assert vis.all()  # the kernel runs this tile unmasked
+                        else:
+                            x = torch.where(vis, x, torch.full_like(x, neg))
+                        m_new = torch.maximum(m, x.amax(1))
+                        m_safe = m_new.clamp(min=-1e29)
+                        p = torch.exp2(x - m_safe[:, None])
+                        corr = torch.exp2(m - m_safe)
+                        l = l * corr + p.sum(1)
+                        o = o * corr[:, None] + p.to(v.dtype).float() @ v[b, j0:j1, kh].float()
+                        m = m_new
+                    parts.append((m, l, o))
+                mx = torch.stack([pm for pm, _, _ in parts]).amax(0)
+                m_safe = mx.clamp(min=-1e29)
+                l, o = torch.zeros(r1 - r0), torch.zeros(r1 - r0, Dh)
+                for pm, pl, po in parts:  # rank order
+                    w = torch.exp2(pm - m_safe)
+                    l, o = l + w * pl, o + w[:, None] * po
+                l = l.clamp(min=1e-30)
+                of[r0:r1] = o / l[:, None]
+                lf[r0:r1] = torch.where(mx > 0.5 * neg, (mx + torch.log2(l)) * math.log(2), torch.full_like(mx, neg))
+            out[b, :, kh * G : (kh + 1) * G] = of.reshape(Lq, G, Dh)
+            lse[b, :, kh] = lf.reshape(Lq, G)
+    return out, lse
+
+
+def _divisor(n, candidates):
+    return next(c for c in candidates if n % c == 0)
+
+
+def jax_forward(q, k, v, q_seg, kv_seg, q_offset):
+    """The Pallas forward (``_fwd_call``) in interpret mode, with blocks that
+    divide the lengths: out [B, Lq, H, Dh] and lse in the port's [B, Lq, K,
+    G]."""
+    B, Lq, H, Dh = q.shape
+    K = k.shape[2]
+    bq, m_blk = _divisor(Lq, (16, 10, 5, 4, 2, 1)), _divisor(k.shape[1], (32, 50, 25, 20, 10, 5, 1))
+    out, lse = jgqa._fwd_call(jnp.asarray(q.reshape(B, Lq, K, H // K, Dh)), jnp.asarray(k), jnp.asarray(v),
+                              jnp.asarray(q_seg.numpy()), jnp.asarray(kv_seg.numpy()), q_offset, Dh**-0.5, bq, m_blk)
+    return np.asarray(out).reshape(q.shape), np.asarray(lse).transpose(0, 3, 1, 2)  # from [B, K, G, Lq]
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_scheduled_forward_matches_pallas(case):
+    """The forward summed over the schedule, split as ``fwd_splits`` splits
+    the shape, in three and in ``MAX_SPLITS``, equals the JAX Pallas forward in fp32, out and
+    lse, fully masked rows included (out 0, lse -1e30)."""
+    q, k, v, q_seg, kv_seg, q_offset, _ = backward_inputs(case)
+    B, Lq, H, Dh = q.shape
+    Lkv, K = k.shape[1], k.shape[2]
+    ref_out, ref_lse = jax_forward(q, k, v, q_seg, kv_seg, q_offset)
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    for splits in sorted({tgqa.fwd_splits(B, Lq, Lkv, K, H // K, Dh), 3, tgqa.MAX_SPLITS}):
+        out, lse = scheduled_forward(tq, tk, tv, q_seg, kv_seg, q_offset, Dh**-0.5, splits)
+        np.testing.assert_allclose(out.numpy(), ref_out, rtol=0, atol=1e-4)
+        np.testing.assert_allclose(lse.numpy(), ref_lse, rtol=0, atol=1e-4)
+    masked_row = CASES[case][-1]
+    if masked_row is not None:
+        assert (lse[0, masked_row] == tgqa._NEG_INF).all() and (out[0, masked_row] == 0).all()
+
+
+def test_fwd_splits():
+    """As ops/sweep_gqa_attention_fwd.py read it on the card: 1 at the
+    training row (896 blocks fill the card), at the prefill buckets (B 8 at
+    L 128; B 1 at L 512, a mean span of 4 key tiles) and on B 8 extend
+    tails (a second block per q tile would not fit one wave); 2 at the
+    q_offset 384 row (8 tiles of mean span); on the paged engine's partial
+    batches of extends (B 1, 2, 4 tails of 128 after page buckets of 8 and
+    16) 4, 4, 3 and 8, 6, 3; 8 on a resumed turn (B 1, 128 queries after
+    3,968 keys). Never more than ``MAX_SPLITS`` or the key tiles, and a
+    split grid fits 7/8 of a wave of resident blocks."""
+    assert tgqa.fwd_splits(1, 4096, 4096, 2, 7, 64) == 1
+    assert tgqa.fwd_splits(2, 256, 640, 2, 7, 64) == 2
+    assert tgqa.fwd_splits(8, 128, 128, 2, 7, 64) == tgqa.fwd_splits(1, 512, 512, 2, 7, 64) == 1
+    assert tgqa.fwd_splits(8, 128, 640, 2, 7, 64) == tgqa.fwd_splits(8, 128, 2048, 2, 7, 64) == 1
+    assert [tgqa.fwd_splits(B, 128, 1152, 2, 7, 64) for B in (1, 2, 4)] == [4, 4, 3]
+    assert [tgqa.fwd_splits(B, 128, 2176, 2, 7, 64) for B in (1, 2, 4)] == [8, 6, 3]
+    assert tgqa.fwd_splits(1, 128, 4096, 2, 7, 64) == 8
+    wave = {Dh: blocks * tgqa.SM_COUNT * 7 // 8 for Dh, blocks in tgqa.FWD_BLOCKS_PER_SM.items()}
+    for B, Lq, Lkv, K, G, Dh in itertools.product((1, 2, 8), (1, 32, 100, 128, 256, 4096), (64, 100, 640, 4096),
+                                                  (1, 2), (1, 2, 7), (64, 128)):
+        if Lq <= Lkv:
+            S = tgqa.fwd_splits(B, Lq, Lkv, K, G, Dh)
+            assert 1 <= S <= min(tgqa.MAX_SPLITS, -(-Lkv // tgqa.TILE))
+            assert S == 1 or -(-(Lq * G) // tgqa.TILE) * B * K * S <= wave[Dh]
