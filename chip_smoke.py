@@ -59,9 +59,17 @@ Phases, each of which stops the script on failure:
 10. the paged prefix cache at full width (8 lineages x 3 turns): prefix hits,
    tails prefilled through ``forward_extend`` on kernel #2 at q_offset > 0,
    teacher forcing;
-11. the bandit RL loop (``bandit_tpu``) through the port's ``launch.main``
+11. slab prefix parking on the same conversations, cold and warm: hits,
+   fewer tokens prefilled warm, tails through ``forward_extend``, launch
+   counts, teacher forcing; then ``score_tokens`` on third-turn transcripts
+   against the sampler's logprobs and against the plain attention;
+12. the bandit RL loop (``bandit_tpu``) through the port's ``launch.main``
    with every attention on the kernels, on the slab layout and again on the
-   paged layout: it must learn both times.
+   paged layout: it must learn both times; then with the ``ppo`` group's
+   KL penalty against a reference engine, whose weights must stay the
+   initial ones in storage of their own;
+13. the ``guessing`` preset on the toy model through ``launch.main``: every
+   sample carries its turn's prompt, and the run trains.
 Then one JSON line of kernel numbers, and last the result line.
 
 It needs a CUDA device and raises without one; it never falls back to the CPU.
@@ -77,6 +85,7 @@ import statistics
 import subprocess
 import tempfile
 import time
+from typing import Callable
 
 import numpy as np
 import torch
@@ -651,12 +660,19 @@ def phase_gqa_kernel(dev, ptxas: str) -> dict:
          lambda: _extend_inputs(gen, 128, 4 * 128, [384] * 8, H, K, Dh, dev)),
         ("training row L=4096, 8 segments", "train_shape", lambda: _gqa_inputs(gen, 1, TRAIN_L, TRAIN_L, H, K, Dh, 8, dev)),
         # short grids over long spans, where fwd_splits splits: a partial
-        # batch of the paged engine's extends, and a resumed turn (no path
-        # gives it yet; slab prefix parking will, ROADMAP Queue 1 [2])
+        # batch of the paged engine's extends, and a slab turn resumed deep in
+        # a long conversation
         ("forward_extend tail B=1 Lt=128 at q_offset 2048, prefix length 1920", "partial_extend_shape",
          lambda: _extend_inputs(gen, 128, 16 * 128, [15 * 128], H, K, Dh, dev)),
         ("resumed turn B=1 Lt=128 at q_offset 3968, one segment", "resumed_turn_shape",
          lambda: _gqa_inputs(gen, 1, 128, TRAIN_L, H, K, Dh, 1, dev)),
+        # the slab multi-turn phase's shapes: a third turn's tails resuming
+        # parked slots (transcripts of 487 tokens in a 512 bucket), and
+        # score_tokens on a third-turn transcript (568 tokens, bucket 1024)
+        ("slab extend tail B=8 Lt=128 at q_offset 512, prefix lengths 487", "slab_extend_shape",
+         lambda: _extend_inputs(gen, 128, 4 * 128, [487] * 8, H, K, Dh, dev)),
+        ("score_tokens B=1 L=1024, one segment", "score_shape",
+         lambda: _gqa_inputs(gen, 1, 1024, 1024, H, K, Dh, 1, dev)),
     ]
     for Dc, symbol in ((64, "gqa_fwd_kernelILi64E"), (128, "gqa_fwd_kernelILi128E")):
         info = gattn.fwd_kernel_info(Dc)
@@ -683,7 +699,7 @@ def phase_gqa_kernel(dev, ptxas: str) -> dict:
     for Lb in P_BUCKETS:
         args = _gqa_inputs(gen, 8, Lb, Lb, H, K, Dh, 1, dev)
         max_err = max(max_err, _check_gqa_forward(f"paged engine prefill B=8 L={Lb}", args))
-    for tail, prefix_lens in ((128, [384] * 8), (256, [384, 128, 512, 256, 384, 384, 512, 256])):
+    for tail, prefix_lens in ((128, [384] * 8), (256, [384, 128, 512, 256, 384, 384, 512, 256]), (128, [407] * 8)):
         args = _extend_inputs(gen, tail, 4 * 128, prefix_lens, H, K, Dh, dev)
         max_err = max(max_err, _check_gqa_forward(
             f"forward_extend tail {tail} against a 512-token padded prefix, prefix lengths {prefix_lens}", args))
@@ -1090,6 +1106,117 @@ def phase_rl_loop(exp_dir: str, paged: bool = False) -> dict:
     return launches
 
 
+def spy_launch_builds() -> tuple[list, dict, Callable[[], None]]:
+    """Wrap ``launch.build_model`` and ``launch.build_engine`` to record
+    what a run builds: the trainer's parameters, then each engine in build
+    order, and a copy of the initial weights. Returns (built, initial,
+    restore)."""
+    built, initial = [], {}
+    build_model, build_engine = launch.build_model, launch.build_engine
+
+    def spy_model(*args, **kw):
+        out = build_model(*args, **kw)
+        initial.update({name: p.detach().clone() for name, p in param_leaves(out[0])})
+        built.append(out[0])
+        return out
+
+    def spy_engine(*args, **kw):
+        built.append(build_engine(*args, **kw))
+        return built[-1]
+
+    def restore():
+        launch.build_model, launch.build_engine = build_model, build_engine
+
+    launch.build_model, launch.build_engine = spy_model, spy_engine
+    return built, initial, restore
+
+
+def phase_rl_loop_kl(exp_dir: str) -> dict:
+    """The bandit RL loop with the ``ppo`` finetune group's KL penalty
+    (kl_coef 0.1 against a reference engine on the initial weights),
+    shortened to 20 steps, every attention on the kernels. The reward curve
+    is reported, not gated (the JAX package does not gate its KL run on
+    learning)."""
+    built, initial, restore = spy_launch_builds()
+    reset_counts()
+    t0 = time.monotonic()
+    try:
+        stats = launch.main(["--config-name=bandit_tpu", f"output_dir={exp_dir}", "finetune=ppo",
+                             "finetune.save_checkpoint_steps=0", "finetune.max_train_steps=20", "total_groups=200",
+                             "engine.attn_impl=gqa", "finetune.attn_impl=gqa"])
+    finally:
+        restore()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = counts()
+    trained, policy, ref = built
+    with open(f"{exp_dir}/metrics/trainer_0.jsonl") as f:
+        steps = [json.loads(line) for line in f]
+    kls, coefs = [s["rl/kl"] for s in steps], {s["rl/kl_coef"] for s in steps}
+    snaps = list(StreamReader(SingleStreamSpec(exp_dir, "stats")).read_available())
+    rewards = [round(s["reward_mean"], 3) for s in snaps if "reward_mean" in s]
+    log(f"bandit_tpu RL loop with the ppo group's KL (kl_coef {sorted(coefs)}) through launch.main: {wall:.1f} s "
+        f"wall, {stats['trainer']['completed_steps']} steps, version {stats['trainer']['last_broadcasted_version']}, "
+        f"kl per step {[float(f'{k:.3g}') for k in kls]}, reward snapshots {rewards}, launches {launches}")
+    check(stats["trainer"]["completed_steps"] >= 10, "the KL loop trained fewer than 10 steps")
+    # a step's stats are sums over its micro-batches, kl_coef included
+    check(all(round(c / 0.1) >= 1 and abs(c / 0.1 - round(c / 0.1)) < 1e-5 for c in coefs),
+          f"kl_coef per step {coefs}, not micro-batch sums of the ppo group's 0.1")
+    check(all(math.isfinite(k) for k in kls) and all(k > 0 for k in kls[1:]), f"kl per step {kls}")
+    check(ref.version == 0 and policy.version > 0, f"reference engine at version {ref.version}")
+    trained = dict(param_leaves(trained))
+    check(all(torch.equal(t, initial[name]) and
+              t.untyped_storage().data_ptr() != trained[name].untyped_storage().data_ptr()
+              for name, t in param_leaves(ref.params)),
+          "the reference engine's weights are not an untouched copy of the initial ones")
+    check(any(not torch.equal(trained[name].detach(), initial[name]) for name in initial), "the trainer did not move")
+    check(all(launches[k] for k in ("gqa_fwd", "gqa_dq", "gqa_dkv", "decode")) and not launches["paged"],
+          f"the KL loop's kernel launches are wrong: {launches}")
+    log("KL loop: the reference engine stayed at version 0 on the initial weights, in storage the trainer never held")
+    return launches
+
+
+def phase_guessing(exp_dir: str) -> dict:
+    """The ``guessing`` preset on the toy model (widened to Dh 64, the GQA
+    kernels' head size) through ``launch.main``: up to 4 groups of 64
+    attempts, 2 train steps of 64 samples (the run ends at its last step, so
+    2 groups usually complete). A random model rarely answers in the format,
+    so most rollouts end at turn 0; every sample must carry its own turn's
+    prompt."""
+    reset_counts()
+    t0 = time.monotonic()
+    stats = launch.main(["--config-name=guessing", "model_path=toy", f"output_dir={exp_dir}",
+                         "toy_model.hidden_size=256", "toy_model.intermediate_size=512", "total_groups=4",
+                         "finetune.samples_per_step=64", "finetune.max_train_steps=2",
+                         "finetune.save_checkpoint_steps=0", "engine.attn_impl=gqa", "finetune.attn_impl=gqa"])
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = counts()
+    actor = stats["actor"]
+    tok = ToyTokenizer()
+    turns = {}
+    for group in StreamReader(SingleStreamSpec(exp_dir, "actor")).read_available():
+        for sample in group["samples"]:
+            n_prompt = sum(1 for label in sample["labels"] if label == -100)
+            prompt = tok.decode(sample["input_ids"][:n_prompt])
+            step = sample["step_index"]
+            check("You must guess a number between 1 and 1024" in prompt
+                  and (step == 0 or f"Your {step} previous guesses:" in prompt),
+                  f"a sample of turn {step} does not carry its turn's prompt")
+            key = (group["group_id"], sample["rollout_index"])
+            turns[key] = max(turns.get(key, 0), step + 1)
+    log(f"guessing (toy model, Dh 64) through launch.main: {wall:.1f} s wall, {actor['groups_completed']} groups, "
+        f"{actor['rollouts_completed']} rollouts, {actor['samples_written']} samples (turns per rollout "
+        f"{sorted(set(turns.values()))}), reward mean {actor.get('reward_mean')}, "
+        f"{stats['trainer']['completed_steps']} train steps, launches {launches}")
+    check(actor["groups_completed"] >= 2 and actor["rollouts_completed"] == 64 * actor["groups_completed"],
+          f"actor stats {actor}")
+    check(actor["samples_written"] == sum(turns.values()) >= actor["rollouts_completed"], "samples and turns differ")
+    check(stats["trainer"]["completed_steps"] == 2, "the guessing run did not train")
+    check(all(launches[k] for k in ("gqa_fwd", "gqa_dq", "gqa_dkv", "decode")), f"guessing launches {launches}")
+    return launches
+
+
 def phase_engine(dev, smi: str, trainer: TrainerLoop, exp_dir: str) -> tuple[int, int]:
     """The engine at full width; at its sixth step, with requests live, the
     phase-6 TrainerLoop pushes its trained weights through
@@ -1331,21 +1458,26 @@ def phase_paged_engine(dev, smi: str) -> dict:
     return launches, snapshots
 
 
-def phase_prefix_cache(dev) -> dict:
-    """The paged prefix cache at full width, the shape of the JAX package's
-    bench_multiturn (bench.py:673-733): 8 lineages x 3 turns from 384 tokens,
-    24 new tokens and 56 more prompt tokens per turn."""
+def multiturn_engine(dev, **layout) -> InferenceEngine:
+    """The engine of the JAX package's bench_multiturn (bench.py:673-733) at
+    Qwen2.5-0.5B width: S 8, max_len 2048, buckets 128-2048, W 16, depth 2."""
     cfg = QWEN05B
     params = init_params(torch.Generator(device=dev).manual_seed(0), cfg, dev)
-    engine = InferenceEngine(
+    return InferenceEngine(
         params, cfg,
         EngineConfig(
             max_slots=8, max_len=2048, prefill_buckets=(128, 256, 512, 1024, 2048), seed=0,
-            cache_dtype=torch.bfloat16, decode_window=16, window_pipeline_depth=2,
-            kv_layout="paged", kv_block_size=128, prefix_cache=True,
+            cache_dtype=torch.bfloat16, decode_window=16, window_pipeline_depth=2, **layout,
         ),
         eos_token_id=-1, device=dev,
     )
+
+
+def run_multiturn(engine: InferenceEngine) -> tuple[list, float, dict]:
+    """bench_multiturn's conversations: 8 lineages x 3 turns from 384 tokens,
+    24 new tokens and 56 more prompt tokens per turn (cut from 13 turns).
+    Returns the third turn's (prompt, result) pairs, the wall time and the
+    launches."""
     rng = np.random.default_rng(5)
     transcripts = [rng.integers(1, 100_000, 384).tolist() for _ in range(8)]
     last = []
@@ -1362,8 +1494,17 @@ def phase_prefix_cache(dev) -> dict:
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = counts()
+    check_results([r for _, r in last], [24] * 8, engine.model_cfg)
+    return last, wall, launches
+
+
+def phase_prefix_cache(dev) -> dict:
+    """The paged prefix cache at full width on bench_multiturn's
+    conversations."""
+    cfg = QWEN05B
+    engine = multiturn_engine(dev, kv_layout="paged", kv_block_size=128, prefix_cache=True)
+    last, wall, launches = run_multiturn(engine)
     c = engine.perf_counters()
-    check_results([r for _, r in last], [24] * 8, cfg)
     check(c["prefix_cache_hits"] >= 16 and c["prefix_cache_reused_tokens"] > 0, f"prefix cache: {c}")
     check(c["prefill_extend_batches"] > 0, "no tail went through forward_extend")
     L = cfg.num_layers
@@ -1376,6 +1517,61 @@ def phase_prefix_cache(dev) -> dict:
         f"q_offset = the padded prefix length: {L * c['prefill_extend_batches']} of {launches['gqa_fwd']} launches)")
     teacher_forcing(engine, last[:3], "paged prefix cache, third turn,")
     return launches
+
+
+def phase_slab_prefix(dev, smi: str) -> tuple[dict, dict]:
+    """Slab prefix parking at full width on bench_multiturn's conversations,
+    run cold (``prefix_cache=False``) and warm from the same seed: resumed
+    turns prefill only their tails, through ``forward_extend`` on kernel #2
+    at q_offset = the parked prefix's bucket. Then ``score_tokens`` on three
+    third-turn transcripts through the kernels, against the engine's own
+    sampled logprobs and against itself through the plain attention.
+    Returns the warm run's launches and those of one ``score_tokens``."""
+    L = QWEN05B.num_layers
+    runs = {}
+    for warm in (False, True):
+        engine = multiturn_engine(dev, kv_layout="slab", prefix_cache=warm, slab_prefix_min_tokens=32)
+        last, wall, launches = run_multiturn(engine)
+        c = engine.perf_counters()
+        check(launches["gqa_fwd"] == L * engine.prefill_batches,
+              f"gqa launches {launches['gqa_fwd']} != {L} x {engine.prefill_batches} prefill batches")
+        check(launches["decode"] == L * engine.decode_steps and not launches["paged"], f"decode launches {launches}")
+        useful = sum(len(r.token_ids) for _, r in last) * 3
+        label = "warm" if warm else "cold"
+        log(f"slab multi-turn, {label} (prefix_cache={warm}): 8 lineages x 3 turns in {wall:.2f} s, "
+            f"{useful / wall:.1f} useful tokens/s, {c['prefill_tokens']} tokens prefilled, {c['prefill_reused_tokens']} "
+            f"reused, {c['prefix_cache_hits']} hits, {c['prefill_extend_batches']} of {engine.prefill_batches} prefill "
+            f"batches were tails through forward_extend, launches {launches} on {smi}")
+        runs[label] = (engine, last, c, launches)
+    engine, last, c, launches = runs["warm"]
+    cold = runs["cold"][2]
+    check(c["prefix_cache_hits"] >= 16 and c["prefill_extend_batches"] > 0, f"slab prefix parking: {c}")
+    check(c["prefill_tokens"] < cold["prefill_tokens"],
+          f"warm prefilled {c['prefill_tokens']} tokens, cold {cold['prefill_tokens']}")
+    teacher_forcing(engine, last[:3], "slab prefix parking, third turn,")
+    del runs
+
+    # score_tokens: the transcripts' logprobs at T 1.0 through kernel #2
+    scored, errs = [], []
+    reset_counts()
+    for prompt, r in last[:3]:
+        scores = engine.score_tokens(prompt + r.token_ids)
+        check(counts()["gqa_fwd"] == L * (len(scored) + 1), f"score_tokens launches {counts()}")
+        scored.append(scores)
+        errs.append(np.abs(np.asarray(scores[len(prompt) - 1:]) - np.asarray(r.logprobs)))
+    score_launches = {k: v // 3 for k, v in counts().items()}
+    errs = np.concatenate(errs)
+    log(f"score_tokens vs the engine's sampled logprobs (T 1.0), 3 third-turn transcripts of "
+        f"{len(last[0][0]) + 24} tokens (bucket {engine._bucket(len(last[0][0]) + 24)}): mean abs err {errs.mean():.4f} "
+        f"(tolerance {TF_MEAN_ATOL}), max {errs.max():.4f} (tolerance {TF_MAX_ATOL}); {L} gqa launches per call")
+    check(errs.mean() <= TF_MEAN_ATOL and errs.max() <= TF_MAX_ATOL, "score_tokens disagrees with the sampler")
+    engine.attn_impl = "xla"
+    plain = [engine.score_tokens(p + r.token_ids) for p, r in last[:3]]
+    errs = np.concatenate([np.abs(np.asarray(a) - np.asarray(b)) for a, b in zip(scored, plain)])
+    log(f"score_tokens through kernel #2 vs through the plain attention: mean abs err {errs.mean():.4f} "
+        f"(tolerance {TF_MEAN_ATOL}), max {errs.max():.4f} (tolerance {TF_MAX_ATOL}) over {errs.size} tokens")
+    check(errs.mean() <= TF_MEAN_ATOL and errs.max() <= TF_MAX_ATOL, "score_tokens' kernel and plain paths disagree")
+    return launches, score_launches
 
 
 def profile_decode(engine: InferenceEngine, reqs: list[GenRequest]) -> None:
@@ -1449,9 +1645,13 @@ def main() -> None:
         torch.cuda.empty_cache()
         paths["prefix_cache"] = phase_prefix_cache(dev)
         torch.cuda.empty_cache()
+        paths["slab_prefix"], paths["score_tokens"] = phase_slab_prefix(dev, info["smi"])
+        torch.cuda.empty_cache()
         phase_client(dev)
         paths["rl_loop"] = phase_rl_loop(f"{tmp}/bandit")
         paths["rl_loop_paged"] = phase_rl_loop(f"{tmp}/bandit_paged", paged=True)
+        paths["rl_loop_kl"] = phase_rl_loop_kl(f"{tmp}/bandit_kl")
+        paths["guessing"] = phase_guessing(f"{tmp}/guessing")
     for record, key in zip(kernels, ("decode", "gqa_fwd", "gqa_dq", "gqa_dkv", "paged")):
         record["launches_by_path"] = {path: c[key] for path, c in paths.items()}
         record["launches"] = sum(record["launches_by_path"].values())

@@ -215,14 +215,23 @@ def parse_value(text: str) -> Any:
 def compose(config_name: str, overrides: list[str] | None = None, resolve: bool = True) -> Config:
     """The preset ``config_name`` (``presets.py``) with ``key=value``
     overrides applied (a leading ``+`` is accepted and ignored, as the JAX
-    CLI accepts it), then resolved."""
-    from .presets import preset
+    CLI accepts it), then resolved. An override ``<group>=<entry>`` of a
+    config group (``finetune=ppo``) selects that group's entry, as a
+    defaults entry would, before the preset's own bodies merge over it."""
+    from .presets import is_group, preset
 
-    cfg = preset(config_name)
+    groups, pairs = {}, []
     for ov in overrides or []:
         body = ov[1:] if ov.startswith("+") else ov
         if "=" not in body:
             raise ValueError(f"Override {ov!r} must be key=value")
         key, _, raw = body.partition("=")
-        cfg.set_dotted(key.strip(), parse_value(raw))
+        key, value = key.strip(), parse_value(raw)
+        if is_group(key) and isinstance(value, str):
+            groups[key] = value
+        else:
+            pairs.append((key, value))
+    cfg = preset(config_name, groups)
+    for key, value in pairs:
+        cfg.set_dotted(key, value)
     return cfg.resolve() if resolve else cfg

@@ -1,7 +1,7 @@
 """Dotted-path function resolution and multi-domain dispatch.
 
 Port of the JAX package's ``domains/registry.py`` with the domains the port
-has: ``bandit``.
+has: ``guessing``, ``counting`` and ``bandit``.
 """
 
 from __future__ import annotations
@@ -10,6 +10,8 @@ import importlib
 from typing import Any, Callable
 
 DEFAULT_DOMAIN_ROLLOUTS: dict[str, str] = {
+    "guessing": "pipelinerl_tpu_torch.domains.guessing.generate_guessing_rollout",
+    "counting": "pipelinerl_tpu_torch.domains.counting.generate_counting_rollout",
     "bandit": "pipelinerl_tpu_torch.domains.bandit.generate_bandit_rollout",
 }
 

@@ -7,7 +7,10 @@ cache once per window, with one device-to-host read per window. Two KV
 layouts:
 
 - slab (the default): each slot owns a contiguous cache of capacity
-  ``max_len``;
+  ``max_len``. A finished slot is parked in place with its transcript; a
+  later prompt that extends the transcript resumes the slot and prefills
+  only its tail (``forward_extend``), and admission evicts parked slots,
+  least recently parked first, when it needs their room;
 - paged (``kv_layout="paged"``): fixed-size pages from one shared pool
   (``block_pool.BlockPool``). Admission reserves prompt + budget + one
   window of pages, so a request never runs out mid-flight; a GRPO group's
@@ -50,6 +53,7 @@ from ..models.transformer import (
 )
 from ..ops.paged_attention import gather_pages, paged_append, paged_decode_attention
 from ..ops.sampling import sample_fast, sample_masked
+from ..train.rl_loss import token_logprobs_from_logits
 from .block_pool import BlockPool, PrefixCache
 
 logger = logging.getLogger(__name__)
@@ -82,10 +86,17 @@ class EngineConfig:
     # device holds only tokens that exist. "auto" resolves to slab.
     kv_layout: str = "auto"
     kv_block_size: int = 128  # tokens per page
-    # paged layout: keep finished transcripts' full pages in an LRU cache and
-    # prefill only the tail of a prompt that extends one. No effect on slab
-    # (slab prefix parking is not ported yet).
+    # cross-request prefix reuse, by layout:
+    # - paged: finished transcripts' full pages stay in an LRU cache, and a
+    #   prompt that extends one prefills only its tail;
+    # - slab: a finished slot is parked with its K/V rows in place, and a
+    #   prompt that extends its transcript resumes the slot and prefills
+    #   only its tail. Parked slots count as free capacity: admission evicts
+    #   them least recently parked first, so parking never lowers the number
+    #   of requests in flight.
     prefix_cache: bool = True
+    # shortest parked transcript that a slab hit reuses
+    slab_prefix_min_tokens: int = 32
     # pool size in pages; None sizes it to slab parity, S * ceil(T_alloc / BT)
     kv_pool_blocks: int | None = None
 
@@ -142,6 +153,8 @@ class _Slot:
     # slot-assignment id: keeps a pipelined window from delivering a
     # previous occupant's tokens to a new request
     gen: int = 0
+    # stamp of this occupant's slab park entry, -1 while it has none
+    park_stamp: int = -1
 
 
 @dataclass
@@ -213,6 +226,12 @@ class InferenceEngine:
         else:
             self.k_cache = torch.zeros((L, S, self.T_alloc, K, Dh), dtype=cfg.cache_dtype, device=dev)
             self.v_cache = torch.zeros_like(self.k_cache)
+        # slab prefix reuse: slot -> (parked transcript, LRU stamp). Parked
+        # slots keep their K/V rows; admission resumes them for prompts that
+        # extend the transcript and evicts them otherwise (empty on paged)
+        self._parked: dict[int, tuple[list[int], int]] = {}
+        self._park_stamp = 0
+        self.slab_prefix_hits = 0
         self.cache_lens = torch.zeros(S, dtype=torch.int32, device=dev)
         # per-slot (first sampled token, bitcast logprob) written by prefill
         # on the device, read back as row 0 of the next packed window
@@ -239,7 +258,7 @@ class InferenceEngine:
         self.total_prefill_tokens = 0
         self.prefill_reused_tokens = 0  # prompt tokens served by KV fork
         self.prefill_batches = 0
-        self.prefill_extend_batches = 0  # of them, tails against cached prefixes
+        self.prefill_extend_batches = 0  # of them, tails against cached prefixes (both layouts)
         self.decode_steps = 0
         self.speculative_wasted_tokens = 0
         self.windows_dispatched = 0
@@ -298,6 +317,21 @@ class InferenceEngine:
             self._pending_params = (params, version)
         self._work_event.set()
 
+    @torch.no_grad()
+    def score_tokens(self, input_ids: list[int], temperature: float = 1.0) -> list[float]:
+        """Teacher-forced logprobs of ``input_ids[1:]`` under the current
+        weights (the JAX engine's ``score_tokens``): one row padded to the
+        smallest prefill bucket that holds it, one segment, the engine's
+        prefill attention. The KL reference policy scores samples with it."""
+        n = len(input_ids)
+        bucket = next((b for b in self.buckets if b >= n), None)
+        if bucket is None:
+            raise ValueError(f"sequence of {n} tokens exceeds the largest bucket {self.buckets[-1]}")
+        padded = torch.zeros((1, bucket), dtype=torch.int64)
+        padded[0, :n] = torch.tensor(list(input_ids), dtype=torch.int64)
+        lp = _score_fn(self.params, self.model_cfg, self.attn_impl, padded.to(self.device), temperature)
+        return lp[0, : n - 1].tolist()
+
     def start(self) -> None:
         if self._thread is not None:
             raise RuntimeError("engine already started")
@@ -336,7 +370,14 @@ class InferenceEngine:
             "num_active": self.num_active,
             "num_pending": self.num_pending,
             "num_retiring": len(self._retiring),
-            **(self._paged_counters() if self.paged else {}),
+            **(self._paged_counters() if self.paged else self._slab_counters()),
+        }
+
+    def _slab_counters(self) -> dict:
+        return {
+            "prefill_extend_batches": self.prefill_extend_batches,
+            "prefix_cache_hits": self.slab_prefix_hits,
+            "prefix_cache_parked_slots": len(self._parked),
         }
 
     def _paged_counters(self) -> dict:
@@ -424,10 +465,12 @@ class InferenceEngine:
                 continue
             self._slots[i] = None
             self._retiring[(i, s.gen)] = s
+            # registers or parks the committed tokens only, a true prefix of
+            # the final transcript: in-flight windows write past it
             if self.paged:
-                # registers the committed tokens only, a true prefix of the
-                # final transcript: in-flight windows write past it
                 self._release_pages(i, s)
+            else:
+                self._maybe_park(i, s)
 
     def _release_pages(self, slot: int, state: _Slot) -> None:
         """Register the slot's transcript in the prefix cache, then drop its
@@ -487,45 +530,71 @@ class InferenceEngine:
             pos += batch
         return out
 
+    def _bucket(self, n: int) -> int:
+        return next(b for b in self.buckets if b >= n)
+
     def _admit(self) -> bool:
-        """Admit queued requests into free slots. Identical prompts (the
-        attempts of a GRPO group) prefill once and fork the KV to their
-        siblings; prompts that extend a cached transcript (paged layout)
-        prefill only their tails, batched by (tail bucket, prefix-page
-        bucket); the rest prefill together per bucket in batches of
-        8/4/2/1."""
-        free_slots = [i for i, s in enumerate(self._slots) if s is None]
-        if not free_slots:
+        """Admit queued requests into free and parked slots (the JAX
+        engine's ``_admit``). Identical prompts (the attempts of a GRPO
+        group) prefill once and fork the KV to their siblings; prompts that
+        extend a cached transcript (a paged prefix-cache hit, or a parked
+        slab slot, which resumes in place) prefill only their tails, batched
+        by (tail bucket, prefix bucket); the rest prefill together per
+        bucket. Batches run 8/4/2/1."""
+        parked = self._parked
+        free_slots = [i for i, s in enumerate(self._slots) if s is None and i not in parked]
+        if not free_slots and not parked:
             return False
         with self._queue_lock:
-            take = min(len(free_slots), len(self._queue))
+            # parked slots count as capacity: a hit resumes one in place, a
+            # miss takes a free slot first, then evicts the least recently
+            # parked one
+            take = min(len(free_slots) + len(parked), len(self._queue))
             pairs = [self._queue.popleft() for _ in range(take)]
         if self.paged:
             pairs = self._fit_pool(pairs)
         if not pairs:
             return False
+
+        def next_slot() -> int:
+            return free_slots.pop(0) if free_slots else self._evict_parked()
+
         clusters: dict[tuple, list[tuple]] = {}
         for pair in pairs:
             clusters.setdefault(tuple(pair[0].prompt_ids), []).append(pair)
         by_bucket: dict[int, list] = {}
         extends: dict[tuple[int, int], list] = {}
+        slab_extends: dict[tuple[int, int], list] = {}
         for members in clusters.values():
             request, future = members[0]
             n = len(request.prompt_ids)
-            entry = [free_slots.pop(0), request, future, members[1:],
-                     [free_slots.pop(0) for _ in members[1:]]]
-            hit = None if self.prefix_cache is None else self.prefix_cache.lookup(request.prompt_ids)
-            if hit is None:
-                bucket = next(b for b in self.buckets if b >= n)
-                by_bucket.setdefault(bucket, []).append(entry)
-            else:
+            hit = slab_hit = None
+            if self.prefix_cache is not None:
+                hit = self.prefix_cache.lookup(request.prompt_ids)
+            elif not self.paged and self.cfg.prefix_cache:
+                slab_hit = self._park_lookup(request.prompt_ids)
+            primary = next_slot() if slab_hit is None else slab_hit[0]
+            entry = [primary, request, future, members[1:], [next_slot() for _ in members[1:]]]
+            if hit is not None:
                 pages, n_prefix = hit
-                tail_bucket = next(b for b in self.buckets if b >= n - n_prefix)
                 page_bucket = 1 << (len(pages) - 1).bit_length()
-                extends.setdefault((tail_bucket, page_bucket), []).append((entry, pages, n_prefix))
+                extends.setdefault((self._bucket(n - n_prefix), page_bucket), []).append((entry, n_prefix, pages))
+            elif slab_hit is not None and slab_hit[1] + self._bucket(n - slab_hit[1]) <= self.T_alloc:
+                n_prefix = slab_hit[1]
+                key = (self._bucket(n - n_prefix), self._bucket(n_prefix))
+                slab_extends.setdefault(key, []).append((entry, n_prefix))
+            else:
+                if slab_hit is not None:
+                    # the padded tail would overrun the slot: a cold prefill
+                    # in the parked slot, and no hit
+                    self.slab_prefix_hits -= 1
+                by_bucket.setdefault(self._bucket(n), []).append(entry)
         for (tail_bucket, page_bucket), group in extends.items():
             for batch in self._batches(group):
                 self._prefill_extend(tail_bucket, page_bucket, batch)
+        for (tail_bucket, pfx_bucket), group in slab_extends.items():
+            for batch in self._batches(group):
+                self._prefill_extend_slab(tail_bucket, pfx_bucket, batch)
         for bucket, group in by_bucket.items():
             for batch in self._batches(group):
                 self._prefill_batch(bucket, batch)
@@ -588,49 +657,74 @@ class InferenceEngine:
             if siblings:
                 self._fork_slots(slot, last_logits[b], siblings, sibling_slots)
 
+    def _tail_arrays(self, tail_bucket: int, group: list[tuple]):
+        """The padded tails [B, tail_bucket], tail lengths and prefix lengths
+        of extend rows (entry, prefix tokens, ...), as tensors on the
+        device."""
+        B = len(group)
+        tails = np.zeros((B, tail_bucket), np.int64)
+        tail_lens = np.zeros(B, np.int64)
+        prefix_lens = np.zeros(B, np.int64)
+        for i, (entry, n_prefix, *_) in enumerate(group):
+            tail = entry[1].prompt_ids[n_prefix:]
+            tails[i, : len(tail)] = tail
+            tail_lens[i] = len(tail)
+            prefix_lens[i] = n_prefix
+        dev = self.device
+        return (torch.from_numpy(tails).to(dev), torch.from_numpy(tail_lens).to(dev),
+                torch.from_numpy(prefix_lens).to(dev))
+
+    def _start_extended(self, last_logits: torch.Tensor, group: list[tuple]) -> None:
+        """Bookkeeping after an extend batch on either layout: first tokens,
+        counters, the new occupants, and siblings forked off each primary."""
+        self.prefill_batches += 1
+        self.prefill_extend_batches += 1
+        self._sample_first_tokens(last_logits, [row[0][0] for row in group], [row[0][1] for row in group])
+        for b, ((slot, request, future, siblings, sibling_slots), n_prefix, *_) in enumerate(group):
+            self.total_prefill_tokens += len(request.prompt_ids) - n_prefix
+            self.prefill_reused_tokens += n_prefix
+            self._new_slot(slot, request, future)
+            if siblings:
+                self._fork_slots(slot, last_logits[b], siblings, sibling_slots)
+
     def _prefill_extend(self, tail_bucket: int, page_bucket: int, group: list[tuple]) -> None:
         """Admit clusters whose prompts extend cached transcripts, in one
         batch: attach each prefix's pages (refcount + 1), reserve the rest,
         and prefill only the tails against the gathered prefix K/V. Identical
         siblings fork off their primary afterwards. ``group`` rows are
-        (entry, prefix pages, prefix tokens)."""
-        B = len(group)
-        tails = np.zeros((B, tail_bucket), np.int64)
-        tail_lens = np.zeros(B, np.int64)
-        prefix_lens = np.zeros(B, np.int64)
-        prefix_pages = np.zeros((B, page_bucket), np.int64)
+        (entry, prefix tokens, prefix pages)."""
+        prefix_pages = np.zeros((len(group), page_bucket), np.int64)
         slots = []
-        for i, (entry, pages, n_prefix) in enumerate(group):
+        for i, (entry, _, pages) in enumerate(group):
             slot, request = entry[0], entry[1]
-            tail = request.prompt_ids[n_prefix:]
             self.block_pool.attach(slot, pages)
             reserve = self._reserve_tokens(request)
             self.block_pool.extend(slot, reserve)
             self._slot_capacity[slot] = reserve
-            tails[i, : len(tail)] = tail
-            tail_lens[i] = len(tail)
-            prefix_lens[i] = n_prefix
             # pad entries repeat a real page; prefix_lens masks them
             prefix_pages[i] = pages[-1]
             prefix_pages[i, : len(pages)] = pages
             slots.append(slot)
         dev = self.device
         last_logits = _prefill_extend_fn(
-            self.params, self.model_cfg, self.attn_impl, self.k_pool, self.v_pool,
-            self.cache_lens, torch.from_numpy(tails).to(dev), torch.from_numpy(tail_lens).to(dev),
-            torch.from_numpy(prefix_lens).to(dev), torch.tensor(slots, dtype=torch.int64, device=dev),
-            torch.from_numpy(prefix_pages).to(dev),
-            torch.from_numpy(self.block_pool.table[slots]).to(dev),
+            self.params, self.model_cfg, self.attn_impl, self.k_pool, self.v_pool, self.cache_lens,
+            *self._tail_arrays(tail_bucket, group), torch.tensor(slots, dtype=torch.int64, device=dev),
+            torch.from_numpy(prefix_pages).to(dev), torch.from_numpy(self.block_pool.table[slots]).to(dev),
         )
-        self.prefill_batches += 1
-        self.prefill_extend_batches += 1
-        self._sample_first_tokens(last_logits, slots, [entry[1] for entry, _, _ in group])
-        for b, ((slot, request, future, siblings, sibling_slots), _, n_prefix) in enumerate(group):
-            self.total_prefill_tokens += int(tail_lens[b])
-            self.prefill_reused_tokens += n_prefix
-            self._new_slot(slot, request, future)
-            if siblings:
-                self._fork_slots(slot, last_logits[b], siblings, sibling_slots)
+        self._start_extended(last_logits, group)
+
+    def _prefill_extend_slab(self, tail_bucket: int, pfx_bucket: int, group: list[tuple]) -> None:
+        """Resume parked slab slots whose transcripts the prompts extend, in
+        one batch (the JAX engine's ``_prefill_extend_slab``): the tails run
+        against each slot's first ``pfx_bucket`` cached rows and their K/V
+        is written at the prefix length. Identical siblings fork off the
+        resumed slot afterwards. ``group`` rows are (entry, prefix tokens)."""
+        slots = torch.tensor([entry[0] for entry, _ in group], dtype=torch.int64, device=self.device)
+        last_logits = _prefill_extend_slab_fn(
+            self.params, self.model_cfg, self.attn_impl, pfx_bucket, self.k_cache, self.v_cache,
+            self.cache_lens, *self._tail_arrays(tail_bucket, group), slots,
+        )
+        self._start_extended(last_logits, group)
 
     def _sample_first_tokens(self, logits: torch.Tensor, slots: list[int], requests) -> None:
         """Sample each prefilled row's first token on the device into
@@ -700,11 +794,58 @@ class InferenceEngine:
         except Exception:  # noqa: BLE001 — a user callback must not kill the loop
             logger.exception("stream callback failed for %s", request.request_id)
 
+    def _maybe_park(self, slot: int, state: _Slot) -> None:
+        """Park a finished slab slot (the JAX engine's ``_maybe_park``): its
+        K/V rows stay in place and its transcript is remembered, so that the
+        conversation's next turn resumes the slot and prefills only its
+        tail. The transcript leaves out the final sampled token: a token's
+        K/V row is written only when a later step feeds it, and the last one
+        may never be fed (a stop, a budget that ends on a window's last
+        step, an abort). Windows still in flight for the old occupant write
+        only past the parked rows, and they are queued on the engine's one
+        stream before any extend that resumes the slot."""
+        if not self.cfg.prefix_cache:
+            return
+        transcript = state.request.prompt_ids + state.token_ids[:-1]
+        if not self.cfg.slab_prefix_min_tokens <= len(transcript) < self.cfg.max_len:
+            return
+        self._park_stamp += 1
+        state.park_stamp = self._park_stamp
+        self._parked[slot] = (transcript, self._park_stamp)
+
+    def _park_lookup(self, prompt_ids: list[int]) -> tuple[int, int] | None:
+        """The longest parked transcript of at least
+        ``slab_prefix_min_tokens`` that is a proper prefix of the prompt, as
+        (slot, its length); the hit leaves the parked set (the JAX engine's
+        ``_park_lookup``)."""
+        best_slot, best_len = -1, 0
+        n = len(prompt_ids)
+        for slot, (transcript, _) in self._parked.items():
+            t = len(transcript)
+            if t >= n or t <= best_len or t < self.cfg.slab_prefix_min_tokens:
+                continue
+            if transcript == prompt_ids[:t]:
+                best_slot, best_len = slot, t
+        if best_slot < 0:
+            return None
+        del self._parked[best_slot]
+        self.slab_prefix_hits += 1
+        return best_slot, best_len
+
+    def _evict_parked(self) -> int:
+        """Free the least recently parked slot, its K/V abandoned (the JAX
+        engine's ``_evict_parked``)."""
+        slot = min(self._parked, key=lambda s: self._parked[s][1])
+        del self._parked[slot]
+        return slot
+
     def _finish_slot(self, slot: int, finish: str) -> None:
         state = self._slots[slot]
         self._slots[slot] = None
         if self.paged:
             self._release_pages(slot, state)
+        else:
+            self._maybe_park(slot, state)
         self._resolve(state, finish)
 
     def _resolve(self, state: _Slot, finish: str) -> None:
@@ -722,8 +863,16 @@ class InferenceEngine:
 
     def _resolve_retired(self, key: tuple[int, int], state: _Slot, finish: str) -> None:
         """Resolve an early-retired occupant at its last window's read-back
-        (its slot was freed at retire time)."""
+        (its slot was freed at retire time). A slab park entry made at
+        retirement, which holds the committed transcript, grows to the full
+        one less its final token if it is still this occupant's: the slot
+        may have been resumed, evicted or parked again meanwhile."""
         self._retiring.pop(key, None)
+        parked = self._parked.get(key[0])
+        if state.park_stamp >= 0 and parked is not None and parked[1] == state.park_stamp:
+            full = state.request.prompt_ids + state.token_ids[:-1]
+            if self.cfg.slab_prefix_min_tokens <= len(full) < self.cfg.max_len:
+                self._parked[key[0]] = (full, parked[1])
         self._resolve(state, finish)
 
     def _decode(self) -> bool:
@@ -1118,6 +1267,49 @@ def _prefill_extend_fn(
     paged_append(v_pool, v_new, table_rows, prefix_lens, tail_lens)
     cache_lens[slots] = (prefix_lens + tail_lens).to(torch.int32)
     return _last_logits(params, model_cfg, normed, tail_lens)
+
+
+def _prefill_extend_slab_fn(
+    params: dict,
+    model_cfg: ModelConfig,
+    attn_impl: str,
+    pfx_bucket: int,  # cached rows gathered per slot
+    k_cache: torch.Tensor,  # [L, S, T_alloc, K, Dh], updated in place
+    v_cache: torch.Tensor,
+    cache_lens: torch.Tensor,  # [S], updated in place
+    tail_ids: torch.Tensor,  # [B, Tb] — prompt tokens past the parked transcripts
+    tail_lens: torch.Tensor,  # [B]
+    prefix_lens: torch.Tensor,  # [B] — parked transcript lengths (<= pfx_bucket)
+    slots: torch.Tensor,  # [B]
+) -> torch.Tensor:
+    """Prefill of B tails against their parked slab slots (the JAX
+    ``_prefill_extend_slab_fn``): gather each slot's first ``pfx_bucket``
+    rows, run ``forward_extend`` over [prefix | tail] (the rows past the
+    prefix length are masked as its pad), and write the tail K/V at
+    ``prefix_lens``. The tail's pad rows land at positions >= the new cache
+    length, where decode writes before any read. Returns the fp32
+    last-token logits [B, V]."""
+    k_pre, v_pre = k_cache[:, slots, :pfx_bucket], v_cache[:, slots, :pfx_bucket]
+    Tb = tail_ids.shape[1]
+    positions = prefix_lens[:, None] + torch.arange(Tb, device=tail_ids.device)[None, :]
+    normed, (k_new, v_new) = forward_extend(
+        params, model_cfg, tail_ids, positions, k_pre, v_pre, prefix_lens,
+        attn_impl=attn_impl, skip_unembed=True,
+    )
+    k_cache[:, slots[:, None], positions] = k_new.to(k_cache.dtype)
+    v_cache[:, slots[:, None], positions] = v_new.to(v_cache.dtype)
+    cache_lens[slots] = (prefix_lens + tail_lens).to(torch.int32)
+    return _last_logits(params, model_cfg, normed, tail_lens)
+
+
+def _score_fn(params: dict, model_cfg: ModelConfig, attn_impl: str, input_ids: torch.Tensor, temperature: float):
+    """fp32 logprobs [1, P - 1] of ``input_ids[:, 1:]`` from one packed
+    forward over the padded row (the JAX ``_score_fn``)."""
+    P = input_ids.shape[1]
+    positions = torch.arange(P, device=input_ids.device)[None, :]
+    segments = torch.zeros((1, P), dtype=torch.int32, device=input_ids.device)
+    logits = forward(params, model_cfg, input_ids, positions, segments, attn_impl=attn_impl)
+    return token_logprobs_from_logits(logits, input_ids, temperature)
 
 
 def _fork_fn(

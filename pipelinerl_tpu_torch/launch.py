@@ -136,6 +136,17 @@ def validate_config(cfg: Config) -> None:
             f"llm.parameters.max_tokens ({max_tokens}) + smallest prefill bucket ({min(buckets)}) "
             f"exceeds engine.max_len ({engine_max}): no prompt can receive its full completion budget"
         )
+    # the KL term needs a reference policy: without one the ref logprobs
+    # would read 0.0 and the penalty would be garbage. The JAX package checks
+    # this in processes mode, where the flag provisions the reference job;
+    # the port runs inline only, so a disabled flag is refused outright
+    # rather than ignored
+    kl_coef = float(cfg.select("finetune.rl.kl_coef", 0.0) or 0.0)
+    if kl_coef != 0.0 and str(cfg.select("world.ref_engine", "auto")) in ("false", "False", "0"):
+        problems.append(
+            "finetune.rl.kl_coef != 0 with world.ref_engine disabled: "
+            "the preprocessor would score KL against a zero reference policy"
+        )
     policy = cfg.select("finetune.rl.policy_loss", "reinforce")
     if policy not in ("reinforce", "ppo", "gspo"):
         problems.append(f"unknown finetune.rl.policy_loss {policy!r}")
@@ -182,7 +193,15 @@ def run_inline(cfg: Config, device="cuda") -> dict[str, Any]:
     trainer_state.start_listening()
     failures: list[BaseException] = []
 
-    preprocessor = Preprocessor(cfg, exp_path, trainer_state, eos_token_id=tokenizer.eos_token_id)
+    ref_score_fn = None
+    if float(cfg.finetune.rl.get("kl_coef", 0.0) or 0.0) != 0.0:
+        # the reference policy: a second engine on the initial weights that
+        # is never started and never updated. It owns a copy, as the
+        # policy engine does: AdamW updates the trainer's tensors in place.
+        ref_engine = build_engine(cfg, detached_copy(params), model_cfg, tokenizer, device)
+        ref_score_fn = ref_engine.score_tokens
+    preprocessor = Preprocessor(cfg, exp_path, trainer_state, eos_token_id=tokenizer.eos_token_id,
+                                ref_score_fn=ref_score_fn)
     trainer = TrainerLoop(
         cfg, params, model_cfg, exp_path,
         weight_update_cb=lambda new_params, version: engine.update_params(new_params, version),

@@ -1,12 +1,12 @@
 """Preprocessor: groups → advantages → packing → the partitioned
 ``training_data`` stream, with backpressure.
 
-Port of the JAX package's ``preprocess.py`` for text rows. Reference-policy
-scoring (``ref_score_fn``, the KL reference engine's ``score_tokens``) is
-ROADMAP Queue 1 item 3, so ``finetune.rl.kl_coef != 0`` raises here. Packs
-are padded to the static ``finetune.seq_length``; the ring buffer,
-zero-advantage filtering, sentinel equalization and ``samples_processed``
-backpressure keep the JAX package's semantics.
+Port of the JAX package's ``preprocess.py`` for text rows. With a
+``ref_score_fn`` (the KL reference engine's ``score_tokens``) each sample
+gets its reference-policy logprobs. Packs are padded to the static
+``finetune.seq_length``; the ring buffer, zero-advantage filtering, sentinel
+equalization and ``samples_processed`` backpressure keep the JAX package's
+semantics.
 """
 
 from __future__ import annotations
@@ -14,12 +14,14 @@ from __future__ import annotations
 import logging
 import time
 from collections import deque
+from typing import Callable, Sequence
 
 from .config import Config
 from .state import TrainerState
 from .streams import RangeStreamWriter, SingleStreamSpec, StreamRangeSpec, StreamReader
 from .train.advantages import group_advantages_all_zero, populate_rl_data
 from .train.packing import make_sentinel_batch, pack_samples
+from .types import MASKED_TOKEN_ID
 
 logger = logging.getLogger(__name__)
 
@@ -32,18 +34,16 @@ class Preprocessor:
         trainer_state: TrainerState,
         eos_token_id: int,
         num_trainers: int = 1,
+        ref_score_fn: Callable[[Sequence[int]], list[float]] | None = None,
         input_topic: str = "actor",
         output_topic: str = "training_data",
     ):
-        if float(cfg.finetune.rl.get("kl_coef", 0.0) or 0.0) != 0.0:
-            raise NotImplementedError(
-                "KL against a reference policy needs score_tokens, not ported yet (ROADMAP Queue 1, item 3)"
-            )
         self.cfg = cfg
         self.exp_path = exp_path
         self.trainer_state = trainer_state
         self.eos_token_id = eos_token_id
         self.num_trainers = num_trainers
+        self.ref_score_fn = ref_score_fn
         self.input_spec = SingleStreamSpec(exp_path=exp_path, topic=input_topic)
         self.output_spec = StreamRangeSpec(exp_path=exp_path, topic=output_topic, partitions=tuple(range(num_trainers)))
         self.seq_length = int(cfg.finetune.seq_length)
@@ -58,7 +58,8 @@ class Preprocessor:
         self._stop = True
 
     def process_group(self, group_msg: dict) -> list[dict]:
-        """Advantages for one group; returns the sample dicts to pack."""
+        """Reference logprobs (with a ``ref_score_fn``) and advantages for
+        one group; returns the sample dicts to pack."""
         samples = group_msg["samples"]
         attempts = int(self.cfg.attempts)
         rollouts = {s["rollout_index"] for s in samples}
@@ -66,6 +67,12 @@ class Preprocessor:
             raise ValueError(
                 f"Group {group_msg.get('group_id')} has {len(rollouts)} rollouts, expected {attempts}"
             )
+        if self.ref_score_fn is not None:
+            for s in samples:
+                # scored[i] is the logprob of token i + 1: shift onto the
+                # labels, 0 where a label is masked
+                ref = [0.0] + list(self.ref_score_fn(s["input_ids"]))
+                s["ref_logprobs"] = [r if label != MASKED_TOKEN_ID else 0.0 for r, label in zip(ref, s["labels"])]
         rl = self.cfg.finetune.rl
         populate_rl_data(
             samples, eos_token_id=self.eos_token_id,

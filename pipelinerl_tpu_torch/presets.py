@@ -1,11 +1,15 @@
 """The configs the port runs, as Python presets (the H100 host has no yaml).
 
 Each preset mirrors the JAX package's composed YAML of the same name key for
-key (``conf/base.yaml`` with ``conf/finetune/base.yaml`` and
-``conf/rewards/base.yaml``; ``conf/bandit_cpu.yaml``;
-``conf/bandit_tpu.yaml``), with dotted paths renamed from the JAX package
-to this one. ``tests/test_torch_config.py`` holds every preset against the
-JAX package's ``compose``, so the copies cannot drift.
+key (``conf/base.yaml`` with its group defaults; ``conf/bandit_cpu.yaml``;
+``conf/bandit_tpu.yaml``; ``conf/counting.yaml``; ``conf/guessing.yaml``),
+with dotted paths renamed from the JAX package to this one. The config
+groups (``conf/finetune/{base,grpo,ppo}.yaml``, ``conf/rewards/base.yaml``)
+are group presets: a root preset takes the ``base`` of each, and a
+``finetune=ppo`` override selects another, as a ``finetune: ppo`` entry of
+``base.yaml``'s defaults would. ``tests/test_torch_config.py`` holds every
+preset and group against the JAX package's ``compose``, so the copies cannot
+drift.
 """
 
 from __future__ import annotations
@@ -48,6 +52,28 @@ _FINETUNE_BASE = {
         "temperature": "${llm.parameters.temperature}",
         "value_loss_coef": 0.0,
         "max_segments": 512,
+    },
+}
+
+_FINETUNE_GRPO = {
+    "rl": {
+        "policy_loss": "ppo",
+        "use_advantages": True,
+        "divide_advantage_by_std": True,
+        "kl_coef": 0.0,
+        "epsilon_low": 0.2,
+        "epsilon_high": 0.2,
+    },
+}
+
+_FINETUNE_PPO = {
+    "rl": {
+        "policy_loss": "ppo",
+        "use_advantages": True,
+        "kl_coef": 0.1,
+        "final_kl_coef": 0.1,
+        "epsilon_low": 0.2,
+        "epsilon_high": 0.2,
     },
 }
 
@@ -165,23 +191,82 @@ _BANDIT_TPU = {
     "total_groups": 450,
 }
 
-# name -> (parent preset or None, own body); a body merges over its parent
+_COUNTING = {
+    "dataset_loader": "pipelinerl_tpu_torch.domains.counting.load_problems",
+    "model_path": "???",
+    "attempts": 16,
+    "max_lag": 512,
+    "llm": {"parameters": {"max_tokens": 256}},
+    "engine": {"max_slots": 64, "max_len": 1024, "prefill_buckets": [128, 256, 512]},
+    "finetune": {"seq_length": 2048, "samples_per_step": 256, "learning_rate": 2e-6, "max_train_steps": 200},
+}
+
+_GUESSING = {
+    "dataset_loader": "pipelinerl_tpu_torch.domains.guessing.load_problems",
+    "model_path": "???",
+    "attempts": 64,
+    "max_lag": 1024,
+    "llm": {"parameters": {"max_tokens": 200, "temperature": 1.0}},
+    "engine": {"max_slots": 64, "max_len": 2048, "prefill_buckets": [256, 512, 1024, 2048]},
+    "finetune": {
+        "seq_length": 4096,
+        "samples_per_step": 512,
+        "learning_rate": 2e-6,
+        "max_train_steps": 100,
+        "weight_update_interval": 512,
+    },
+}
+
+# group -> name -> (parent in the group or None, own body)
+_GROUPS = {
+    "finetune": {"base": (None, _FINETUNE_BASE), "grpo": ("base", _FINETUNE_GRPO), "ppo": ("base", _FINETUNE_PPO)},
+    "rewards": {"base": (None, _REWARDS_BASE)},
+}
+
+# name -> (parent preset or None, own body); a body merges over its parent,
+# and a root preset over its groups
 _PRESETS = {
-    "base": (None, {"finetune": _FINETUNE_BASE, "rewards": _REWARDS_BASE, **_BASE}),
+    "base": (None, _BASE),
     "bandit_cpu": ("base", _BANDIT_CPU),
     "bandit_tpu": ("bandit_cpu", _BANDIT_TPU),
+    "counting": ("base", _COUNTING),
+    "guessing": ("base", _GUESSING),
 }
 
 
-def preset(name: str) -> Config:
-    """The unresolved config of preset ``name``."""
+def group_preset(group: str, name: str) -> Config:
+    """The unresolved config of group ``group``'s entry ``name``."""
+    if name not in _GROUPS.get(group, {}):
+        raise KeyError(f"no {group!r} group entry {name!r}; the port has {sorted(_GROUPS.get(group, {}))}")
+    parent, body = _GROUPS[group][name]
+    cfg = group_preset(group, parent) if parent else Config()
+    cfg.merge(copy.deepcopy(body))
+    return cfg
+
+
+def preset(name: str, groups: dict[str, str] | None = None) -> Config:
+    """The unresolved config of preset ``name``, with the ``base`` entry of
+    each group unless ``groups`` selects another."""
     if name not in _PRESETS:
         raise KeyError(f"no preset {name!r}; the port has {sorted(_PRESETS)}")
     parent, body = _PRESETS[name]
-    cfg = preset(parent) if parent else Config()
+    if parent:
+        cfg = preset(parent, groups)
+    else:
+        cfg = Config()
+        for group in _GROUPS:
+            cfg.merge({group: group_preset(group, (groups or {}).get(group, "base"))})
     cfg.merge(copy.deepcopy(body))
     return cfg
 
 
 def names() -> list[str]:
     return sorted(_PRESETS)
+
+
+def group_names(group: str) -> list[str]:
+    return sorted(_GROUPS[group])
+
+
+def is_group(group: str) -> bool:
+    return group in _GROUPS

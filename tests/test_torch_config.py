@@ -1,6 +1,9 @@
 """The port's presets against the JAX package's composed YAML of the same
-name, key for key after the package-name mapping; overrides parse as the
-JAX CLI parses them."""
+name, key for key after the package-name mapping; its config groups against
+the JAX group files and against a JAX tree whose defaults select them;
+overrides parse as the JAX CLI parses them."""
+
+import shutil
 
 import pytest
 
@@ -26,6 +29,29 @@ def test_preset_equals_jax_compose(name, resolve):
     ours = compose(name, overrides, resolve=resolve).to_dict()
     theirs = renamed(j_compose("conf", name, overrides, resolve=resolve).to_dict())
     assert ours == theirs
+
+
+@pytest.mark.parametrize("name", presets.group_names("finetune"))
+def test_finetune_group_equals_jax_group_file(name):
+    ours = presets.group_preset("finetune", name).to_dict()
+    assert ours == renamed(j_compose("conf/finetune", name, resolve=False).to_dict())
+
+
+@pytest.mark.parametrize("name", presets.group_names("finetune"))
+def test_group_override_equals_jax_defaults_entry(name, tmp_path):
+    """``finetune=<name>`` composes as a JAX tree whose ``base.yaml`` takes
+    ``finetune: <name>`` in its defaults: the group's entry first, then
+    every preset body over it."""
+    conf = tmp_path / "conf"
+    shutil.copytree("conf", conf)
+    base = (conf / "base.yaml").read_text()
+    assert "  - finetune: base\n" in base
+    (conf / "base.yaml").write_text(base.replace("  - finetune: base\n", f"  - finetune: {name}\n"))
+    overrides = ["output_dir=/tmp/x", "finetune.max_train_steps=20"]
+    ours = compose("bandit_tpu", [f"finetune={name}", *overrides]).to_dict()
+    assert ours == renamed(j_compose(str(conf), "bandit_tpu", overrides).to_dict())
+    with pytest.raises(KeyError):
+        compose("bandit_tpu", ["finetune=nope"])
 
 
 @pytest.mark.parametrize(
