@@ -69,7 +69,21 @@ Phases, each of which stops the script on failure:
    KL penalty against a reference engine, whose weights must stay the
    initial ones in storage of their own;
 13. the ``guessing`` preset on the toy model through ``launch.main``: every
-   sample carries its turn's prompt, and the run trains.
+   sample carries its turn's prompt, and the run trains;
+14. the ``test`` preset (guessing, the reference's Qwen2.5-0.5B oracle) from
+   an HF directory at Qwen2.5-0.5B width that ``export_hf`` writes with
+   the committed fixture tokenizer (vocabulary padded from 540 to
+   151,936): the directory reads back bit for bit through
+   ``launch.build_model``; two steps through ``launch.main`` with a save
+   after each (kernels #1-#4 launched, no sampled id at or past
+   ``valid_vocab``, the version advanced); a second run resumes at step 2
+   with params and optimizer state bit for bit those saved and ends at
+   step 3; the export reads back as the trainer's final params; a
+   ``force_restart`` run starts from step 0; LoRA on the same directory
+   trains only its adapters and pushes ``merge_lora``'s weights; and
+   ``finetune=actor_critic`` on the toy model trains its value head.
+   Write, read, save and resume seconds, file sizes, wall and useful
+   tokens/s are logged.
 Then one JSON line of kernel numbers, and last the result line.
 
 It needs a CUDA device and raises without one; it never falls back to the CPU.
@@ -78,6 +92,7 @@ It needs a CUDA device and raises without one; it never falls back to the CPU.
 from __future__ import annotations
 
 import asyncio
+import dataclasses
 import json
 import math
 import re
@@ -85,6 +100,7 @@ import statistics
 import subprocess
 import tempfile
 import time
+from pathlib import Path
 from typing import Callable
 
 import numpy as np
@@ -96,6 +112,8 @@ from pipelinerl_tpu_torch.config import compose
 from pipelinerl_tpu_torch.inference import EngineConfig, GenRequest, InferenceEngine, SamplingParams
 from pipelinerl_tpu_torch.inference import engine as engine_mod
 from pipelinerl_tpu_torch.inference.client import InProcessLLM, Prompt
+from pipelinerl_tpu_torch.models.hf_loader import load_hf_model
+from pipelinerl_tpu_torch.models.hf_tokenizer import HFTokenizer
 from pipelinerl_tpu_torch.models.toy_tokenizer import ToyTokenizer
 from pipelinerl_tpu_torch.models.transformer import ModelConfig, extend_segments, forward, init_params
 from pipelinerl_tpu_torch.ops import _build
@@ -104,6 +122,8 @@ from pipelinerl_tpu_torch.ops import gqa_attention as gattn
 from pipelinerl_tpu_torch.ops import paged_attention as pattn
 from pipelinerl_tpu_torch.inference.block_pool import BlockPool
 from pipelinerl_tpu_torch.streams import SingleStreamSpec, StreamReader, StreamWriter
+from pipelinerl_tpu_torch.train.checkpoints import export_hf
+from pipelinerl_tpu_torch.train.lora import merge_lora
 from pipelinerl_tpu_torch.train.trainer import TrainerLoop, param_leaves
 from pipelinerl_tpu_torch.types import TrainerBatch
 
@@ -117,6 +137,11 @@ QWEN05B = ModelConfig(
     num_heads=14, num_kv_heads=2, head_dim=64, rope_theta=1_000_000.0,
     attention_bias=True, dtype=torch.bfloat16, valid_vocab=151_643,
 )
+# Qwen2.5-0.5B's published config.json (tied embeddings) for phase 14's HF
+# directory; its vocabulary is padded past the fixture tokenizer's 540
+QWEN05B_TIED = dataclasses.replace(QWEN05B, tie_word_embeddings=True, valid_vocab=None,
+                                   hf_architecture="Qwen2ForCausalLM")
+FIXTURE_TOKENIZER = Path(__file__).resolve().parent / "pipelinerl_tpu_torch" / "fixtures" / "hf_tokenizer"
 SLOTS, PROMPT_LEN, MAX_TOKENS, WINDOW, DEPTH, BUCKET = 64, 128, 128, 16, 2, 128
 MAX_LEN = PROMPT_LEN + MAX_TOKENS + 72  # 328, as bench.py's headline engine
 
@@ -1090,11 +1115,16 @@ def phase_rl_loop(exp_dir: str, paged: bool = False) -> dict:
     launches = counts()
     snaps = list(StreamReader(SingleStreamSpec(exp_dir, "stats")).read_available())
     rewards = [s["reward_mean"] for s in snaps if "reward_mean" in s]
+    successes = [s["success_mean"] for s in snaps if "success_mean" in s]
     check(len(rewards) >= 4, f"too few stats snapshots: {rewards}")
     early, late = sum(rewards[:2]) / 2, sum(rewards[-2:]) / 2
+    # the gate reads the reward; whether the run ends on the target letter
+    # (success 1.0 in the last snapshot) is reported beside it
     log(f"bandit_tpu RL loop through launch.main ({'paged, BT 16' if paged else 'slab'}): {wall:.1f} s wall, {stats['trainer']['completed_steps']} steps, "
         f"version {stats['trainer']['last_broadcasted_version']}, reward {early:.3f} -> {late:.3f} "
-        f"(snapshots {[round(r, 3) for r in rewards]}), launches {launches}")
+        f"(snapshots {[round(r, 3) for r in rewards]}), success snapshots {[round(x, 3) for x in successes]}, "
+        f"success tail {stats['actor'].get('success_tail_mean')}, ends on the target: "
+        f"{'yes' if successes and successes[-1] == 1.0 else 'no'}, launches {launches}")
     check(stats["trainer"]["completed_steps"] >= 10, "the RL loop trained fewer than 10 steps")
     check(stats["trainer"]["last_broadcasted_version"] > 0, "the RL loop pushed no weights")
     check(late > early + 0.1, f"the RL loop did not learn: reward {early:.3f} -> {late:.3f}")
@@ -1215,6 +1245,218 @@ def phase_guessing(exp_dir: str) -> dict:
     check(stats["trainer"]["completed_steps"] == 2, "the guessing run did not train")
     check(all(launches[k] for k in ("gqa_fwd", "gqa_dq", "gqa_dkv", "decode")), f"guessing launches {launches}")
     return launches
+
+
+def recording_trainer() -> tuple[type, list]:
+    """A TrainerLoop that records what phase 14 checks: each instance, the
+    trainable tensors and optimizer state as ``try_resume`` left them (a
+    copy), the seconds of each save and resume, and the value head's
+    gradient after each pass. Returns (the class, its instances)."""
+    instances: list = []
+
+    class Recording(TrainerLoop):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.resumed = None
+            self.save_s: list[float] = []
+            self.resume_s = None
+            self.value_grad: list[float] = []
+            instances.append(self)
+
+        def try_resume(self) -> bool:
+            t0 = time.monotonic()
+            resumed = super().try_resume()
+            torch.cuda.synchronize()
+            if resumed:
+                self.resume_s = time.monotonic() - t0
+                self.resumed = (self.metrics.completed_steps,
+                                {name: p.detach().clone() for name, p in param_leaves(self.params)},
+                                [t.clone() for t in optimizer_tensors(self)])
+            return resumed
+
+        def save_checkpoint(self, tokenizer=None) -> None:
+            t0 = time.monotonic()
+            super().save_checkpoint(tokenizer)
+            self.save_s.append(time.monotonic() - t0)
+
+        def train_pass(self, batch):
+            out = super().train_pass(batch)
+            if "value_head" in self.params:
+                self.value_grad.append(self.params["value_head"]["w"].grad.abs().sum().item())
+            return out
+
+    return Recording, instances
+
+
+def optimizer_tensors(trainer: TrainerLoop) -> list[torch.Tensor]:
+    """Every tensor of the optimizer's state (moments and step counts), in
+    its ``state_dict`` order."""
+    return [t for s in trainer.optimizer.state_dict()["state"].values() for t in s.values()]
+
+
+def run_recorded(argv: list[str]) -> tuple[dict, TrainerLoop, InferenceEngine, float, dict]:
+    """``launch.main(argv)`` with its trainer recorded and its engines
+    spied on. Returns (stats, trainer, policy engine, wall seconds, kernel
+    launches)."""
+    Recording, instances = recording_trainer()
+    built, _, restore = spy_launch_builds()
+    original = launch.TrainerLoop
+    launch.TrainerLoop = Recording
+    reset_counts()
+    t0 = time.monotonic()
+    try:
+        stats = launch.main(argv)
+    finally:
+        launch.TrainerLoop = original
+        restore()
+    torch.cuda.synchronize()
+    return stats, instances[0], built[1], time.monotonic() - t0, counts()
+
+
+def sampled_ids(exp_dir: str) -> list[int]:
+    """Every sampled token id of the run's actor stream."""
+    groups = StreamReader(SingleStreamSpec(exp_dir, "actor")).read_available()
+    return [i for g in groups for s in g["samples"] for i, label in zip(s["input_ids"], s["labels"]) if label != -100]
+
+
+def phase_hf_checkpoint(dev, smi: str, tmp: str) -> dict[str, dict]:
+    """Phase 14: the ``test`` preset from an HF directory at Qwen2.5-0.5B
+    width (tied embeddings, random bf16 weights from seed 0, the committed
+    fixture tokenizer, so the vocabulary is padded from 540 to 151,936),
+    through ``launch.main``: write and read the directory, train and save,
+    resume, read the export back, then LoRA on the same directory and
+    ``finetune=actor_critic`` on the toy model. A random model's guesses
+    all score -2, so leave-one-out advantages are 0: an entropy bonus of
+    0.001 gives the steps a gradient, so the saved moments are not 0."""
+    paths = {}
+    tok = HFTokenizer(FIXTURE_TOKENIZER)
+    params = init_params(torch.Generator(device=dev).manual_seed(0), QWEN05B_TIED, dev)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    hf_dir = export_hf(f"{tmp}/hf_in", params, QWEN05B_TIED, tok)
+    write_s = time.monotonic() - t0
+    size = (hf_dir / "model.safetensors").stat().st_size
+    cfg = compose("test", [f"model_path={hf_dir}", f"output_dir={tmp}/unused"])
+    t0 = time.monotonic()
+    loaded, model_cfg, tokenizer = launch.build_model(cfg, dev)
+    torch.cuda.synchronize()
+    load_s = time.monotonic() - t0
+    same = all(torch.equal(a, b) for (_, a), (_, b) in zip(param_leaves(loaded), param_leaves(params), strict=True))
+    log(f"HF directory at Qwen2.5-0.5B width (tied, bf16, {sum(p.numel() for _, p in param_leaves(params))} params): "
+        f"export_hf wrote {size} bytes of model.safetensors in {write_s:.2f} s ({size / write_s / 1e9:.2f} GB/s); "
+        f"launch.build_model read it onto the card in {load_s:.2f} s ({size / load_s / 1e9:.2f} GB/s), "
+        f"bit for bit: {same}, valid_vocab {model_cfg.valid_vocab} of {model_cfg.vocab_size}, tokenizer "
+        f"{type(tokenizer).__name__} of {len(tokenizer)} entries, on {smi}")
+    check(same, "the loaded checkpoint differs from the tensors written")
+    check(model_cfg.valid_vocab == len(tokenizer) == 540, f"valid_vocab {model_cfg.valid_vocab}")
+    del loaded
+    torch.cuda.empty_cache()
+
+    out = f"{tmp}/test_run"
+    common = ["--config-name=test", f"model_path={hf_dir}", f"output_dir={out}", "finetune.rl.entropy_bonus=0.001",
+              "engine.attn_impl=gqa", "finetune.attn_impl=gqa"]
+    # 2. train two steps, saving after each
+    stats, first, engine, wall, launches = run_recorded([*common, "finetune.max_train_steps=2",
+                                                         "finetune.save_checkpoint_steps=1"])
+    paths["hf_test"] = launches
+    ids = sampled_ids(out)
+    state_bytes = Path(f"{out}/finetune/training_state/state.pt").stat().st_size
+    actor = stats["actor"]
+    with open(f"{out}/metrics/trainer_0.jsonl") as f:
+        norms = [json.loads(line)["grad_norm"] for line in f]
+    log(f"test preset through launch.main (2 steps, a save after each): {wall:.1f} s wall, {actor['samples_written']} "
+        f"samples, {actor['output_tokens']} sampled tokens, {actor['output_tokens'] / wall:.1f} useful tokens/s, "
+        f"grad norms {norms}, version {stats['trainer']['last_broadcasted_version']} (engine {engine.version}), "
+        f"max sampled id {max(ids)} (valid_vocab 540), saves {[round(s, 2) for s in first.save_s]} s "
+        f"(training_state {state_bytes} bytes + model.safetensors), launches {launches}, on {smi}")
+    check(stats["trainer"]["completed_steps"] == 2, f"trainer {stats['trainer']}")
+    check(Path(f"{out}/finetune/training_state").is_dir() and Path(f"{out}/finetune/current").is_dir(),
+          "no finetune/training_state or finetune/current")
+    check(all(launches[k] for k in ("decode", "gqa_fwd", "gqa_dq", "gqa_dkv")), f"test preset launches {launches}")
+    check(ids and max(ids) < 540, f"a sampled id reached valid_vocab: {max(ids)}")
+    check(engine.version > 0 and stats["trainer"]["last_broadcasted_version"] > 0, "the weight version did not advance")
+    check(min(norms) > 0, f"grad norms {norms}")
+
+    # 3. resume on the same output_dir: step 2's state, bit for bit
+    stats, second, _, wall, launches = run_recorded([*common, "finetune.max_train_steps=3",
+                                                     "finetune.save_checkpoint_steps=1"])
+    check(second.resumed is not None, "the second run did not resume")
+    step, resumed_params, resumed_opt = second.resumed
+    same_params = all(torch.equal(resumed_params[name], p.detach()) for name, p in param_leaves(first.params))
+    saved_opt = optimizer_tensors(first)
+    same_opt = len(saved_opt) == len(resumed_opt) and all(torch.equal(a.cpu(), b.cpu())
+                                                          for a, b in zip(resumed_opt, saved_opt))
+    log(f"resume: at step {step}, params bit for bit {same_params}, optimizer state ({len(resumed_opt)} tensors) "
+        f"bit for bit {same_opt}, read in {second.resume_s:.2f} s; ended at step {stats['trainer']['completed_steps']} "
+        f"in {wall:.1f} s wall, launches {launches}")
+    check(step == 2 and same_params and same_opt, "the resumed state differs from the one saved")
+    check(stats["trainer"]["completed_steps"] == 3, f"the resumed run ended at {stats['trainer']}")
+    paths["hf_test_resume"] = launches
+    del first, resumed_params, resumed_opt, saved_opt
+    torch.cuda.empty_cache()
+
+    # 4. the export reads back as the trainer's final weights
+    t0 = time.monotonic()
+    exported, exported_cfg = load_hf_model(f"{out}/finetune/current", device=dev)
+    torch.cuda.synchronize()
+    read_s = time.monotonic() - t0
+    final = dict(param_leaves(second.params))
+    same = all(torch.equal(t, final[name].detach()) for name, t in param_leaves(exported))
+    config_in = json.loads((hf_dir / "config.json").read_text())
+    config_out = json.loads(Path(f"{out}/finetune/current/config.json").read_text())
+    log(f"export: finetune/current read back in {read_s:.2f} s, bit for bit the trainer's final params: {same}; "
+        f"config.json equal to the input's: {config_in == config_out}")
+    check(same and sorted(final) == sorted(name for name, _ in param_leaves(exported)), "the export differs")
+    check(config_in == config_out and exported_cfg.hf_architecture == "Qwen2ForCausalLM", "config.json differs")
+    del exported, final, second
+    torch.cuda.empty_cache()
+
+    # 3b. force_restart ignores the saved state
+    stats, forced, _, wall, launches = run_recorded([*common, "finetune.max_train_steps=1", "force_restart=true",
+                                                     "finetune.save_checkpoint_steps=0"])
+    log(f"force_restart: resumed {forced.resumed is not None}, ended at step {stats['trainer']['completed_steps']} "
+        f"in {wall:.1f} s wall")
+    check(forced.resumed is None and stats["trainer"]["completed_steps"] == 1, "force_restart resumed")
+    paths["hf_test_resume"] = {k: v + launches[k] for k, v in paths["hf_test_resume"].items()}
+    del forced
+    torch.cuda.empty_cache()
+
+    # 5a. LoRA on the same directory: the base stays, the adapters move
+    stats, lora, engine, wall, launches = run_recorded([
+        *common[:2], f"output_dir={tmp}/lora_run", *common[3:], "finetune.max_train_steps=1",
+        "finetune.num_warmup_steps=0", "+finetune.lora.enabled=true"])
+    base_same = all(torch.equal(a, b) for (_, a), (_, b) in zip(param_leaves(lora.frozen_params),
+                                                               param_leaves(params), strict=True))
+    moved = [name for name, p in param_leaves(lora.params) if name.endswith("_B") and p.abs().sum() > 0]
+    with torch.no_grad():
+        merged = merge_lora(lora.frozen_params, lora.params, lora.lora_cfg)
+    pushed_same = all(torch.equal(a, b) for (_, a), (_, b) in zip(param_leaves(engine.params), param_leaves(merged),
+                                                                 strict=True))
+    log(f"LoRA (r {lora.lora_cfg.r}, targets {lora.lora_cfg.target_modules}): {wall:.1f} s wall, "
+        f"{stats['trainer']['completed_steps']} step; base bit for bit {base_same}, adapters moved {moved}, "
+        f"engine weights equal merge_lora {pushed_same} (version {engine.version}), launches {launches}")
+    check(stats["trainer"]["completed_steps"] == 1 and base_same and len(moved) == len(lora.lora_cfg.target_modules)
+          and pushed_same and engine.version > 0, "LoRA trained something other than its adapters")
+    check(all(launches[k] for k in ("decode", "gqa_fwd", "gqa_dq", "gqa_dkv")), f"LoRA launches {launches}")
+    paths["hf_lora"] = launches
+    del lora, merged, engine, params
+    torch.cuda.empty_cache()
+
+    # 5b. the value head on the toy model
+    stats, critic, engine, wall, launches = run_recorded([
+        "--config-name=bandit_tpu", "finetune=actor_critic", f"output_dir={tmp}/actor_critic",
+        "finetune.max_train_steps=1", "finetune.save_checkpoint_steps=0", "engine.attn_impl=gqa",
+        "finetune.attn_impl=gqa"])
+    with open(f"{tmp}/actor_critic/metrics/trainer_0.jsonl") as f:
+        value_loss = [json.loads(line)["rl/value_loss"] for line in f]
+    log(f"actor_critic (toy, bandit_tpu): {wall:.1f} s wall, value_loss {value_loss}, value head |grad| per pass "
+        f"{[float(f'{g:.4g}') for g in critic.value_grad]}, engine without the head: "
+        f"{'value_head' not in engine.params}, launches {launches}")
+    check(stats["trainer"]["completed_steps"] == 1 and all(math.isfinite(v) for v in value_loss)
+          and max(critic.value_grad) > 0 and "value_head" not in engine.params, "the value head did not train")
+    check(all(launches[k] for k in ("decode", "gqa_fwd", "gqa_dq", "gqa_dkv")), f"actor_critic launches {launches}")
+    paths["actor_critic"] = launches
+    return paths
 
 
 def phase_engine(dev, smi: str, trainer: TrainerLoop, exp_dir: str) -> tuple[int, int]:
@@ -1652,6 +1894,8 @@ def main() -> None:
         paths["rl_loop_paged"] = phase_rl_loop(f"{tmp}/bandit_paged", paged=True)
         paths["rl_loop_kl"] = phase_rl_loop_kl(f"{tmp}/bandit_kl")
         paths["guessing"] = phase_guessing(f"{tmp}/guessing")
+        torch.cuda.empty_cache()
+        paths.update(phase_hf_checkpoint(dev, info["smi"], f"{tmp}/hf"))
     for record, key in zip(kernels, ("decode", "gqa_fwd", "gqa_dq", "gqa_dkv", "paged")):
         record["launches_by_path"] = {path: c[key] for path, c in paths.items()}
         record["launches"] = sum(record["launches_by_path"].values())

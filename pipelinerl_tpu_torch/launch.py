@@ -4,11 +4,13 @@ Port of the JAX package's ``launch.py`` inline mode: one process owns the
 card and runs the engine loop, the preprocessor and the trainer on threads
 beside the actor's asyncio scheduler, all decoupled through file streams.
 Weight updates are in-process swaps (``InferenceEngine.update_params``) of
-copies the trainer hands over. Left out: processes mode, eval
-interleaving, ``debug.mode`` stage subsets, HF checkpoints and VLM.
+copies the trainer hands over. The model is the toy model (``model_path``
+``toy`` or null) or an HF checkpoint directory (``model_path=<dir>``: its
+safetensors, ``config.json`` and byte-level BPE tokenizer). Left out:
+processes mode, eval interleaving, ``debug.mode`` stage subsets and VLM.
 
-    python3 -m pipelinerl_tpu_torch.launch --config-name=bandit_tpu \\
-        output_dir=/tmp/run finetune.save_checkpoint_steps=0
+    python3 -m pipelinerl_tpu_torch.launch --config-name=bandit_tpu output_dir=/tmp/run
+    python3 -m pipelinerl_tpu_torch.launch --config-name=test model_path=<hf dir> output_dir=/tmp/run
 
 prints the run's summary as one JSON line, last.
 """
@@ -16,6 +18,7 @@ prints the run's summary as one JSON line, last.
 from __future__ import annotations
 
 import asyncio
+import dataclasses
 import json
 import logging
 import sys
@@ -31,8 +34,10 @@ from .config import Config, compose
 from .domains.registry import resolve
 from .inference import EngineConfig, InferenceEngine
 from .inference.client import InProcessLLM
+from .models.hf_loader import load_hf_model
+from .models.hf_tokenizer import HFTokenizer
 from .models.toy_tokenizer import ToyTokenizer
-from .models.transformer import ModelConfig, init_params
+from .models.transformer import ModelConfig, init_params, init_value_head
 from .preprocess import Preprocessor
 from .state import TrainerState
 from .streams import set_streams_backend
@@ -46,25 +51,48 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def build_model(cfg: Config, device="cuda"):
-    """→ (params, model_cfg, tokenizer): the toy model from ``toy_model``,
-    random weights from ``seed``, in ``finetune.param_dtype``."""
-    if cfg.get("model_path") not in (None, "toy"):
-        raise NotImplementedError("HF checkpoints are not ported yet (ROADMAP Queue 1, item 4)")
-    if cfg.get("toy_vision") is not None or cfg.finetune.get("value_head", False):
-        raise NotImplementedError("the toy VLM and the value head are not ported yet")
-    tokenizer = ToyTokenizer()
-    toy = cfg.get("toy_model", Config({}))
-    model_cfg = ModelConfig(
-        vocab_size=int(toy.get("vocab_size", tokenizer.vocab_size)),
-        hidden_size=int(toy.get("hidden_size", 128)),
-        intermediate_size=int(toy.get("intermediate_size", 256)),
-        num_layers=int(toy.get("num_layers", 2)),
-        num_heads=int(toy.get("num_heads", 4)),
-        num_kv_heads=int(toy.get("num_kv_heads", 2)),
-        dtype=_DTYPES[cfg.finetune.get("param_dtype", "float32")],
-    )
-    generator = torch.Generator().manual_seed(int(cfg.get("seed", 0)))
-    return init_params(generator, model_cfg, device), model_cfg, tokenizer
+    """→ (params, model_cfg, tokenizer) in ``finetune.param_dtype``: the toy
+    model from ``toy_model`` with random weights from ``seed`` (and a value
+    head under ``finetune.value_head``), or the HF checkpoint at
+    ``model_path`` with its tokenizer. A checkpoint whose vocabulary is
+    padded past the tokenizer gets ``valid_vocab``, so the padding rows are
+    never sampled. As in the JAX package, only the toy model gets a value
+    head."""
+    model_path = cfg.get("model_path")
+    dtype = _DTYPES[cfg.finetune.get("param_dtype", "float32")]
+    if model_path in (None, "toy"):
+        if cfg.get("toy_vision") is not None:
+            raise NotImplementedError("the toy VLM is not ported yet (ROADMAP Queue 1, item 10)")
+        tokenizer = ToyTokenizer()
+        toy = cfg.get("toy_model", Config({}))
+        model_cfg = ModelConfig(
+            vocab_size=int(toy.get("vocab_size", tokenizer.vocab_size)),
+            hidden_size=int(toy.get("hidden_size", 128)),
+            intermediate_size=int(toy.get("intermediate_size", 256)),
+            num_layers=int(toy.get("num_layers", 2)),
+            num_heads=int(toy.get("num_heads", 4)),
+            num_kv_heads=int(toy.get("num_kv_heads", 2)),
+            dtype=dtype,
+        )
+        seed = int(cfg.get("seed", 0))
+        params = init_params(torch.Generator().manual_seed(seed), model_cfg, device)
+        if cfg.finetune.get("value_head", False):
+            params["value_head"] = init_value_head(torch.Generator().manual_seed(seed + 99), model_cfg, device)
+        return params, model_cfg, tokenizer
+    params, model_cfg = load_hf_model(model_path, dtype=dtype, device=device)
+    tokenizer = HFTokenizer(model_path)
+    n_tok = len(tokenizer)
+    if n_tok < model_cfg.vocab_size:
+        model_cfg = dataclasses.replace(model_cfg, valid_vocab=n_tok)
+        logger.info("Masking %d padded logit rows (vocab %d, tokenizer %d)",
+                    model_cfg.vocab_size - n_tok, model_cfg.vocab_size, n_tok)
+    return params, model_cfg, tokenizer
+
+
+def engine_params(params: dict) -> dict:
+    """A copy of the weights the engine runs on: the value head is the
+    trainer's alone."""
+    return detached_copy({k: v for k, v in params.items() if k != "value_head"})
 
 
 def build_engine(cfg: Config, params: dict, model_cfg: ModelConfig, tokenizer, device="cuda") -> InferenceEngine:
@@ -117,8 +145,9 @@ def validate_config(cfg: Config) -> None:
     if buckets and max(buckets) > engine_max:
         problems.append(f"largest prefill bucket ({max(buckets)}) exceeds engine.max_len ({engine_max})")
     attempts = int(cfg.get("attempts", 1))
-    if attempts < 2:
-        problems.append("attempts < 2: leave-one-out advantages are always zero (nothing to learn from)")
+    if attempts < 2 and not cfg.finetune.get("value_head", False):
+        problems.append("attempts < 2 with no value head: leave-one-out advantages are always zero "
+                        "(nothing to learn from)")
     samples_per_step = int(cfg.finetune.samples_per_step)
     if samples_per_step % attempts != 0:
         logger.warning(
@@ -187,7 +216,7 @@ def run_inline(cfg: Config, device="cuda") -> dict[str, Any]:
 
     params, model_cfg, tokenizer = build_model(cfg, device)
     # the engine owns copies: AdamW updates the trainer's tensors in place
-    engine = build_engine(cfg, detached_copy(params), model_cfg, tokenizer, device)
+    engine = build_engine(cfg, engine_params(params), model_cfg, tokenizer, device)
     engine.start()
     trainer_state = TrainerState(exp_path)
     trainer_state.start_listening()
@@ -198,7 +227,7 @@ def run_inline(cfg: Config, device="cuda") -> dict[str, Any]:
         # the reference policy: a second engine on the initial weights that
         # is never started and never updated. It owns a copy, as the
         # policy engine does: AdamW updates the trainer's tensors in place.
-        ref_engine = build_engine(cfg, detached_copy(params), model_cfg, tokenizer, device)
+        ref_engine = build_engine(cfg, engine_params(params), model_cfg, tokenizer, device)
         ref_score_fn = ref_engine.score_tokens
     preprocessor = Preprocessor(cfg, exp_path, trainer_state, eos_token_id=tokenizer.eos_token_id,
                                 ref_score_fn=ref_score_fn)

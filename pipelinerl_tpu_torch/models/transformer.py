@@ -17,6 +17,8 @@ takes the place of ``lax.scan``.
   for the caller to stage.
 - Prefix reuse: ``forward_extend`` runs only a tail's layers against cached
   prefix K/V.
+- Actor-critic: ``init_value_head`` and ``value_predictions`` put a linear
+  value head on ``forward``'s ``return_hidden`` output.
 """
 
 from __future__ import annotations
@@ -52,6 +54,9 @@ class ModelConfig:
     # such as Qwen2.5: 151,936 logit rows for 151,643 tokenizer entries); ids
     # >= valid_vocab get a -1e30 logit in lm_head_logits and are never sampled
     valid_vocab: int | None = None
+    # the HF ``architectures`` entry the config came from (written back by
+    # ``train.checkpoints.export_hf``)
+    hf_architecture: str | None = None
 
     @property
     def head_dim_(self) -> int:
@@ -234,9 +239,12 @@ def forward(
     remat: bool | str = False,  # True: per layer; "mlp": the MLP only
     attn_impl: str = "xla",  # "xla" (plain torch) | "gqa" | "flash" (CUDA kernels)
     skip_unembed: bool = False,
+    return_hidden: bool = False,
 ):
     """Full forward over packed rows. Returns fp32 logits [B, L, V]; with
-    ``return_kv`` also the per-layer keys/values, each [L, B, T, K, Dh].
+    ``return_kv`` also the per-layer keys/values, each [L, B, T, K, Dh]; with
+    ``return_hidden`` also the last layer's output [B, L, D] before the
+    final norm (the value head's input), last.
 
     ``remat`` recomputes activations in the backward pass instead of keeping
     them: ``True`` checkpoints each layer, ``"mlp"`` only each MLP (the
@@ -283,9 +291,12 @@ def forward(
         out = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     else:
         out = unembed(params, cfg, x)
+    outs = [out]
     if return_kv:
-        return out, (torch.stack(ks), torch.stack(vs))
-    return out
+        outs.append((torch.stack(ks), torch.stack(vs)))
+    if return_hidden:
+        outs.append(x)
+    return outs[0] if len(outs) == 1 else tuple(outs)
 
 
 # ---------------------------------------------------------------------------
@@ -397,3 +408,22 @@ def decode_step_staged(
         ks.append(k)
         vs.append(v)
     return unembed(params, cfg, x), torch.stack(ks), torch.stack(vs)
+
+
+# ---------------------------------------------------------------------------
+# value head (PPO actor-critic)
+# ---------------------------------------------------------------------------
+
+
+def init_value_head(generator: torch.Generator, cfg: ModelConfig, device="cuda") -> dict:
+    """A linear head over the last layer's output to one value per token:
+    ``w`` [D, 1] scaled normal, ``b`` [1] zero, in ``cfg.dtype``."""
+    D = cfg.hidden_size
+    w = torch.randn((D, 1), generator=generator, device=generator.device) * D**-0.5
+    return {"w": w.to(device=device, dtype=cfg.dtype), "b": torch.zeros((1,), dtype=cfg.dtype, device=device)}
+
+
+def value_predictions(value_head: dict, hidden: torch.Tensor) -> torch.Tensor:
+    """hidden [B, L, D] → values [B, L], fp32."""
+    out = hidden.float() @ value_head["w"].float()
+    return out[..., 0] + value_head["b"].float()[0]

@@ -2,9 +2,10 @@
 
 Each preset mirrors the JAX package's composed YAML of the same name key for
 key (``conf/base.yaml`` with its group defaults; ``conf/bandit_cpu.yaml``;
-``conf/bandit_tpu.yaml``; ``conf/counting.yaml``; ``conf/guessing.yaml``),
-with dotted paths renamed from the JAX package to this one. The config
-groups (``conf/finetune/{base,grpo,ppo}.yaml``, ``conf/rewards/base.yaml``)
+``conf/bandit_tpu.yaml``; ``conf/counting.yaml``; ``conf/guessing.yaml``;
+``conf/test.yaml``), with dotted paths renamed from the JAX package to this
+one. The config groups (``conf/finetune/{base,grpo,ppo,actor_critic}.yaml``,
+``conf/rewards/base.yaml``)
 are group presets: a root preset takes the ``base`` of each, and a
 ``finetune=ppo`` override selects another, as a ``finetune: ppo`` entry of
 ``base.yaml``'s defaults would. ``tests/test_torch_config.py`` holds every
@@ -72,6 +73,17 @@ _FINETUNE_PPO = {
         "use_advantages": True,
         "kl_coef": 0.1,
         "final_kl_coef": 0.1,
+        "epsilon_low": 0.2,
+        "epsilon_high": 0.2,
+    },
+}
+
+_FINETUNE_ACTOR_CRITIC = {
+    "value_head": True,
+    "rl": {
+        "policy_loss": "ppo",
+        "use_advantages": True,
+        "value_loss_coef": 0.5,
         "epsilon_low": 0.2,
         "epsilon_high": 0.2,
     },
@@ -217,9 +229,22 @@ _GUESSING = {
     },
 }
 
+# the reference's operational oracle: guessing on Qwen2.5-0.5B
+_TEST = {
+    "attempts": 4,
+    "max_lag": 128,
+    "llm": {"parameters": {"max_tokens": 500}},
+    "finetune": {"samples_per_step": 32, "max_train_steps": 100, "seq_length": 4096},
+}
+
 # group -> name -> (parent in the group or None, own body)
 _GROUPS = {
-    "finetune": {"base": (None, _FINETUNE_BASE), "grpo": ("base", _FINETUNE_GRPO), "ppo": ("base", _FINETUNE_PPO)},
+    "finetune": {
+        "base": (None, _FINETUNE_BASE),
+        "grpo": ("base", _FINETUNE_GRPO),
+        "ppo": ("base", _FINETUNE_PPO),
+        "actor_critic": ("base", _FINETUNE_ACTOR_CRITIC),
+    },
     "rewards": {"base": (None, _REWARDS_BASE)},
 }
 
@@ -231,6 +256,7 @@ _PRESETS = {
     "bandit_tpu": ("bandit_cpu", _BANDIT_TPU),
     "counting": ("base", _COUNTING),
     "guessing": ("base", _GUESSING),
+    "test": ("guessing", _TEST),
 }
 
 

@@ -1,7 +1,7 @@
 """RL policy-gradient losses (REINFORCE / PPO / GSPO) in PyTorch.
 
 Port of the JAX package's ``train/rl_loss.py``, without its context-parallel
-``psum`` path and its value head (ROADMAP Queue 1, items 8 and 7):
+``psum`` path (ROADMAP Queue 1, item 8):
 
 - logprobs of realized tokens as gather minus logsumexp, and exact entropy;
 - Schulman KL approximations to the reference and behaviour policies, with
@@ -11,6 +11,9 @@ Port of the JAX package's ``train/rl_loss.py``, without its context-parallel
   (``index_add`` over row-offset segment ids);
 - per-token weights 1/batch_size (or 1/group_tokens under group
   normalization), overlong filtering, linear coefficient decay;
+- actor-critic: with a ``value_head`` in the params, advantages are the
+  return minus V(s) (detached in the policy term) and a weighted squared
+  value error joins the loss;
 - a metrics dict of scalar tensors under the JAX package's names.
 
 ``jax.lax.stop_gradient`` is ``detach``. Batches are packed ``[B, L]``
@@ -24,7 +27,7 @@ from dataclasses import dataclass
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..models.transformer import ModelConfig, forward, lm_head_logits
+from ..models.transformer import ModelConfig, forward, lm_head_logits, value_predictions
 
 
 @dataclass(frozen=True)
@@ -113,11 +116,12 @@ def _token_stats_chunked(
 
 
 def rl_loss_from_logits(
-    logits: torch.Tensor, batch: dict, step, max_step: int, cfg: RLLossConfig
+    logits: torch.Tensor, batch: dict, step, max_step: int, cfg: RLLossConfig,
+    values: torch.Tensor | None = None,  # [B, L] value-head predictions
 ) -> tuple[torch.Tensor, dict]:
     """Loss and metrics from precomputed logits [B, L, V]."""
     new_logprobs, entropy = _token_stats_from_logits(logits, batch["input_ids"], cfg.temperature)
-    return _rl_loss_from_stats(new_logprobs, entropy, batch, step, max_step, cfg)
+    return _rl_loss_from_stats(new_logprobs, entropy, batch, step, max_step, cfg, values)
 
 
 def _rl_loss_from_stats(
@@ -127,6 +131,7 @@ def _rl_loss_from_stats(
     step,
     max_step: int,
     cfg: RLLossConfig,
+    values: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, dict]:
     masks = (batch["labels"] != -100)[:, 1:]
     masks_f = masks.float()
@@ -139,7 +144,14 @@ def _rl_loss_from_stats(
     group_tokens = batch["group_tokens"][:, 1:]
     num_labels = batch["num_labels"][:, 1:].clamp(min=1.0)
     overflow = batch["overflow"][:, 1:]
-    advantages = batch["advantages"][:, 1:]
+    if values is not None:
+        # actor-critic: advantages are the MC return minus V(s); the policy
+        # term detaches them below, the value loss keeps the gradient
+        values_t = values[:, :-1]
+        advantages = rewards - values_t
+    else:
+        values_t = None
+        advantages = batch["advantages"][:, 1:]
 
     if cfg.group_normalization:
         tokens_weights = 1.0 / group_tokens.clamp(min=1e-6)
@@ -216,6 +228,10 @@ def _rl_loss_from_stats(
     else:
         raise ValueError(f"Unknown policy_loss {cfg.policy_loss!r}")
 
+    if values_t is not None:
+        value_loss = masked_sum(0.5 * (values_t - rewards).square() * tokens_weights)
+        total_loss = total_loss + cfg.value_loss_coef * value_loss
+
     num_output_tokens = masks_f.sum()
 
     def seq_mean_sum(x):
@@ -258,6 +274,11 @@ def _rl_loss_from_stats(
         "kl_coef": torch.as_tensor(kl_coef, dtype=torch.float32),
         "entropy_bonus_coef": torch.as_tensor(entropy_coef, dtype=torch.float32),
     }
+    if values_t is not None:
+        v = values_t.detach()
+        metrics["value_mean"] = seq_mean_sum(v)
+        metrics["value_loss"] = value_loss.detach()
+        metrics["value_mse"] = seq_mean_sum((v - rewards).square())
     return total_loss, metrics
 
 
@@ -275,22 +296,26 @@ def rl_loss(
 ) -> tuple[torch.Tensor, dict]:
     """Forward and loss for one packed micro-batch. With ``logits_chunk``
     (single-device long rows) the [L, V] fp32 logits are never whole: the
-    unembed and its statistics run chunk by chunk under checkpoint."""
-    if "value_head" in params:
-        raise NotImplementedError("the value head is not ported yet (ROADMAP Queue 1, item 7)")
+    unembed and its statistics run chunk by chunk under checkpoint. A
+    ``value_head`` entry of ``params`` adds the actor-critic value path."""
+    model_params = {k: v for k, v in params.items() if k != "value_head"}
     L = batch["input_ids"].shape[1]
     chunked = logits_chunk is not None and L % logits_chunk == 0 and L > logits_chunk
     out = forward(
-        params, model_cfg, batch["input_ids"], batch["position_ids"], batch["segment_ids"],
-        remat=remat, attn_impl=attn_impl, skip_unembed=chunked,
+        model_params, model_cfg, batch["input_ids"], batch["position_ids"], batch["segment_ids"],
+        remat=remat, attn_impl=attn_impl, skip_unembed=chunked, return_hidden="value_head" in params,
     )
+    values = None
+    if "value_head" in params:
+        out, hidden = out
+        values = value_predictions(params["value_head"], hidden)
     if chunked:  # ``out`` is the final-norm'd hidden
         new_logprobs, entropy = _token_stats_chunked(
-            params, model_cfg, out, batch["input_ids"], loss_cfg.temperature, logits_chunk
+            model_params, model_cfg, out, batch["input_ids"], loss_cfg.temperature, logits_chunk
         )
-        loss, metrics = _rl_loss_from_stats(new_logprobs, entropy, batch, step, max_step, loss_cfg)
+        loss, metrics = _rl_loss_from_stats(new_logprobs, entropy, batch, step, max_step, loss_cfg, values)
     else:
-        loss, metrics = rl_loss_from_logits(out, batch, step, max_step, loss_cfg)
+        loss, metrics = rl_loss_from_logits(out, batch, step, max_step, loss_cfg, values)
     loss = loss * (1.0 - sentinel)
     metrics["loss"] = loss
     return loss, metrics

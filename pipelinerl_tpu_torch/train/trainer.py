@@ -3,9 +3,8 @@ accumulation, AdamW with optax's semantics, weight-version publishing and
 in-flight weight pushes.
 
 Port of the JAX package's ``train/trainer.py`` ``TrainerLoop`` for one
-device. Left out: LoRA, the device mesh (dp/cp/tp), VLM rows, the memory
-debugger and step profiler, and checkpoints (ROADMAP Queue 1, item 7:
-``save_checkpoint_steps > 0`` raises).
+device. Left out: the device mesh (dp/cp/tp), VLM rows, and the memory
+debugger and step profiler.
 
 - ``train_pass`` runs forward and backward of one packed micro-batch and
   accumulates into ``.grad``; the loss is pre-normalized by the step's
@@ -15,16 +14,25 @@ debugger and step profiler, and checkpoints (ROADMAP Queue 1, item 7:
 - A push hands ``weight_update_cb`` detached copies: AdamW updates the
   trainer's tensors in place, and the engine reads its weights between
   decode windows on another thread.
+- LoRA (``finetune.lora.enabled``): the trainable tensors are the adapters
+  (``train/lora.py``), the base weights freeze, and the forward, pushes and
+  exports run on the merged weights.
+- Checkpoints: every ``save_checkpoint_steps`` steps and at the end, the
+  training state and an HF export under ``finetune/`` (``checkpoints.py``);
+  ``run`` resumes from a saved state unless ``force_restart``, and its first
+  push sends the resumed weights.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import math
 import queue
 import threading
 import time
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Any, Callable
 
 import torch
@@ -35,6 +43,8 @@ from ..state import SamplesProcessed, TrainingDone, WeightUpdateSuccess
 from ..streams import SingleStreamSpec, StreamReader, StreamWriter
 from ..types import TrainerBatch
 from ..utils.metrics_logger import MetricsLogger
+from .checkpoints import export_hf, load_training_state, save_training_state
+from .lora import init_lora_params, lora_config_from, merge_lora
 from .rl_loss import RLLossConfig, rl_loss
 
 logger = logging.getLogger(__name__)
@@ -103,7 +113,7 @@ def make_optimizer(cfg: Config, params: dict):
     ``p``."""
     name = cfg.finetune.get("optim", "adamw")
     if name in ("lion", "adafactor"):
-        raise NotImplementedError(f"optim={name!r} is not ported yet; the port has adamw")
+        raise NotImplementedError(f"optim={name!r} is not ported yet (ROADMAP Queue 1, item 7); the port has adamw")
     if name not in ("adamw", "adamw_torch"):
         raise ValueError(f"Unknown optimizer {name!r}")
     lr = float(cfg.finetune.learning_rate)
@@ -158,14 +168,8 @@ class TrainerLoop:
         weight_update_cb: Callable[[dict, int], None] | None = None,
     ):
         ft = cfg.finetune
-        if int(ft.get("save_checkpoint_steps", 0)):
-            raise NotImplementedError(
-                "checkpoints are not ported yet (ROADMAP Queue 1, item 7): "
-                "set finetune.save_checkpoint_steps=0"
-            )
-        for key in ("lora", "train_vision_tower", "value_head"):
-            if ft.get(key):
-                raise NotImplementedError(f"finetune.{key} is not ported yet")
+        if ft.get("train_vision_tower"):
+            raise NotImplementedError("finetune.train_vision_tower is not ported yet (ROADMAP Queue 1, item 10)")
         if cfg.get("parallel") and math.prod(int(v) for v in dict(cfg.parallel.items()).values()) > 1:
             raise NotImplementedError("the trainer mesh is not ported yet (ROADMAP Queue 1, item 8)")
         self.cfg = cfg
@@ -173,6 +177,16 @@ class TrainerLoop:
         self.exp_path = exp_path
         self.weight_update_cb = weight_update_cb
         self.metrics = TrainingMetrics()
+        # LoRA: the trainable tensors become the adapters; the base freezes
+        self.lora_cfg = lora_config_from(ft)
+        self.frozen_params: dict = {}
+        if self.lora_cfg.enabled:
+            self.frozen_params = params
+            for _, p in param_leaves(params):
+                p.requires_grad_(False)
+            device = param_leaves(params)[0][1].device
+            generator = torch.Generator(device=device).manual_seed(int(cfg.get("seed", 0)) + 7)
+            params = init_lora_params(generator, params, self.lora_cfg)
         self.params = params
         self._leaves = [p for _, p in param_leaves(params)]
         for p in self._leaves:
@@ -192,6 +206,8 @@ class TrainerLoop:
         self._has_grads = False
         self.last_pass_samples = 0
         self.input_spec = SingleStreamSpec(exp_path=exp_path, topic="training_data")
+        self.save_checkpoint_steps = int(ft.get("save_checkpoint_steps", 0) or 0)
+        self.checkpoint_dir = Path(exp_path) / "finetune"
 
         seq_length = int(ft.get("seq_length", 1024))
         self.attn_impl = resolve_attn_impl(str(ft.get("attn_impl", "auto")), seq_length, self.device)
@@ -206,12 +222,46 @@ class TrainerLoop:
             self.remat = False
 
     # ------------------------------------------------------------------
+    def model_params(self) -> dict:
+        """The weights the model runs on: the trainable params, or under LoRA
+        the frozen base merged with the adapters (differentiable in them)."""
+        if self.lora_cfg.enabled:
+            return merge_lora(self.frozen_params, self.params, self.lora_cfg)
+        return self.params
+
+    def served_params(self) -> dict:
+        """What pushes and exports carry: ``model_params`` without the value
+        head, which is the trainer's alone."""
+        return {k: v for k, v in self.model_params().items() if k != "value_head"}
+
+    # -- checkpoint / resume ------------------------------------------------
+    def save_checkpoint(self, tokenizer=None) -> None:
+        """The training state (the adapters under LoRA) and an HF export of
+        the merged weights without the value head."""
+        save_training_state(self.checkpoint_dir, param_leaves(self.params), self.optimizer, self.scheduler,
+                            dataclasses.asdict(self.metrics))
+        with torch.no_grad():
+            export_hf(self.checkpoint_dir, self.served_params(), self.model_cfg, tokenizer)
+        logger.info("Saved checkpoint at step %d (%d samples)", self.metrics.completed_steps, self.metrics.samples)
+
+    def try_resume(self) -> bool:
+        """Restore the saved training state, if any: the trainable tensors
+        in place, the optimizer, the scheduler and the metrics."""
+        metrics = load_training_state(self.checkpoint_dir, param_leaves(self.params), self.optimizer, self.scheduler)
+        if metrics is None:
+            return False
+        for key, value in metrics.items():
+            if hasattr(self.metrics, key):
+                setattr(self.metrics, key, value)
+        logger.info("Resumed from checkpoint: step %d, %d samples", self.metrics.completed_steps, self.metrics.samples)
+        return True
+
     def train_pass(self, batch: TrainerBatch) -> dict:
         """One micro-batch: forward, loss, backward into ``.grad``. Returns
         the loss metrics as floats."""
         arrays = batch_to_tensors(batch, self.device)
         loss, metrics = rl_loss(
-            self.params, self.model_cfg, self.loss_cfg, arrays,
+            self.model_params(), self.model_cfg, self.loss_cfg, arrays,
             float(self.metrics.completed_steps), self.max_train_steps, 1.0 if batch.sentinel else 0.0,
             remat=self.remat, attn_impl=self.attn_impl, logits_chunk=self.logits_chunk,
         )
@@ -249,7 +299,7 @@ class TrainerLoop:
         if force or version - self.metrics.last_broadcasted_version >= self.weight_update_interval:
             if self.weight_update_cb is not None:
                 with torch.no_grad():
-                    self.weight_update_cb(detached_copy(self.params), version)
+                    self.weight_update_cb(detached_copy(self.served_params()), version)
             writer.write(WeightUpdateSuccess(version=version).model_dump())
             self.metrics.last_broadcasted_version = version
             return True
@@ -283,7 +333,9 @@ class TrainerLoop:
                     time.sleep(0.005)
 
         loader_thread = threading.Thread(target=loader, name="trainer-loader", daemon=True)
-        # initial broadcast so actors can start
+        if not bool(self.cfg.get("force_restart", False)):
+            self.try_resume()
+        # initial broadcast so actors can start, and resync after a resume
         self.maybe_push_weights(writer, force=True)
         writer.write(SamplesProcessed(samples=self.metrics.samples).model_dump())
         samples_this_step = 0
@@ -342,6 +394,8 @@ class TrainerLoop:
                 lag_min, lag_max = float("inf"), -1
                 samples_this_step = 0
                 self.maybe_push_weights(writer)
+                if self.save_checkpoint_steps and self.metrics.completed_steps % self.save_checkpoint_steps == 0:
+                    self.save_checkpoint()
             elapsed = time.monotonic() - t_start
             logger.info(
                 "Trainer done: %d steps, %d samples, %d tokens in %.1fs (%.0f tok/s)",
@@ -349,6 +403,8 @@ class TrainerLoop:
                 elapsed, self.metrics.tokens / max(elapsed, 1e-9),
             )
             self.maybe_push_weights(writer, force=True)
+            if self.save_checkpoint_steps:
+                self.save_checkpoint()
             writer.write(TrainingDone().model_dump())
         finally:
             stop.set()

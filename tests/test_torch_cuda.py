@@ -565,3 +565,31 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         okp = torch.zeros((3, 16, K, 64), dtype=torch.bfloat16, device=cuda)
         okb = torch.zeros((W, S, K, 64), dtype=torch.bfloat16, device=cuda)
         pattn.paged_decode_attention(ok, okv, okv, okp, okp, table.long(), lens, okb, okb, 0)
+
+
+def test_safetensors_round_trip_onto_the_card(cuda, tmp_path):
+    """A checkpoint written from card tensors (transposed views among them)
+    and read back through ``load_hf_model`` onto the card, bit for bit."""
+    from pipelinerl_tpu_torch.models.hf_loader import load_hf_model
+    from pipelinerl_tpu_torch.models.transformer import ModelConfig, init_params
+    from pipelinerl_tpu_torch.train.checkpoints import export_hf
+    from pipelinerl_tpu_torch.utils import safetensors_io
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    tensors = {"bf16.t": _bf16(gen, 64, 96).T, "f32": torch.randn(5, 7, generator=gen, device=cuda),
+               "i64": torch.arange(-3, 9, device=cuda), "empty": torch.zeros(0, 3, device=cuda)}
+    safetensors_io.save_file(tensors, tmp_path / "x.safetensors")
+    back = safetensors_io.load_file(tmp_path / "x.safetensors")
+    for name, t in tensors.items():
+        assert torch.equal(back[name].to(cuda), t), name
+
+    cfg = ModelConfig(vocab_size=512, hidden_size=128, intermediate_size=256, num_layers=2, num_heads=2,
+                      num_kv_heads=1, head_dim=64, attention_bias=True, tie_word_embeddings=True,
+                      dtype=torch.bfloat16, hf_architecture="Qwen2ForCausalLM")
+    params = init_params(gen, cfg, cuda)
+    loaded, loaded_cfg = load_hf_model(export_hf(tmp_path, params, cfg), device=cuda)
+    assert loaded_cfg == cfg
+    for key in ("embed", "final_norm"):
+        assert loaded[key].is_cuda and torch.equal(loaded[key], params[key])
+    for name, w in params["layers"].items():
+        assert torch.equal(loaded["layers"][name], w), name

@@ -1,6 +1,9 @@
-"""The port imports nothing of JAX or of the JAX package: every module of
-``pipelinerl_tpu_torch`` and ``chip_smoke`` imports in a process that
-refuses both, and ``chip_smoke.main`` raises where there is no CUDA card."""
+"""The port imports nothing of JAX or of the JAX package, nor the
+``safetensors``, ``tokenizers``, ``transformers`` and ``regex`` packages
+(the H100 host has none of them): every module of ``pipelinerl_tpu_torch``
+and ``chip_smoke`` imports in a process that refuses all of them, and the
+port's tokenizer reads the committed fixture there; ``chip_smoke.main``
+raises where there is no CUDA card."""
 
 import subprocess
 import sys
@@ -15,9 +18,11 @@ CHILD = textwrap.dedent(
     """
     import importlib, pkgutil, sys
 
+    REFUSED = ("jax", "jaxlib", "pipelinerl_tpu", "safetensors", "tokenizers", "transformers", "regex")
+
     class Refuse:
         def find_spec(self, name, path=None, target=None):
-            if name.split(".")[0] in ("jax", "jaxlib", "pipelinerl_tpu"):
+            if name.split(".")[0] in REFUSED:
                 raise ImportError(f"the port must not import {name}")
             return None
 
@@ -28,7 +33,11 @@ CHILD = textwrap.dedent(
         names.append(m.name)
     for name in names:
         importlib.import_module(name)
-    bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "pipelinerl_tpu")]
+    from pipelinerl_tpu_torch.models.hf_tokenizer import HFTokenizer
+    tok = HFTokenizer("pipelinerl_tpu_torch/fixtures/hf_tokenizer")
+    ids = tok.apply_chat_template([{"role": "user", "content": "say x"}], add_generation_prompt=True)
+    assert tok.decode(ids) == "<|im_start|>user\\nsay x<|im_end|>\\n<|im_start|>assistant\\n"
+    bad = [m for m in sys.modules if m.split(".")[0] in REFUSED]
     assert not bad, bad
     print("IMPORTED", len(names))
     import chip_smoke, torch
