@@ -83,8 +83,37 @@ Phases, each of which stops the script on failure:
    trains only its adapters and pushes ``merge_lora``'s weights; and
    ``finetune=actor_critic`` on the toy model trains its value head.
    Write, read, save and resume seconds, file sizes, wall and useful
-   tokens/s are logged.
+   tokens/s are logged;
+15. the served engine at Qwen2.5-0.5B width (an ``export_hf`` directory
+   with the fixture tokenizer; slab S 64, window 16, bucket 128, as phase
+   7): ``python -m pipelinerl_tpu_torch.entrypoints.run_engine`` in a child
+   process; a greedy request alone over HTTP returns the same ids and
+   logprobs, bit for bit, as the same request through an engine built the
+   same way in this process; a separate client process
+   (``chip_smoke.py --http-load``) sends 64 concurrent chat completions of
+   128 tokens, one over SSE; ``/v1/completions`` echo scores agree with the
+   sampled logprobs within phase 11's tolerance; useful tokens/s over HTTP
+   beside the same load in process; kernel launches read from the child;
+16. a full-width PWT3 push while decoding: a trainer process
+   (``chip_smoke.py --push``) holds the same weights times 0.5 and posts
+   them with ``push_weights_http`` while at least 32 requests are live; the
+   server's per-tensor checksums then equal the pusher's, decode windows
+   were read back while the push was in flight, and two pushes posted
+   back to back show the supersede policy (the first yields to the second,
+   whose weights land). Body bytes, serialize seconds, POST-to-200
+   seconds and the largest gap between decode windows beside the steady
+   gap are logged;
+17. ``bandit_tpu`` through ``python -m pipelinerl_tpu_torch.launch
+   launch_mode=processes``, as a device job and split with
+   ``world.trainer_procs=1`` (every version after 0 reaching the engine
+   over PWT3): exit 0, the trainer's steps done, the engine on the last
+   pushed version, kernel launches read from the children's stats files,
+   phase 12's learning gate, and no child left alive.
 Then one JSON line of kernel numbers, and last the result line.
+
+``python3 chip_smoke.py --http-load URL N TOKENS OUT`` and
+``python3 chip_smoke.py --push URL HF_DIR DIR DEVICE`` are the client and pusher
+processes of phases 15 and 16.
 
 It needs a CUDA device and raises without one; it never falls back to the CPU.
 """
@@ -95,11 +124,17 @@ import asyncio
 import dataclasses
 import json
 import math
+import os
 import re
+import signal
+import socket
 import statistics
 import subprocess
+import sys
 import tempfile
+import threading
 import time
+import urllib.request
 from pathlib import Path
 from typing import Callable
 
@@ -112,11 +147,15 @@ from pipelinerl_tpu_torch.config import compose
 from pipelinerl_tpu_torch.inference import EngineConfig, GenRequest, InferenceEngine, SamplingParams
 from pipelinerl_tpu_torch.inference import engine as engine_mod
 from pipelinerl_tpu_torch.inference.client import InProcessLLM, Prompt
+from pipelinerl_tpu_torch.inference.http_client import HTTPLLM
+from pipelinerl_tpu_torch.inference.server import param_checksums
+from pipelinerl_tpu_torch.inference.weight_transfer import post_weights, push_weights_http, serialize_params
 from pipelinerl_tpu_torch.models.hf_loader import load_hf_model
 from pipelinerl_tpu_torch.models.hf_tokenizer import HFTokenizer
 from pipelinerl_tpu_torch.models.toy_tokenizer import ToyTokenizer
 from pipelinerl_tpu_torch.models.transformer import ModelConfig, extend_segments, forward, init_params
-from pipelinerl_tpu_torch.ops import _build
+from pipelinerl_tpu_torch.entrypoints.common import wait_for_http
+from pipelinerl_tpu_torch.ops import _build, kernel_launches
 from pipelinerl_tpu_torch.ops import decode_attention as dattn
 from pipelinerl_tpu_torch.ops import gqa_attention as gattn
 from pipelinerl_tpu_torch.ops import paged_attention as pattn
@@ -801,8 +840,7 @@ def reset_counts() -> None:
 
 
 def counts() -> dict[str, int]:
-    return {"decode": dattn.launches, "gqa_fwd": gattn.launches, "gqa_dq": gattn.dq_launches,
-            "gqa_dkv": gattn.dkv_launches, "paged": pattn.launches}
+    return kernel_launches()
 
 
 def _gqa_bwd_args(gen, B, Lq, Lkv, H, K, Dh, segs, dev, masked_row=None):
@@ -1866,6 +1904,346 @@ def phase_client(dev) -> None:
     log(f"client: {[(c.finish_reason, len(c.output_token_ids)) for c in calls]}")
 
 
+# ----------------------------------------------------------------------
+# phases 15-17: processes mode
+# ----------------------------------------------------------------------
+SERVE_REQUESTS = 64  # concurrent chat completions of MAX_TOKENS, one over SSE
+PUSH_LIVE = 32  # requests live in the server when the push starts
+PUSH_SCALES = (0.5, 0.25, 0.125)  # exact in bf16: the pushed weights are known bit for bit
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def survivors(marker: str) -> list[int]:
+    """Processes whose command line holds ``marker``."""
+    found = []
+    for proc in Path("/proc").iterdir():
+        if proc.name.isdigit() and proc.name != str(os.getpid()):
+            try:
+                if marker.encode() in (proc / "cmdline").read_bytes():
+                    found.append(int(proc.name))
+            except OSError:
+                pass
+    return found
+
+
+def http_get(url: str) -> dict:
+    with urllib.request.urlopen(url, timeout=60) as resp:
+        return json.loads(resp.read())
+
+
+def serve_prompts(n: int) -> list[Prompt]:
+    return [Prompt(messages=[{"role": "user", "content": f"Tell me a story about the number {i}, in a few words."}])
+            for i in range(n)]
+
+
+def http_load(url: str, n: int, max_tokens: int, out: str) -> None:
+    """The client process of phases 15 and 16: ``n`` concurrent chat
+    completions at T 1.0, the first over SSE; writes the calls and the wall
+    to ``out``."""
+    tok = HFTokenizer(FIXTURE_TOKENIZER)
+    llm = HTTPLLM(url, tok, {"max_tokens": max_tokens, "temperature": 1.0})
+    prompts = serve_prompts(n)
+
+    async def stream(prompt):
+        chunks = [c async for c in llm.astream(prompt)]
+        return {"prompt_ids": tok.apply_chat_template(prompt.messages, add_generation_prompt=True),
+                "ids": [t for c in chunks for t in c[0]], "logprobs": [lp for c in chunks for lp in c[1]],
+                "finish": chunks[-1][3], "sse_events": len(chunks)}
+
+    async def call(prompt):
+        c = await llm.agenerate(prompt)
+        return {"prompt_ids": c.prompt_token_ids, "ids": c.output_token_ids, "logprobs": c.logprobs,
+                "finish": c.finish_reason}
+
+    async def run():
+        return await asyncio.gather(stream(prompts[0]), *(call(p) for p in prompts[1:]))
+
+    t0 = time.monotonic()
+    calls = asyncio.run(run())
+    Path(out).write_text(json.dumps({"wall": time.monotonic() - t0, "calls": calls}))
+
+
+def scaled(params: dict, c: float) -> dict:
+    return {k: scaled(v, c) if isinstance(v, dict) else v * c for k, v in params.items()}
+
+
+def push_client(url: str, hf_dir: str, work: str, device: str) -> None:
+    """The trainer process of phase 16: the HF directory's weights times
+    PUSH_SCALES. Writes ``ready``, waits for ``go``, pushes the first with
+    ``push_weights_http`` while requests are live, then posts the other two
+    back to back (the second ``gap`` seconds after the first, a few gaps
+    until one supersedes); checks each landing through the server's
+    checksums and writes what it saw to ``push.json``."""
+    work_dir = Path(work)
+    params, _ = load_hf_model(hf_dir, dtype=torch.bfloat16, device=device)
+    trees = [scaled(params, c) for c in PUSH_SCALES]
+    sums = [param_checksums(t) for t in trees]
+    (work_dir / "ready").touch()
+    while not (work_dir / "go").exists():
+        time.sleep(0.01)
+    before = http_get(f"{url}/health")["counters"]
+    first = push_weights_http([url], trees[0], version=1_000_001)
+    landed = http_get(f"{url}/debug/param_checksums")
+    health = http_get(f"{url}/health")
+    out = {"live_at_push": before["num_active"], "first": {k: v for k, v in first.items() if k != "replies"},
+           "reply": first["replies"][url], "last_push": health["last_push"],
+           "first_bit_exact": landed["checksums"] == sums[0] and landed["version"] == 1_000_001}
+    bodies = [serialize_params(t, v) for t, v in ((trees[1], 1_000_002), (trees[2], 1_000_003))]
+    attempts = []
+    for gap in (0.02, 0.0, 0.05, 0.1):
+        superseded0 = http_get(f"{url}/weight_version")["pushes_superseded"]
+        replies: dict = {}
+
+        def post(i):
+            replies[i] = post_weights(url, bodies[i], 660.0)
+
+        threads = [threading.Thread(target=post, args=(0,)), threading.Thread(target=post, args=(1,))]
+        threads[0].start()
+        time.sleep(gap)
+        threads[1].start()
+        for t in threads:
+            t.join()
+        version = http_get(f"{url}/weight_version")
+        landed = http_get(f"{url}/debug/param_checksums")
+        attempts.append({"gap_s": gap, "superseded": version["pushes_superseded"] - superseded0,
+                         "version": landed["version"], "bit_exact": landed["checksums"] == sums[2],
+                         "replies": [replies[0]["version"], replies[1]["version"]]})
+        if attempts[-1]["superseded"]:
+            break
+    out["supersede"] = attempts
+    (work_dir / "push.json").write_text(json.dumps(out))
+
+
+def serving_config(hf_dir: Path, exp: str, dev):
+    """The test preset on the HF directory with phase 7's engine."""
+    return compose("test", [
+        f"model_path={hf_dir}", f"output_dir={exp}", f"device={dev.type}", f"engine.max_slots={SLOTS}", f"engine.max_len={MAX_LEN}",
+        f"engine.prefill_buckets=[{BUCKET}]", f"engine.decode_window={WINDOW}",
+        f"engine.window_pipeline_depth={DEPTH}", "engine.adaptive_window=false", "engine.attn_impl=gqa",
+    ])
+
+
+def start_job(module: str, conf: Path, kind: str, port: int, log_path: Path) -> subprocess.Popen:
+    with open(log_path, "w") as f:
+        return subprocess.Popen(
+            [sys.executable, "-m", module, f"--config-dir={conf}", "--config-name=exp_config", f"+me.kind={kind}",
+             "+me.replica_idx=0", f"+me.port={port}"],
+            stdout=f, stderr=subprocess.STDOUT, start_new_session=True, cwd=Path(__file__).resolve().parent,
+        )
+
+
+def stop_group(proc: subprocess.Popen, timeout: float = 30.0) -> int:
+    try:
+        os.killpg(proc.pid, signal.SIGTERM)
+    except ProcessLookupError:
+        pass
+    try:
+        return proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        return proc.wait(timeout=timeout)
+
+
+def run_script(args: list[str]) -> subprocess.Popen:
+    return subprocess.Popen([sys.executable, str(Path(__file__).resolve()), *args],
+                            cwd=Path(__file__).resolve().parent, start_new_session=True)
+
+
+def load_results(out: Path) -> dict:
+    data = json.loads(out.read_text())
+    for c in data["calls"]:
+        lp = np.asarray(c["logprobs"], np.float64)
+        check(c["finish"] in ("stop", "length") and 1 <= len(c["ids"]) <= MAX_TOKENS and len(lp) == len(c["ids"]),
+              f"a served call finished {c['finish']} with {len(c['ids'])} ids and {len(lp)} logprobs")
+        check(bool(np.all(np.isfinite(lp)) and np.all(lp <= 0)), "served logprobs not finite and <= 0")
+        check(max(c["ids"]) < 540, "a served id lies past the tokenizer's 540")
+    return data
+
+
+def phase_served_engine(dev, smi: str, tmp: str) -> tuple[dict, dict]:
+    """Phases 15 and 16: one engine job at Qwen2.5-0.5B width, driven over
+    HTTP by a client process and pushed to by a trainer process."""
+    tok = HFTokenizer(FIXTURE_TOKENIZER)
+    params = init_params(torch.Generator(device=dev).manual_seed(0), QWEN05B_TIED, dev)
+    hf_dir = export_hf(f"{tmp}/hf_serve", params, QWEN05B_TIED, tok)
+    del params
+    exp = Path(tmp) / "serve"
+    cfg = serving_config(hf_dir, str(exp), dev)
+    conf = exp / "conf"
+    cfg.save(conf / "exp_config.json")
+    port = free_port()
+    url = f"http://127.0.0.1:{port}"
+    job = start_job("pipelinerl_tpu_torch.entrypoints.run_engine", conf, "engine", port, exp / "engine.out")
+    children: list[subprocess.Popen] = []
+    try:
+        # the same engine in this process, built the same way from the same config
+        local_params, model_cfg, _ = launch.build_model(cfg, dev)
+        engine = launch.build_engine(cfg, launch.engine_params(local_params), model_cfg, tok, dev)
+        del local_params
+        engine.start()
+        greedy = {"max_tokens": MAX_TOKENS, "temperature": 0.0}
+        prompt = serve_prompts(1)[0]
+        local = asyncio.run(InProcessLLM(engine, tok, greedy).agenerate(prompt))
+        prompts = serve_prompts(SERVE_REQUESTS)
+        llm = InProcessLLM(engine, tok, {"max_tokens": MAX_TOKENS, "temperature": 1.0})
+
+        async def load():
+            return await asyncio.gather(*(llm.agenerate(p) for p in prompts))
+
+        t0 = time.monotonic()
+        local_calls = asyncio.run(load())
+        local_wall = time.monotonic() - t0
+        engine.stop()
+        del engine
+        torch.cuda.empty_cache()
+        local_useful = sum(len(c.output_token_ids) for c in local_calls)
+
+        t0 = time.monotonic()
+        wait_for_http([url], 300, [("engine job", job)])
+        log(f"served engine: the engine job answered /health {time.monotonic() - t0:.1f} s after this process's "
+            f"in-process run")
+        remote = asyncio.run(HTTPLLM(url, tok, greedy).agenerate(prompt))
+        check(remote.output_token_ids == local.output_token_ids and remote.logprobs == local.logprobs,
+              "a greedy request over HTTP differs from the same request in process")
+        log(f"served engine: a greedy request alone ({len(remote.prompt_token_ids)} prompt tokens, "
+            f"{len(remote.output_token_ids)} sampled) returns over HTTP the same ids and logprobs, bit for bit, "
+            f"as the same request in process")
+
+        out = exp / "load.json"
+        client = run_script(["--http-load", url, str(SERVE_REQUESTS), str(MAX_TOKENS), str(out)])
+        children.append(client)
+        check(client.wait(timeout=600) == 0, "the HTTP load client failed")
+        data = load_results(out)
+        useful = sum(len(c["ids"]) for c in data["calls"])
+        streamed = data["calls"][0]
+        check(streamed["sse_events"] >= 3, f"the SSE call came in {streamed['sse_events']} events")
+        errs = []
+        for c in data["calls"][1:4]:
+            scores = asyncio.run(HTTPLLM(url, tok).ascore(c["prompt_ids"] + c["ids"]))
+            errs.append(np.abs(np.asarray(scores[len(c["prompt_ids"]) - 1:]) - np.asarray(c["logprobs"])))
+        errs = np.concatenate(errs)
+        log(f"served engine: /v1/completions echo scores vs the sampled logprobs (T 1.0) over {errs.size} tokens: "
+            f"mean abs err {errs.mean():.4f} (tolerance {TF_MEAN_ATOL}), max {errs.max():.4f} "
+            f"(tolerance {TF_MAX_ATOL})")
+        check(errs.mean() <= TF_MEAN_ATOL and errs.max() <= TF_MAX_ATOL, "echo scores disagree with the sampler")
+        health = http_get(f"{url}/health")
+        served = dict(health["kernel_launches"])
+        check(served["decode"] > 0 and served["gqa_fwd"] > 0 and not served["paged"],
+              f"the engine job's kernel launches: {served}")
+        log(f"served engine: {SERVE_REQUESTS} concurrent chat completions of {MAX_TOKENS} tokens from a client "
+            f"process (one over SSE, {streamed['sse_events']} events): {useful} tokens in {data['wall']:.2f} s, "
+            f"{useful / data['wall']:.1f} useful tokens/s over HTTP; the same load in process: {local_useful} "
+            f"tokens in {local_wall:.2f} s, {local_useful / local_wall:.1f} useful tokens/s; on {smi}")
+        log(f"served engine: kernel launches in the engine job {served}; counters {json.dumps(health['counters'])}")
+
+        # phase 16: a full-width push while decoding
+        work = exp / "push"
+        work.mkdir()
+        pusher = run_script(["--push", url, str(hf_dir), str(work), dev.type])
+        children.append(pusher)
+        deadline = time.monotonic() + 300
+        while not (work / "ready").exists():
+            check(pusher.poll() is None and time.monotonic() < deadline, "the pusher did not get ready")
+            time.sleep(0.1)
+        out = exp / "load_push.json"
+        client = run_script(["--http-load", url, str(2 * SERVE_REQUESTS), str(MAX_TOKENS), str(out)])
+        children.append(client)
+        deadline = time.monotonic() + 120
+        while http_get(f"{url}/health")["counters"]["num_active"] < PUSH_LIVE:
+            check(client.poll() is None and time.monotonic() < deadline, f"fewer than {PUSH_LIVE} requests went live")
+            time.sleep(0.02)
+        (work / "go").touch()
+        check(pusher.wait(timeout=900) == 0, "the pusher failed")
+        check(client.wait(timeout=600) == 0, "the HTTP load client failed during the push")
+        load_results(out)
+        push = json.loads((work / "push.json").read_text())
+        span, h2d = push["reply"]["push_span"], push["last_push"]
+        log(f"push while decoding: {push['first']['bytes']} body bytes, serialize {push['first']['serialize_s']:.3f} s, "
+            f"POST to 200 {push['first']['post_s']:.3f} s (body read {push['reply']['read_s']:.3f} s, stage and swap "
+            f"{push['reply']['wait_s']:.3f} s: H2D staging {h2d['transfer_s']:.3f} s at {h2d['gbps']:.2f} GB/s, "
+            f"publish to swap {h2d.get('publish_to_swap_s', float('nan')) * 1e3:.2f} ms), "
+            f"{push['live_at_push']} requests live at the push; decode windows read back from the body's arrival "
+            f"to the swap: {span['windows_during']} (during the H2D staging alone: {h2d['windows_during']}); "
+            f"largest gap between windows then {span['max_window_gap_s'] * 1e3:.1f} ms against a steady "
+            f"{(span['steady_window_gap_s'] or float('nan')) * 1e3:.1f} ms; on {smi}")
+        check(push["live_at_push"] >= PUSH_LIVE, f"only {push['live_at_push']} requests live at the push")
+        check(push["first_bit_exact"], "the pushed weights did not land bit for bit")
+        check(span["windows_during"] >= 1, "no decode window completed while the push was in flight")
+        log(f"push supersede attempts: {push['supersede']}")
+        last = push["supersede"][-1]
+        check(last["superseded"] >= 1, "no second push superseded the first mid-transfer")
+        check(last["bit_exact"] and last["version"] == 1_000_003 and last["replies"] == [1_000_002, 1_000_003],
+              f"the superseding push did not land bit for bit: {last}")
+        final = http_get(f"{url}/health")["kernel_launches"]
+        pushed = {k: final[k] - served[k] for k in final}
+    finally:
+        for proc in children:
+            if proc.poll() is None:
+                stop_group(proc)
+        rc = stop_group(job)
+    stats = json.loads((exp / "engine" / "stats_engine_0.json").read_text())
+    check(stats["version"] == 1_000_003, f"the engine job ended on version {stats['version']}")
+    check(not survivors(str(conf)), "the engine job outlived its SIGTERM")
+    log(f"engine job stopped with {rc} after SIGTERM; push counters {stats['push']}")
+    return served, pushed
+
+
+def phase_processes(exp: str, split: bool, smi: str, overrides: tuple[str, ...] = ()) -> dict:
+    """Phase 17: bandit_tpu through ``launch`` in processes mode."""
+    layout = ["world.trainer_procs=1"] if split else []
+    cmd = [sys.executable, "-m", "pipelinerl_tpu_torch.launch", "--config-name=bandit_tpu", f"output_dir={exp}",
+           "launch_mode=processes", "finetune.save_checkpoint_steps=0", "engine.attn_impl=gqa",
+           "finetune.attn_impl=gqa", f"world.engine_start_port={free_port()}", *layout, *overrides]
+    t0 = time.monotonic()
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=Path(__file__).resolve().parent)
+    finally:
+        left = survivors(f"--config-dir={exp}/conf")
+        for pid in left:
+            os.kill(pid, signal.SIGKILL)
+    wall = time.monotonic() - t0
+    label = "split (engine job + trainer job)" if split else "device job"
+    check(proc.returncode == 0, f"processes mode ({label}) exited {proc.returncode}: {proc.stderr[-3000:]}")
+    check(not left, f"children outlived the launcher: {left}")
+    jobs = json.loads(proc.stdout.strip().splitlines()[-1])["jobs"]
+    engine = jobs["engine_0" if split else "device_0"]
+    trainer = jobs["trainer_0" if split else "device_0"]["trainer"]
+    check(trainer["completed_steps"] >= 10, f"the trainer completed {trainer['completed_steps']} steps")
+    check(engine["version"] == trainer["last_broadcasted_version"] > 0,
+          f"the engine ended on {engine['version']}, the trainer pushed {trainer['last_broadcasted_version']}")
+    if split:
+        pushes = jobs["trainer_0"]["pushes"]
+        check(engine["push"]["pushes_completed"] == engine["push"]["pushes_received"] == len(pushes)
+              and engine["push"]["push_last_version"] == pushes[-1]["version"],
+              f"not every version reached the engine over PWT3: {engine['push']}, {len(pushes)} pushes")
+        launches = {k: engine["kernel_launches"][k] + jobs["trainer_0"]["kernel_launches"][k]
+                    for k in engine["kernel_launches"]}
+        check(engine["kernel_launches"]["decode"] and engine["kernel_launches"]["gqa_fwd"]
+              and all(jobs["trainer_0"]["kernel_launches"][k] for k in ("gqa_fwd", "gqa_dq", "gqa_dkv")),
+              f"kernel launches: engine {engine['kernel_launches']}, trainer {jobs['trainer_0']['kernel_launches']}")
+        post = [p["post_s"] for p in pushes[1:]]
+        push_note = (f", {len(pushes)} PWT3 pushes of {pushes[-1]['bytes']} bytes, POST to 200 median "
+                     f"{statistics.median(post) * 1e3:.1f} ms")
+    else:
+        launches = engine["kernel_launches"]
+        check(all(launches[k] for k in ("decode", "gqa_fwd", "gqa_dq", "gqa_dkv")), f"kernel launches {launches}")
+        push_note = ""
+    snaps = list(StreamReader(SingleStreamSpec(exp, "stats")).read_available())
+    rewards = [s["reward_mean"] for s in snaps if "reward_mean" in s]
+    check(len(rewards) >= 4, f"too few stats snapshots: {rewards}")
+    early, late = sum(rewards[:2]) / 2, sum(rewards[-2:]) / 2
+    log(f"bandit_tpu in processes mode, {label}: {wall:.1f} s wall, {trainer['completed_steps']} steps, version "
+        f"{trainer['last_broadcasted_version']} (engine {engine['version']}), reward {early:.3f} -> {late:.3f} "
+        f"(snapshots {[round(r, 3) for r in rewards]}){push_note}, launches {launches}, no child left; on {smi}")
+    check(late > early + 0.1, f"processes mode ({label}) did not learn: reward {early:.3f} -> {late:.3f}")
+    return launches
+
+
 def main() -> None:
     info = phase_device()
     dev = torch.device("cuda")
@@ -1896,6 +2274,10 @@ def main() -> None:
         paths["guessing"] = phase_guessing(f"{tmp}/guessing")
         torch.cuda.empty_cache()
         paths.update(phase_hf_checkpoint(dev, info["smi"], f"{tmp}/hf"))
+        torch.cuda.empty_cache()
+        paths["served_engine"], paths["push_while_decoding"] = phase_served_engine(dev, info["smi"], tmp)
+        paths["processes_device"] = phase_processes(f"{tmp}/processes_device", False, info["smi"])
+        paths["processes_split"] = phase_processes(f"{tmp}/processes_split", True, info["smi"])
     for record, key in zip(kernels, ("decode", "gqa_fwd", "gqa_dq", "gqa_dkv", "paged")):
         record["launches_by_path"] = {path: c[key] for path, c in paths.items()}
         record["launches"] = sum(record["launches_by_path"].values())
@@ -1904,4 +2286,9 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--http-load"]:
+        http_load(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), sys.argv[5])
+    elif sys.argv[1:2] == ["--push"]:
+        push_client(*sys.argv[2:6])
+    else:
+        main()

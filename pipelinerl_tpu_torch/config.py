@@ -7,7 +7,10 @@ Port of the JAX package's ``config.py``: attribute access
 ``to_dict``. The configs themselves are the presets in ``presets.py``
 (the H100 host has no yaml), composed as ``compose`` does from the YAML
 tree: defaults first, then the preset's own body, then ``key=value``
-overrides, then interpolation. A resolved config is saved as JSON.
+overrides, then interpolation. A resolved config is saved as JSON
+(``Config.save``), which is how ``launch_mode=processes`` hands it to its
+children: ``compose_saved`` reads it back with the ``+me.<key>=<value>``
+overrides each child gets on its command line.
 """
 
 from __future__ import annotations
@@ -235,3 +238,19 @@ def compose(config_name: str, overrides: list[str] | None = None, resolve: bool 
     for key, value in pairs:
         cfg.set_dotted(key, value)
     return cfg.resolve() if resolve else cfg
+
+
+def compose_saved(config_dir: str | Path, config_name: str, overrides: list[str] | None = None) -> Config:
+    """The config ``Config.save`` wrote to ``<config_dir>/<config_name>.json``
+    with ``key=value`` overrides applied (a leading ``+`` is accepted, as in
+    the ``+me.port=8080`` a launcher passes each child), then resolved."""
+    path = Path(config_dir) / f"{config_name}.json"
+    with open(path) as f:
+        cfg = Config(json.load(f))
+    for ov in overrides or []:
+        body = ov[1:] if ov.startswith("+") else ov
+        if "=" not in body:
+            raise ValueError(f"Override {ov!r} must be key=value")
+        key, _, raw = body.partition("=")
+        cfg.set_dotted(key.strip(), parse_value(raw))
+    return cfg.resolve()

@@ -1,6 +1,8 @@
 """LLM client data model and the in-process client.
 
-Port of the JAX package's ``inference/client.py`` without its VLM branch:
+Port of the JAX package's ``inference/client.py`` without its VLM branch
+(the engine loads only when an ``InProcessLLM`` makes a request, so the
+data model imports no kernel):
 ``Prompt(messages)`` in, ``LLMCall`` out with exact token ids and per-token
 sampler logprobs, and ``make_training_text`` building the token-exact RL
 sample from one call. Plain dataclasses take the place of the pydantic
@@ -13,10 +15,12 @@ import asyncio
 import time
 import uuid
 from dataclasses import dataclass, field
-from typing import Any
+from typing import TYPE_CHECKING, Any
 
 from ..types import MASKED_TOKEN_ID, TrainingText
-from .engine import GenRequest, GenResult, InferenceEngine, SamplingParams
+
+if TYPE_CHECKING:
+    from .engine import GenResult, InferenceEngine, SamplingParams
 
 
 @dataclass
@@ -86,6 +90,8 @@ class InProcessLLM(BaseLLM):
         self.chat_template_kwargs = dict(chat_template_kwargs or {})
 
     def make_sampling_params(self, **overrides) -> SamplingParams:
+        from .engine import SamplingParams
+
         p = {**self.parameters, **overrides}
         return SamplingParams(
             temperature=float(p.get("temperature", 1.0)),
@@ -104,6 +110,8 @@ class InProcessLLM(BaseLLM):
         )
 
     async def agenerate(self, prompt: Prompt, session: Any = None, **overrides) -> LLMCall:
+        from .engine import GenRequest
+
         start = time.monotonic()
         prompt_ids = self.prompt_token_ids(prompt)
         request = GenRequest(

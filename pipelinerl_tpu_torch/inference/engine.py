@@ -20,7 +20,20 @@ layouts:
 
 - In-flight weight updates never pause decoding: ``update_params`` swaps the
   parameter dict between windows; requests in flight continue on the new
-  weights.
+  weights. A push from another process (``update_params_serialized``, a
+  PWT3 body) or a host tree of numpy arrays goes through the transfer
+  thread first: it copies each dtype group as one run from a pinned
+  staging ring into one device buffer on a side CUDA stream, carves the
+  leaves as views of it, waits for the copies' event and only then hands
+  the tree to the engine thread. The buffers are recorded on the engine's
+  stream, so a later swap that drops them cannot free them under a decode
+  window that still reads them. A newer push that arrives mid-transfer
+  supersedes the one in flight at most once in a row. The JAX engine paces
+  its copies through a gate the engine thread opens, because host-to-device
+  copies on its TPU link serialise with execution; an H100's copy engines
+  run beside the SMs, so pacing is not ported. Pushes over
+  ``push_double_buffer_max_bytes`` (the JAX engine's streamed mode and row
+  splice) raise: they wait for ROADMAP Queue 1 item 6.
 - Token-native: prompts arrive as token ids, completions leave as token ids
   plus per-token processed logprobs.
 - Windows are pipelined: up to ``window_pipeline_depth`` windows are queued
@@ -34,8 +47,10 @@ thread-safe.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import threading
+import time
 from collections import deque
 from concurrent.futures import Future
 from dataclasses import dataclass, field
@@ -55,8 +70,15 @@ from ..ops.paged_attention import gather_pages, paged_append, paged_decode_atten
 from ..ops.sampling import sample_fast, sample_masked
 from ..train.rl_loss import token_logprobs_from_logits
 from .block_pool import BlockPool, PrefixCache
+from .weight_transfer import as_tensor, byte_view, entry_count, flatten_params, parse_push_header, torch_dtype, unflatten_params
 
 logger = logging.getLogger(__name__)
+
+# a push is staged in chunks of this size, on CUDA through a ring of this
+# many pinned host chunks: the host fills one while the copy engine drains
+# the others
+PUSH_CHUNK_BYTES = 64 << 20
+PUSH_RING_CHUNKS = 3
 
 
 @dataclass(frozen=True)
@@ -99,6 +121,10 @@ class EngineConfig:
     slab_prefix_min_tokens: int = 32
     # pool size in pages; None sizes it to slab parity, S * ceil(T_alloc / BT)
     kv_pool_blocks: int | None = None
+    # host-side pushes up to this size are staged whole beside the live
+    # weights and swapped atomically; a larger one raises (the streamed mode
+    # waits for ROADMAP Queue 1 item 6)
+    push_double_buffer_max_bytes: int = 6 << 30
 
 
 @dataclass
@@ -169,6 +195,32 @@ class _Window:
     gens: np.ndarray  # [S] slot generations at dispatch
     pending: list[int]  # slots whose prefill first token rides along
     n_steps: int = 0
+
+
+def _trainer_only(name: str) -> bool:
+    return name == "value_head" or name.startswith("value_head/")
+
+
+class _PinnedRing:
+    """A few reusable pinned host chunks: a chunk is refilled only after the
+    copy that last read it has run."""
+
+    def __init__(self, n: int, chunk_bytes: int):
+        self.bufs = [torch.empty(chunk_bytes, dtype=torch.uint8, pin_memory=True) for _ in range(max(1, n))]
+        self.events: list[torch.cuda.Event | None] = [None] * len(self.bufs)
+        self.next = 0
+
+    def acquire(self) -> tuple[int, torch.Tensor]:
+        slot = self.next
+        self.next = (slot + 1) % len(self.bufs)
+        if self.events[slot] is not None:
+            self.events[slot].synchronize()
+        return slot, self.bufs[slot]
+
+    def release(self, slot: int, stream) -> None:
+        event = torch.cuda.Event()
+        event.record(stream)
+        self.events[slot] = event
 
 
 def _resolve_impl(name: str, device: torch.device, kernel: str) -> str:
@@ -281,6 +333,25 @@ class InferenceEngine:
         self._gen_counter = 0
         self._abort_ids: set[str] = set()
 
+        # weight pushes through the transfer thread
+        self._transfer_pending: tuple | None = None  # ("tree" | "blob", ...)
+        self._transfer_event = threading.Event()
+        self._transfer_thread: threading.Thread | None = None
+        self._copy_stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+        self._ring: _PinnedRing | None = None  # made at the first push on CUDA
+        self.last_push_timings: dict = {}
+        self._push_yields = 0
+        self._push_arrival_prev: float | None = None
+        self._push_interval_ema: float | None = None
+        self._push_last_span_s = 0.0
+        self._push_last_version: int | None = None
+        self._pushes_received = 0
+        self._pushes_completed = 0
+        self._pushes_superseded = 0
+        self._published_at: float | None = None
+        # read-back times of the last windows: the decode gaps during a push
+        self._window_times: deque[float] = deque(maxlen=4096)
+
     # ------------------------------------------------------------------
     # public API (thread-safe)
     # ------------------------------------------------------------------
@@ -312,10 +383,210 @@ class InferenceEngine:
     def update_params(self, params: dict, version: int) -> None:
         """Swap weights between decode windows: no pause, no drain. The
         engine thread installs ``params`` at its next step unless a newer
-        version is already installed."""
+        version is already installed. A tree of numpy arrays goes through
+        the transfer thread, which copies it to the engine's device first."""
+        leaves = [leaf for _, leaf in flatten_params(params)]
+        if leaves and all(isinstance(leaf, np.ndarray) for leaf in leaves):
+            self._check_push_budget(sum(leaf.nbytes for leaf in leaves))
+            self._enqueue_transfer(("tree", params, version))
+            return
         with self._params_lock:
             self._pending_params = (params, version)
         self._work_event.set()
+
+    def update_params_serialized(self, body) -> int:
+        """Swap weights from a PWT3 body (``weight_transfer.py``): the
+        transfer thread stages it on the device while decoding goes on.
+        Raises ValueError on a tree that does not match the engine's weights
+        and on a push over the double-buffer budget. Returns the version."""
+        groups, tensors, version, base = parse_push_header(body)
+        self._validate_push_spec(tensors)
+        keep = [t for t in tensors if not _trainer_only(t["name"])]
+        self._check_push_budget(sum(entry_count(t) * torch_dtype(t["dtype"]).itemsize for t in keep))
+        self._enqueue_transfer(("blob", body, groups, keep, base, version))
+        return version
+
+    def _check_push_budget(self, nbytes: int) -> None:
+        if nbytes > self.cfg.push_double_buffer_max_bytes:
+            raise ValueError(
+                f"weight push of {nbytes} bytes exceeds push_double_buffer_max_bytes "
+                f"({self.cfg.push_double_buffer_max_bytes}); the streamed push is not ported yet "
+                "(ROADMAP Queue 1, item 6)"
+            )
+
+    def _validate_push_spec(self, tensors: list[dict]) -> None:
+        """A pushed tree must match the engine's weights exactly (names,
+        shapes, dtypes); the value head is the trainer's and is dropped."""
+        expected = {name: (str(t.dtype).removeprefix("torch."), tuple(t.shape))
+                    for name, t in flatten_params(self.params)}
+        got = {t["name"]: (t["dtype"], tuple(int(x) for x in t["shape"]))
+               for t in tensors if not _trainer_only(t["name"])}
+        if set(got) != set(expected):
+            missing = sorted(set(expected) - set(got))[:5]
+            extra = sorted(set(got) - set(expected))[:5]
+            raise ValueError(f"weight push tree mismatch: missing={missing} extra={extra}")
+        for name, spec in got.items():
+            if spec != expected[name]:
+                raise ValueError(f"weight push tensor mismatch for {name!r}: pushed {spec}, engine has {expected[name]}")
+
+    def _should_yield_to_newer(self) -> bool:
+        """Mid-transfer supersede policy: yield to a newer queued push at
+        most once in a row, then finish."""
+        with self._params_lock:
+            if self._transfer_pending is None or self._push_yields >= 1:
+                return False
+            self._push_yields += 1
+            self._pushes_superseded += 1
+            return True
+
+    def push_counters(self) -> dict:
+        """Pushes received, completed and superseded, the last completed
+        span and version, the arrival cadence, and span over cadence (above
+        1 the engine serves ever staler weights)."""
+        interval = self._push_interval_ema
+        return {
+            "pushes_received": self._pushes_received,
+            "pushes_completed": self._pushes_completed,
+            "pushes_superseded": self._pushes_superseded,
+            "push_last_span_s": round(self._push_last_span_s, 3),
+            "push_last_version": self._push_last_version,
+            "push_interval_ema_s": round(interval, 3) if interval else None,
+            "push_span_vs_update_interval": (
+                round(self._push_last_span_s / interval, 3) if interval and interval > 0 else None
+            ),
+        }
+
+    def _enqueue_transfer(self, job: tuple) -> None:
+        now = time.monotonic()
+        self._pushes_received += 1
+        if self._push_arrival_prev is not None:
+            dt = now - self._push_arrival_prev
+            self._push_interval_ema = dt if self._push_interval_ema is None else 0.7 * self._push_interval_ema + 0.3 * dt
+        self._push_arrival_prev = now
+        with self._params_lock:
+            self._transfer_pending = job
+        if self._transfer_thread is None or not self._transfer_thread.is_alive():
+            self._transfer_thread = threading.Thread(target=self._transfer_loop, daemon=True, name="weight-transfer")
+            self._transfer_thread.start()
+        self._transfer_event.set()
+
+    def _transfer_loop(self) -> None:
+        """Stage pushes on the device off the engine thread, the latest push
+        winning, and publish each complete tree for the engine thread's
+        swap."""
+        while not self._stop.is_set():
+            self._transfer_event.wait(timeout=0.1)
+            self._transfer_event.clear()
+            with self._params_lock:
+                job, self._transfer_pending = self._transfer_pending, None
+            if job is None:
+                continue
+            try:
+                if job[0] == "blob":
+                    self._transfer_blob(*job[1:])
+                else:
+                    self._transfer_tree(*job[1:])
+            except Exception:  # noqa: BLE001 - a bad push must not kill the thread
+                logger.exception("weight push failed; dropped")
+
+    def _transfer_blob(self, body, groups: list[dict], tensors: list[dict], base: int, version: int) -> None:
+        """Each dtype group's run in one device buffer, its tensors carved
+        as views; the tree is published once every copy has landed."""
+        t0 = time.monotonic()
+        staged, nbytes = {}, 0
+        for g in groups:
+            entries = [t for t in tensors if t["dtype"] == g["dtype"]]
+            if not entries:
+                continue
+            dt = torch_dtype(g["dtype"])
+            lo = min(int(t["elem_offset"]) for t in entries)
+            hi = max(int(t["elem_offset"]) + entry_count(t) for t in entries)
+            start = base + int(g["byte_offset"]) + lo * dt.itemsize
+            run = self._stage_run(byte_view(body, start, (hi - lo) * dt.itemsize), dt, hi - lo)
+            nbytes += (hi - lo) * dt.itemsize
+            for t in entries:
+                off = int(t["elem_offset"]) - lo
+                staged[t["name"]] = run[off : off + entry_count(t)].view(t["shape"])
+            if self._should_yield_to_newer():
+                return  # the newer push wins (one yield in a row)
+        self._publish(unflatten_params(staged), version, t0, nbytes, "blob")
+
+    def _transfer_tree(self, params: dict, version: int) -> None:
+        """A host tree of numpy arrays, one staged run per leaf."""
+        t0 = time.monotonic()
+        staged, nbytes = {}, 0
+        for name, leaf in flatten_params(params):
+            if _trainer_only(name):
+                continue
+            src = as_tensor(leaf)
+            run = self._stage_run(src.reshape(-1).view(torch.uint8), src.dtype, src.numel())
+            staged[name] = run.view(src.shape)
+            nbytes += leaf.nbytes
+        self._publish(unflatten_params(staged), version, t0, nbytes, "tree")
+
+    def _stage_run(self, src: torch.Tensor, dtype: torch.dtype, count: int) -> torch.Tensor:
+        """Copy ``src`` (uint8 bytes on the host) into a new device tensor of
+        ``count`` elements of ``dtype``, chunk by chunk. On CUDA each chunk
+        goes through the pinned ring to the copy stream; the buffer is
+        allocated on that stream and recorded on the engine's."""
+        chunk = PUSH_CHUNK_BYTES
+        side = self._copy_stream
+        with torch.cuda.stream(side) if side is not None else contextlib.nullcontext():
+            run = torch.empty(count, dtype=dtype, device=self.device)
+            dst = run.view(torch.uint8) if count else run
+            for a in range(0, src.numel(), chunk):
+                b = min(a + chunk, src.numel())
+                if side is None:
+                    self._copy_chunk(dst[a:b], src[a:b])
+                    continue
+                if self._ring is None:
+                    self._ring = _PinnedRing(PUSH_RING_CHUNKS, chunk)
+                slot, pinned = self._ring.acquire()
+                pinned[: b - a].copy_(src[a:b])
+                self._copy_chunk(dst[a:b], pinned[: b - a])
+                self._ring.release(slot, side)
+        if side is not None:
+            run.record_stream(torch.cuda.default_stream(self.device))
+        return run
+
+    def _copy_chunk(self, dst: torch.Tensor, src: torch.Tensor) -> None:
+        """One chunk of a staged run (asynchronous on the copy stream)."""
+        dst.copy_(src, non_blocking=True)
+
+    def _publish(self, tree: dict, version: int, t0: float, nbytes: int, mode: str) -> None:
+        """Hand a fully staged tree to the engine thread, once its copies
+        have landed, unless an equal or newer tree is already waiting."""
+        if self._copy_stream is not None:
+            done = torch.cuda.Event()
+            done.record(self._copy_stream)
+            done.synchronize()
+        t1 = time.monotonic()
+        with self._params_lock:
+            if self._pending_params is not None and self._pending_params[1] >= version:
+                return
+            self._pending_params = (tree, version)
+            self._published_at = t1
+        self._push_yields = 0
+        self._push_last_span_s = t1 - t0
+        self._push_last_version = version
+        self._pushes_completed += 1
+        self.last_push_timings = {"transfer_s": t1 - t0, "bytes": nbytes, "gbps": nbytes / max(t1 - t0, 1e-9) / 1e9,
+                                  "mode": mode, **self.window_gaps(t0, t1)}
+        self._work_event.set()
+
+    def window_gaps(self, t0: float, t1: float) -> dict:
+        """Windows read back during [t0, t1], the largest gap between read
+        backs there, and the median gap of the windows before it."""
+        times = list(self._window_times)
+        during = [t for t in times if t0 <= t <= t1]
+        before = [t for t in times if t < t0][-257:]
+        spans = [b - a for a, b in zip([t0, *during], [*during, t1])]
+        steady = sorted(b - a for a, b in zip(before, before[1:]))
+        return {
+            "windows_during": len(during),
+            "max_window_gap_s": max(spans),
+            "steady_window_gap_s": steady[len(steady) // 2] if steady else None,
+        }
 
     @torch.no_grad()
     def score_tokens(self, input_ids: list[int], temperature: float = 1.0) -> list[float]:
@@ -341,8 +612,11 @@ class InferenceEngine:
     def stop(self) -> None:
         self._stop.set()
         self._work_event.set()
+        self._transfer_event.set()
         if self._thread is not None:
             self._thread.join(timeout=10)
+        if self._transfer_thread is not None:
+            self._transfer_thread.join(timeout=10)
 
     @property
     def num_active(self) -> int:
@@ -370,6 +644,7 @@ class InferenceEngine:
             "num_active": self.num_active,
             "num_pending": self.num_pending,
             "num_retiring": len(self._retiring),
+            **({k: v for k, v in self.push_counters().items() if v is not None} if self._pushes_received else {}),
             **(self._paged_counters() if self.paged else self._slab_counters()),
         }
 
@@ -420,6 +695,9 @@ class InferenceEngine:
             pending, self._pending_params = self._pending_params, None
             if pending is not None and pending[1] >= self.version:
                 self.params, self.version = pending
+                if self._published_at is not None:
+                    self.last_push_timings["publish_to_swap_s"] = time.monotonic() - self._published_at
+                    self._published_at = None
 
     def _process_aborts(self) -> bool:
         with self._queue_lock:
@@ -957,6 +1235,7 @@ class InferenceEngine:
 
     def _process_window(self, w: _Window) -> None:
         packed = w.packed.cpu().numpy()  # the one device-to-host read per window
+        self._window_times.append(time.monotonic())
         win_tokens = packed[0, 1:]  # [N, S]
         win_logprobs = packed[1, 1:].view(np.float32)
         first_tokens = packed[0, 0]

@@ -6,11 +6,20 @@ beside the actor's asyncio scheduler, all decoupled through file streams.
 Weight updates are in-process swaps (``InferenceEngine.update_params``) of
 copies the trainer hands over. The model is the toy model (``model_path``
 ``toy`` or null) or an HF checkpoint directory (``model_path=<dir>``: its
-safetensors, ``config.json`` and byte-level BPE tokenizer). Left out:
-processes mode, eval interleaving, ``debug.mode`` stage subsets and VLM.
+safetensors, ``config.json`` and byte-level BPE tokenizer).
+
+``launch_mode=processes`` (``run_processes``) runs the stages as separate
+processes on one host, supervised fail-fast: a ``device`` job (engine,
+HTTP server and trainer in one CUDA process) or, with
+``world.trainer_procs=1``, an ``engine`` job and a ``trainer`` job that
+pushes PWT3 bodies into it over HTTP; then the host-only ``actor`` and
+``preprocessor`` jobs (``CUDA_VISIBLE_DEVICES=""``). Left out: eval
+interleaving, ``debug.mode`` stage subsets, VLM, and the multi-host and
+stream-hub layouts (``world.py``).
 
     python3 -m pipelinerl_tpu_torch.launch --config-name=bandit_tpu output_dir=/tmp/run
     python3 -m pipelinerl_tpu_torch.launch --config-name=test model_path=<hf dir> output_dir=/tmp/run
+    python3 -m pipelinerl_tpu_torch.launch --config-name=bandit_tpu output_dir=/tmp/run launch_mode=processes [world.trainer_procs=1]
 
 prints the run's summary as one JSON line, last.
 """
@@ -21,6 +30,9 @@ import asyncio
 import dataclasses
 import json
 import logging
+import os
+import signal
+import subprocess
 import sys
 import threading
 import time
@@ -32,6 +44,7 @@ import torch
 from .actor import ActorLoop
 from .config import Config, compose
 from .domains.registry import resolve
+from .entrypoints.common import wait_for_http
 from .inference import EngineConfig, InferenceEngine
 from .inference.client import InProcessLLM
 from .models.hf_loader import load_hf_model
@@ -44,6 +57,7 @@ from .streams import set_streams_backend
 from .train.rl_loss import RLLossConfig
 from .train.trainer import TrainerLoop, detached_copy, summary
 from .utils import setup_logging
+from .world import WorldMap, refuse_unported
 
 logger = logging.getLogger(__name__)
 
@@ -130,8 +144,9 @@ def build_engine(cfg: Config, params: dict, model_cfg: ModelConfig, tokenizer, d
 def validate_config(cfg: Config) -> None:
     """Cross-cutting invariants, checked before anything starts."""
     problems: list[str] = []
-    if str(cfg.get("launch_mode", "inline")) != "inline":
-        problems.append("the port runs launch_mode=inline only")
+    mode = str(cfg.get("launch_mode", "inline"))
+    if mode not in ("inline", "processes"):
+        problems.append(f"unknown launch_mode {mode!r}: the port runs inline and processes")
     if cfg.select("debug.mode") or int(cfg.get("eval_every_n_versions", 0) or 0):
         problems.append("debug.mode and eval interleaving are not ported yet")
     seq_length = int(cfg.finetune.seq_length)
@@ -168,8 +183,7 @@ def validate_config(cfg: Config) -> None:
     # the KL term needs a reference policy: without one the ref logprobs
     # would read 0.0 and the penalty would be garbage. The JAX package checks
     # this in processes mode, where the flag provisions the reference job;
-    # the port runs inline only, so a disabled flag is refused outright
-    # rather than ignored
+    # the port refuses a disabled flag inline too rather than ignore it
     kl_coef = float(cfg.select("finetune.rl.kl_coef", 0.0) or 0.0)
     if kl_coef != 0.0 and str(cfg.select("world.ref_engine", "auto")) in ("false", "False", "0"):
         problems.append(
@@ -186,6 +200,8 @@ def validate_config(cfg: Config) -> None:
             problems.append(f"unknown finetune.rl key(s): {unknown}")
     if problems:
         raise ValueError("Invalid config:\n- " + "\n- ".join(problems))
+    if mode == "processes":
+        refuse_unported(cfg)
 
 
 def _stage(target, failures: list, trainer_state: TrainerState, name: str):
@@ -270,6 +286,148 @@ def run_inline(cfg: Config, device="cuda") -> dict[str, Any]:
     }
 
 
+ENTRYPOINTS = {
+    "device": "pipelinerl_tpu_torch.entrypoints.run_device",
+    "engine": "pipelinerl_tpu_torch.entrypoints.run_engine",
+    "ref_engine": "pipelinerl_tpu_torch.entrypoints.run_engine",
+    "trainer": "pipelinerl_tpu_torch.entrypoints.run_trainer",
+    "actor": "pipelinerl_tpu_torch.entrypoints.run_actor",
+    "preprocessor": "pipelinerl_tpu_torch.entrypoints.run_preprocess",
+}
+CARD_JOBS = ("device", "engine", "ref_engine", "trainer")
+# jobs that end on their own once training is done; the servers are stopped
+SELF_ENDING = ("trainer", "actor", "preprocessor")
+
+
+def _kill_groups(procs: list, sig: int) -> None:
+    for _, proc in procs:
+        try:
+            os.killpg(proc.pid, sig)
+        except (ProcessLookupError, PermissionError):
+            pass
+
+
+def run_processes(cfg: Config) -> int:
+    """The stages as supervised processes on one host (JAX
+    ``launch.run_processes``): card jobs first, then, once their servers
+    answer ``/health``, the preprocessor and the actors. Each job has its
+    own process group; when a job fails, or on SIGTERM, every group is
+    killed. Once the trainer reports TrainingDone, the jobs that end on
+    their own get 30 s to do so, then the servers are stopped. With
+    ``DRY_RUN`` set it only writes each job's start script. Returns an exit
+    code."""
+    validate_config(cfg)
+    exp_path = Path(str(cfg.output_dir))
+    exp_path.mkdir(parents=True, exist_ok=True)
+    setup_logging(exp_path / "logs" / "launcher")
+    world_map = WorldMap(cfg)
+    cfg = Config(cfg.to_dict())
+    cfg["jobs"] = world_map.to_config()
+    config_dir = exp_path / "conf"
+    cfg.save(config_dir / "exp_config.json")
+    dry_run = bool(os.environ.get("DRY_RUN"))
+    log_dir = exp_path / "logs"
+    procs: list[tuple[str, subprocess.Popen]] = []
+    root = str(Path(__file__).resolve().parent.parent)
+
+    def spawn(job) -> None:
+        name = f"{job.kind}_{job.replica_idx}"
+        cmd = [sys.executable, "-m", ENTRYPOINTS[job.kind], f"--config-dir={config_dir}",
+               "--config-name=exp_config", f"+me.kind={job.kind}", f"+me.replica_idx={job.replica_idx}"]
+        if job.port is not None:
+            cmd.append(f"+me.port={job.port}")
+        if job.kind in ("actor", "trainer"):
+            urls = ",".join(f'"{u}"' for u in world_map.llm_urls)
+            cmd.append(f"+me.llm_urls=[{urls}]")
+        if job.kind == "preprocessor" and world_map.ref_llm_urls:
+            ref_urls = ",".join(f'"{u}"' for u in world_map.ref_llm_urls)
+            cmd.append(f"+me.ref_llm_urls=[{ref_urls}]")
+        for key, value in job.extra.items():
+            cmd.append(f"+me.{key}={value}")
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(p for p in (root, env.get("PYTHONPATH")) if p)
+        if job.kind not in CARD_JOBS:
+            env["CUDA_VISIBLE_DEVICES"] = ""  # host-only jobs never touch the card
+        (exp_path / job.kind).mkdir(exist_ok=True)
+        script = " \\\n  ".join(cmd)
+        (exp_path / job.kind / f"start_{name}.sh").write_text(f"#!/bin/sh\n{script}\n")
+        if dry_run:
+            logger.info("DRY_RUN: %s", " ".join(cmd))
+            return
+        log_dir.mkdir(parents=True, exist_ok=True)
+        with open(log_dir / f"{name}.out", "w") as log_file:
+            # its own process group: a stop kills the job's whole tree
+            proc = subprocess.Popen(cmd, stdout=log_file, stderr=subprocess.STDOUT, env=env, start_new_session=True)
+        procs.append((name, proc))
+
+    def on_term(signum, frame):
+        _kill_groups(procs, signal.SIGTERM)
+        raise KeyboardInterrupt
+
+    previous = signal.signal(signal.SIGTERM, on_term) if not dry_run else None
+    trainer_state = TrainerState(str(exp_path))
+    exit_code = 1
+    try:
+        for kind in ("device", "engine", "ref_engine", "trainer"):
+            for job in world_map.jobs_of(kind):
+                spawn(job)
+        if not dry_run:
+            wait_for_http(world_map.llm_urls + world_map.ref_llm_urls, procs=procs)
+        for job in world_map.jobs_of("preprocessor") + world_map.jobs_of("actor"):
+            spawn(job)
+        if dry_run:
+            return 0
+        trainer_state.start_listening()
+        exit_code = _supervise(procs, trainer_state)
+    except (RuntimeError, TimeoutError, KeyboardInterrupt) as e:
+        logger.error("Stopping every job: %s", e)
+        exit_code = 1
+    finally:
+        if not dry_run:
+            _kill_groups(procs, signal.SIGTERM)
+            for name, proc in procs:
+                try:
+                    proc.wait(timeout=15)
+                except subprocess.TimeoutExpired:
+                    logger.error("Job %s ignored SIGTERM; killing its group", name)
+                    _kill_groups([(name, proc)], signal.SIGKILL)
+                    proc.wait(timeout=15)
+            trainer_state.stop()
+            if previous is not None:  # None: a handler installed outside Python
+                signal.signal(signal.SIGTERM, previous)
+    return exit_code
+
+
+def _supervise(procs: list, trainer_state: TrainerState) -> int:
+    """Poll the jobs until TrainingDone; a job that exits with an error
+    before then fails the run."""
+    while True:
+        if trainer_state.training_done:
+            logger.info("TrainingDone observed; waiting for the jobs that end on their own")
+            deadline = time.monotonic() + 30
+            while time.monotonic() < deadline:
+                running = [n for n, p in procs if p.poll() is None and n.rsplit("_", 1)[0] in SELF_ENDING]
+                if not running:
+                    break
+                time.sleep(0.2)
+            failed = [(n, p.returncode) for n, p in procs if p.returncode not in (None, 0)]
+            if failed:
+                logger.error("Job(s) %s exited with errors", failed)
+                return 1
+            return 0
+        for name, proc in procs:
+            rc = proc.poll()
+            if rc is not None and rc != 0:
+                raise RuntimeError(f"job {name} exited with {rc}")
+        time.sleep(0.5)
+
+
+def processes_summary(exp_path: str) -> dict[str, Any]:
+    """The stats files the jobs wrote (``<kind>/stats_<kind>_<i>.json``)."""
+    return {p.stem.removeprefix("stats_"): json.loads(p.read_text())
+            for p in sorted(Path(exp_path).glob("*/stats_*.json"))}
+
+
 def main(argv: list[str] | None = None) -> dict[str, Any]:
     argv = list(sys.argv[1:] if argv is None else argv)
     config_name = "base"
@@ -282,6 +440,11 @@ def main(argv: list[str] | None = None) -> dict[str, Any]:
         else:
             overrides.append(arg)
     cfg = compose(config_name, overrides)
+    if str(cfg.get("launch_mode", "inline")) == "processes":
+        rc = run_processes(cfg)
+        if not os.environ.get("DRY_RUN"):
+            print(json.dumps({"exit_code": rc, "jobs": processes_summary(str(cfg.output_dir))}), flush=True)
+        raise SystemExit(rc)
     # the card unless the caller asks otherwise with device=cpu
     stats = run_inline(cfg, device=str(cfg.get("device", "cuda")))
     logger.info("Run complete: %s", stats)

@@ -1,8 +1,11 @@
 """The port imports nothing of JAX or of the JAX package, nor the
-``safetensors``, ``tokenizers``, ``transformers`` and ``regex`` packages
-(the H100 host has none of them): every module of ``pipelinerl_tpu_torch``
-and ``chip_smoke`` imports in a process that refuses all of them, and the
-port's tokenizer reads the committed fixture there; ``chip_smoke.main``
+``safetensors``, ``tokenizers``, ``transformers``, ``regex``, ``msgpack``,
+``aiohttp`` and ``yaml`` packages (the H100 host has none of them): every
+module of ``pipelinerl_tpu_torch`` and ``chip_smoke`` imports in a process
+that refuses all of them, and the port's tokenizer reads the committed
+fixture there; every stage entrypoint, started as
+``python -m pipelinerl_tpu_torch.entrypoints.<stage>``, imports its stage
+without them, and the host-only stages import no kernel; ``chip_smoke.main``
 raises where there is no CUDA card."""
 
 import subprocess
@@ -18,7 +21,8 @@ CHILD = textwrap.dedent(
     """
     import importlib, pkgutil, sys
 
-    REFUSED = ("jax", "jaxlib", "pipelinerl_tpu", "safetensors", "tokenizers", "transformers", "regex")
+    REFUSED = ("jax", "jaxlib", "pipelinerl_tpu", "safetensors", "tokenizers", "transformers", "regex",
+               "msgpack", "aiohttp", "yaml")
 
     class Refuse:
         def find_spec(self, name, path=None, target=None):
@@ -56,7 +60,7 @@ def test_port_imports_without_jax_and_chip_smoke_needs_a_card():
     )
     assert proc.returncode == 0, proc.stderr
     n = int(proc.stdout.split("IMPORTED ")[1].split()[0])
-    assert n >= 34  # every module of the package (serving, paged KV, training), and chip_smoke
+    assert n >= 46  # every module of the package (serving, paged KV, training, processes mode), and chip_smoke
     if not torch.cuda.is_available():
         assert "RAISED no CUDA device" in proc.stdout, proc.stdout
         assert '"ok"' not in proc.stdout
@@ -71,3 +75,58 @@ def test_chip_smoke_fails_outside_the_repo(tmp_path):
     )
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+# installed as sitecustomize in a stage's child: refuse the packages, and at
+# exit report what the stage imported (its main stops early on a missing
+# config, after the stage module and its imports have loaded)
+SITE = textwrap.dedent(
+    """
+    import atexit, sys
+
+    REFUSED = ("jax", "jaxlib", "pipelinerl_tpu", "msgpack", "aiohttp", "yaml", "transformers", "tokenizers")
+
+    class Refuse:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in REFUSED:
+                raise ImportError(f"the port must not import {name}")
+            return None
+
+    sys.meta_path.insert(0, Refuse())
+
+    def report():
+        mods = sorted(sys.modules)
+        print("REFUSED_LOADED", [m for m in mods if m.split(".")[0] in REFUSED])
+        print("KERNEL_MODULES", [m for m in mods if m.startswith("pipelinerl_tpu_torch.ops")])
+        spec = getattr(sys.modules["__main__"], "__spec__", None)
+        print("STAGE_LOADED", getattr(spec, "name", None))
+
+    atexit.register(report)
+    """
+)
+STAGES = {"run_device": True, "run_engine": True, "run_trainer": True, "run_actor": False, "run_preprocess": False}
+
+
+def test_stage_children_import_no_refused_package(tmp_path):
+    (tmp_path / "sitecustomize.py").write_text(SITE)
+    env = {"PATH": "/usr/bin:/bin", "HOME": str(tmp_path), "PYTHONPATH": f"{tmp_path}:{ROOT}",
+           "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1"}
+    procs = {
+        stage: subprocess.Popen(
+            [sys.executable, "-m", f"pipelinerl_tpu_torch.entrypoints.{stage}", f"--config-dir={tmp_path}/none",
+             "--config-name=exp_config", f"+me.kind={stage}"],
+            cwd=tmp_path, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )
+        for stage in STAGES
+    }
+    try:
+        outs = {stage: p.communicate(timeout=120) for stage, p in procs.items()}
+    finally:
+        for p in procs.values():
+            p.kill()
+    for stage, (out, err) in outs.items():
+        assert "FileNotFoundError" in err and "exp_config.json" in err, (stage, err[-2000:])
+        assert f"STAGE_LOADED pipelinerl_tpu_torch.entrypoints.{stage}" in out, (stage, out)
+        assert "REFUSED_LOADED []" in out, (stage, out)
+        if not STAGES[stage]:  # host-only stages load no model and no kernel
+            assert "KERNEL_MODULES []" in out, (stage, out)

@@ -1,0 +1,59 @@
+"""The port's WorldMap against the JAX package's: the same jobs
+(``to_config()``), URLs and trainer partitions for the same world settings
+on one host; the layouts the port does not run yet raise with their ROADMAP
+item."""
+
+import pytest
+
+from pipelinerl_tpu.config import compose as jax_compose
+from pipelinerl_tpu.world import WorldMap as JWorldMap
+from pipelinerl_tpu_torch.config import compose
+from pipelinerl_tpu_torch.world import WorldMap
+
+WORLDS = {
+    "device": [],
+    "device_two_replicas": ["world.replicas=2"],
+    "split": ["+world.trainer_procs=1"],
+    "split_two_engines": ["+world.trainer_procs=1", "world.replicas=2"],
+    "kl_auto": ["finetune=ppo"],
+    "kl_auto_split": ["finetune=ppo", "+world.trainer_procs=1"],
+    "ref_forced": ["+world.ref_engine=true"],
+    "ref_off_with_kl": ["finetune=ppo", "+world.ref_engine=false"],
+    "ref_off": ["+world.ref_engine=false"],
+    "ports": ["world.engine_start_port=9100", "+world.ref_engine=true", "+world.ref_engine_port=9900",
+              "+world.trainer_procs=1", "+world.coordinator_port=7300"],
+    "actors": ["+actor.replicas=2", "+world.trainer_procs=1"],
+}
+
+
+def pair(overrides: list[str]):
+    ov = [*overrides, "output_dir=/tmp/unused", "launch_mode=processes"]
+    # the JAX CLI selects a config group through a defaults entry; its
+    # compose takes the group's keys as overrides
+    jax_ov = [o for o in ov if not o.startswith("finetune=")]
+    if "finetune=ppo" in ov:
+        jax_ov += ["finetune.rl.kl_coef=0.1", "finetune.rl.policy_loss=ppo"]
+    return compose("bandit_cpu", ov), jax_compose("conf", "bandit_cpu", jax_ov)
+
+
+@pytest.mark.parametrize("name", sorted(WORLDS))
+def test_worldmap_equals_jax(name):
+    cfg, jcfg = pair(WORLDS[name])
+    port, ref = WorldMap(cfg), JWorldMap(jcfg)
+    assert port.to_config() == ref.to_config()
+    assert port.llm_urls == ref.llm_urls
+    assert port.ref_llm_urls == ref.ref_llm_urls
+    assert port.needs_ref_engine == ref.needs_ref_engine
+    assert ref.use_stream_hub is False  # the one-host layouts the port runs
+
+
+@pytest.mark.parametrize("overrides,item", [
+    (["+world.hosts=[10.0.0.1,10.0.0.2]"], "item 5"),
+    (["+world.trainer_procs=2"], "item 8"),
+    (["+world.stream_hub=true"], "item 5"),
+    (["+environment_class=pipelinerl_tpu_torch.domains.bandit.load_problems"], "item 5"),
+])
+def test_unported_layouts_raise(overrides, item):
+    cfg = compose("bandit_cpu", [*overrides, "output_dir=/tmp/unused", "launch_mode=processes"])
+    with pytest.raises(NotImplementedError, match=item):
+        WorldMap(cfg)
