@@ -108,7 +108,28 @@ Phases, each of which stops the script on failure:
    ``world.trainer_procs=1`` (every version after 0 reaching the engine
    over PWT3): exit 0, the trainer's steps done, the engine on the last
    pushed version, kernel launches read from the children's stats files,
-   phase 12's learning gate, and no child left alive.
+   phase 12's learning gate, and no child left alive;
+18. the ``math`` preset (the reference's flagship run) through
+   ``launch.main`` from phase 14's HF directory at the preset's own engine
+   and trainer widths (64 slots of max_len 10,240, prefill buckets
+   256-2,048, L 12,288 rows, flash attention) on the synthetic arithmetic
+   and countdown sets, cut to 512 new tokens, 64 samples a step and 2
+   steps, with the difficulty-aware penalty over a 128-token buffer: every
+   reward is the reward table's plus a penalty in [-1, 0], a rollout cut at
+   ``max_tokens`` carries the full penalty, the losses are finite, no
+   sampled id reaches ``valid_vocab``, kernels #1-#4 launched; each train
+   pass's ms and peak memory are logged. Then kernel #1 at that slab
+   allocation (live lengths, the same in an allocation that just holds
+   them, and full lengths) and #2-#4 on a packed L 12,288 row of the run,
+   against their plain versions and timed beside SDPA and their bounds;
+19. the ``multi_domain`` preset the same way on math's synthetic sets,
+   guessing and counting under the preset's domain mix with adaptive
+   sampling: every domain drawn, reported per domain in the stats stream,
+   and each sample carrying its domain's prompt;
+20. the ``logic``, ``ifeval`` and ``fn_calling`` presets, one step each on
+   their synthetic sets: finite rewards from each domain's reward set, and
+   the fn_calling prompts carrying the tool's schema through a chat
+   template with a tools block.
 Then one JSON line of kernel numbers, and last the result line.
 
 ``python3 chip_smoke.py --http-load URL N TOKENS OUT`` and
@@ -122,6 +143,7 @@ from __future__ import annotations
 
 import asyncio
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -144,6 +166,7 @@ import torch.nn.functional as F
 
 from pipelinerl_tpu_torch import launch
 from pipelinerl_tpu_torch.config import compose
+from pipelinerl_tpu_torch.domains.math.rollouts import RewardTable
 from pipelinerl_tpu_torch.inference import EngineConfig, GenRequest, InferenceEngine, SamplingParams
 from pipelinerl_tpu_torch.inference import engine as engine_mod
 from pipelinerl_tpu_torch.inference.client import InProcessLLM, Prompt
@@ -161,7 +184,7 @@ from pipelinerl_tpu_torch.ops import gqa_attention as gattn
 from pipelinerl_tpu_torch.ops import paged_attention as pattn
 from pipelinerl_tpu_torch.inference.block_pool import BlockPool
 from pipelinerl_tpu_torch.streams import SingleStreamSpec, StreamReader, StreamWriter
-from pipelinerl_tpu_torch.train.checkpoints import export_hf
+from pipelinerl_tpu_torch.train.checkpoints import CURRENT_DIR, export_hf
 from pipelinerl_tpu_torch.train.lora import merge_lora
 from pipelinerl_tpu_torch.train.trainer import TrainerLoop, param_leaves
 from pipelinerl_tpu_torch.types import TrainerBatch
@@ -354,6 +377,40 @@ def grid_note(S, K, cap) -> str:
     return f"grid ({S}, {K}, {splits}): {splits} split{'s' if splits > 1 else ''} of {dattn.SPLIT_ROWS} rows"
 
 
+def _time_decode(gen, S, H, K, Dh, T, W, lens, dev, library: bool = True) -> dict:
+    """Kernel #1's time at the last step of a window over ``lens``, the plain
+    version's, one masked SDPA call's (with ``library``) and the bound."""
+    step = W - 1
+    rows = sum(lens) + S * (step + 1)  # K/V rows the function must read
+    set_bytes = 2 * rows * K * Dh * 2 + S * H * Dh * (2 + 4) + S * 4
+    sets = [_decode_inputs(gen, S, H, K, Dh, T, W, lens, step, dev) for _ in range(n_sets(set_bytes))]
+    kernel_ms = time_ms([lambda a=a: dattn.decode_attention_staged_ragged(*a) for a in sets])
+    plain_ms = time_ms([lambda a=a: dattn.decode_attention_staged_ragged_plain(*a) for a in sets[:2]], 10)
+    library_ms = None
+    if library:  # yardstick only: one SDPA call over the same keys with a boolean mask
+        lib_sets = []
+        for q, kn, vn, kc, vc, ln, ks, vs, _ in sets:
+            k_all = torch.cat([kc, ks.transpose(0, 1), kn[:, None]], 1).permute(0, 2, 1, 3).contiguous()
+            v_all = torch.cat([vc, vs.transpose(0, 1), vn[:, None]], 1).permute(0, 2, 1, 3).contiguous()
+            r = torch.arange(T + W + 1, device=dev)
+            mask = torch.where(r[None] < T, r[None] < ln[:, None].long(), (r[None] - T < step) | (r[None] == T + W))
+            lib_sets.append((q[:, :, None], k_all, v_all, mask[:, None, None]))
+        library_ms = time_ms([
+            lambda a=a: F.scaled_dot_product_attention(a[0], a[1], a[2], attn_mask=a[3], enable_gqa=True)
+            for a in lib_sets
+        ])
+    flops = 4 * H * Dh * rows  # QK and PV, 2 flops per multiply-add, per head and row
+    bound_ms, bound_by = bound(set_bytes, flops)
+    log(
+        f"decode kernel S={S} H={H} K={K} Dh={Dh} W={W} T_alloc={T} step={step}, mean length "
+        f"{sum(lens) / len(lens):.0f}: {grid_note(S, K, T)}: {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+        f"{library_ms if library_ms is None else f'{library_ms:.4f}'} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+        f"roofline share {bound_ms / kernel_ms:.3f}"
+    )
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "splits": dattn.split_plan(T)}
+
+
 def phase_decode_kernel(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(1)
     b = BANDIT
@@ -381,40 +438,13 @@ def phase_decode_kernel(dev) -> dict:
             max_err = max(max_err, err)
 
     # times at the engine cell's shape
-    S, H, K, Dh, W = SLOTS, QWEN05B.num_heads, QWEN05B.num_kv_heads, 64, WINDOW
-    T = MAX_LEN + W  # T_alloc = 344
-    lens = _decode_lens(S, T, W, 1)
-    step = W - 1
-    rows = sum(lens) + S * (step + 1)  # K/V rows the function must read
-    set_bytes = 2 * rows * K * Dh * 2 + S * H * Dh * (2 + 4) + S * 4
-    sets = [_decode_inputs(gen, S, H, K, Dh, T, W, lens, step, dev) for _ in range(n_sets(set_bytes))]
-    kernel_ms = time_ms([lambda a=a: dattn.decode_attention_staged_ragged(*a) for a in sets])
-    plain_ms = time_ms([lambda a=a: dattn.decode_attention_staged_ragged_plain(*a) for a in sets[:2]], 10)
-    # yardstick only: one SDPA call over the same keys with a boolean mask
-    lib_sets = []
-    for q, kn, vn, kc, vc, ln, ks, vs, _ in sets:
-        k_all = torch.cat([kc, ks.transpose(0, 1), kn[:, None]], 1).permute(0, 2, 1, 3).contiguous()
-        v_all = torch.cat([vc, vs.transpose(0, 1), vn[:, None]], 1).permute(0, 2, 1, 3).contiguous()
-        r = torch.arange(T + W + 1, device=dev)
-        mask = torch.where(r[None] < T, r[None] < ln[:, None].long(), (r[None] - T < step) | (r[None] == T + W))
-        lib_sets.append((q[:, :, None], k_all, v_all, mask[:, None, None]))
-    library_ms = time_ms([
-        lambda a=a: F.scaled_dot_product_attention(a[0], a[1], a[2], attn_mask=a[3], enable_gqa=True)
-        for a in lib_sets
-    ])
-    flops = 4 * H * Dh * rows  # QK and PV, 2 flops per multiply-add, per head and row
-    bound_ms, bound_by = bound(set_bytes, flops)
-    log(
-        f"decode kernel S={S} H={H} K={K} Dh={Dh} W={W} T_alloc={T} step={step}: "
-        f"{grid_note(S, K, T)}: {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, "
-        f"bound {bound_ms:.4f} ms ({bound_by}), roofline share {bound_ms / kernel_ms:.3f}"
-    )
+    H, K, T = QWEN05B.num_heads, QWEN05B.num_kv_heads, T_engine  # T_alloc 344
+    times = _time_decode(gen, SLOTS, H, K, 64, T, WINDOW, _decode_lens(SLOTS, T, WINDOW, 1), dev)
     return {
         "name": "decode_attention_staged_ragged", "route": "cuda",
         "source": "pipelinerl_tpu_torch/csrc/decode_attention.cu",
         "replaces": "pipelinerl_tpu/ops/decode_attention.py:33",
-        "max_abs_err": max_err, "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+        "max_abs_err": max_err, **times, "kernel_ms": times["ms"],
     }
 
 
@@ -707,6 +737,38 @@ def _check_gqa_forward(label, args, masked_row=None) -> float:
     return e_out
 
 
+def _time_gqa_forward(label, args, make, dev, plain_by_events=False) -> dict:
+    """Kernel #2's time on ``args`` (and more sets from ``make`` past the
+    L2), the plain version's, one masked SDPA call's and the bound.
+    ``plain_by_events`` times the plain version without a CUDA graph, for
+    rows whose fp32 scores are gigabytes."""
+    H, Dh, K = args[0].shape[2], args[0].shape[3], args[1].shape[2]
+    Lq, Lkv = args[0].shape[1], args[1].shape[1]
+    n_bytes, flops, visible = _gqa_work(args[0], args[1], args[3], args[4], args[5])
+    sets = [args] + [make() for _ in range(n_sets(n_bytes) - 1)]
+    kernel_ms = time_ms([lambda a=a: gattn.mha_packed_gqa(*a) for a in sets])
+    if plain_by_events:
+        plain_ms = time_events_ms(lambda: gattn.mha_packed_gqa_plain(*args), 2)
+    else:
+        plain_ms = time_ms([lambda a=a: gattn.mha_packed_gqa_plain(*a) for a in sets[:2]], 10)
+    lib_sets = []
+    for q, k, v, q_seg, kv_seg, q_off in sets:
+        i = torch.arange(Lq, device=dev)[:, None] + q_off
+        j = torch.arange(Lkv, device=dev)[None, :]
+        mask = ((i >= j)[None] & (q_seg[:, :, None] == kv_seg[:, None, :]))[:, None]
+        lib_sets.append((q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), mask))
+    library_ms = time_ms([
+        lambda a=a: F.scaled_dot_product_attention(a[0], a[1], a[2], attn_mask=a[3], enable_gqa=True)
+        for a in lib_sets
+    ])
+    bound_ms, bound_by = bound(n_bytes, flops)
+    log(f"gqa kernel {label} (H={H} K={K} Dh={Dh}, {visible} visible pairs, {gqa_grid(args)}): "
+        f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}), roofline share {bound_ms / kernel_ms:.3f}")
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
 def phase_gqa_kernel(dev, ptxas: str) -> dict:
     """Kernel #2 against its plain version at every shape the main paths
     give it and at the edges of its design; its build; its times, SDPA's
@@ -737,6 +799,9 @@ def phase_gqa_kernel(dev, ptxas: str) -> dict:
          lambda: _extend_inputs(gen, 128, 4 * 128, [487] * 8, H, K, Dh, dev)),
         ("score_tokens B=1 L=1024, one segment", "score_shape",
          lambda: _gqa_inputs(gen, 1, 1024, 1024, H, K, Dh, 1, dev)),
+        # the math preset's (phase 18) smallest prefill bucket, which holds
+        # its prompts, at the largest prefill batch
+        ("math prefill B=8 L=256", "math_prefill_shape", lambda: _gqa_inputs(gen, 8, 256, 256, H, K, Dh, 1, dev)),
     ]
     for Dc, symbol in ((64, "gqa_fwd_kernelILi64E"), (128, "gqa_fwd_kernelILi128E")):
         info = gattn.fwd_kernel_info(Dc)
@@ -800,37 +865,15 @@ def phase_gqa_kernel(dev, ptxas: str) -> dict:
     for label, key, make in timed:
         args = make()
         max_err = max(max_err, _check_gqa_forward(label, args))
-        Lq, Lkv = args[0].shape[1], args[1].shape[1]
-
-        n_bytes, flops, visible = _gqa_work(args[0], args[1], args[3], args[4], args[5])
-        sets = [args] + [make() for _ in range(n_sets(n_bytes) - 1)]
-        kernel_ms = time_ms([lambda a=a: gattn.mha_packed_gqa(*a) for a in sets])
-        plain_ms = time_ms([lambda a=a: gattn.mha_packed_gqa_plain(*a) for a in sets[:2]], 10)
-        lib_sets = []
-        for q, k, v, q_seg, kv_seg, q_off in sets:
-            i = torch.arange(Lq, device=dev)[:, None] + q_off
-            j = torch.arange(Lkv, device=dev)[None, :]
-            mask = ((i >= j)[None] & (q_seg[:, :, None] == kv_seg[:, None, :]))[:, None]
-            lib_sets.append((q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), mask))
-        library_ms = time_ms([
-            lambda a=a: F.scaled_dot_product_attention(a[0], a[1], a[2], attn_mask=a[3], enable_gqa=True)
-            for a in lib_sets
-        ])
-        bound_ms, bound_by = bound(n_bytes, flops)
-        log(f"gqa kernel {label} (H={H} K={K} Dh={Dh}, {visible} visible pairs, {gqa_grid(args)}): "
-            f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-            f"({bound_by}), roofline share {bound_ms / kernel_ms:.3f}")
+        times = _time_gqa_forward(label, args, make, dev)
         if record is None:  # the prefill shape is the main path's
             record = {
                 "name": "mha_packed_gqa (forward)", "route": "cuda",
                 "source": "pipelinerl_tpu_torch/csrc/gqa_attention_fwd.cu",
-                "replaces": "pipelinerl_tpu/ops/gqa_attention.py:54",
-                "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": library_ms,
+                "replaces": "pipelinerl_tpu/ops/gqa_attention.py:54", **times, "kernel_ms": times["ms"],
             }
         if key is not None:  # another shape of the main paths, beside the prefill record
-            record[key] = {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                           "bound_ms": bound_ms, "bound_by": bound_by}
+            record[key] = times
     record["max_abs_err"] = max_err
     return record
 
@@ -886,6 +929,47 @@ def unsorted_segments(L: int, n: int, seed: int) -> np.ndarray:
     stray = rng.choice(L, L // 64, replace=False)
     ids[stray] = rng.integers(0, n, stray.size)
     return ids
+
+
+def _time_gqa_bwd(label: str, make, dev, plain_iters: int = 4) -> dict[str, dict]:
+    """Kernels #3 and #4 timed on ``make()``'s inputs (and more sets past the
+    L2), beside the whole plain backward, the backward alone of one masked
+    SDPA call, and each kernel's bound. Returns {"dq": times, "dkv": times}."""
+    a = make()
+    q, k, lse, q_seg, kv_seg = a[0], a[1], a[8], a[3], a[4]
+    H, L = q.shape[2], q.shape[1]
+    _, _, visible = _gqa_work(q, k, q_seg, kv_seg, 0)
+    product = 2 * q.shape[3] * H * visible  # one Dh-long product over every visible (query head, key) pair
+    in_bytes = 2 * q.numel() * 2 + 2 * k.numel() * 2 + 2 * lse.numel() * 4 + 4 * (q_seg.numel() + kv_seg.numel())
+    work = {"dq": (in_bytes + q.numel() * 2, 3 * product), "dkv": (in_bytes + 2 * k.numel() * 2, 4 * product)}
+    sets = [a] + [make() for _ in range(n_sets(work["dq"][0]) - 1)]
+    dq_ms = time_ms([lambda a=a: gattn.mha_packed_gqa_bwd_dq(*a[:7], a[8], a[10], a[9]) for a in sets])
+    dkv_ms = time_ms([lambda a=a: gattn.mha_packed_gqa_bwd_dkv(*a[:7], a[8], a[10], a[9]) for a in sets])
+    del sets
+    plain_ms = time_events_ms(lambda: gattn.mha_packed_gqa_bwd_plain(*a[:10]), plain_iters)
+    # yardstick only: the backward alone of one SDPA call with a boolean mask
+    i = torch.arange(L, device=dev)
+    mask = ((i[:, None] >= i[None, :])[None] & (q_seg[:, :, None] == kv_seg[:, None, :]))[:, None]
+    sq, sk, sv = (t.transpose(1, 2).detach().requires_grad_() for t in a[:3])
+    s_out = F.scaled_dot_product_attention(sq, sk, sv, attn_mask=mask, enable_gqa=True)
+    s_do = a[9].transpose(1, 2)
+    library_ms = time_events_ms(lambda: torch.autograd.grad(s_out, (sq, sk, sv), s_do, retain_graph=True))
+    del s_out
+    least_ms, least_by = bound(in_bytes + q.numel() * 2 + 2 * k.numel() * 2, 5 * product)
+    log(f"gqa backward, {label} (H={H} K={k.shape[2]} Dh={q.shape[3]}, {visible} visible pairs): least work of a "
+        f"flash backward 5 products = {5 * product / 1e9:.2f} GFLOP, the dq + dk/dv split computes 7 = "
+        f"{7 * product / 1e9:.2f} GFLOP; bound of the whole backward {least_ms:.4f} ms ({least_by}); "
+        f"dq + dkv {dq_ms + dkv_ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA backward {library_ms:.4f} ms "
+        f"({(dq_ms + dkv_ms) / library_ms:.3f} of it)")
+    out = {}
+    for name, ms in (("dq", dq_ms), ("dkv", dkv_ms)):
+        bound_ms, bound_by = bound(*work[name])
+        log(f"gqa backward {name} kernel, {label}: {ms:.4f} ms, plain (whole backward) {plain_ms:.4f} ms, "
+            f"SDPA backward {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+            f"{work[name][1] / 1e9:.2f} GFLOP, {work[name][0] / 1e6:.1f} MB), roofline share {bound_ms / ms:.3f}")
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by}
+    return out
 
 
 def phase_gqa_bwd_kernels(dev, ptxas: str) -> list[dict]:
@@ -967,43 +1051,16 @@ def phase_gqa_bwd_kernels(dev, ptxas: str) -> list[dict]:
         check(info["local_bytes"] == 0, f"gqa backward {name} kernel at Dh={Dh} spills")
 
     # times at the training shape
-    a = _gqa_bwd_args(gen, 1, TRAIN_L, TRAIN_L, H, K, 64, 8, dev)
-    q, k, lse, q_seg, kv_seg = a[0], a[1], a[8], a[3], a[4]
-    _, _, visible = _gqa_work(q, k, q_seg, kv_seg, 0)
-    product = 2 * 64 * H * visible  # one Dh-long product over every visible (query head, key) pair
-    in_bytes = 2 * q.numel() * 2 + 2 * k.numel() * 2 + 2 * lse.numel() * 4 + 4 * (q_seg.numel() + kv_seg.numel())
-    work = {"dq": (in_bytes + q.numel() * 2, 3 * product), "dkv": (in_bytes + 2 * k.numel() * 2, 4 * product)}
-    sets = [a] + [_gqa_bwd_args(gen, 1, TRAIN_L, TRAIN_L, H, K, 64, 8, dev) for _ in range(n_sets(work["dq"][0]) - 1)]
-    dq_ms = time_ms([lambda a=a: gattn.mha_packed_gqa_bwd_dq(*a[:7], a[8], a[10], a[9]) for a in sets])
-    dkv_ms = time_ms([lambda a=a: gattn.mha_packed_gqa_bwd_dkv(*a[:7], a[8], a[10], a[9]) for a in sets])
-    plain_ms = time_ms([lambda a=a: gattn.mha_packed_gqa_bwd_plain(*a[:10]) for a in sets[:2]], 4)
-    # yardstick only: the backward alone of one SDPA call with a boolean mask
-    i = torch.arange(TRAIN_L, device=dev)
-    mask = ((i[:, None] >= i[None, :])[None] & (q_seg[:, :, None] == kv_seg[:, None, :]))[:, None]
-    sq, sk, sv = (t.transpose(1, 2).detach().requires_grad_() for t in a[:3])
-    s_out = F.scaled_dot_product_attention(sq, sk, sv, attn_mask=mask, enable_gqa=True)
-    s_do = a[9].transpose(1, 2)
-    library_ms = time_events_ms(lambda: torch.autograd.grad(s_out, (sq, sk, sv), s_do, retain_graph=True))
-    del s_out, sets
-    least_ms, least_by = bound(in_bytes + q.numel() * 2 + 2 * k.numel() * 2, 5 * product)
-    log(f"gqa backward, training shape (H={H} K={K} Dh=64, {visible} visible pairs): least work of a flash "
-        f"backward 5 products = {5 * product / 1e9:.2f} GFLOP, the dq + dk/dv split computes 7 = "
-        f"{7 * product / 1e9:.2f} GFLOP; bound of the whole backward {least_ms:.4f} ms ({least_by}); "
-        f"dq + dkv {dq_ms + dkv_ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA backward {library_ms:.4f} ms "
-        f"({(dq_ms + dkv_ms) / library_ms:.3f} of it)")
-    check(dq_ms + dkv_ms < library_ms, "dq + dk/dv is not faster than one SDPA backward in the same call")
+    t = _time_gqa_bwd("training shape", lambda: _gqa_bwd_args(gen, 1, TRAIN_L, TRAIN_L, H, K, 64, 8, dev), dev)
+    check(t["dq"]["ms"] + t["dkv"]["ms"] < t["dq"]["library_ms"],
+          "dq + dk/dv is not faster than one SDPA backward in the same call")
     records = []
-    for name, ms, src_line, what in (("dq", dq_ms, 225, "_bwd_dq_kernel"), ("dkv", dkv_ms, 302, "_bwd_dkv_kernel")):
-        bound_ms, bound_by = bound(*work[name])
-        log(f"gqa backward {name} kernel, training shape: {ms:.4f} ms, plain (whole backward) {plain_ms:.4f} ms, "
-            f"SDPA backward {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
-            f"{work[name][1] / 1e9:.2f} GFLOP, {work[name][0] / 1e6:.1f} MB), roofline share {bound_ms / ms:.3f}")
+    for name, src_line, what in (("dq", 225, "_bwd_dq_kernel"), ("dkv", 302, "_bwd_dkv_kernel")):
         records.append({
             "name": f"mha_packed_gqa_bwd_{name} ({what})", "route": "cuda",
             "source": "pipelinerl_tpu_torch/csrc/gqa_attention_bwd.cu",
             "replaces": f"pipelinerl_tpu/ops/gqa_attention.py:{src_line}",
-            "max_abs_err": max_err[name], "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+            "max_abs_err": max_err[name], **t[name], "kernel_ms": t[name]["ms"],
         })
     return records
 
@@ -2193,6 +2250,271 @@ def phase_served_engine(dev, smi: str, tmp: str) -> tuple[dict, dict]:
     return served, pushed
 
 
+# the task presets at Qwen2.5-0.5B width (phases 18-20): the HF directory of
+# phase 14, and the cuts each run makes to the preset, logged with the
+# preset's own value
+MATH_CUTS = {"llm.parameters.max_tokens": 512, "finetune.samples_per_step": 64, "finetune.max_train_steps": 2,
+             "total_groups": 16, "rewards.buffer_tokens": 128, "actor.difficulty_aware_penalty.enabled": "true",
+             "finetune.rl.entropy_bonus": 0.001, "finetune.save_checkpoint_steps": 0}
+MATH_SETS = "[synthetic_arithmetic,countdown]"
+MULTI_SETS = "[math::synthetic_arithmetic,math::countdown,guessing::train,counting::train]"
+MULTI_CUTS = {"llm.parameters.max_tokens": 256, "finetune.samples_per_step": 64, "finetune.max_train_steps": 2,
+              "total_groups": 16, "finetune.rl.entropy_bonus": 0.001, "finetune.save_checkpoint_steps": 0}
+SHORT_CUTS = {"llm.parameters.max_tokens": 128, "finetune.samples_per_step": 64, "finetune.max_train_steps": 1,
+              "total_groups": 8, "finetune.rl.entropy_bonus": 0.001, "finetune.save_checkpoint_steps": 0}
+# each domain's prompt carries this text (phase 19's dispatch gate)
+DOMAIN_PROMPTS = {"math": ("What is ", "Using the numbers"), "guessing": ("You must guess a number",),
+                  "counting": ("How many times does the letter",)}
+TOOLS_TEMPLATE = FIXTURE_TOKENIZER.parent / "chat_template_tools.jinja"
+
+
+def cut_args(name: str, cuts: dict, hf_dir, out: str) -> list[str]:
+    """``launch.main``'s argv for preset ``name`` with ``cuts``, each logged
+    beside the preset's own value."""
+    base = compose(name, [f"model_path={hf_dir}", f"output_dir={out}"])
+    log(f"{name} preset cuts: " + ", ".join(f"{k} {v} (preset {base.select(k)})" for k, v in cuts.items()))
+    return [f"--config-name={name}", f"model_path={hf_dir}", f"output_dir={out}",
+            *(f"{k}={v}" for k, v in cuts.items())]
+
+
+def run_rows_recorded(argv: list[str]) -> tuple[dict, list[dict], tuple, float, dict]:
+    """``launch.main(argv)`` with each train pass timed (synchronized) and
+    its peak device memory read, and the engine's (slots, window, T_alloc).
+    Returns (stats, passes, engine shape, wall seconds, kernel launches)."""
+    passes, shapes = [], []
+
+    class RowRecording(TrainerLoop):
+        def train_pass(self, batch):
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.monotonic()
+            out = super().train_pass(batch)
+            torch.cuda.synchronize()
+            passes.append({"s": time.monotonic() - t0, "peak": torch.cuda.max_memory_allocated(), "before": before,
+                           "step": self.metrics.completed_steps, "length": batch.length,
+                           "segment_ids": batch.segment_ids[0].copy(), "padding": batch.padding})
+            return out
+
+    build_engine, original = launch.build_engine, launch.TrainerLoop
+
+    def spy_engine(*args, **kw):
+        engine = build_engine(*args, **kw)
+        shapes.append((engine.cfg.max_slots, max(1, engine.cfg.decode_window), engine.T_alloc))
+        return engine
+
+    launch.build_engine, launch.TrainerLoop = spy_engine, RowRecording
+    reset_counts()
+    t0 = time.monotonic()
+    try:
+        stats = launch.main(argv)
+    finally:
+        launch.build_engine, launch.TrainerLoop = build_engine, original
+    torch.cuda.synchronize()
+    return stats, passes, shapes[0], time.monotonic() - t0, counts()
+
+
+def actor_samples(out: str) -> list[dict]:
+    return [s for g in StreamReader(SingleStreamSpec(out, "actor")).read_available() for s in g["samples"]]
+
+
+def stats_means(out: str, key: str) -> dict[str, float]:
+    """Each ``*_mean`` whose name holds ``key`` in the actor's stats stream,
+    averaged over its snapshots."""
+    values: dict[str, list[float]] = {}
+    for snap in StreamReader(SingleStreamSpec(out, "stats")).read_available():
+        for k, v in snap.items():
+            if key in k and k.endswith("_mean"):
+                values.setdefault(k, []).append(v)
+    return {k: round(sum(v) / len(v), 4) for k, v in sorted(values.items())}
+
+
+def train_losses(out: str) -> list[float]:
+    with open(f"{out}/metrics/trainer_0.jsonl") as f:
+        return [json.loads(line)["loss"] for line in f]
+
+
+def phase_math(hf_dir: Path, smi: str, tmp: str) -> tuple[dict, dict]:
+    """Phase 18: the ``math`` preset through ``launch.main`` at its own
+    engine and trainer widths (64 slots of max_len 10,240, prefill buckets
+    256-2,048, L 12,288 rows, flash attention) from the HF directory, on
+    the synthetic arithmetic and countdown sets, with the difficulty-aware
+    penalty over a 128-token buffer. Returns (launches, what the kernel
+    rows of these shapes need: the engine shape and a packed row's segment
+    ids)."""
+    out = f"{tmp}/math"
+    argv = cut_args("math", MATH_CUTS, hf_dir, out) + [f"train_dataset_names={MATH_SETS}"]
+    stats, passes, shape, wall, launches = run_rows_recorded(argv)
+    cfg = compose("math", argv[1:])
+    table = RewardTable.from_config(cfg)
+    max_tokens = cfg.llm.parameters.max_tokens
+    samples = actor_samples(out)
+    cut, off_table = 0, []
+    for s in samples:
+        n_out = sum(1 for label in s["labels"] if label != -100)
+        base = [v for k, v in vars(table).items() if k != "buffer_tokens" and k.endswith("_not_finished") != s["finished"]]
+        if not any(-1.0 - 1e-9 <= s["reward"] - b <= 1e-9 for b in base):
+            off_table.append(s["reward"])
+        if n_out == max_tokens and not s["finished"]:
+            cut += 1
+            check(any(s["reward"] == b - 1.0 for b in base), f"a rollout cut at max_tokens got {s['reward']}")
+    ids = sampled_ids(out)
+    losses = train_losses(out)
+    rows = [p for p in passes if p["length"] == cfg.finetune.seq_length]
+    steps = {}
+    for p in passes:
+        steps[p["step"]] = steps.get(p["step"], 0.0) + p["s"]
+    actor = stats["actor"]
+    row = max(rows, key=lambda p: int(p["segment_ids"].max()))
+    log(f"math preset through launch.main: {wall:.1f} s wall, {actor['groups_completed']} groups, "
+        f"{actor['samples_written']} samples, {actor['output_tokens']} sampled tokens, "
+        f"{actor['output_tokens'] / wall:.1f} useful tokens/s; engine S {shape[0]} W {shape[1]} T_alloc {shape[2]}; "
+        f"rewards {sorted(set(round(s['reward'], 4) for s in samples))[:12]}..., {cut} rollouts cut at "
+        f"max_tokens {max_tokens} with the full penalty, means over the stats stream "
+        f"{ {k: v for k, v in stats_means(out, '').items() if '/' not in k} }; {len(rows)} train passes at L {cfg.finetune.seq_length}: "
+        f"{[round(p['s'] * 1e3, 1) for p in rows]} ms, peak memory {[round(p['peak'] / 2**30, 2) for p in rows]} GiB "
+        f"({[round(p['before'] / 2**30, 2) for p in rows]} GiB held before each); ms per train step "
+        f"{ {k: round(v * 1e3, 1) for k, v in steps.items()} }, losses {losses}; max sampled id {max(ids)} "
+        f"(valid_vocab 540); launches {launches}; on {smi}")
+    check(not off_table, f"rewards off the table plus a penalty in [-1, 0]: {off_table[:5]}")
+    check(cut > 0, "no rollout reached max_tokens: the full-penalty gate saw nothing")
+    check(stats["trainer"]["completed_steps"] == 2 and len(losses) == 2 and all(map(math.isfinite, losses)),
+          f"math trainer {stats['trainer']}, losses {losses}")
+    check(all(launches[k] for k in ("decode", "gqa_fwd", "gqa_dq", "gqa_dkv")), f"math launches {launches}")
+    check(ids and max(ids) < 540, f"a sampled id reached valid_vocab: {max(ids)}")
+    check(rows, "no train pass ran a full row")
+    return launches, {"engine": shape, "segment_ids": row["segment_ids"], "padding": row["padding"]}
+
+
+def time_math_shapes(dev, kernels: list[dict], math_shapes: dict) -> None:
+    """Kernel #1 at phase 18's slab allocation (live lengths of a prompt plus
+    up to 512 tokens, the same lengths in an allocation that just holds
+    them, and lengths near the full allocation), and #2-#4 on the packed
+    L 12,288 row phase 18 trained on, each against its plain version, and
+    timed beside SDPA and its bound, into the kernel records."""
+    gen = torch.Generator(device=dev).manual_seed(18)
+    H, K, Dh = QWEN05B.num_heads, QWEN05B.num_kv_heads, 64
+    S, W, T = math_shapes["engine"]
+    log(f"device memory held before the math shapes: {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    rng = np.random.default_rng(18)
+    live = [int(x) for x in rng.integers(64, 577, S)]
+    full = [int(x) for x in rng.integers(T - W - 512, T - W + 1, S)]
+    for label, lens in (("live", live), ("full", full)):
+        args = _decode_inputs(gen, S, H, K, Dh, T, W, lens, W - 1, dev)
+        err = (dattn.decode_attention_staged_ragged(*args).float()
+               - dattn.decode_attention_staged_ragged_plain(*args).float()).abs().max().item()
+        log(f"decode kernel vs plain at the math slab, {label} lengths: max abs err {err:.3e} (tolerance {DECODE_ATOL})")
+        check(math.isfinite(err) and err <= DECODE_ATOL, f"decode kernel disagrees at the math slab ({label})")
+        kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], err)
+        del args
+    record = _time_decode(gen, S, H, K, Dh, T, W, live, dev)
+    record["full_length"] = _time_decode(gen, S, H, K, Dh, T, W, full, dev, library=False)
+    fit = -(-(max(live) + W) // dattn.SPLIT_ROWS) * dattn.SPLIT_ROWS  # an allocation that just holds them
+    record["live_in_fitted_alloc"] = _time_decode(gen, S, H, K, Dh, fit, W, live, dev, library=False)
+    spent = record["ms"] - record["live_in_fitted_alloc"]["ms"]
+    log(f"decode kernel at the math slab: {record['splits']} splits of {dattn.SPLIT_ROWS} rows at T_alloc {T}, "
+        f"{record['live_in_fitted_alloc']['splits']} at T_alloc {fit}; the splits that only exit cost "
+        f"{spent * 1e3:.1f} us a launch ({spent / record['ms']:.3f} of it)")
+    kernels[0]["math_slab_shape"] = record
+    torch.cuda.empty_cache()
+
+    seg = math_shapes["segment_ids"]
+    L = seg.shape[0]
+    label = f"math training row L={L}, {int(seg.max()) + 1} segments ({math_shapes['padding']} padding)"
+    args = _gqa_inputs(gen, 1, L, L, H, K, Dh, seg, dev)
+    kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"], _check_gqa_forward(label, args))
+    kernels[1]["math_row_shape"] = _time_gqa_forward(label, args, lambda: _gqa_inputs(gen, 1, L, L, H, K, Dh, seg, dev),
+                                                     dev, plain_by_events=True)
+    del args
+    torch.cuda.empty_cache()
+    a = _gqa_bwd_args(gen, 1, L, L, H, K, Dh, seg, dev)
+    grads = gattn.mha_packed_gqa_bwd(*a[:10])
+    refs = gattn.mha_packed_gqa_bwd_plain(*a[:10])
+    errs = {n: _rel_err(g, r) for n, g, r in zip(("dq", "dk", "dv"), grads, refs)}
+    del a, grads, refs
+    log(f"gqa backward kernels vs plain, {label}: " + ", ".join(
+        f"{n} max abs err {e:.3e} ({rel:.2e} of max |ref|)" for n, (e, rel) in errs.items())
+        + f" (tolerance {GQA_BWD_RTOL} of max |ref|)")
+    check(all(math.isfinite(e) and rel <= GQA_BWD_RTOL for e, rel in errs.values()), f"gqa backward disagrees ({label})")
+    kernels[2]["max_abs_err"] = max(kernels[2]["max_abs_err"], errs["dq"][0])
+    kernels[3]["max_abs_err"] = max(kernels[3]["max_abs_err"], errs["dk"][0], errs["dv"][0])
+    torch.cuda.empty_cache()
+    t = _time_gqa_bwd(label, lambda: _gqa_bwd_args(gen, 1, L, L, H, K, Dh, seg, dev), dev, plain_iters=2)
+    kernels[2]["math_row_shape"], kernels[3]["math_row_shape"] = t["dq"], t["dkv"]
+    torch.cuda.empty_cache()
+
+
+def phase_multi_domain(hf_dir: Path, smi: str, tmp: str) -> dict:
+    """Phase 19: the ``multi_domain`` preset through ``launch.main`` at its
+    widths from the HF directory, on math's synthetic sets, guessing and
+    counting under the preset's domain mix with adaptive sampling: every
+    domain is drawn, reported per domain in the stats stream, and its
+    rollout reached (each sample carries its domain's prompt)."""
+    out = f"{tmp}/multi_domain"
+    argv = cut_args("multi_domain", MULTI_CUTS, hf_dir, out) + [f"train_dataset_names={MULTI_SETS}"]
+    stats, passes, shape, wall, launches = run_rows_recorded(argv)
+    tok = HFTokenizer(hf_dir)
+    drawn: dict[str, int] = {}
+    for s in actor_samples(out):
+        prompt = tok.decode([i for i, label in zip(s["input_ids"], s["labels"]) if label == -100])
+        check(any(text in prompt for text in DOMAIN_PROMPTS[s["domain"]]),
+              f"a {s['domain']} sample does not carry its domain's prompt: {prompt[:200]!r}")
+        drawn[s["domain"]] = drawn.get(s["domain"], 0) + 1
+    snaps = list(StreamReader(SingleStreamSpec(out, "stats")).read_available()) + [stats["actor"]]
+    reported = {k.split("/")[1] for snap in snaps for k in snap if k.startswith("domain/")}
+    per_domain = stats_means(out, "/reward")
+    losses = train_losses(out)
+    log(f"multi_domain preset through launch.main: {wall:.1f} s wall, samples by domain {drawn}, domains in the "
+        f"stats stream {sorted(reported)}, reward means there {per_domain}, "
+        f"{stats['actor']['output_tokens'] / wall:.1f} useful tokens/s, {stats['trainer']['completed_steps']} steps, "
+        f"losses {losses}, launches {launches}; on {smi}")
+    check(set(drawn) == reported == set(DOMAIN_PROMPTS), f"domains drawn {drawn}, reported {reported}")
+    check(stats["trainer"]["completed_steps"] == 2 and all(map(math.isfinite, losses)), f"losses {losses}")
+    check(all(launches[k] for k in ("decode", "gqa_fwd", "gqa_dq", "gqa_dkv")), f"multi_domain launches {launches}")
+    return launches
+
+
+def phase_short_domains(hf_dir: Path, smi: str, tmp: str) -> dict[str, dict]:
+    """Phase 20: the ``logic``, ``ifeval`` and ``fn_calling`` presets, one
+    short run each from the HF directory on their synthetic sets: the step
+    completes and every reward is finite and one the domain can give. The
+    fn_calling run reads an HF directory whose chat template has Qwen2.5's
+    tools block (the fixture's ChatML template drops tools), and its
+    prompts must carry the tool's schema."""
+    tools_dir = Path(tmp) / "hf_tools"
+    tools_dir.mkdir()
+    for f in hf_dir.iterdir():
+        (tools_dir / f.name).symlink_to(f)
+    (tools_dir / "chat_template.jinja").unlink()
+    (tools_dir / "chat_template.jinja").write_text(TOOLS_TEMPLATE.read_text())
+    table = RewardTable.from_config(compose("logic", ["output_dir=/tmp/unused"]))
+    logic_rewards = {v for k, v in vars(table).items() if k != "buffer_tokens"}
+    allowed = {"logic": lambda r: r in logic_rewards, "ifeval": lambda r: r in (0.0, 0.5, 1.0),
+               "fn_calling": lambda r: 0.0 <= r <= 1.0}
+    paths = {}
+    for name in ("logic", "ifeval", "fn_calling"):
+        directory = tools_dir if name == "fn_calling" else hf_dir
+        out = f"{tmp}/{name}"
+        stats, _, _, wall, launches = run_rows_recorded(cut_args(name, SHORT_CUTS, directory, out))
+        samples = actor_samples(out)
+        rewards = [s["reward"] for s in samples]
+        losses = train_losses(out)
+        note = ""
+        if name == "fn_calling":
+            prompt = HFTokenizer(directory).decode(
+                [i for i, label in zip(samples[0]["input_ids"], samples[0]["labels"]) if label == -100])
+            check("<tools>" in prompt and '"name": "get_weather"' in prompt, f"no tools in the prompt: {prompt!r}")
+            note = f", the prompt's {prompt.count('get_weather')} get_weather mentions rendered by the tools template"
+        log(f"{name} preset through launch.main: {wall:.1f} s wall, {len(samples)} samples, rewards "
+            f"{sorted(set(round(r, 4) for r in rewards))}, losses {losses}{note}, launches {launches}; on {smi}")
+        check(stats["trainer"]["completed_steps"] == 1 and all(map(math.isfinite, losses)), f"{name} losses {losses}")
+        check(all(math.isfinite(r) and allowed[name](r) for r in rewards), f"{name} rewards {sorted(set(rewards))}")
+        check(all(launches[k] for k in ("decode", "gqa_fwd", "gqa_dq", "gqa_dkv")), f"{name} launches {launches}")
+        paths[name] = launches
+        torch.cuda.empty_cache()
+    return paths
+
+
 def phase_processes(exp: str, split: bool, smi: str, overrides: tuple[str, ...] = ()) -> dict:
     """Phase 17: bandit_tpu through ``launch`` in processes mode."""
     layout = ["world.trainer_procs=1"] if split else []
@@ -2274,10 +2596,20 @@ def main() -> None:
         paths["guessing"] = phase_guessing(f"{tmp}/guessing")
         torch.cuda.empty_cache()
         paths.update(phase_hf_checkpoint(dev, info["smi"], f"{tmp}/hf"))
+        # phase 14's recording trainers sit in a reference cycle (instance,
+        # class, the closure's list): about 24 GiB that phase 18 needs
+        gc.collect()
         torch.cuda.empty_cache()
         paths["served_engine"], paths["push_while_decoding"] = phase_served_engine(dev, info["smi"], tmp)
         paths["processes_device"] = phase_processes(f"{tmp}/processes_device", False, info["smi"])
         paths["processes_split"] = phase_processes(f"{tmp}/processes_split", True, info["smi"])
+        hf_dir = Path(f"{tmp}/hf/hf_in") / CURRENT_DIR  # where phase 14's export_hf wrote
+        paths["math"], math_shapes = phase_math(hf_dir, info["smi"], tmp)
+        torch.cuda.empty_cache()
+        time_math_shapes(dev, kernels, math_shapes)
+        paths["multi_domain"] = phase_multi_domain(hf_dir, info["smi"], tmp)
+        torch.cuda.empty_cache()
+        paths.update(phase_short_domains(hf_dir, info["smi"], tmp))
     for record, key in zip(kernels, ("decode", "gqa_fwd", "gqa_dq", "gqa_dkv", "paged")):
         record["launches_by_path"] = {path: c[key] for path, c in paths.items()}
         record["launches"] = sum(record["launches_by_path"].values())

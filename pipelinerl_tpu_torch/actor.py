@@ -2,10 +2,10 @@
 control, stamps samples with weight versions, publishes stats.
 
 Port of the JAX package's ``actor.py`` (``ActorLoop``, ``ActorStats``) as
-the same single-process asyncio scheduler, for training rollouts. Left out,
-because no preset the port runs reaches them: domain-weighted sampling
-(``domain_mix``) and the difficulty-aware length penalty, which raise when
-configured, and the eval loop (``is_training=False``) of eval interleaving.
+the same single-process asyncio scheduler, for training rollouts, with
+domain-weighted sampling (``domain_mix``) and the difficulty-aware length
+penalty. Left out: the eval loop (``is_training=False``) of eval
+interleaving.
 
 - each problem spawns a group of ``attempts`` rollouts, written to the
   ``actor`` stream when complete, shuffled;
@@ -30,6 +30,8 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Sequence
 
 from .config import Config
+from .domain_sampling import DomainWeightedSampler
+from .domains.math.rollouts import length_penalty
 from .inference.client import BaseLLM
 from .state import TrainerState
 from .streams import SingleStreamSpec, StreamWriter
@@ -122,10 +124,6 @@ class ActorLoop:
         exp_path: str,
         rollout_policy: Callable,
     ):
-        if cfg.get("domain_mix"):
-            raise NotImplementedError("domain_mix sampling is not ported yet")
-        if cfg.actor.select("difficulty_aware_penalty.enabled", False):
-            raise NotImplementedError("actor.difficulty_aware_penalty is not ported yet")
         self.cfg = cfg
         self.llms = list(llms)
         self.problems = list(problems)
@@ -212,6 +210,31 @@ class ActorLoop:
                 t.cancel()
             raise
 
+    def _apply_difficulty_aware_penalty(self, results: list[RolloutResult]) -> None:
+        """Rescale the overlong length penalty by the group's solve rate:
+        successful rollouts keep ``solve_rate ** gamma`` of theirs, failed
+        ones ``failure_scale``; a text that hit ``max_tokens`` unfinished
+        always keeps the full penalty."""
+        dap = self.cfg.actor.get("difficulty_aware_penalty")
+        buffer_tokens = int(self.cfg.get("rewards", Config({})).get("buffer_tokens", 0) or 0)
+        max_tokens = self.cfg.llm.parameters.get("max_tokens")
+        if not dap or not dap.get("enabled", False) or buffer_tokens <= 0 or max_tokens is None:
+            return
+        gamma = float(dap.get("gamma", 1.0))
+        failure_scale = float(dap.get("failure_scale", 1.0))
+        solve_rate = sum(float(r.metrics.success) for r in results) / len(results)
+        success_scale = solve_rate**gamma
+        for r in results:
+            rollout_scale = success_scale if r.metrics.success else failure_scale
+            delta_total = 0.0
+            for text in r.training_texts:
+                scale = 1.0 if text.output_tokens >= max_tokens and not text.finished else rollout_scale
+                original = length_penalty(max_tokens, text.output_tokens, buffer_tokens)
+                delta = original * scale - original
+                text.reward += delta
+                delta_total += delta
+            r.metrics.reward += delta_total
+
     def _write_group(self, writer: StreamWriter, results: list[RolloutResult]) -> None:
         entries = [(r, ri, si, t) for ri, r in enumerate(results) for si, t in enumerate(r.training_texts)]
         self._rng.shuffle(entries)
@@ -240,7 +263,14 @@ class ActorLoop:
         """Schedule groups until ``total_groups`` complete (or the trainer is
         done), within the lag budget."""
         submitted = completed = 0
-        problem_iter = iter(self._problem_stream(total_groups))
+        domain_mix = self.cfg.get("domain_mix")
+        sampler = None
+        if domain_mix:
+            sampler = DomainWeightedSampler(self.problems, dict(domain_mix.items()), rng=self._rng,
+                                            adaptive=bool(self.cfg.get("adaptive_domain_sampling", True)))
+            problem_iter = iter(self._sampled_stream(sampler, total_groups))
+        else:
+            problem_iter = iter(self._problem_stream(total_groups))
         in_flight: set[asyncio.Task] = set()
         max_parallel = int(self.cfg.actor.get("max_parallel_groups", 16))
         publish_every = int(self.cfg.actor.get("publish_stats_every_n_groups", 8))
@@ -276,6 +306,11 @@ class ActorLoop:
                         # LOO advantages need every attempt: drop the group
                         self.stats.dropped_degenerate_groups += 1
                         continue
+                    if sampler is not None:
+                        for r in results:
+                            if r.domain:
+                                sampler.record_completion(r.domain)
+                    self._apply_difficulty_aware_penalty(results)
                     problem_key = json.dumps(task.problem, sort_keys=True, default=str)[:256]
                     current_version = self.trainer_state.propagated_weight_version or 0
                     for r in results:
@@ -291,6 +326,12 @@ class ActorLoop:
                         task.cancel()
                     break
         return self.stats
+
+    def _sampled_stream(self, sampler: DomainWeightedSampler, total_groups: int | None):
+        count = 0
+        while total_groups is None or count < total_groups:
+            yield sampler.sample()
+            count += 1
 
     def _problem_stream(self, total_groups: int | None):
         """Cycle the problems until ``total_groups``, reshuffled each epoch."""

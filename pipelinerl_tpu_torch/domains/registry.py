@@ -1,7 +1,9 @@
 """Dotted-path function resolution and multi-domain dispatch.
 
 Port of the JAX package's ``domains/registry.py`` with the domains the port
-has: ``guessing``, ``counting`` and ``bandit``.
+has: ``guessing``, ``counting``, ``bandit``, ``math``, ``logic``, ``ifeval``
+and ``fn_calling``. A domain of the JAX table that the port lacks raises a
+``KeyError`` that names the ROADMAP Queue 1 item it waits for.
 """
 
 from __future__ import annotations
@@ -13,7 +15,14 @@ DEFAULT_DOMAIN_ROLLOUTS: dict[str, str] = {
     "guessing": "pipelinerl_tpu_torch.domains.guessing.generate_guessing_rollout",
     "counting": "pipelinerl_tpu_torch.domains.counting.generate_counting_rollout",
     "bandit": "pipelinerl_tpu_torch.domains.bandit.generate_bandit_rollout",
+    "math": "pipelinerl_tpu_torch.domains.math.rollouts.generate_math_rollout",
+    "fn_calling": "pipelinerl_tpu_torch.domains.fn_calling.rollouts.generate_fn_calling_rollout",
+    "ifeval": "pipelinerl_tpu_torch.domains.ifeval.rollouts.generate_ifeval_rollout",
+    "logic": "pipelinerl_tpu_torch.domains.logic.rollouts.generate_logic_rollout",
 }
+
+# the JAX table's other domains -> the ROADMAP Queue 1 item each waits for
+_NOT_PORTED = {"tir": 12, "coding": 12, "deep_research": 12, "miniwob": 12, "chartqa": 10, "vlm_bandit": 10}
 
 
 def resolve(dotted_path: str) -> Callable:
@@ -30,6 +39,8 @@ def resolve(dotted_path: str) -> Callable:
 def resolve_domain_rollout(domain: str, overrides: dict[str, str] | None = None) -> Callable:
     table = {**DEFAULT_DOMAIN_ROLLOUTS, **(overrides or {})}
     if domain not in table:
+        if domain in _NOT_PORTED:
+            raise KeyError(f"The {domain!r} domain is not ported yet (ROADMAP Queue 1, item {_NOT_PORTED[domain]})")
         raise KeyError(f"No rollout generator registered for domain {domain!r}")
     return resolve(table[domain])
 

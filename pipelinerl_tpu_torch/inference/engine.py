@@ -226,6 +226,8 @@ class _PinnedRing:
 def _resolve_impl(name: str, device: torch.device, kernel: str) -> str:
     if name == "auto":
         return kernel if device.type == "cuda" else "xla"
+    if name == "flash" and kernel == "gqa":
+        return "gqa"  # JAX's splash kernel, which the port routes to kernel #2
     if name not in ("xla", kernel):
         raise ValueError(f"unknown attention implementation {name!r}")
     return name

@@ -1,14 +1,18 @@
-"""Streaming extraction of ``<tool_call>{json}</tool_call>`` blocks.
+"""Tool-call extraction from generated text.
 
-Port of the part of the JAX package's ``domains/tir/tool_parser.py`` that
-the server's SSE path uses: ``StreamingToolParser`` holds tool blocks and
-partial tags out of the content stream and reports each call the moment its
-closing tag arrives, which is where the server stops generation.
+Port of the JAX package's ``domains/tir/tool_parser.py``: ``parse_tool_calls``
+pulls every ``<tool_call>{json}</tool_call>`` block (and the
+``<tool_calls>[...]`` variant) out of a finished completion, as the
+function-calling domain grades it; ``StreamingToolParser`` holds tool blocks
+and partial tags out of the server's SSE content stream and reports each
+call the moment its closing tag arrives, which is where the server stops
+generation.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import uuid
 from dataclasses import dataclass, field
 
@@ -40,6 +44,40 @@ def _call_from_obj(obj: dict) -> ToolCall | None:
     if not isinstance(args, str):
         args = json.dumps(args)
     return ToolCall(function=ToolFunction(name=str(name), arguments=args))
+
+
+_TOOL_CALL_RE = re.compile(r"<tool_call>\s*(.*?)\s*</tool_call>", re.S)
+_TOOL_CALLS_RE = re.compile(r"<tool_calls>\s*(.*?)\s*</tool_calls>", re.S)
+_FINAL_RESPONSE_RE = re.compile(r"\[BEGIN FINAL RESPONSE\](.*?)(?:\[END FINAL RESPONSE\]|$)", re.S)
+
+
+def parse_tool_calls(text: str) -> tuple[list[ToolCall], str]:
+    """→ (tool calls, the content without its tool blocks; the
+    ``[BEGIN FINAL RESPONSE]`` section's text where there is one)."""
+    calls: list[ToolCall] = []
+    for raw in _TOOL_CALL_RE.findall(text):
+        try:
+            obj = json.loads(raw)
+        except json.JSONDecodeError:
+            continue
+        call = _call_from_obj(obj)
+        if call:
+            calls.append(call)
+    for raw in _TOOL_CALLS_RE.findall(text):
+        try:
+            arr = json.loads(raw)
+        except json.JSONDecodeError:
+            continue
+        if isinstance(arr, list):
+            for obj in arr:
+                call = _call_from_obj(obj)
+                if call:
+                    calls.append(call)
+    content = _TOOL_CALLS_RE.sub("", _TOOL_CALL_RE.sub("", text))
+    final = _FINAL_RESPONSE_RE.search(content)
+    if final:
+        content = final.group(1)
+    return calls, content.strip()
 
 
 class StreamingToolParser:

@@ -3,14 +3,15 @@
 Each preset mirrors the JAX package's composed YAML of the same name key for
 key (``conf/base.yaml`` with its group defaults; ``conf/bandit_cpu.yaml``;
 ``conf/bandit_tpu.yaml``; ``conf/counting.yaml``; ``conf/guessing.yaml``;
-``conf/test.yaml``), with dotted paths renamed from the JAX package to this
-one. The config groups (``conf/finetune/{base,grpo,ppo,actor_critic}.yaml``,
-``conf/rewards/base.yaml``)
-are group presets: a root preset takes the ``base`` of each, and a
-``finetune=ppo`` override selects another, as a ``finetune: ppo`` entry of
-``base.yaml``'s defaults would. ``tests/test_torch_config.py`` holds every
-preset and group against the JAX package's ``compose``, so the copies cannot
-drift.
+``conf/test.yaml``; ``conf/{math,logic,ifeval,fn_calling,multi_domain}.yaml``),
+with dotted paths renamed from the JAX package to this one. The hub dataset
+names stay as they are; the port's loaders raise on them. The config groups
+(``conf/finetune/{base,grpo,ppo,actor_critic}.yaml``,
+``conf/rewards/{base,success,pure_success}.yaml``) are group presets: a root
+preset takes the ``base`` of each, and a ``finetune=ppo`` override selects
+another, as a ``finetune: ppo`` entry of ``base.yaml``'s defaults would.
+``tests/test_torch_config.py`` holds every preset and group against the JAX
+package's ``compose``, so the copies cannot drift.
 """
 
 from __future__ import annotations
@@ -100,6 +101,21 @@ _REWARDS_BASE = {
     "unparsable_finished": -1.0,
     "buffer_tokens": 0,
 }
+
+# correct answers alone score, finished or not
+_REWARDS_SUCCESS = {
+    "correct_answer_finished": 1.0,
+    "correct_answer_not_finished": 0.5,
+    "wrong_answer_finished": 0,
+    "wrong_answer_not_finished": 0,
+    "no_answer_finished": 0,
+    "no_answer_not_finished": 0,
+    "unparsable_finished": 0,
+    "unparsable_not_finished": 0,
+    "buffer_tokens": 0,
+}
+
+_REWARDS_PURE_SUCCESS = {**_REWARDS_SUCCESS, "correct_answer_not_finished": 0}
 
 _BASE = {
     "seed": 42,
@@ -237,6 +253,79 @@ _TEST = {
     "finetune": {"samples_per_step": 32, "max_train_steps": 100, "seq_length": 4096},
 }
 
+# the reference's flagship run: math GRPO on a real checkpoint
+_MATH = {
+    "dataset_loader": "pipelinerl_tpu_torch.domains.math.load_datasets",
+    "train_dataset_names": ["open_reasoner_zero_57k", "open_reasoner_zero_extended_72k"],
+    "test_dataset_names": ["aime_2024", "math_500"],
+    "actor": {
+        "system_prompt": "Please reason step by step, and put your final answer within \\boxed{}.",
+        "task_template": "{task}",
+        "difficulty_aware_penalty": {"enabled": False, "gamma": 1.0, "failure_scale": 1.0},
+    },
+    "llm": {"parameters": {"max_tokens": 8192}},
+    "engine": {"max_len": 10240, "max_slots": 64, "prefill_buckets": [256, 512, 1024, 2048], "attn_impl": "flash"},
+    "finetune": {"seq_length": 12288, "samples_per_step": 4096, "learning_rate": 1e-6, "attn_impl": "flash"},
+}
+
+_LOGIC = {
+    "dataset_loader": "pipelinerl_tpu_torch.domains.logic.dataset.load_problems",
+    "train_dataset_names": ["train"],
+    "test_dataset_names": ["test"],
+    "environment_class": "pipelinerl_tpu_torch.domains.logic.verifier_api.LogicEnvironment",
+    "actor": {
+        "system_prompt": ("Solve the logic puzzle. Reason step by step, then give the final answer inside "
+                          "<answer></answer> tags."),
+        "task_template": "{task}",
+    },
+    "world": {"env_replicas": 1},
+    "llm": {"parameters": {"max_tokens": 4096}},
+    "engine": {"max_len": 6144, "max_slots": 64, "prefill_buckets": [256, 512, 1024], "attn_impl": "flash"},
+    "finetune": {"seq_length": 8192, "samples_per_step": 1024, "learning_rate": 1e-6, "attn_impl": "flash"},
+}
+
+_IFEVAL = {
+    "dataset_loader": "pipelinerl_tpu_torch.domains.ifeval.dataset.load_datasets",
+    "rollout_policy": "pipelinerl_tpu_torch.domains.ifeval.rollouts.generate_ifeval_rollout",
+    "train_dataset_names": ["synthetic_ifeval"],
+    "test_dataset_names": ["synthetic_ifeval"],
+    "model_path": "???",
+    "actor": {
+        "system_prompt": "",
+        "task_template": "{task}\n\nBe concise and direct in your response. Do not add unnecessary elaboration.",
+        "ifeval_partial_credit": True,
+    },
+    "llm": {"parameters": {"max_tokens": 2048}},
+    "engine": {"max_len": 4096, "max_slots": 64, "prefill_buckets": [256, 512, 1024, 2048], "attn_impl": "flash"},
+    "finetune": {"seq_length": 8192, "samples_per_step": 512, "learning_rate": 1e-6, "attn_impl": "flash"},
+}
+
+_FN_CALLING = {
+    "dataset_loader": "pipelinerl_tpu_torch.domains.fn_calling.dataset.load_datasets",
+    "rollout_policy": "pipelinerl_tpu_torch.domains.fn_calling.rollouts.generate_fn_calling_rollout",
+    "train_dataset_names": ["synthetic_fn_calling"],
+    "test_dataset_names": ["synthetic_fn_calling"],
+    "model_path": "???",
+    "actor": {"system_prompt": "", "task_template": "{task}"},
+    "llm": {"parameters": {"max_tokens": 1024}},
+    "engine": {"max_len": 4096, "max_slots": 64, "prefill_buckets": [256, 512, 1024, 2048], "attn_impl": "flash"},
+    "finetune": {"seq_length": 8192, "samples_per_step": 512, "learning_rate": 1e-6, "attn_impl": "flash"},
+}
+
+_MULTI_DOMAIN = {
+    "dataset_loader": "pipelinerl_tpu_torch.domain_sampling.load_multidomain",
+    "rollout_policy": "pipelinerl_tpu_torch.domains.registry.generate_dispatched_rollout",
+    "train_dataset_names": ["math::open_reasoner_zero_57k", "guessing::train", "counting::train"],
+    "test_dataset_names": ["math::math_500", "counting::test"],
+    "model_path": "???",
+    "domain_mix": {"math": 0.6, "guessing": 0.2, "counting": 0.2},
+    "adaptive_domain_sampling": True,
+    "actor": {"system_prompt": "", "task_template": "{task}"},
+    "llm": {"parameters": {"max_tokens": 4096}},
+    "engine": {"max_len": 6144, "max_slots": 64, "prefill_buckets": [256, 512, 1024, 2048], "attn_impl": "flash"},
+    "finetune": {"seq_length": 8192, "samples_per_step": 1024, "learning_rate": 1e-6, "attn_impl": "flash"},
+}
+
 # group -> name -> (parent in the group or None, own body)
 _GROUPS = {
     "finetune": {
@@ -245,7 +334,11 @@ _GROUPS = {
         "ppo": ("base", _FINETUNE_PPO),
         "actor_critic": ("base", _FINETUNE_ACTOR_CRITIC),
     },
-    "rewards": {"base": (None, _REWARDS_BASE)},
+    "rewards": {
+        "base": (None, _REWARDS_BASE),
+        "success": (None, _REWARDS_SUCCESS),
+        "pure_success": (None, _REWARDS_PURE_SUCCESS),
+    },
 }
 
 # name -> (parent preset or None, own body); a body merges over its parent,
@@ -257,6 +350,11 @@ _PRESETS = {
     "counting": ("base", _COUNTING),
     "guessing": ("base", _GUESSING),
     "test": ("guessing", _TEST),
+    "math": ("base", _MATH),
+    "logic": ("base", _LOGIC),
+    "ifeval": ("base", _IFEVAL),
+    "fn_calling": ("base", _FN_CALLING),
+    "multi_domain": ("base", _MULTI_DOMAIN),
 }
 
 

@@ -54,6 +54,22 @@ def test_group_override_equals_jax_defaults_entry(name, tmp_path):
         compose("bandit_tpu", ["finetune=nope"])
 
 
+@pytest.mark.parametrize("name", presets.group_names("rewards"))
+def test_rewards_group_equals_jax_group_file_and_defaults_entry(name, tmp_path):
+    """The ``rewards`` group's entries against the JAX group files, and a
+    ``rewards=<name>`` override against a JAX tree whose ``base.yaml`` takes
+    ``rewards: <name>`` in its defaults."""
+    assert presets.group_preset("rewards", name).to_dict() == j_compose("conf/rewards", name, resolve=False).to_dict()
+    conf = tmp_path / "conf"
+    shutil.copytree("conf", conf)
+    base = (conf / "base.yaml").read_text()
+    assert "  - rewards: base\n" in base
+    (conf / "base.yaml").write_text(base.replace("  - rewards: base\n", f"  - rewards: {name}\n"))
+    overrides = ["output_dir=/tmp/x", "model_path=/tmp/m"]
+    ours = compose("math", [f"rewards={name}", *overrides]).to_dict()
+    assert ours == renamed(j_compose(str(conf), "math", overrides).to_dict())
+
+
 @pytest.mark.parametrize(
     "text",
     ["1", "-3", "1e-5", "4e-3", ".5", "0.25", "true", "False", "null", "~", "yes", "off", "[test]",

@@ -1,6 +1,7 @@
 """The port imports nothing of JAX or of the JAX package, nor the
 ``safetensors``, ``tokenizers``, ``transformers``, ``regex``, ``msgpack``,
-``aiohttp`` and ``yaml`` packages (the H100 host has none of them): every
+``aiohttp``, ``yaml``, ``pydantic`` and ``datasets`` packages (the H100 host
+has none of them): every
 module of ``pipelinerl_tpu_torch`` and ``chip_smoke`` imports in a process
 that refuses all of them, and the port's tokenizer reads the committed
 fixture there; every stage entrypoint, started as
@@ -22,7 +23,7 @@ CHILD = textwrap.dedent(
     import importlib, pkgutil, sys
 
     REFUSED = ("jax", "jaxlib", "pipelinerl_tpu", "safetensors", "tokenizers", "transformers", "regex",
-               "msgpack", "aiohttp", "yaml")
+               "msgpack", "aiohttp", "yaml", "pydantic", "datasets")
 
     class Refuse:
         def find_spec(self, name, path=None, target=None):
@@ -60,7 +61,9 @@ def test_port_imports_without_jax_and_chip_smoke_needs_a_card():
     )
     assert proc.returncode == 0, proc.stderr
     n = int(proc.stdout.split("IMPORTED ")[1].split()[0])
-    assert n >= 46  # every module of the package (serving, paged KV, training, processes mode), and chip_smoke
+    # every module of the package (serving, paged KV, training, processes
+    # mode, the task domains and domain sampling), and chip_smoke
+    assert n >= 73
     if not torch.cuda.is_available():
         assert "RAISED no CUDA device" in proc.stdout, proc.stdout
         assert '"ok"' not in proc.stdout
@@ -84,7 +87,8 @@ SITE = textwrap.dedent(
     """
     import atexit, sys
 
-    REFUSED = ("jax", "jaxlib", "pipelinerl_tpu", "msgpack", "aiohttp", "yaml", "transformers", "tokenizers")
+    REFUSED = ("jax", "jaxlib", "pipelinerl_tpu", "msgpack", "aiohttp", "yaml", "transformers", "tokenizers",
+               "pydantic", "datasets")
 
     class Refuse:
         def find_spec(self, name, path=None, target=None):
