@@ -64,16 +64,28 @@ def length_penalty(max_length: int, sequence_length: int, buffer_tokens: int) ->
     return 0.0
 
 
-def refuse_environment(cfg: Any) -> None:
-    """Raise where the JAX package would verify over RPC: ``cfg.environment``
-    names a server (an entry with a port). The verifier servers are not
-    ported."""
-    env = cfg.get("environment") if cfg is not None else None
-    entries = env if isinstance(env, list) else [env] if env else []
-    if any(hasattr(e, "get") and e.get("port") for e in entries):
+def _environment_servers(cfg: Any) -> list[tuple[str, int]]:
+    """(host, port) of each entry of ``cfg.environment`` that names a port."""
+    env = cfg.get("environment") if hasattr(cfg, "get") else None
+    if not env:
+        return []
+    servers = []
+    for entry in env if isinstance(env, list) else [env]:
+        host = entry.get("hostname", "127.0.0.1") if hasattr(entry, "get") else "127.0.0.1"
+        port = entry.get("port") if hasattr(entry, "get") else None
+        if port:
+            servers.append((host, int(port)))
+    return servers
+
+
+def refuse_environment(cfg: Any, what: str = "verifier servers") -> None:
+    """Raise where the JAX package would reach an environment server over
+    HTTP: ``cfg.environment`` names one (an entry with a port). The
+    environment servers are not ported."""
+    if _environment_servers(cfg):
         raise NotImplementedError(
-            "verifier servers (cfg.environment) are not ported yet (ROADMAP Queue 1, item 5); "
-            "drop environment to verify in process"
+            f"{what} (cfg.environment) are not ported yet (ROADMAP Queue 1, item 5); "
+            "drop environment to run in process"
         )
 
 

@@ -1,9 +1,9 @@
 """Dotted-path function resolution and multi-domain dispatch.
 
-Port of the JAX package's ``domains/registry.py`` with the domains the port
-has: ``guessing``, ``counting``, ``bandit``, ``math``, ``logic``, ``ifeval``
-and ``fn_calling``. A domain of the JAX table that the port lacks raises a
-``KeyError`` that names the ROADMAP Queue 1 item it waits for.
+Port of the JAX package's ``domains/registry.py`` with every text domain of
+its table. A domain of the table that the port lacks (``chartqa`` and
+``vlm_bandit``, which need the VLM slice) raises a ``KeyError`` that names
+the ROADMAP Queue 1 item it waits for.
 """
 
 from __future__ import annotations
@@ -16,13 +16,17 @@ DEFAULT_DOMAIN_ROLLOUTS: dict[str, str] = {
     "counting": "pipelinerl_tpu_torch.domains.counting.generate_counting_rollout",
     "bandit": "pipelinerl_tpu_torch.domains.bandit.generate_bandit_rollout",
     "math": "pipelinerl_tpu_torch.domains.math.rollouts.generate_math_rollout",
+    "tir": "pipelinerl_tpu_torch.domains.tir.rollouts.generate_tir_rollout",
+    "coding": "pipelinerl_tpu_torch.domains.coding.rollouts.generate_coding_rollout",
     "fn_calling": "pipelinerl_tpu_torch.domains.fn_calling.rollouts.generate_fn_calling_rollout",
     "ifeval": "pipelinerl_tpu_torch.domains.ifeval.rollouts.generate_ifeval_rollout",
     "logic": "pipelinerl_tpu_torch.domains.logic.rollouts.generate_logic_rollout",
+    "deep_research": "pipelinerl_tpu_torch.domains.deep_research.rollouts.generate_research_rollout",
+    "miniwob": "pipelinerl_tpu_torch.domains.miniwob.rollouts.generate_miniwob_rollout",
 }
 
 # the JAX table's other domains -> the ROADMAP Queue 1 item each waits for
-_NOT_PORTED = {"tir": 12, "coding": 12, "deep_research": 12, "miniwob": 12, "chartqa": 10, "vlm_bandit": 10}
+_NOT_PORTED = {"chartqa": 10, "vlm_bandit": 10}
 
 
 def resolve(dotted_path: str) -> Callable:

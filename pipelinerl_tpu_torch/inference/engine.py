@@ -27,8 +27,11 @@ layouts:
   leaves as views of it, waits for the copies' event and only then hands
   the tree to the engine thread. The buffers are recorded on the engine's
   stream, so a later swap that drops them cannot free them under a decode
-  window that still reads them. A newer push that arrives mid-transfer
-  supersedes the one in flight at most once in a row. The JAX engine paces
+  window that still reads them. A push of a newer version that arrives
+  mid-transfer supersedes the one in flight at most once in a row; one of
+  an older version (two bodies read at once can queue out of order) waits
+  and is dropped unstaged once a newer one has been published (the swap
+  keeps its version check as a backstop). The JAX engine paces
   its copies through a gate the engine thread opens, because host-to-device
   copies on its TPU link serialise with execution; an H100's copy engines
   run beside the SMs, so pacing is not ported. Pushes over
@@ -226,8 +229,10 @@ class _PinnedRing:
 def _resolve_impl(name: str, device: torch.device, kernel: str) -> str:
     if name == "auto":
         return kernel if device.type == "cuda" else "xla"
-    if name == "flash" and kernel == "gqa":
-        return "gqa"  # JAX's splash kernel, which the port routes to kernel #2
+    if name in ("flash", "blockwise") and kernel == "gqa":
+        return "gqa"  # JAX's splash and blockwise attention, which the port routes to kernel #2
+    if name == "cp" and kernel == "gqa":
+        return "xla"  # the JAX engine's forward runs mha_packed for a name it does not know
     if name not in ("xla", kernel):
         raise ValueError(f"unknown attention implementation {name!r}")
     return name
@@ -431,11 +436,14 @@ class InferenceEngine:
             if spec != expected[name]:
                 raise ValueError(f"weight push tensor mismatch for {name!r}: pushed {spec}, engine has {expected[name]}")
 
-    def _should_yield_to_newer(self) -> bool:
-        """Mid-transfer supersede policy: yield to a newer queued push at
-        most once in a row, then finish."""
+    def _should_yield_to_newer(self, version: int) -> bool:
+        """Mid-transfer supersede policy: yield to a queued push of a newer
+        version at most once in a row, then finish. Two bodies read at once
+        can queue out of order, and a newer push that yielded to an older
+        one would never land."""
         with self._params_lock:
-            if self._transfer_pending is None or self._push_yields >= 1:
+            pending = self._transfer_pending
+            if pending is None or pending[-1] <= version or self._push_yields >= 1:
                 return False
             self._push_yields += 1
             self._pushes_superseded += 1
@@ -466,23 +474,27 @@ class InferenceEngine:
             self._push_interval_ema = dt if self._push_interval_ema is None else 0.7 * self._push_interval_ema + 0.3 * dt
         self._push_arrival_prev = now
         with self._params_lock:
-            self._transfer_pending = job
+            # the newest version waits (a job's version is its last field)
+            if self._transfer_pending is None or self._transfer_pending[-1] <= job[-1]:
+                self._transfer_pending = job
         if self._transfer_thread is None or not self._transfer_thread.is_alive():
             self._transfer_thread = threading.Thread(target=self._transfer_loop, daemon=True, name="weight-transfer")
             self._transfer_thread.start()
         self._transfer_event.set()
 
     def _transfer_loop(self) -> None:
-        """Stage pushes on the device off the engine thread, the latest push
-        winning, and publish each complete tree for the engine thread's
-        swap."""
+        """Stage pushes on the device off the engine thread, the newest
+        version winning, and publish each complete tree for the engine
+        thread's swap."""
         while not self._stop.is_set():
             self._transfer_event.wait(timeout=0.1)
             self._transfer_event.clear()
             with self._params_lock:
                 job, self._transfer_pending = self._transfer_pending, None
-            if job is None:
-                continue
+                waiting = self._pending_params
+                newest = self.version if waiting is None else max(self.version, waiting[1])
+            if job is None or job[-1] < newest:
+                continue  # an older push queued behind a newer one that has landed
             try:
                 if job[0] == "blob":
                     self._transfer_blob(*job[1:])
@@ -509,7 +521,7 @@ class InferenceEngine:
             for t in entries:
                 off = int(t["elem_offset"]) - lo
                 staged[t["name"]] = run[off : off + entry_count(t)].view(t["shape"])
-            if self._should_yield_to_newer():
+            if self._should_yield_to_newer(version):
                 return  # the newer push wins (one yield in a row)
         self._publish(unflatten_params(staged), version, t0, nbytes, "blob")
 

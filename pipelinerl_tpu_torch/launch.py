@@ -149,6 +149,11 @@ def validate_config(cfg: Config) -> None:
         problems.append(f"unknown launch_mode {mode!r}: the port runs inline and processes")
     if cfg.select("debug.mode") or int(cfg.get("eval_every_n_versions", 0) or 0):
         problems.append("debug.mode and eval interleaving are not ported yet")
+    for key in ("memory_debug", "profile"):
+        node = cfg.select(f"finetune.{key}")
+        if node and node.get("enabled", False):
+            problems.append(f"finetune.{key}.enabled: the memory debugger and step profiler are not ported yet "
+                            "(ROADMAP Queue 1, item 11)")
     seq_length = int(cfg.finetune.seq_length)
     engine_max = int(cfg.select("engine.max_len", 0) or 0)
     if engine_max > seq_length:

@@ -237,7 +237,7 @@ def forward(
     segment_ids: torch.Tensor,  # [B, L]
     return_kv: bool = False,
     remat: bool | str = False,  # True: per layer; "mlp": the MLP only
-    attn_impl: str = "xla",  # "xla" (plain torch) | "gqa" | "flash" (CUDA kernels)
+    attn_impl: str = "xla",  # "xla" (plain torch) | "gqa" | "flash" | "blockwise" (CUDA kernels)
     skip_unembed: bool = False,
     return_hidden: bool = False,
 ):
@@ -251,7 +251,9 @@ def forward(
     attention residuals stay). ``skip_unembed`` returns the final-norm'd
     hidden [B, L, D] in the logits slot instead: prefill callers need one
     position's logits only, and the chunked loss unembeds by pieces."""
-    if attn_impl == "gqa":
+    if attn_impl in ("gqa", "blockwise"):
+        # JAX's blockwise attention computes kernel #2's function
+        # (pipelinerl_tpu/ops/gqa_attention.py:19); the port routes it there
         from ..ops.gqa_attention import mha_packed_gqa_simple as attn_fn
     elif attn_impl == "flash":
         from ..ops.flash_attention import mha_packed_flash as attn_fn

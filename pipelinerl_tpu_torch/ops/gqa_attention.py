@@ -247,6 +247,47 @@ def mha_packed_gqa_bwd_plain(
     return _bwd_plain(q, k, v, q_segment_ids, kv_segment_ids, q_offset, scale, lse, _delta(out, do, k.shape[2]), do)
 
 
+def _query_blocks(Lq: int, Lkv: int, q_offset: int, block: int):
+    """(first query, end query, keys it can see) of each block of ``block``
+    queries: keys past a block's last query are masked for all of it."""
+    for i in range(0, Lq, block):
+        j = min(Lq, i + block)
+        yield i, j, min(Lkv, q_offset + j)
+
+
+def mha_packed_gqa_plain_blocked(q, k, v, q_segment_ids, kv_segment_ids, q_offset: int = 0,
+                                 scale: float | None = None, block: int = 2048) -> tuple[torch.Tensor, torch.Tensor]:
+    """``mha_packed_gqa_plain`` by blocks of ``block`` queries, each against
+    the keys it can see: the same function with the fp32 scores of one block
+    live at a time, for rows whose whole score matrix would not fit (L 32,768
+    at 14 heads is 60 GB)."""
+    outs, lses = [], []
+    for i, j, e in _query_blocks(q.shape[1], k.shape[1], q_offset, block):
+        out, lse = mha_packed_gqa_plain(q[:, i:j], k[:, :e], v[:, :e], q_segment_ids[:, i:j],
+                                        kv_segment_ids[:, :e], q_offset + i, scale)
+        outs.append(out)
+        lses.append(lse)
+    return torch.cat(outs, 1), torch.cat(lses, 1)
+
+
+def mha_packed_gqa_bwd_plain_blocked(q, k, v, q_segment_ids, kv_segment_ids, q_offset: int, scale: float, out, lse,
+                                     do, block: int = 2048) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``mha_packed_gqa_bwd_plain`` by blocks of ``block`` queries: dq of
+    each block whole, dk and dv summed over the blocks in fp32 and rounded
+    once at the end."""
+    delta = _delta(out, do, k.shape[2])
+    dqs = []
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    for i, j, e in _query_blocks(q.shape[1], k.shape[1], q_offset, block):
+        dq_b, dk_b, dv_b = _bwd_plain(q[:, i:j], k[:, :e], v[:, :e], q_segment_ids[:, i:j], kv_segment_ids[:, :e],
+                                      q_offset + i, scale, lse[:, i:j], delta[:, i:j], do[:, i:j], partial=True)
+        dqs.append(dq_b)
+        dk[:, :e] += dk_b
+        dv[:, :e] += dv_b
+    return torch.cat(dqs, 1), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def _delta(out: torch.Tensor, do: torch.Tensor, K: int) -> torch.Tensor:
     """rowsum(dO * O) in fp32, [B, Lq, K, G] (an einsum outside the kernels
     in the JAX package too)."""
@@ -254,10 +295,11 @@ def _delta(out: torch.Tensor, do: torch.Tensor, K: int) -> torch.Tensor:
     return (do.float() * out.float()).sum(-1).reshape(B, Lq, K, H // K)
 
 
-def _bwd_plain(q, k, v, q_segment_ids, kv_segment_ids, q_offset, scale, lse, delta, do):
+def _bwd_plain(q, k, v, q_segment_ids, kv_segment_ids, q_offset, scale, lse, delta, do, partial=False):
     """P recomputed as exp(s - lse) where the mask holds, dS = P (dP -
     delta); P rounded to dO's dtype for dV, dS to q's dtype for dK and to
-    k's dtype for dQ, as the kernels round."""
+    k's dtype for dQ, as the kernels round. ``partial`` keeps dk and dv in
+    fp32, for a caller that sums them over blocks of queries."""
     B, Lq, H, Dh = q.shape
     K = k.shape[2]
     G = H // K
@@ -273,6 +315,8 @@ def _bwd_plain(q, k, v, q_segment_ids, kv_segment_ids, q_offset, scale, lse, del
     dv = torch.einsum("bkgij,bikgd->bjkd", p.to(do.dtype).float(), do5)
     dk = torch.einsum("bkgij,bikgd->bjkd", ds.to(q.dtype).float(), q5) * scale
     dq = torch.einsum("bkgij,bjkd->bikgd", ds.to(k.dtype).float(), kf) * scale
+    if partial:
+        return dq.reshape(B, Lq, H, Dh).to(q.dtype), dk, dv
     return dq.reshape(B, Lq, H, Dh).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 

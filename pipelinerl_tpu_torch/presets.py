@@ -3,7 +3,8 @@
 Each preset mirrors the JAX package's composed YAML of the same name key for
 key (``conf/base.yaml`` with its group defaults; ``conf/bandit_cpu.yaml``;
 ``conf/bandit_tpu.yaml``; ``conf/counting.yaml``; ``conf/guessing.yaml``;
-``conf/test.yaml``; ``conf/{math,logic,ifeval,fn_calling,multi_domain}.yaml``),
+``conf/test.yaml``;
+``conf/{math,logic,ifeval,fn_calling,multi_domain,tir,coding,miniwob}.yaml``),
 with dotted paths renamed from the JAX package to this one. The hub dataset
 names stay as they are; the port's loaders raise on them. The config groups
 (``conf/finetune/{base,grpo,ppo,actor_critic}.yaml``,
@@ -326,6 +327,63 @@ _MULTI_DOMAIN = {
     "finetune": {"seq_length": 8192, "samples_per_step": 1024, "learning_rate": 1e-6, "attn_impl": "flash"},
 }
 
+_TIR = {
+    "dataset_loader": "pipelinerl_tpu_torch.domains.math.load_datasets",
+    "rollout_policy": "pipelinerl_tpu_torch.domains.tir.rollouts.generate_tir_rollout",
+    "train_dataset_names": ["open_reasoner_zero_57k"],
+    "test_dataset_names": ["aime_2024"],
+    "model_path": "???",
+    "sandbox_url": None,
+    "sandbox_timeout": 30.0,
+    "actor": {
+        "max_turns": 6,
+        "system_prompt": ("Solve the problem step by step. Use the run_python_code tool to compute, and submit your "
+                          "final answer with the MathAnswer tool."),
+    },
+    "python_tool_shaping": {"bonus_on_correct_with_python": 0.1, "penalty_on_incorrect_without_python": 0.1,
+                            "max_abs": 0.2},
+    "length_shaping": {"target_ratio": 0.5, "slope": 0.0, "max_penalty": 0.0, "bonus_on_short_correct": 0.0},
+    "llm": {"parameters": {"max_tokens": 16000}},
+    "engine": {"max_len": 32768, "max_slots": 32, "prefill_buckets": [512, 1024, 2048, 4096, 8192, 16384],
+               "attn_impl": "flash"},
+    # the JAX package trains these rows context-parallel over 8 chips; the
+    # port's trainer refuses a cp axis (ROADMAP Queue 1, item 8)
+    "parallel": {"dp": 1, "cp": 8, "tp": 1},
+    "finetune": {"seq_length": 32768, "samples_per_step": 1024, "attn_impl": "auto", "cp_block_kv": 1024,
+                 "rl": {"policy_loss": "gspo", "divide_advantage_by_std": True}},
+}
+
+_CODING = {
+    "dataset_loader": "pipelinerl_tpu_torch.domains.coding.dataset.load_datasets",
+    "rollout_policy": "pipelinerl_tpu_torch.domains.coding.rollouts.generate_coding_rollout",
+    "train_dataset_names": ["taco", "apps"],
+    "test_dataset_names": ["livecodebench"],
+    "model_path": "???",
+    "sandbox_url": None,
+    "sandbox_timeout": 10.0,
+    "max_tests_per_problem": 5,
+    "actor": {
+        "system_prompt": "",
+        "task_template": ("{task}\n\nWrite your solution in Python. Be concise. Output only the code in a single "
+                          "```python``` block."),
+    },
+    "llm": {"parameters": {"max_tokens": 4096}},
+    "engine": {"max_len": 6144, "max_slots": 64, "prefill_buckets": [256, 512, 1024, 2048], "attn_impl": "flash"},
+    "finetune": {"seq_length": 8192, "samples_per_step": 1024, "learning_rate": 1e-6, "attn_impl": "flash"},
+}
+
+_MINIWOB = {
+    "dataset_loader": "pipelinerl_tpu_torch.domains.miniwob.load_tasks.load_tasks",
+    "train_dataset_names": ["simweb_train"],
+    "test_dataset_names": ["simweb_test"],
+    "environment_class": "pipelinerl_tpu_torch.domains.miniwob.environment_server.WebEnvironmentServer",
+    "actor": {"agent_max_loops": 8, "reward_computation": "nico", "rollout_timeout": 600, "system_prompt": None},
+    "world": {"env_replicas": 2},
+    "llm": {"parameters": {"max_tokens": 512}},
+    "engine": {"max_len": 4096, "max_slots": 32, "prefill_buckets": [512, 1024, 2048], "attn_impl": "flash"},
+    "finetune": {"seq_length": 8192, "samples_per_step": 256, "learning_rate": 1e-6, "attn_impl": "flash"},
+}
+
 # group -> name -> (parent in the group or None, own body)
 _GROUPS = {
     "finetune": {
@@ -355,6 +413,9 @@ _PRESETS = {
     "ifeval": ("base", _IFEVAL),
     "fn_calling": ("base", _FN_CALLING),
     "multi_domain": ("base", _MULTI_DOMAIN),
+    "tir": ("base", _TIR),
+    "coding": ("base", _CODING),
+    "miniwob": ("base", _MINIWOB),
 }
 
 

@@ -1,10 +1,11 @@
 """The finetune loop on one device: stream-fed micro-batches, gradient
-accumulation, AdamW with optax's semantics, weight-version publishing and
-in-flight weight pushes.
+accumulation, AdamW, Lion or Adafactor with optax's semantics,
+weight-version publishing and in-flight weight pushes.
 
 Port of the JAX package's ``train/trainer.py`` ``TrainerLoop`` for one
-device. Left out: the device mesh (dp/cp/tp), VLM rows, and the memory
-debugger and step profiler.
+device. Left out: the device mesh (dp/cp/tp) and VLM rows, which raise, and
+the memory debugger and step profiler, which ``launch.validate_config``
+refuses (``finetune.memory_debug.enabled``, ``finetune.profile.enabled``).
 
 - ``train_pass`` runs forward and backward of one packed micro-batch and
   accumulates into ``.grad``; the loss is pre-normalized by the step's
@@ -45,6 +46,7 @@ from ..types import TrainerBatch
 from ..utils.metrics_logger import MetricsLogger
 from .checkpoints import export_hf, load_training_state, save_training_state
 from .lora import init_lora_params, lora_config_from, merge_lora
+from .optimizers import Adafactor, Lion
 from .rl_loss import RLLossConfig, rl_loss
 
 logger = logging.getLogger(__name__)
@@ -105,36 +107,44 @@ def lr_lambda(cfg: Config) -> Callable[[int], float]:
 
 
 def make_optimizer(cfg: Config, params: dict):
-    """→ (optimizer, LambdaLR). AdamW as optax's ``adamw`` with its decay
-    mask: decay only tensors with ``ndim >= 2`` (on the stacked ``[L, ...]``
-    layout that includes the norms and biases, as in the JAX package).
+    """→ (optimizer, LambdaLR), each as the JAX package's ``make_optimizer``
+    builds it with optax. AdamW and Lion take optax's decay mask: decay only
+    tensors with ``ndim >= 2`` (on the stacked ``[L, ...]`` layout that
+    includes the norms and biases, as in the JAX package).
     ``torch.optim.AdamW`` decays ``p`` by ``lr * wd`` before the Adam step,
-    which is optax's ``-lr * (adam + wd * p)`` on the same pre-update
-    ``p``."""
+    which is optax's ``-lr * (adam + wd * p)`` on the same pre-update ``p``.
+    Adafactor takes no weight decay, as ``optax.adafactor(schedule)``."""
     name = cfg.finetune.get("optim", "adamw")
-    if name in ("lion", "adafactor"):
-        raise NotImplementedError(f"optim={name!r} is not ported yet (ROADMAP Queue 1, item 7); the port has adamw")
-    if name not in ("adamw", "adamw_torch"):
+    if name not in ("adamw", "adamw_torch", "lion", "adafactor"):
         raise ValueError(f"Unknown optimizer {name!r}")
     lr = float(cfg.finetune.learning_rate)
     wd = float(cfg.finetune.get("weight_decay", 0.0))
     leaves = [p for _, p in param_leaves(params)]
-    groups = [
-        {"params": [p for p in leaves if p.ndim >= 2], "weight_decay": wd},
-        {"params": [p for p in leaves if p.ndim < 2], "weight_decay": 0.0},
-    ]
-    optimizer = torch.optim.AdamW([g for g in groups if g["params"]], lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    if name == "adafactor":
+        optimizer = Adafactor(leaves, lr=lr)
+    else:
+        groups = [
+            {"params": [p for p in leaves if p.ndim >= 2], "weight_decay": wd},
+            {"params": [p for p in leaves if p.ndim < 2], "weight_decay": 0.0},
+        ]
+        groups = [g for g in groups if g["params"]]
+        if name == "lion":
+            optimizer = Lion(groups, lr=lr)
+        else:
+            optimizer = torch.optim.AdamW(groups, lr=lr, betas=(0.9, 0.999), eps=1e-8)
     return optimizer, torch.optim.lr_scheduler.LambdaLR(optimizer, lr_lambda(cfg))
 
 
 def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float | None) -> torch.Tensor:
-    """The pre-clip global norm (fp32), and ``g / norm * max_norm`` in place
-    when ``norm >= max_norm``, as optax's ``clip_by_global_norm`` (no eps,
-    unlike ``clip_grad_norm_``)."""
-    norm = torch.sqrt(sum(g.float().pow(2).sum() for g in grads))
-    if max_norm is not None and norm.item() >= max_norm:
+    """The pre-clip global norm, and ``g / norm * max_norm`` in place when
+    ``norm >= max_norm``, as optax's ``global_norm`` and
+    ``clip_by_global_norm`` compute them: each tensor's sum of squares in
+    its own dtype, summed and rooted in that dtype, and the threshold
+    rounded to it (no eps, unlike ``clip_grad_norm_``)."""
+    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    if max_norm is not None and bool(norm >= torch.tensor(max_norm, dtype=norm.dtype, device=norm.device)):
         for g in grads:
-            g.div_(norm.to(g.dtype)).mul_(max_norm)
+            g.div_(norm.to(g.dtype)).mul_(torch.tensor(max_norm, dtype=g.dtype, device=g.device))
     return norm
 
 
@@ -152,10 +162,14 @@ def batch_to_tensors(batch: TrainerBatch, device) -> dict[str, torch.Tensor]:
 
 def resolve_attn_impl(name: str, seq_length: int, device: torch.device) -> str:
     """``"auto"``: the GQA kernels on CUDA at ``seq_length >= 2048``, the
-    plain attention below that or on the CPU."""
-    if name != "auto":
-        return name
-    return "gqa" if device.type == "cuda" and seq_length >= 2048 else "xla"
+    plain attention below that or on the CPU. ``"cp"`` without a cp axis
+    (the trainer mesh refuses one) runs ``"xla"``, as the JAX trainer does;
+    ``"blockwise"`` goes to the GQA kernels, which compute its function."""
+    if name == "auto":
+        return "gqa" if device.type == "cuda" and seq_length >= 2048 else "xla"
+    if name == "cp":
+        return "xla"
+    return name
 
 
 class TrainerLoop:

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Any
+from typing import Any, Sequence
 
 import numpy as np
 
@@ -65,6 +65,11 @@ class RolloutResult:
     dataset_name: str | None = None
     group_id: str | None = None
     domain: str | None = None
+
+
+def rollout_has_overflow(training_texts: Sequence[TrainingText]) -> bool:
+    """Whether a rollout's turn stopped on the token budget, not at EOS."""
+    return any(not t.finished for t in training_texts)
 
 
 # Per-token float columns carried alongside input_ids through packing

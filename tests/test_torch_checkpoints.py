@@ -4,6 +4,7 @@ one bit for bit at fp32; an absent state or a left-over ``~tmp`` directory
 is harmless; ``export_hf`` writes the bytes the JAX package's ``export_hf``
 writes for the same weights, and the JAX loader reads the port's export."""
 
+import dataclasses
 import json
 
 import jax
@@ -44,12 +45,17 @@ def batch(seed: int, L: int = 64) -> TrainerBatch:
     return TrainerBatch.from_msg(pack_samples(samples, L, EOS).to_msg())
 
 
+# wide enough that Adafactor factors the embedding and the stacked MLP
+WIDE = dataclasses.replace(MODEL, hidden_size=128, intermediate_size=160)
+
+
 def loop(exp_path, *overrides, value_head=False) -> TrainerLoop:
     cfg = compose("bandit_cpu", ["output_dir=/unused", "finetune.num_warmup_steps=2", *overrides])
-    params = tt.init_params(torch.Generator().manual_seed(0), MODEL, "cpu")
+    model = WIDE if "finetune.optim=adafactor" in overrides else MODEL
+    params = tt.init_params(torch.Generator().manual_seed(0), model, "cpu")
     if value_head:
-        params["value_head"] = tt.init_value_head(torch.Generator().manual_seed(1), MODEL, "cpu")
-    return TrainerLoop(cfg, params, MODEL, str(exp_path))
+        params["value_head"] = tt.init_value_head(torch.Generator().manual_seed(1), model, "cpu")
+    return TrainerLoop(cfg, params, model, str(exp_path))
 
 
 def step(trainer: TrainerLoop, seed: int) -> None:
@@ -63,12 +69,14 @@ def optimizer_tensors(trainer: TrainerLoop) -> list[torch.Tensor]:
 
 @pytest.mark.parametrize("overrides", [
     (), ("+finetune.lora.enabled=true", "+finetune.lora.r=4", '+finetune.lora.target_modules=["wq","wv","wup"]'),
-], ids=["full", "lora"])
+    ("finetune.optim=lion",), ("finetune.optim=adafactor",),
+], ids=["full", "lora", "lion", "adafactor"])
 def test_resumed_run_equals_uninterrupted_bit_for_bit(tmp_path, overrides):
     """Two steps, save, a new TrainerLoop that resumes, one more step:
-    params, Adam moments and step counts, the scheduler's lr and the
-    metrics equal three uninterrupted steps exactly (warmup 2, so the lr
-    schedule crosses its corner across the save)."""
+    params, the optimizer's state and step counts (Adam's moments, Lion's
+    mu, Adafactor's factored and full second moments), the scheduler's lr
+    and the metrics equal three uninterrupted steps exactly (warmup 2, so
+    the lr schedule crosses its corner across the save)."""
     straight = loop(tmp_path / "straight", *overrides)
     for seed in (1, 2, 3):
         step(straight, seed)
@@ -91,6 +99,8 @@ def test_resumed_run_equals_uninterrupted_bit_for_bit(tmp_path, overrides):
         assert torch.equal(p, q), name
     for a, b in zip(optimizer_tensors(second), optimizer_tensors(straight), strict=True):
         assert torch.equal(a, b)
+    if "finetune.optim=adafactor" in overrides:
+        assert any("v_row" in s for s in second.optimizer.state_dict()["state"].values())
     assert second.scheduler.state_dict() == straight.scheduler.state_dict()
 
 

@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import scattered_table
+from chip_smoke import OUT_ROW_RTOL, row_rel_err, scattered_table
 from pipelinerl_tpu_torch.models.transformer import extend_segments
 from pipelinerl_tpu_torch.ops import decode_attention as dattn
 from pipelinerl_tpu_torch.ops import gqa_attention as gattn
@@ -593,3 +593,52 @@ def test_safetensors_round_trip_onto_the_card(cuda, tmp_path):
         assert loaded[key].is_cuda and torch.equal(loaded[key], params[key])
     for name, w in params["layers"].items():
         assert torch.equal(loaded["layers"][name], w), name
+
+
+def test_gqa_kernels_match_the_blocked_plain_versions_on_a_long_row(cuda):
+    """#2-#4 on an L 8,192 row (three segments and a long causal tail, as a
+    padded packed row is) against the plain forward and backward by blocks
+    of 1,024 queries, which is how the card checks the L 32,768 row."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    L, H, K, Dh = 8192, 14, 2, 64
+    q, k, v, do = _bf16(gen, 1, L, H, Dh), _bf16(gen, 1, L, K, Dh), _bf16(gen, 1, L, K, Dh), _bf16(gen, 1, L, H, Dh)
+    seg = torch.repeat_interleave(torch.arange(4, dtype=torch.int32, device=cuda),
+                                  torch.tensor([700, 1300, 500, L - 2500], device=cuda))[None].contiguous()
+    out, lse = gattn.mha_packed_gqa(q, k, v, seg, seg, 0)
+    ref_out, ref_lse = gattn.mha_packed_gqa_plain_blocked(q, k, v, seg, seg, 0, block=1024)
+    assert (out.float() - ref_out.float()).abs().max().item() <= GQA_OUT_ATOL
+    # the long segment's outputs are about sqrt(e / 5,692) = 0.02, the size
+    # of the absolute limit: each token's row is also held relative to its size
+    assert row_rel_err(out, ref_out, 2) <= OUT_ROW_RTOL
+    assert (lse - ref_lse).abs().max().item() <= GQA_LSE_ATOL
+    grads = gattn.mha_packed_gqa_bwd(q, k, v, seg, seg, 0, Dh**-0.5, out, lse, do)
+    refs = gattn.mha_packed_gqa_bwd_plain_blocked(q, k, v, seg, seg, 0, Dh**-0.5, out, lse, do, block=1024)
+    for g, r in zip(grads, refs):
+        # bf16 outputs, P and dS rounded to bf16 where fp32 sums run in
+        # another order: 1e-2 of the largest reference value
+        assert (g.float() - r.float()).abs().max().item() <= 1e-2 * max(1.0, r.float().abs().max().item())
+
+
+@pytest.mark.parametrize("optim", ["lion", "adafactor"])
+def test_lion_and_adafactor_on_the_card_match_the_cpu(cuda, optim):
+    """Three bf16 steps on a stacked layout that Adafactor factors: the
+    card's params and state equal the CPU's within one bf16 rounding (the
+    card's reductions sum in another order)."""
+    from pipelinerl_tpu_torch.train.optimizers import Adafactor, Lion
+
+    gen = torch.Generator().manual_seed(3)
+    shapes = [(2, 132, 192), (2, 132), (160, 132), (132,)]
+    init = [torch.randn(s, generator=gen).bfloat16() for s in shapes]
+    grads = [[(torch.randn(s, generator=gen) * 0.01).bfloat16() for s in shapes] for _ in range(3)]
+    runs = []
+    for dev in ("cpu", cuda):
+        params = [p.clone().to(dev) for p in init]
+        opt = Lion(params, lr=1e-2, weight_decay=0.1) if optim == "lion" else Adafactor(params, lr=1e-2)
+        for step_grads in grads:
+            for p, g in zip(params, step_grads):
+                p.grad = g.to(dev)
+            opt.step()
+        state = [t.cpu().float() for p in params for t in opt.state[p].values() if t.is_floating_point()]
+        runs.append(([p.cpu().float() for p in params], state))
+    for a, b in zip(runs[0][0] + runs[0][1], runs[1][0] + runs[1][1]):
+        torch.testing.assert_close(b, a, rtol=2**-7, atol=1e-6)

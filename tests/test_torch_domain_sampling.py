@@ -103,11 +103,15 @@ def test_dispatch_reaches_each_domain_as_jax(problem, reply):
 
 
 def test_domains_the_port_lacks_name_their_item():
-    for domain, item in (("tir", 12), ("coding", 12), ("miniwob", 12), ("deep_research", 12), ("chartqa", 10)):
+    for domain, item in (("chartqa", 10), ("vlm_bandit", 10)):
         with pytest.raises(KeyError, match=f"item {item}"):
             t_registry.resolve_domain_rollout(domain)
     with pytest.raises(KeyError, match="No rollout generator"):
         t_registry.resolve_domain_rollout("nope")
+    for domain in ("tir", "coding", "deep_research", "miniwob"):
+        fn = t_registry.resolve_domain_rollout(domain)
+        assert fn.__module__.startswith("pipelinerl_tpu_torch.domains.")
+        assert fn.__name__ == j_registry.resolve_domain_rollout(domain).__name__
 
 
 def _results(types, spec):

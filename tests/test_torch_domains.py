@@ -117,7 +117,8 @@ def test_guessing_rollout_equals_jax(replies, turns, reward):
 # presets whose training sets are hub datasets: their loader raises, naming
 # the files the repository lacks, and the hermetic sets stand in
 HERMETIC = {"math": ["synthetic_arithmetic", "countdown"],
-            "multi_domain": ["math::synthetic_arithmetic", "math::countdown", "guessing::train", "counting::train"]}
+            "multi_domain": ["math::synthetic_arithmetic", "math::countdown", "guessing::train", "counting::train"],
+            "tir": ["synthetic_arithmetic"], "coding": ["synthetic_coding"]}
 
 
 @pytest.mark.parametrize("name", presets.names())

@@ -213,3 +213,21 @@ def test_q_offset_shard_matches_full_in_grads():
     np.testing.assert_allclose(shard[0].grad.numpy(), full[0].grad[:, lo:].numpy(), **BWD_TOL)
     for a, b in zip(shard[1:], full[1:]):
         np.testing.assert_allclose(a.grad.numpy(), b.grad.numpy(), **BWD_TOL)
+
+
+@pytest.mark.parametrize("B,Lq,Lkv,H,K,Dh,n_segs,q_offset,masked_row", BWD_CASES)
+@pytest.mark.parametrize("block", [16, 24])
+def test_blocked_plain_versions_match_pallas(B, Lq, Lkv, H, K, Dh, n_segs, q_offset, masked_row, block):
+    """The plain forward and backward by blocks of queries (how the card
+    checks rows whose whole score matrix would not fit) against the Pallas
+    forward and backward: blocks that divide the row and one that leaves a
+    ragged last block, a q_offset row and a fully masked query row."""
+    q, k, v, q_seg, kv_seg, q_offset, do = bwd_case(B, Lq, Lkv, H, K, Dh, n_segs, q_offset, masked_row, seed=2)
+    t = [torch.from_numpy(x) for x in (q, k, v, q_seg, kv_seg)]
+    out, lse = tgqa.mha_packed_gqa_plain_blocked(*t, q_offset, Dh**-0.5, block=block)
+    j_out, j_lse = jax_fwd(q, k, v, q_seg, kv_seg, q_offset, 16, 32)
+    np.testing.assert_allclose(out.numpy(), j_out, rtol=0, atol=ATOL)
+    np.testing.assert_allclose(lse.numpy(), j_lse, rtol=0, atol=ATOL)
+    grads = tgqa.mha_packed_gqa_bwd_plain_blocked(*t, q_offset, Dh**-0.5, out, lse, torch.from_numpy(do), block=block)
+    for got, ref in zip(grads, jax_grads(q, k, v, q_seg, kv_seg, q_offset, do)):
+        np.testing.assert_allclose(got.numpy(), ref, **BWD_TOL)

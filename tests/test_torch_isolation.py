@@ -63,7 +63,7 @@ def test_port_imports_without_jax_and_chip_smoke_needs_a_card():
     n = int(proc.stdout.split("IMPORTED ")[1].split()[0])
     # every module of the package (serving, paged KV, training, processes
     # mode, the task domains and domain sampling), and chip_smoke
-    assert n >= 73
+    assert n >= 89
     if not torch.cuda.is_available():
         assert "RAISED no CUDA device" in proc.stdout, proc.stdout
         assert '"ok"' not in proc.stdout
@@ -134,3 +134,44 @@ def test_stage_children_import_no_refused_package(tmp_path):
         assert "REFUSED_LOADED []" in out, (stage, out)
         if not STAGES[stage]:  # host-only stages load no model and no kernel
             assert "KERNEL_MODULES []" in out, (stage, out)
+
+
+DOMAINS_CHILD = textwrap.dedent(
+    """
+    import importlib, pkgutil, sys
+
+    REFUSED = ("jax", "jaxlib", "pipelinerl_tpu", "aiohttp", "pydantic", "yaml", "datasets")
+
+    class Refuse:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in REFUSED:
+                raise ImportError(f"the port must not import {name}")
+            return None
+
+    sys.meta_path.insert(0, Refuse())
+    import pipelinerl_tpu_torch.domains as domains
+    names = [m.name for m in pkgutil.walk_packages(domains.__path__, "pipelinerl_tpu_torch.domains.")]
+    for name in names:
+        importlib.import_module(name)
+    heavy = [m for m in sys.modules if m.startswith(("pipelinerl_tpu_torch.ops", "pipelinerl_tpu_torch.models",
+                                                     "pipelinerl_tpu_torch.inference.engine",
+                                                     "pipelinerl_tpu_torch.train"))]
+    print("DOMAINS", sorted(names))
+    print("HEAVY", heavy)
+    """
+)
+
+
+def test_domain_modules_import_no_model_or_kernel():
+    """Every domain module (the actor's host-only code: tir, coding,
+    deep_research and miniwob among them) imports without jax, the JAX
+    package, aiohttp, pydantic, yaml or datasets, and loads no model, no
+    engine, no trainer and no kernel module."""
+    proc = subprocess.run([sys.executable, "-c", DOMAINS_CHILD], cwd=ROOT, capture_output=True, text=True,
+                          timeout=120, env={"PATH": "/usr/bin:/bin", "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1"})
+    assert proc.returncode == 0, proc.stderr
+    for name in ("tir.sandbox", "tir.tool_parser", "tir.rollouts", "coding.verifier", "coding.dataset",
+                 "coding.rollouts", "deep_research.environment", "deep_research.rollouts", "miniwob.simulated_env",
+                 "miniwob.load_tasks", "miniwob.rollouts"):
+        assert f"pipelinerl_tpu_torch.domains.{name}" in proc.stdout, name
+    assert "HEAVY []" in proc.stdout, proc.stdout

@@ -14,8 +14,11 @@ from pipelinerl_tpu_torch.config import compose
 from pipelinerl_tpu_torch.launch import run_inline
 
 REPO = Path(__file__).resolve().parent.parent
-OVERRIDES = ["total_groups=4", "finetune.max_train_steps=1", "finetune.save_checkpoint_steps=0",
-             "actor.publish_stats_every_n_groups=2"]
+# one step of 32 samples is the 4 groups of 8 attempts: the actor stops
+# early once the trainer is done, so a step of 16 (the preset's) let a
+# loaded machine end the run after 2 or 3 groups
+OVERRIDES = ["total_groups=4", "finetune.max_train_steps=1", "finetune.samples_per_step=32",
+             "finetune.save_checkpoint_steps=0", "actor.publish_stats_every_n_groups=2"]
 
 
 def first_message(exp, topic):

@@ -74,11 +74,93 @@ def test_optimizer_matches_optax(case, tmp_path):
             np.testing.assert_allclose(p.detach().numpy(), np.asarray(ref), rtol=0, atol=OPT_ATOL, err_msg=name)
 
 
-def test_lion_and_adafactor_raise(tmp_path):
-    """lion and adafactor are still to port; checkpoints no longer raise."""
-    for name in ("lion", "adafactor"):
-        with pytest.raises(NotImplementedError):
-            ttr.make_optimizer(Config({"finetune": finetune_cfg(optim=name)}), {"w": torch.zeros(2, 2)})
+# a stacked layout whose two largest axes reach 128, so that Adafactor
+# factors: [L, D, F] over axes 1 and 2, [F, L, D] over axes 0 and 2, the
+# embedding over both; [L, D] norms and biases and the 1-D norm keep a full v
+STACKED = {"embed": (160, 132), "final_norm": (132,),
+           "layers": {"wq": (2, 132, 192), "ln1": (2, 132), "bq": (2, 132), "wt": (130, 3, 140)}}
+FACTORED = {"embed": (0, 1), "final_norm": None, "layers.wq": (1, 2), "layers.ln1": None, "layers.bq": None,
+            "layers.wt": (0, 2)}
+# bf16: the same ops in the same dtypes as optax, bit for bit; fp32: the
+# reductions and XLA's pow part by an ulp (the state within rtol 1e-5 and
+# atol 1e-10: lion's mu cancels near 0)
+LION_ADAFACTOR_ATOL = {"bfloat16": 0.0, "float32": 1e-6}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("optim", ["lion", "adafactor"])
+def test_lion_and_adafactor_match_optax(optim, dtype, tmp_path):
+    """Five ``optimizer_step``s of the port's TrainerLoop against the JAX
+    trainer's optax chain (clip_by_global_norm, then ``optax.lion`` with the
+    ndim >= 2 decay mask or ``optax.adafactor``) on the same params and
+    grads, warmup 2, the clip active on some steps: params, the optimizer's
+    state (lion's mu; adafactor's v_row, v_col or v), pre-clip grad norm and
+    lr. Adafactor factors the dimensions optax factors."""
+    ft = finetune_cfg(optim=optim, num_warmup_steps=2, gradient_clipping_threshold=3.5, weight_decay=0.1)
+    rng = np.random.default_rng(1)
+
+    def tree(fn, node=STACKED):
+        return {k: tree(fn, v) if isinstance(v, dict) else fn(v) for k, v in node.items()}
+
+    init = tree(lambda s: rng.normal(size=s).astype(np.float32))
+    # global norms about 2.9 and 4.3 around the threshold of 3.5
+    grads = [tree(lambda s: rng.normal(size=s).astype(np.float32) * scale) for scale in (0.008, 0.012, 0.008, 0.012, 0.012)]
+    jdtype, tdtype = getattr(jnp, dtype), getattr(torch, dtype)
+    opt, schedule = jtr.make_optimizer(JConfig({"finetune": ft}))
+    jparams = jax.tree.map(lambda a: jnp.asarray(a, jdtype), init)
+    state = opt.init(jparams)
+    tparams = jax.tree.map(lambda a: torch.from_numpy(a.copy()).to(tdtype), init)
+    loop = ttr.TrainerLoop(Config({"finetune": ft}), tparams, None, str(tmp_path))
+    leaves = dict(ttr.param_leaves(tparams))
+    clipped = []
+    for step, g in enumerate(grads):
+        jg = jax.tree.map(lambda a: jnp.asarray(a, jdtype), g)
+        j_norm = float(optax.global_norm(jg))
+        clipped.append(j_norm >= 3.5)
+        updates, state = opt.update(jg, state, jparams)
+        jparams = optax.apply_updates(jparams, updates)
+        for (_, p), (_, gt) in zip(ttr.param_leaves(tparams), ttr.param_leaves(jax.tree.map(torch.from_numpy, g))):
+            p.grad = gt.to(tdtype)
+        loop._has_grads = True
+        loop.optimizer_step()
+        assert loop.metrics.grad_norm == pytest.approx(j_norm, rel=1e-6)
+        assert loop.metrics.lr == pytest.approx(float(schedule(step)), rel=1e-6, abs=1e-12)
+        atol = LION_ADAFACTOR_ATOL[dtype]
+        for (name, p), (_, ref) in zip(ttr.param_leaves(tparams), ttr.param_leaves(jparams)):
+            assert p.dtype == tdtype
+            np.testing.assert_allclose(p.detach().float().numpy(), np.asarray(ref.astype(jnp.float32)), rtol=0,
+                                       atol=atol, err_msg=name)
+        inner = state[1][0]  # (clip state, (the optimizer's first transform, ...))
+        keys = {"lion": ("mu",), "adafactor": ("v_row", "v_col", "v")}[optim]
+        for key in keys:
+            for name, ref in ttr.param_leaves(getattr(inner, key)):
+                ours = loop.optimizer.state[leaves[name]]
+                if key not in ours:  # optax keeps a (1,) placeholder where it does not use the slot
+                    assert ref.shape == (1,), (name, key)
+                    continue
+                assert ours[key].dtype == tdtype
+                np.testing.assert_allclose(ours[key].float().numpy(), np.asarray(ref.astype(jnp.float32)),
+                                           rtol=1e-5 if atol else 0, atol=1e-10 if atol else 0, err_msg=f"{name} {key}")
+    assert any(clipped) and not all(clipped)
+    if optim == "adafactor":
+        for name, p in leaves.items():
+            assert ("v_row" in loop.optimizer.state[p]) == (FACTORED[name] is not None), name
+
+
+@pytest.mark.parametrize("shape", [(4,), (2, 4), (2, 132, 192), (130, 3, 140), (3, 127, 500), (24, 896, 4864),
+                                   (24, 4864, 896), (151936, 896), (128, 128), (5, 128, 128, 2)])
+def test_factored_dims_equal_optax(shape):
+    """The axes Adafactor factors over, against optax's ``_factored_dims``
+    (the two largest of the whole stacked tensor, where the second largest
+    reaches 128)."""
+    from optax._src.factorized import _factored_dims
+
+    from pipelinerl_tpu_torch.train.optimizers import factored_dims
+
+    assert factored_dims(shape) == _factored_dims(shape, True, 128)
+
+
+def test_checkpoint_settings(tmp_path):
     loop = ttr.TrainerLoop(Config({"finetune": finetune_cfg(save_checkpoint_steps=10)}), {"w": torch.zeros(2)},
                            None, str(tmp_path))
     assert loop.save_checkpoint_steps == 10 and loop.checkpoint_dir == tmp_path / "finetune"

@@ -237,6 +237,47 @@ def test_sustained_supersede_still_completes():
     engine.stop()
 
 
+@pytest.mark.parametrize("order", [(5, 4), (3, 5, 4)])
+def test_a_push_queued_out_of_version_order_does_not_displace_a_newer_one(order):
+    """Two bodies read at once can reach the engine out of version order (a
+    server reads them on two threads). The newest version lands and stays:
+    one in flight does not yield to an older one queued behind it, and an
+    older one does not replace a newer one waiting in the queue."""
+    engine = slowed(port_engine(to_torch(numpy_tree(0, "float32"))), 0.05)
+    pushed = dict(zip(order, bodies(order)))
+    engine.start()
+    for body in pushed.values():
+        engine.update_params_serialized(body)
+        time.sleep(0.01)
+    deadline = time.monotonic() + 30
+    while engine.version < 5 and time.monotonic() < deadline:
+        time.sleep(0.01)
+    time.sleep(0.3)  # an older staged tree, if any, has had its chance to land
+    assert engine.version == 5
+    assert_same_bits(engine.params, twt.deserialize_params(pushed[5])[0])
+    engine.stop()
+
+
+@pytest.mark.parametrize("order", [(5, 4), (3, 5, 4)])
+def test_an_older_push_queued_behind_a_newer_one_is_never_staged(order):
+    """A push older than one that has landed is dropped before its
+    transfer: staging it would copy a whole tree only to drop it at the
+    swap, while the newer tree waits beside it on the device."""
+    engine = slowed(port_engine(to_torch(numpy_tree(0, "float32"))), 0.05)
+    staged, blob = [], engine._transfer_blob
+    engine._transfer_blob = lambda *a: (staged.append(a[-1]), blob(*a))
+    engine.start()
+    for body in bodies(order):
+        engine.update_params_serialized(body)
+        time.sleep(0.01)
+    deadline = time.monotonic() + 30
+    while engine.version < 5 and time.monotonic() < deadline:
+        time.sleep(0.01)
+    time.sleep(0.3)  # the older push, if it were staged, has been taken by now
+    assert engine.version == 5 and 4 not in staged, staged
+    engine.stop()
+
+
 def test_push_over_budget_raises():
     """The streamed push is not ported: over the budget both paths raise
     and name the ROADMAP item, and nothing is enqueued."""
