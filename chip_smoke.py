@@ -147,7 +147,15 @@ Phases, each of which stops the script on failure:
    simulated env in process (every reward ``compute_reward``'s under
    ``nico``, no episode past ``agent_max_loops``), one step each;
 23. deep_research through the ``base`` preset with the research policy and
-   loader: one step, every reward from the domain's set.
+   loader: one step, every reward from the domain's set;
+24. the ``logic`` preset in processes mode at its own widths over two local
+   host names (``world.hosts`` [127.0.0.1, localhost]): the stream hub
+   carries every topic, two ``LogicEnvironment`` jobs grade every rollout
+   over RPC, and an eval of 8 test problems runs after each version; three
+   steps of 64 samples of 128 new tokens. Gates: exit 0 and no child left,
+   the engine on the trainer's last version, each verifier's request log,
+   the hub's ``.scf`` mirror read back with the counts the stages report, a
+   ``stats_test`` snapshot for each eval, kernels #1-#4 in the device job.
 Then one JSON line of kernel numbers, and last the result line.
 
 ``python3 chip_smoke.py --http-load URL N TOKENS OUT`` and
@@ -204,6 +212,7 @@ from pipelinerl_tpu_torch.ops import gqa_attention as gattn
 from pipelinerl_tpu_torch.ops import paged_attention as pattn
 from pipelinerl_tpu_torch.inference.block_pool import BlockPool
 from pipelinerl_tpu_torch.streams import SingleStreamSpec, StreamReader, StreamWriter
+from pipelinerl_tpu_torch.streams_binary import FrameReader
 from pipelinerl_tpu_torch.train.checkpoints import CURRENT_DIR, export_hf
 from pipelinerl_tpu_torch.train.lora import merge_lora
 from pipelinerl_tpu_torch.train.trainer import TrainerLoop, param_leaves
@@ -2466,7 +2475,7 @@ def time_slab(dev, kernels: list[dict], name: str, engine: tuple, live: tuple[in
         kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], err)
         del args, out, ref
     record = _time_decode(gen, S, H, K, Dh, T, W, lens["live"], dev)
-    record["full_length"] = _time_decode(gen, S, H, K, Dh, T, W, lens["full"], dev, library=False)
+    record["full_length"] = _time_decode(gen, S, H, K, Dh, T, W, lens["full"], dev)
     fit = -(-(max(lens["live"]) + W) // dattn.SPLIT_ROWS) * dattn.SPLIT_ROWS  # an allocation that just holds them
     record["live_in_fitted_alloc"] = _time_decode(gen, S, H, K, Dh, fit, W, lens["live"], dev, library=False)
     spent = record["ms"] - record["live_in_fitted_alloc"]["ms"]
@@ -2809,6 +2818,92 @@ def phase_deep_research(hf_dir: Path, smi: str, tmp: str) -> dict:
     return launches
 
 
+# phase 24: the logic preset in processes mode over two local host names
+# (the stream hub starts, every topic rides it; two verifier servers), with
+# an eval after each version on 8 problems of the synthetic test set. Cut:
+# 128 new tokens for training and eval (from 4,096 and 512), 64 samples a
+# step (from 1,024), 3 steps, and no checkpoint (phase 14 runs the save);
+# max_lag 0 lets the actor run one step ahead of the trainer at most, so the
+# eval after the first step ends before the third step's rollouts start.
+# The loss is the preset's (no entropy bonus)
+LOGIC_PROCESSES_CUTS = {"llm.parameters.max_tokens": 128, "test_llm.parameters.max_tokens": 128,
+                        "finetune.samples_per_step": 64, "finetune.max_train_steps": 3, "max_lag": 0,
+                        "eval_every_n_versions": 1, "test_subset": 8, "world.env_replicas": 2,
+                        "finetune.save_checkpoint_steps": 0}
+LOGIC_HOSTS = "[127.0.0.1,localhost]"
+
+
+def phase_logic_processes(hf_dir: Path, smi: str, tmp: str) -> dict:
+    """Phase 24: the ``logic`` preset through ``python -m
+    pipelinerl_tpu_torch.launch launch_mode=processes`` from the HF
+    directory at its own engine and trainer widths (64 slots of max_len
+    6,144, prefill buckets 256-1,024, L 8,192 rows, flash attention), placed
+    over ``world.hosts`` [127.0.0.1, localhost]: the stream hub, two
+    ``LogicEnvironment`` verifier jobs, the device job, the actor and the
+    preprocessor. Gates: exit 0 and no child left; the trainer's steps done
+    and the engine on its last version; each verifier answered
+    ``/verify_answer`` with 200 (its request log); the hub's ``.scf`` mirror
+    of ``actor``, ``training_data``, ``stats`` and ``stats_test`` read back
+    through the port's frame reader with the counts the hub, the actor and
+    the preprocessor report; a ``stats_test`` snapshot for each eval, the
+    first eval whole; kernels #1-#4 launched in the device job."""
+    out = f"{tmp}/logic_processes"
+    argv = cut_args("logic", LOGIC_PROCESSES_CUTS, hf_dir, out) + [
+        "launch_mode=processes", f"world.hosts={LOGIC_HOSTS}", f"world.engine_start_port={free_port()}",
+        f"world.stream_hub_port={free_port()}", f"world.environment_start_port={free_port()}"]
+    t0 = time.monotonic()
+    try:
+        proc = subprocess.run([sys.executable, "-m", "pipelinerl_tpu_torch.launch", *argv], capture_output=True,
+                              text=True, timeout=600, cwd=Path(__file__).resolve().parent)
+    finally:
+        left = survivors(f"--config-dir={out}/conf")
+        for pid in left:
+            os.kill(pid, signal.SIGKILL)
+    wall = time.monotonic() - t0
+    check(proc.returncode == 0, f"logic in processes mode exited {proc.returncode}: {proc.stderr[-3000:]}")
+    check(not left, f"children outlived the launcher: {left}")
+    jobs = json.loads(proc.stdout.strip().splitlines()[-1])["jobs"]
+    device, actor = jobs["device_0"], jobs["actor_0"]
+    trainer = device["trainer"]
+    check(trainer["completed_steps"] == LOGIC_PROCESSES_CUTS["finetune.max_train_steps"]
+          and device["version"] == trainer["last_broadcasted_version"] > 0,
+          f"trainer {trainer}, the engine ended on {device['version']}")
+    verifier = {name: job["requests"].get("/verify_answer", {}) for name, job in jobs.items()
+                if name.startswith("environment_")}
+    check(len(verifier) == 2 and all(v.get("200", 0) >= 1 and set(v) == {"200"} for v in verifier.values()),
+          f"verifier request logs {verifier}")
+    hub = jobs["stream_hub_0"]["keys"]
+    frames = {}
+    for topic in ("actor", "training_data", "stats", "actor_test", "stats_test"):
+        key = f"{topic}/0/0"
+        frames[topic] = list(FrameReader(Path(out) / "streams_hub" / f"{key}.scf").read_available())
+        check(key in hub and len(frames[topic]) == hub[key]["messages"] > 0,
+              f"{key}: {len(frames[topic])} frames on disk, the hub reports {hub.get(key)}")
+    check(len(frames["actor"]) == actor["actor"]["groups_completed"],
+          f"{len(frames['actor'])} actor frames, the actor wrote {actor['actor']['groups_completed']} groups")
+    packed = sum(b["num_sequences"] for b in frames["training_data"])
+    check(packed == jobs["preprocessor_0"]["published_samples"],
+          f"{packed} samples in training_data frames, the preprocessor published "
+          f"{jobs['preprocessor_0']['published_samples']}")
+    evals = actor["evals"]
+    check(evals and evals[0]["groups"] == LOGIC_PROCESSES_CUTS["test_subset"]
+          and len(frames["stats_test"]) >= len(evals), f"evals {evals}, {len(frames['stats_test'])} stats_test frames")
+    table = RewardTable.from_config(compose("logic", ["output_dir=/tmp/unused"]))
+    allowed = {v for k, v in vars(table).items() if k != "buffer_tokens"}
+    rewards = [s["reward"] for g in frames["actor"] for s in g["samples"]]
+    check(rewards and set(rewards) <= allowed, f"logic rewards off the table: {sorted(set(rewards) - allowed)}")
+    launches = device["kernel_launches"]
+    check(all(launches[k] for k in KERNEL_KEYS), f"logic processes launches {launches}")
+    hub_note = ", ".join(f"{k} {v['messages']} msgs / {v['bytes']} B" for k, v in sorted(hub.items()))
+    log(f"logic preset in processes mode over {LOGIC_HOSTS} (stream hub, 2 verifiers, device job): {wall:.1f} s wall, "
+        f"{trainer['completed_steps']} steps, version {trainer['last_broadcasted_version']} (engine "
+        f"{device['version']}), {actor['actor']['output_tokens']} sampled tokens, "
+        f"{actor['actor']['output_tokens'] / wall:.1f} useful tokens/s; verifier /verify_answer answers {verifier}; "
+        f"hub {hub_note}; evals {evals} with {len(frames['stats_test'])} stats_test snapshots; rewards "
+        f"{sorted(set(rewards))}; launches {launches}, no child left; on {smi}")
+    return launches
+
+
 def phase_processes(exp: str, split: bool, smi: str, overrides: tuple[str, ...] = ()) -> dict:
     """Phase 17: bandit_tpu through ``launch`` in processes mode."""
     layout = ["world.trainer_procs=1"] if split else []
@@ -2912,6 +3007,8 @@ def main() -> None:
         time_tir_shapes(dev, kernels, tir_shapes)
         paths.update(phase_coding_miniwob(hf_dir, info["smi"], tmp))
         paths["deep_research"] = phase_deep_research(hf_dir, info["smi"], tmp)
+        torch.cuda.empty_cache()
+        paths["logic_processes"] = phase_logic_processes(hf_dir, info["smi"], tmp)
     for record, key in zip(kernels, ("decode", "gqa_fwd", "gqa_dq", "gqa_dkv", "paged")):
         record["launches_by_path"] = {path: c[key] for path, c in paths.items()}
         record["launches"] = sum(record["launches_by_path"].values())

@@ -2,10 +2,12 @@
 control, stamps samples with weight versions, publishes stats.
 
 Port of the JAX package's ``actor.py`` (``ActorLoop``, ``ActorStats``) as
-the same single-process asyncio scheduler, for training rollouts, with
-domain-weighted sampling (``domain_mix``) and the difficulty-aware length
-penalty. Left out: the eval loop (``is_training=False``) of eval
-interleaving.
+the same single-process asyncio scheduler, with domain-weighted sampling
+(``domain_mix``) and the difficulty-aware length penalty for training
+rollouts, and the eval loop (``is_training=False``: ``test_attempts``
+rollouts a problem on the ``actor_test`` and ``stats_test`` topics, a
+snapshot at its end) that eval interleaving runs while
+``is_scheduling_paused`` holds the training loop's submissions.
 
 - each problem spawns a group of ``attempts`` rollouts, written to the
   ``actor`` stream when complete, shuffled;
@@ -14,12 +16,18 @@ interleaving.
   is ``ceil(max_lag / attempts) + ceil(update_size / attempts) +
   version // attempts``;
 - samples carry the version the engine generated them under; an aborted or
-  empty completion is retried, and a group that stays so is dropped.
+  empty completion is retried, and a group that stays so is dropped;
+- where ``cfg.environment`` names environment servers, one client session
+  (``utils/http_json.JsonSession``) lives as long as ``run`` and every
+  rollout gets it, so the domains reach their servers. (The JAX package
+  hands every rollout ``None``, and its domains then never reach the
+  servers its launcher starts.)
 """
 
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import json
 import logging
 import math
@@ -32,12 +40,15 @@ from typing import Any, Callable, Sequence
 from .config import Config
 from .domain_sampling import DomainWeightedSampler
 from .domains.math.rollouts import length_penalty
+from .domains.registry import resolve
+from .domains.servers import environment_servers
 from .inference.client import BaseLLM
 from .state import TrainerState
 from .streams import SingleStreamSpec, StreamWriter
 from .train.advantages import training_text_to_sample
 from .types import RolloutResult
 from .utils import SlidingWindowAggregator, always_or_never_success_stats, calculate_stats
+from .utils.http_json import JsonSession
 
 logger = logging.getLogger(__name__)
 
@@ -123,6 +134,7 @@ class ActorLoop:
         trainer_state: TrainerState,
         exp_path: str,
         rollout_policy: Callable,
+        is_training: bool = True,
     ):
         self.cfg = cfg
         self.llms = list(llms)
@@ -130,20 +142,25 @@ class ActorLoop:
         self.trainer_state = trainer_state
         self.exp_path = exp_path
         self.rollout_policy = rollout_policy
-        self.attempts = int(cfg.attempts)
+        self.is_training = is_training
+        self.attempts = int(cfg.attempts) if is_training else int(cfg.get("test_attempts", 1))
         self.stats = ActorStats()
         self.tokens_window = SlidingWindowAggregator(int(cfg.actor.get("throughput_window_size", 50)))
         self._active_per_llm = [0] * len(self.llms)
         self._rng = random.Random(int(cfg.get("seed", 0)))
-        self.data_spec = SingleStreamSpec(exp_path=exp_path, topic="actor")
-        self.stats_spec = SingleStreamSpec(exp_path=exp_path, topic="stats")
+        # set by eval interleaving: no new training group is submitted
+        self.is_scheduling_paused = False
+        # the environment servers' client session, open during run()
+        self._session: JsonSession | None = None
+        self.data_spec = SingleStreamSpec(exp_path=exp_path, topic="actor" if is_training else "actor_test")
+        self.stats_spec = SingleStreamSpec(exp_path=exp_path, topic="stats" if is_training else "stats_test")
 
     def _lag_budget(self, trained_version: int) -> float:
         """Absolute submit budget in groups at a trainer version (=
         cumulative trained samples): submitted x attempts may run at most
         max_lag plus one update window ahead of training."""
         max_lag = self.cfg.finetune.get("max_lag")
-        if max_lag is None:
+        if not self.is_training or max_lag is None:
             return math.inf
         samples_per_step = int(self.cfg.finetune.samples_per_step)
         update_interval = int(self.cfg.finetune.get("weight_update_interval", 1))
@@ -172,7 +189,7 @@ class ActorLoop:
                 llm_idx = self._pick_llm()
             self._active_per_llm[llm_idx] += 1
             try:
-                result = await self.rollout_policy(self.cfg, self.llms[llm_idx], problem, None)
+                result = await self.rollout_policy(self.cfg, self.llms[llm_idx], problem, self._session)
                 if _has_degenerate_text(result):
                     attempt += 1
                     if max_retries < 0 or attempt <= max_retries:
@@ -218,7 +235,8 @@ class ActorLoop:
         dap = self.cfg.actor.get("difficulty_aware_penalty")
         buffer_tokens = int(self.cfg.get("rewards", Config({})).get("buffer_tokens", 0) or 0)
         max_tokens = self.cfg.llm.parameters.get("max_tokens")
-        if not dap or not dap.get("enabled", False) or buffer_tokens <= 0 or max_tokens is None:
+        if not self.is_training or not dap or not dap.get("enabled", False) or buffer_tokens <= 0 \
+                or max_tokens is None:
             return
         gamma = float(dap.get("gamma", 1.0))
         failure_scale = float(dap.get("failure_scale", 1.0))
@@ -261,11 +279,20 @@ class ActorLoop:
 
     async def run(self, total_groups: int | None = None) -> ActorStats:
         """Schedule groups until ``total_groups`` complete (or the trainer is
-        done), within the lag budget."""
+        done), within the lag budget, with the environment servers' session
+        open where ``cfg.environment`` names servers."""
+        session = JsonSession() if environment_servers(self.cfg) else contextlib.nullcontext()
+        async with session as self._session:
+            try:
+                return await self._run(total_groups)
+            finally:
+                self._session = None
+
+    async def _run(self, total_groups: int | None) -> ActorStats:
         submitted = completed = 0
         domain_mix = self.cfg.get("domain_mix")
         sampler = None
-        if domain_mix:
+        if domain_mix and self.is_training:
             sampler = DomainWeightedSampler(self.problems, dict(domain_mix.items()), rng=self._rng,
                                             adaptive=bool(self.cfg.get("adaptive_domain_sampling", True)))
             problem_iter = iter(self._sampled_stream(sampler, total_groups))
@@ -281,6 +308,7 @@ class ActorLoop:
                 can_submit = self._lag_budget(self.trainer_state.propagated_weight_version or 0)
                 while (
                     not exhausted
+                    and not self.is_scheduling_paused
                     and len(in_flight) < max_parallel
                     and submitted < can_submit
                 ):
@@ -325,6 +353,13 @@ class ActorLoop:
                     for task in in_flight:
                         task.cancel()
                     break
+            # an eval is shorter than publish_every groups: its snapshot goes
+            # out at its end (a training loop's closing snapshot is the
+            # caller's)
+            if not self.is_training:
+                snap = self.stats.snapshot()
+                snap["output_tokens_per_second"] = self.tokens_window.rate_per_sec()
+                stats_writer.write(snap)
         return self.stats
 
     def _sampled_stream(self, sampler: DomainWeightedSampler, total_groups: int | None):
@@ -348,3 +383,56 @@ class ActorLoop:
                 return
             epoch_problems = list(self.problems)
             rng.shuffle(epoch_problems)
+
+
+def load_test_problems(cfg: Config) -> list[dict]:
+    """The eval problems (``test_dataset_names``, cut to ``test_subset``),
+    or none when ``eval_every_n_versions`` is off."""
+    if not int(cfg.get("eval_every_n_versions", 0) or 0):
+        return []
+    problems = resolve(cfg.dataset_loader)(list(cfg.get("test_dataset_names", [])))
+    return problems[: int(cfg.test_subset)] if cfg.get("test_subset") else problems
+
+
+async def run_with_evals(train_loop: ActorLoop, test_llms: Sequence[BaseLLM], test_problems: Sequence[dict],
+                         total_groups: int | None = None, poll_s: float = 0.2) -> tuple[ActorStats, list[dict]]:
+    """Run ``train_loop``; every ``eval_every_n_versions`` weight versions,
+    pause its submissions and run ``test_problems`` on ``test_llms``
+    through an eval ``ActorLoop``. Returns the training loop's stats and,
+    per eval, the version it ran at and the groups and rollouts it
+    completed."""
+    cfg, state = train_loop.cfg, train_loop.trainer_state
+    eval_every = int(cfg.get("eval_every_n_versions", 0) or 0)
+    evals: list[dict] = []
+
+    async def watcher() -> None:
+        last_eval_version = 0
+        while not state.training_done:
+            await asyncio.sleep(poll_s)
+            version = state.propagated_weight_version or 0
+            if version - last_eval_version < eval_every:
+                continue
+            last_eval_version = version
+            train_loop.is_scheduling_paused = True
+            logger.info("Starting eval at version %d", version)
+            eval_loop = ActorLoop(cfg, test_llms, test_problems, state, train_loop.exp_path,
+                                  train_loop.rollout_policy, is_training=False)
+            try:
+                stats = await eval_loop.run(total_groups=len(test_problems))
+            finally:
+                train_loop.is_scheduling_paused = False
+            evals.append({"version": version, "groups": stats.groups_completed,
+                          "rollouts": stats.rollouts_completed})
+            logger.info("Eval at version %d done", version)
+
+    task = asyncio.create_task(watcher()) if eval_every and test_problems else None
+    try:
+        return await train_loop.run(total_groups=total_groups), evals
+    finally:
+        if task is not None:
+            # once training is done an eval under way stops at its next
+            # check and writes its snapshot; otherwise the watcher goes
+            if not state.training_done:
+                task.cancel()
+            with contextlib.suppress(asyncio.CancelledError):
+                await task

@@ -193,10 +193,30 @@ _SPECIAL = {
 }
 
 
+def _split_flow(inner: str) -> list[str]:
+    """The items of a flow collection's body: split at the commas outside
+    nested brackets, braces and quotes."""
+    parts, depth, quote, start = [], 0, None, 0
+    for i, ch in enumerate(inner):
+        if quote:
+            quote = None if ch == quote else quote
+        elif ch in "'\"":
+            quote = ch
+        elif ch in "[{":
+            depth += 1
+        elif ch in "]}":
+            depth -= 1
+        elif ch == "," and depth == 0:
+            parts.append(inner[start:i])
+            start = i + 1
+    return [*parts, inner[start:]]
+
+
 def parse_value(text: str) -> Any:
     """A ``key=value`` override's value, as the JAX CLI's YAML scalars read
     it: JSON numbers, booleans, null, quoted strings and lists; ``[a, b]``
-    flow lists of bare words; anything else a plain string."""
+    flow lists and ``{k: v}`` flow maps of bare words, nested; anything else
+    a plain string."""
     text = text.strip()
     if text in _SPECIAL:
         return _SPECIAL[text]
@@ -206,7 +226,11 @@ def parse_value(text: str) -> Any:
         pass
     if text.startswith("[") and text.endswith("]"):
         inner = text[1:-1].strip()
-        return [parse_value(part) for part in inner.split(",")] if inner else []
+        return [parse_value(part) for part in _split_flow(inner)] if inner else []
+    if text.startswith("{") and text.endswith("}"):
+        inner = text[1:-1].strip()
+        pairs = [part.partition(": ") for part in _split_flow(inner)] if inner else []
+        return {parse_value(k): parse_value(v) if sep else None for k, sep, v in pairs}
     if len(text) >= 2 and text[0] == text[-1] and text[0] in "'\"":
         return text[1:-1]
     try:

@@ -3,16 +3,18 @@
 Port of the JAX package's ``domains/deep_research/environment.py``: the
 corpus and its questions are deterministic from a seed (the same
 ``random.Random`` draws), so problems and documents always agree.
-``ResearchEnvironment``, the JAX package's HTTP wrapper that serves the
-corpus as an environment-server job, waits for ROADMAP Queue 1 item 5;
-``ResearchEnvironment`` here raises, naming it.
+``ResearchEnvironment`` serves the corpus over HTTP as an
+environment-server job, on the stdlib (``utils/http_json.py``).
 """
 
 from __future__ import annotations
 
 import random
 import re
+import threading
 from dataclasses import dataclass, field
+
+from ...utils.http_json import JsonServer
 
 DOMAIN = "deep_research"
 
@@ -128,11 +130,27 @@ def load_problems(dataset_names: list[str], **loader_kwargs) -> list[dict]:
     return problems
 
 
-class ResearchEnvironment:
-    """The corpus as an environment-server job: not ported yet."""
+class ResearchEnvironment(JsonServer):
+    """The corpus as an environment-server job: ``GET /search?q=&seed=`` →
+    ``{results}``, ``GET /read?id=&seed=`` → ``{text}`` (404 for an unknown
+    id), ``GET /health``; one corpus per seed, built on first use."""
 
-    def __init__(self, *args, **kwargs) -> None:
-        raise NotImplementedError(
-            "ResearchEnvironment (the corpus served over HTTP) is not ported yet (ROADMAP Queue 1, item 5); "
-            "the research rollout reads the corpus in process"
-        )
+    def __init__(self) -> None:
+        super().__init__({("GET", "/search"): self.search, ("GET", "/read"): self.read}, name="research-environment")
+        self.corpora: dict[int, ResearchCorpus] = {}
+        self._lock = threading.Lock()
+
+    def _corpus(self, seed: int) -> ResearchCorpus:
+        with self._lock:
+            if seed not in self.corpora:
+                self.corpora[seed] = build_corpus(seed=seed)[0]
+            return self.corpora[seed]
+
+    def search(self, body, query: dict) -> tuple[int, dict]:
+        return 200, {"results": self._corpus(int(query.get("seed", 0))).search(query.get("q", ""))}
+
+    def read(self, body, query: dict) -> tuple[int, dict]:
+        text = self._corpus(int(query.get("seed", 0))).read(query.get("id", ""))
+        if text is None:
+            return 404, {"error": "not found"}
+        return 200, {"text": text}

@@ -2,15 +2,15 @@
 ``<answer>`` actions, one TrainingText per LLM call, and a verified
 final-answer reward less a cost per extra step.
 
-Port of the JAX package's ``domains/deep_research/rollouts.py`` with the
-in-process tools. Where ``cfg.environment`` names research servers (the JAX
-package's ``ResearchEnvironment`` jobs), the rollout raises: those servers
-wait for ROADMAP Queue 1 item 5.
+Port of the JAX package's ``domains/deep_research/rollouts.py``: the tools
+reach ``ResearchEnvironment`` servers where ``cfg.environment`` names them,
+and the in-process corpus otherwise.
 """
 
 from __future__ import annotations
 
 import json
+import random
 import re
 import time
 from dataclasses import dataclass
@@ -18,7 +18,7 @@ from typing import Any
 
 from ...inference.client import BaseLLM, Prompt, llm_async_generate, make_training_text
 from ...types import BaseMetrics, RolloutResult, rollout_has_overflow
-from ..math.rollouts import refuse_environment
+from ..servers import rollout_servers
 from .environment import ResearchCorpus, build_corpus
 
 DOMAIN = "deep_research"
@@ -46,18 +46,30 @@ class ResearchMetrics(BaseMetrics):
 
 
 class _Tools:
-    """search and read over the in-process corpus of ``seed``."""
+    """search and read on a random research server when ``cfg.environment``
+    names servers, else over the in-process corpus of ``seed``."""
 
-    def __init__(self, cfg: Any, seed: int):
-        refuse_environment(cfg, "research environment servers")
+    def __init__(self, cfg: Any, session: Any, seed: int):
+        self.servers = rollout_servers(cfg, session)
+        self.session = session if self.servers else None
         self.seed = seed
-        self.corpus: ResearchCorpus = build_corpus(seed=seed)[0]
+        self.corpus: ResearchCorpus | None = build_corpus(seed=seed)[0] if self.session is None else None
 
     async def search(self, query: str) -> list[dict]:
-        return self.corpus.search(query)
+        if self.session is None:
+            return self.corpus.search(query)
+        host, port = random.choice(self.servers)
+        async with self.session.get(f"http://{host}:{port}/search", params={"q": query, "seed": self.seed}) as r:
+            return (await r.json())["results"]
 
     async def read(self, doc_id: str) -> str | None:
-        return self.corpus.read(doc_id)
+        if self.session is None:
+            return self.corpus.read(doc_id)
+        host, port = random.choice(self.servers)
+        async with self.session.get(f"http://{host}:{port}/read", params={"id": doc_id, "seed": self.seed}) as r:
+            if r.status != 200:
+                return None
+            return (await r.json())["text"]
 
 
 def _normalize(text: str) -> str:
@@ -75,7 +87,7 @@ async def generate_research_rollout(cfg: Any, llm: BaseLLM, problem: dict, sessi
         {"role": "system", "content": system_prompt},
         {"role": "user", "content": task_template.format(task=problem["task"])},
     ]
-    tools = _Tools(cfg, int(problem.get("corpus_seed", 0)))
+    tools = _Tools(cfg, session, int(problem.get("corpus_seed", 0)))
 
     llm_calls = []
     final_answer: str | None = None

@@ -1,6 +1,6 @@
 """Logic-puzzle domain: synthetic puzzle sets and their verifiers, graded in
-process. The JAX package's exports; its verifier server waits for ROADMAP
-Queue 1 item 5."""
+process or by the verifier server (``verifier_api.LogicEnvironment``). The
+JAX package's exports."""
 
 from .dataset import load_problems  # noqa: F401
 from .rollouts import generate_logic_rollout  # noqa: F401

@@ -3,21 +3,24 @@
 Port of the JAX package's ``domains/math/rollouts.py``: the (answer_status
 x finished) reward table, a discount by output length, and the overlong
 penalty inside the last ``buffer_tokens`` of the budget. Verification runs
-in process. A config that names verifier servers (``environment``) raises:
-the environment servers and their RPC wait for ROADMAP Queue 1 item 5.
+over RPC on a verifier server (``verifier_api.py``) when ``cfg.environment``
+names servers (over the actor's session), and in process otherwise.
 """
 
 from __future__ import annotations
 
 import asyncio
 import dataclasses
+import random
 import time
 from dataclasses import dataclass
 from typing import Any
 
 from ...inference.client import BaseLLM, Prompt, llm_async_generate, make_training_text
 from ...types import BaseMetrics, RolloutResult
+from ..servers import rollout_servers
 from .verifier import grade_answer, verify_countdown
+from .verifier_api import verify_answer_rpc
 
 DOMAIN = "math"
 
@@ -64,29 +67,22 @@ def length_penalty(max_length: int, sequence_length: int, buffer_tokens: int) ->
     return 0.0
 
 
-def _environment_servers(cfg: Any) -> list[tuple[str, int]]:
-    """(host, port) of each entry of ``cfg.environment`` that names a port."""
-    env = cfg.get("environment") if hasattr(cfg, "get") else None
-    if not env:
-        return []
-    servers = []
-    for entry in env if isinstance(env, list) else [env]:
-        host = entry.get("hostname", "127.0.0.1") if hasattr(entry, "get") else "127.0.0.1"
-        port = entry.get("port") if hasattr(entry, "get") else None
-        if port:
-            servers.append((host, int(port)))
-    return servers
-
-
-def refuse_environment(cfg: Any, what: str = "verifier servers") -> None:
-    """Raise where the JAX package would reach an environment server over
-    HTTP: ``cfg.environment`` names one (an entry with a port). The
-    environment servers are not ported."""
-    if _environment_servers(cfg):
-        raise NotImplementedError(
-            f"{what} (cfg.environment) are not ported yet (ROADMAP Queue 1, item 5); "
-            "drop environment to run in process"
-        )
+async def _verify(cfg: Any, session: Any, prediction: str, problem: dict) -> str:
+    """The answer status: over RPC on a random verifier server when
+    ``cfg.environment`` names servers, else in process (the same functions
+    either way)."""
+    extra = None
+    if "numbers" in problem and "target" in problem:
+        extra = {"numbers": problem["numbers"], "target": problem["target"]}
+    servers = rollout_servers(cfg, session)
+    if servers:
+        host, port = random.choice(servers)
+        return await verify_answer_rpc(session, host, port, prediction, str(problem.get("answer", "")), extra=extra)
+    loop = asyncio.get_running_loop()
+    if extra is not None:
+        return await loop.run_in_executor(None, verify_countdown, prediction, list(problem["numbers"]),
+                                          int(problem["target"]))
+    return await loop.run_in_executor(None, grade_answer, prediction, str(problem.get("answer", "")))
 
 
 def task_messages(cfg: Any, task: str) -> list[dict]:
@@ -114,18 +110,11 @@ def shaped_reward(cfg: Any, llm: BaseLLM, answer_status: str, finished: bool, ou
 
 
 async def generate_math_rollout(cfg: Any, llm: BaseLLM, problem: dict, session: Any = None) -> RolloutResult:
-    refuse_environment(cfg)
     time_start = time.time()
     llm_call = await llm_async_generate(llm, Prompt(messages=task_messages(cfg, problem["task"])), session)
     latency = time.time() - time_start
 
-    prediction = llm_call.output.content or ""
-    loop = asyncio.get_running_loop()
-    if "numbers" in problem and "target" in problem:
-        answer_status = await loop.run_in_executor(
-            None, verify_countdown, prediction, list(problem["numbers"]), int(problem["target"]))
-    else:
-        answer_status = await loop.run_in_executor(None, grade_answer, prediction, str(problem.get("answer", "")))
+    answer_status = await _verify(cfg, session, llm_call.output.content or "", problem)
 
     trace = make_training_text(llm, llm_call)
     reward, penalty = shaped_reward(cfg, llm, answer_status, trace.finished, llm_call.output_length_tokens)

@@ -1,6 +1,7 @@
 """MiniWoB web-agent domain on the simulated ``simweb.*`` tasks, run in
-process; the environment-server pool (BrowserGym or simulated tasks behind
-HTTP) waits for ROADMAP Queue 1 item 5."""
+process or on a pool of web-environment servers
+(``environment_server.WebEnvironmentServer``) with health checks and
+failover."""
 
 from .load_tasks import load_tasks  # noqa: F401
 from .rollouts import generate_miniwob_rollout  # noqa: F401

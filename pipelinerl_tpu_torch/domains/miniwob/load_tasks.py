@@ -3,8 +3,9 @@
 Port of the JAX package's ``domains/miniwob/load_tasks.py``: the
 ``simweb_train`` and ``simweb_test`` splits of the simulated tasks (test
 seeds from 10,000), and the ``debug`` and ``easy`` splits of real MiniWoB
-task names, which need BrowserGym behind an environment server (ROADMAP
-Queue 1, item 5). ``n_seeds`` seeds per task.
+task names, which need BrowserGym behind an environment server (gated off
+in both packages where BrowserGym is absent, as on the card host).
+``n_seeds`` seeds per task.
 """
 
 from __future__ import annotations

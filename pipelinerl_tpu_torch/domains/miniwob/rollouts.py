@@ -1,17 +1,19 @@
 """MiniWoB rollout: a multi-turn observation → action loop over a web task,
 and the reference's two reward computations.
 
-Port of the JAX package's ``domains/miniwob/rollouts.py`` with the
-simulated environment in process (``_LocalEnv``), which is where the JAX
-package runs it when no environment server is configured. The remote pool
-(``_RemoteEnv``, health checks and failover) waits for ROADMAP Queue 1 item
-5: where ``cfg.environment`` names servers, the rollout raises.
-``_failed_rollout`` is the penalized empty result the pool returns when
-every server fails.
+Port of the JAX package's ``domains/miniwob/rollouts.py``: the episode runs
+on a pool of web-environment servers (``_RemoteEnv`` over
+``environment_server.py``, with health checks and failover) where
+``cfg.environment`` names them, and on the
+simulated environment in process (``_LocalEnv``) otherwise.
+``_failed_rollout`` is the penalized empty result when every server fails.
 """
 
 from __future__ import annotations
 
+import asyncio
+import logging
+import random
 import re
 import time
 from dataclasses import dataclass
@@ -19,8 +21,10 @@ from typing import Any
 
 from ...inference.client import BaseLLM, Prompt, llm_async_generate, make_training_text
 from ...types import BaseMetrics, RolloutResult, rollout_has_overflow
-from ..math.rollouts import refuse_environment
+from ..servers import rollout_servers
 from .simulated_env import SimulatedWebEnv
+
+logger = logging.getLogger(__name__)
 
 DOMAIN = "miniwob"
 
@@ -58,9 +62,71 @@ def compute_reward(raw_reward: float, no_error: bool, n_step_errors: int, n_page
     raise ValueError(f"invalid reward_computation {mode!r}")
 
 
+async def check_env_server_health(session: Any, host: str, port: int) -> bool:
+    try:
+        async with session.get(f"http://{host}:{port}/health", timeout=5) as response:
+            return response.status == 200
+    except Exception:  # noqa: BLE001 - any failure marks the server unhealthy
+        logger.warning("health check failed for %s:%d", host, port, exc_info=True)
+        return False
+
+
 async def generate_miniwob_rollout(cfg: Any, llm: BaseLLM, problem: dict, session: Any = None) -> RolloutResult:
-    refuse_environment(cfg, "web environment servers")
-    return await _run_episode(cfg, llm, problem, session, time.time())
+    """An episode on a web-environment server where ``cfg.environment`` names
+    servers, else on the simulated env in process. Servers are tried in random order, skipping unhealthy ones and
+    bounding each attempt by ``actor.rollout_timeout``; when every server
+    fails, the penalized ``_failed_rollout``."""
+    start_time = time.time()
+    actor_cfg = cfg.actor if hasattr(cfg, "actor") else cfg
+    rollout_timeout = float(actor_cfg.get("rollout_timeout", 600))
+    servers = rollout_servers(cfg, session)
+    if not servers:
+        return await _run_episode(cfg, llm, problem, session, start_time, None)
+    tried: list[tuple[str, int]] = []
+    while len(tried) < len(servers):
+        host, port = random.choice([s for s in servers if s not in tried])
+        tried.append((host, port))
+        if not await check_env_server_health(session, host, port):
+            logger.warning("env server %s:%d unhealthy; rotating", host, port)
+            continue
+        try:
+            return await asyncio.wait_for(_run_episode(cfg, llm, problem, session, start_time, (host, port)),
+                                          timeout=rollout_timeout)
+        except asyncio.TimeoutError:
+            logger.warning("rollout timed out on %s:%d; rotating", host, port)
+        except Exception:  # noqa: BLE001 - the next server may run it
+            logger.warning("rollout failed on %s:%d; rotating", host, port, exc_info=True)
+    logger.error("all %d env servers failed for %s", len(servers), problem.get("task"))
+    return _failed_rollout(problem, start_time)
+
+
+class _RemoteEnv:
+    def __init__(self, session: Any, host: str, port: int):
+        self.session = session
+        self.base = f"http://{host}:{port}"
+        self.sid: str | None = None
+
+    async def start(self, task: str, seed: int) -> str:
+        async with self.session.post(f"{self.base}/start_task", json={"task": task, "seed": seed}) as r:
+            body = await r.json()
+            if r.status != 200:
+                raise RuntimeError(f"start_task failed: {body}")
+            self.sid = body["session_id"]
+            return body["observation"]
+
+    async def step(self, action: str) -> tuple[str, bool, dict]:
+        async with self.session.post(f"{self.base}/step", json={"session_id": self.sid, "action": action}) as r:
+            body = await r.json()
+            if r.status != 200:
+                raise RuntimeError(f"step failed: {body}")
+            return body["observation"], body["done"], body.get("info", {})
+
+    async def close(self) -> None:
+        if self.sid:
+            try:
+                await self.session.post(f"{self.base}/close", json={"session_id": self.sid})
+            except Exception:  # noqa: BLE001 - closing is best effort, as in JAX
+                pass
 
 
 class _LocalEnv:
@@ -78,12 +144,13 @@ class _LocalEnv:
         pass
 
 
-async def _run_episode(cfg: Any, llm: BaseLLM, problem: dict, session: Any, start_time: float) -> RolloutResult:
+async def _run_episode(cfg: Any, llm: BaseLLM, problem: dict, session: Any, start_time: float,
+                       server: tuple[str, int] | None) -> RolloutResult:
     actor_cfg = cfg.actor if hasattr(cfg, "actor") else cfg
     max_loops = int(actor_cfg.get("agent_max_loops", 8))
     reward_mode = str(actor_cfg.get("reward_computation", "nico"))
 
-    env = _LocalEnv()
+    env = _RemoteEnv(session, *server) if server else _LocalEnv()
     observation = await env.start(problem["task"], int(problem.get("seed", 0)))
 
     messages = [

@@ -31,11 +31,13 @@ def load_stage_config(argv: list[str] | None = None) -> Config:
 
 
 def stage_setup(cfg: Config, stage: str) -> str:
-    """Log files under ``<output_dir>/logs/<stage>`` and the file streams;
-    → the experiment directory."""
+    """Log files under ``<output_dir>/logs/<stage>`` and the experiment's
+    stream backend (``tcp`` routes every topic through ``streams.hub``; the
+    hub itself serves and reads none); → the experiment directory."""
     exp_path = str(cfg.output_dir)
     setup_logging(Path(exp_path) / "logs" / stage)
-    set_streams_backend(cfg.select("streams.backend", "files"))
+    if stage != "stream_hub":
+        set_streams_backend(str(cfg.select("streams.backend", "files") or "files"), hub=cfg.select("streams.hub"))
     return exp_path
 
 

@@ -10,6 +10,7 @@ import logging
 from ..inference.http_client import HTTPLLM
 from ..preprocess import Preprocessor
 from ..state import TrainerState
+from ..world import WorldMap
 from .common import build_tokenizer, load_stage_config, stage_setup, write_stats
 
 logger = logging.getLogger(__name__)
@@ -31,8 +32,7 @@ def main(argv: list[str] | None = None) -> None:
 
     preprocessor = Preprocessor(
         cfg, exp_path, trainer_state, eos_token_id=tokenizer.eos_token_id,
-        # one training_data partition per trainer process, or per device job
-        num_trainers=int(cfg.select("world.trainer_procs", 0) or 0) or int(cfg.select("world.replicas", 1)),
+        num_trainers=WorldMap(cfg).num_trainers,
         ref_score_fn=ref_score_fn,
     )
     try:

@@ -12,10 +12,9 @@ is ``{"version", "groups": [{"dtype", "byte_offset", "count"}], "tensors":
 [{"name", "dtype", "shape", "elem_offset"}]}``; groups are sorted by dtype
 name, tensors within a group by path, and each tensor's ``elem_offset``
 indexes its group's typed run. ``bfloat16`` is named as ``ml_dtypes`` names
-it. The card host has no ``msgpack``, so the header goes through the small
-codec below, which covers what a header holds (maps, arrays, strings,
-integers, with msgpack's smallest encodings) and writes what
-``msgpack.packb`` writes.
+it. The card host has no ``msgpack``, so the header goes through the port's
+own codec (``utils/msgpack_codec.py``), which writes what ``msgpack.packb``
+writes.
 
 Left out: ``gather_for_push`` and ``parallel_device_put`` serve trainer
 meshes and TPU sub-streams; they wait for ROADMAP Queue 1 item 8.
@@ -34,6 +33,8 @@ from typing import Any, Iterable
 
 import numpy as np
 import torch
+
+from ..utils.msgpack_codec import packb, unpackb
 
 logger = logging.getLogger(__name__)
 
@@ -56,141 +57,6 @@ def dtype_name(dtype: torch.dtype) -> str:
 
 def torch_dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
-
-
-# ----------------------------------------------------------------------
-# msgpack, the subset a PWT3 header uses
-# ----------------------------------------------------------------------
-def packb(obj: Any) -> bytes:
-    """``msgpack.packb(obj)`` for None, bools, ints, floats, str, lists,
-    tuples and dicts."""
-    out = bytearray()
-    _pack(obj, out)
-    return bytes(out)
-
-
-def _pack(obj: Any, out: bytearray) -> None:
-    if obj is None:
-        out.append(0xC0)
-    elif obj is True or obj is False:
-        out.append(0xC3 if obj else 0xC2)
-    elif isinstance(obj, int):
-        _pack_int(obj, out)
-    elif isinstance(obj, float):
-        out += b"\xcb" + struct.pack(">d", obj)
-    elif isinstance(obj, str):
-        raw = obj.encode("utf-8")
-        n = len(raw)
-        if n < 32:
-            out.append(0xA0 | n)
-        else:
-            out += _sized(n, (0xD9, ">B"), (0xDA, ">H"), (0xDB, ">I"))
-        out += raw
-    elif isinstance(obj, (list, tuple)):
-        n = len(obj)
-        out += bytes([0x90 | n]) if n < 16 else _sized(n, None, (0xDC, ">H"), (0xDD, ">I"))
-        for item in obj:
-            _pack(item, out)
-    elif isinstance(obj, dict):
-        n = len(obj)
-        out += bytes([0x80 | n]) if n < 16 else _sized(n, None, (0xDE, ">H"), (0xDF, ">I"))
-        for key, value in obj.items():
-            _pack(key, out)
-            _pack(value, out)
-    else:
-        raise TypeError(f"cannot pack {type(obj).__name__}")
-
-
-def _sized(n: int, s8, s16, s32) -> bytes:
-    for limit, spec in ((1 << 8, s8), (1 << 16, s16), (1 << 32, s32)):
-        if spec is not None and n < limit:
-            return bytes([spec[0]]) + struct.pack(spec[1], n)
-    raise ValueError(f"length {n} too large for msgpack")
-
-
-def _pack_int(v: int, out: bytearray) -> None:
-    if 0 <= v < 0x80 or -32 <= v < 0:
-        out += struct.pack(">b" if v < 0 else ">B", v)
-    elif v >= 0:
-        for limit, code, fmt in ((1 << 8, 0xCC, ">B"), (1 << 16, 0xCD, ">H"), (1 << 32, 0xCE, ">I"), (1 << 64, 0xCF, ">Q")):
-            if v < limit:
-                out += bytes([code]) + struct.pack(fmt, v)
-                return
-        raise OverflowError(f"{v} does not fit msgpack's uint64")
-    else:
-        for limit, code, fmt in ((1 << 7, 0xD0, ">b"), (1 << 15, 0xD1, ">h"), (1 << 31, 0xD2, ">i"), (1 << 63, 0xD3, ">q")):
-            if v >= -limit:
-                out += bytes([code]) + struct.pack(fmt, v)
-                return
-        raise OverflowError(f"{v} does not fit msgpack's int64")
-
-
-# fixed-size codes: code -> (struct format, size)
-_FIXED = {
-    0xCC: (">B", 1), 0xCD: (">H", 2), 0xCE: (">I", 4), 0xCF: (">Q", 8),
-    0xD0: (">b", 1), 0xD1: (">h", 2), 0xD2: (">i", 4), 0xD3: (">q", 8),
-    0xCA: (">f", 4), 0xCB: (">d", 8),
-}
-# length-prefixed codes: code -> (kind, struct format of the length, size)
-_SIZED = {
-    0xD9: ("str", ">B", 1), 0xDA: ("str", ">H", 2), 0xDB: ("str", ">I", 4),
-    0xDC: ("array", ">H", 2), 0xDD: ("array", ">I", 4),
-    0xDE: ("map", ">H", 2), 0xDF: ("map", ">I", 4),
-}
-
-
-def unpackb(data: bytes | memoryview) -> Any:
-    """``msgpack.unpackb(data, raw=False)`` for what ``packb`` writes."""
-    view = memoryview(data)
-    obj, pos = _unpack(view, 0)
-    if pos != len(view):
-        raise ValueError("extra bytes after the msgpack object")
-    return obj
-
-
-def _unpack(buf: memoryview, pos: int) -> tuple[Any, int]:
-    code = buf[pos]
-    pos += 1
-    if code < 0x80:
-        return code, pos
-    if code >= 0xE0:
-        return code - 0x100, pos
-    if 0xA0 <= code < 0xC0:
-        n = code & 0x1F
-        return str(buf[pos : pos + n], "utf-8"), pos + n
-    if 0x90 <= code < 0xA0:
-        return _unpack_array(buf, pos, code & 0x0F)
-    if 0x80 <= code < 0x90:
-        return _unpack_map(buf, pos, code & 0x0F)
-    if code in (0xC0, 0xC2, 0xC3):
-        return {0xC0: None, 0xC2: False, 0xC3: True}[code], pos
-    if code in _FIXED:
-        fmt, size = _FIXED[code]
-        return struct.unpack_from(fmt, buf, pos)[0], pos + size
-    if code in _SIZED:
-        kind, fmt, size = _SIZED[code]
-        n = struct.unpack_from(fmt, buf, pos)[0]
-        pos += size
-        if kind == "str":
-            return str(buf[pos : pos + n], "utf-8"), pos + n
-        return (_unpack_array if kind == "array" else _unpack_map)(buf, pos, n)
-    raise ValueError(f"msgpack code 0x{code:02x} is not part of a PWT3 header")
-
-
-def _unpack_array(buf: memoryview, pos: int, n: int) -> tuple[list, int]:
-    out = []
-    for _ in range(n):
-        item, pos = _unpack(buf, pos)
-        out.append(item)
-    return out, pos
-
-
-def _unpack_map(buf: memoryview, pos: int, n: int) -> tuple[dict, int]:
-    out = {}
-    for _ in range(n):
-        key, pos = _unpack(buf, pos)
-        out[key], pos = _unpack(buf, pos)
-    return out, pos
 
 
 # ----------------------------------------------------------------------

@@ -12,10 +12,18 @@ safetensors, ``config.json`` and byte-level BPE tokenizer).
 processes on one host, supervised fail-fast: a ``device`` job (engine,
 HTTP server and trainer in one CUDA process) or, with
 ``world.trainer_procs=1``, an ``engine`` job and a ``trainer`` job that
-pushes PWT3 bodies into it over HTTP; then the host-only ``actor`` and
-``preprocessor`` jobs (``CUDA_VISIBLE_DEVICES=""``). Left out: eval
-interleaving, ``debug.mode`` stage subsets, VLM, and the multi-host and
-stream-hub layouts (``world.py``).
+pushes PWT3 bodies into it over HTTP; the host-only ``environment``
+servers, the ``stream_hub`` through which every topic rides when the world
+spans hosts, and the ``actor`` and ``preprocessor`` jobs
+(``CUDA_VISIBLE_DEVICES=""``). A job on a host other than this one starts
+as ``ssh <host> env <assignments> <command>`` (the experiment directory on
+a shared filesystem). Left out: VLM and ``trainer_procs`` > 1
+(``world.py``).
+
+Both modes interleave evals (``eval_every_n_versions``: the test problems
+through an eval ``ActorLoop`` onto ``actor_test`` and ``stats_test``), and
+inline mode runs a subset of the stages under ``debug.mode``, replaying the
+missing upstream streams from ``debug.streams_from``.
 
     python3 -m pipelinerl_tpu_torch.launch --config-name=bandit_tpu output_dir=/tmp/run
     python3 -m pipelinerl_tpu_torch.launch --config-name=test model_path=<hf dir> output_dir=/tmp/run
@@ -41,7 +49,7 @@ from typing import Any
 
 import torch
 
-from .actor import ActorLoop
+from .actor import ActorLoop, ActorStats, load_test_problems, run_with_evals
 from .config import Config, compose
 from .domains.registry import resolve
 from .entrypoints.common import wait_for_http
@@ -54,6 +62,7 @@ from .models.transformer import ModelConfig, init_params, init_value_head
 from .preprocess import Preprocessor
 from .state import TrainerState
 from .streams import set_streams_backend
+from .streams_tcp import wait_for_hub
 from .train.rl_loss import RLLossConfig
 from .train.trainer import TrainerLoop, detached_copy, summary
 from .utils import setup_logging
@@ -147,8 +156,6 @@ def validate_config(cfg: Config) -> None:
     mode = str(cfg.get("launch_mode", "inline"))
     if mode not in ("inline", "processes"):
         problems.append(f"unknown launch_mode {mode!r}: the port runs inline and processes")
-    if cfg.select("debug.mode") or int(cfg.get("eval_every_n_versions", 0) or 0):
-        problems.append("debug.mode and eval interleaving are not ported yet")
     for key in ("memory_debug", "profile"):
         node = cfg.select(f"finetune.{key}")
         if node and node.get("enabled", False):
@@ -203,6 +210,11 @@ def validate_config(cfg: Config) -> None:
         unknown = [k for k in rl_node.keys() if k not in RLLossConfig.__dataclass_fields__]
         if unknown:
             problems.append(f"unknown finetune.rl key(s): {unknown}")
+    debug_mode = str(cfg.select("debug.mode", "") or "")
+    if debug_mode and debug_mode != "open_loop" and "actor" not in debug_stages(cfg) \
+            and not cfg.select("debug.streams_from"):
+        problems.append(f"debug.mode={debug_mode!r} drops the actor but debug.streams_from is unset — "
+                        "nothing would feed the pipeline")
     if problems:
         raise ValueError("Invalid config:\n- " + "\n- ".join(problems))
     if mode == "processes":
@@ -225,69 +237,132 @@ def _stage(target, failures: list, trainer_state: TrainerState, name: str):
     return run
 
 
+def debug_stages(cfg: Config) -> set[str]:
+    """The stages ``debug.mode`` runs: all three by default, the actor alone
+    for ``open_loop``, else the ``+``-joined names (``finetune`` is the
+    trainer)."""
+    mode = str(cfg.select("debug.mode", "") or "")
+    all_stages = {"actor", "preprocessor", "trainer"}
+    if not mode:
+        return all_stages
+    if mode == "open_loop":
+        return {"actor"}
+    stages = set(mode.split("+")) & (all_stages | {"finetune"})
+    if "finetune" in stages:
+        stages.discard("finetune")
+        stages.add("trainer")
+    if not stages:
+        raise ValueError(f"Unknown debug.mode {mode!r}")
+    return stages
+
+
+def debug_replay_topics(stages: set[str]) -> list[str]:
+    """The recorded topics that stand in for the stages left out: the actor
+    stream for a preprocessor without an actor, the training data for a
+    trainer without a preprocessor."""
+    replay = []
+    if "preprocessor" in stages and "actor" not in stages:
+        replay.append("actor")
+    if "trainer" in stages and "preprocessor" not in stages:
+        replay.append("training_data")
+    return replay
+
+
+def debug_link_streams(exp_path: str, streams_from: str, topics: list[str]) -> None:
+    """Symlink ``topics`` from a previous run's streams, so that recorded
+    streams stand in for the stages left out."""
+    src_root = Path(streams_from) / "streams"
+    dst_root = Path(exp_path) / "streams"
+    dst_root.mkdir(parents=True, exist_ok=True)
+    for topic in topics:
+        src, dst = src_root / topic, dst_root / topic
+        if not src.exists():
+            raise FileNotFoundError(f"No recorded stream {src} to replay")
+        if dst.is_symlink() or dst.exists():
+            continue
+        dst.symlink_to(src.resolve())
+        logger.info("Replaying stream %s from %s", topic, src)
+
+
 def run_inline(cfg: Config, device="cuda") -> dict[str, Any]:
     """Engine, actor, preprocessor and trainer in one process, decoupled
-    through streams. Returns the run's summary."""
+    through streams, or the subset of them ``debug.mode`` names. Returns the
+    run's summary."""
     validate_config(cfg)
     exp_path = str(cfg.output_dir)
     Path(exp_path).mkdir(parents=True, exist_ok=True)
     setup_logging(Path(exp_path) / "logs")
-    set_streams_backend(cfg.select("streams.backend", "files"))
+    set_streams_backend(str(cfg.select("streams.backend", "files") or "files"), hub=cfg.select("streams.hub"))
     cfg.save(Path(exp_path) / "conf" / "exp_config.json")
+    stages = debug_stages(cfg)
+    streams_from = cfg.select("debug.streams_from")
+    if streams_from:
+        debug_link_streams(exp_path, str(streams_from), debug_replay_topics(stages))
 
     params, model_cfg, tokenizer = build_model(cfg, device)
-    # the engine owns copies: AdamW updates the trainer's tensors in place
-    engine = build_engine(cfg, engine_params(params), model_cfg, tokenizer, device)
-    engine.start()
+    engine = None
+    if "actor" in stages:
+        # the engine owns copies: AdamW updates the trainer's tensors in place
+        engine = build_engine(cfg, engine_params(params), model_cfg, tokenizer, device)
+        engine.start()
     trainer_state = TrainerState(exp_path)
     trainer_state.start_listening()
+    if "trainer" not in stages:
+        trainer_state.debug_mode_init()  # version 0 without a trainer
     failures: list[BaseException] = []
-
-    ref_score_fn = None
-    if float(cfg.finetune.rl.get("kl_coef", 0.0) or 0.0) != 0.0:
-        # the reference policy: a second engine on the initial weights that
-        # is never started and never updated. It owns a copy, as the
-        # policy engine does: AdamW updates the trainer's tensors in place.
-        ref_engine = build_engine(cfg, engine_params(params), model_cfg, tokenizer, device)
-        ref_score_fn = ref_engine.score_tokens
-    preprocessor = Preprocessor(cfg, exp_path, trainer_state, eos_token_id=tokenizer.eos_token_id,
-                                ref_score_fn=ref_score_fn)
-    trainer = TrainerLoop(
-        cfg, params, model_cfg, exp_path,
-        weight_update_cb=lambda new_params, version: engine.update_params(new_params, version),
-    )
-    max_steps = int(cfg.finetune.get("max_train_steps", 100))
-    threads = [
-        threading.Thread(target=_stage(preprocessor.run, failures, trainer_state, "preprocessor"),
-                         name="preprocessor", daemon=True),
-        threading.Thread(target=_stage(trainer.run, failures, trainer_state, "trainer"), args=(max_steps,),
-                         name="trainer", daemon=True),
-    ]
-    llm = InProcessLLM(engine, tokenizer, dict(cfg.llm.parameters.items()))
-    problems = resolve(cfg.dataset_loader)(list(cfg.get("train_dataset_names", ["train"])))
-    if cfg.get("train_subset"):
-        problems = problems[: int(cfg.train_subset)]
-    actor = ActorLoop(cfg, [llm], problems, trainer_state, exp_path, resolve(cfg.rollout_policy))
+    threads, preprocessor, trainer = [], None, None
+    if "preprocessor" in stages:
+        ref_score_fn = None
+        if float(cfg.finetune.rl.get("kl_coef", 0.0) or 0.0) != 0.0:
+            # the reference policy: a second engine on the initial weights
+            # that is never started and never updated. It owns a copy, as
+            # the policy engine does: AdamW updates the trainer's tensors in
+            # place.
+            ref_engine = build_engine(cfg, engine_params(params), model_cfg, tokenizer, device)
+            ref_score_fn = ref_engine.score_tokens
+        preprocessor = Preprocessor(cfg, exp_path, trainer_state, eos_token_id=tokenizer.eos_token_id,
+                                    ref_score_fn=ref_score_fn)
+        threads.append(threading.Thread(target=_stage(preprocessor.run, failures, trainer_state, "preprocessor"),
+                                        name="preprocessor", daemon=True))
+    if "trainer" in stages:
+        trainer = TrainerLoop(cfg, params, model_cfg, exp_path,
+                              weight_update_cb=engine.update_params if engine is not None else None)
+        threads.append(threading.Thread(target=_stage(trainer.run, failures, trainer_state, "trainer"),
+                                        args=(int(cfg.finetune.get("max_train_steps", 100)),), name="trainer",
+                                        daemon=True))
+    actor = None
+    if "actor" in stages:
+        llm = InProcessLLM(engine, tokenizer, dict(cfg.llm.parameters.items()))
+        problems = resolve(cfg.dataset_loader)(list(cfg.get("train_dataset_names", ["train"])))
+        if cfg.get("train_subset"):
+            problems = problems[: int(cfg.train_subset)]
+        actor = ActorLoop(cfg, [llm], problems, trainer_state, exp_path, resolve(cfg.rollout_policy))
     for t in threads:
         t.start()
     try:
-        actor_stats = asyncio.run(actor.run(total_groups=cfg.get("total_groups")))
-        # the actor is done; let the trainer drain
-        deadline = time.monotonic() + float(cfg.get("drain_timeout_s", 120))
-        while not trainer_state.training_done and time.monotonic() < deadline:
-            time.sleep(0.1)
+        actor_stats = ActorStats()
+        if actor is not None:
+            test_problems = load_test_problems(cfg)
+            test_llms = [InProcessLLM(engine, tokenizer, dict(cfg.test_llm.parameters.items()))] if test_problems else []
+            actor_stats, _ = asyncio.run(run_with_evals(actor, test_llms, test_problems, cfg.get("total_groups")))
+        if "trainer" in stages:  # let the trainer drain
+            deadline = time.monotonic() + float(cfg.get("drain_timeout_s", 120))
+            while not trainer_state.training_done and time.monotonic() < deadline:
+                time.sleep(0.1)
     finally:
-        preprocessor.stop()
+        if preprocessor is not None:
+            preprocessor.stop()
         for t in threads:
             t.join(timeout=30)
-        engine.stop()
+        if engine is not None:
+            engine.stop()
         trainer_state.stop()
     if failures:
         raise failures[0]
     return {
         "actor": actor_stats.snapshot(),
-        "trainer": summary(trainer.metrics),
-        "engine": engine.perf_counters(),
+        "trainer": summary(trainer.metrics) if trainer is not None else {},
+        "engine": engine.perf_counters() if engine is not None else {},
     }
 
 
@@ -296,12 +371,16 @@ ENTRYPOINTS = {
     "engine": "pipelinerl_tpu_torch.entrypoints.run_engine",
     "ref_engine": "pipelinerl_tpu_torch.entrypoints.run_engine",
     "trainer": "pipelinerl_tpu_torch.entrypoints.run_trainer",
+    "stream_hub": "pipelinerl_tpu_torch.entrypoints.run_stream_hub",
     "actor": "pipelinerl_tpu_torch.entrypoints.run_actor",
     "preprocessor": "pipelinerl_tpu_torch.entrypoints.run_preprocess",
+    "environment": "pipelinerl_tpu_torch.entrypoints.run_environment",
 }
 CARD_JOBS = ("device", "engine", "ref_engine", "trainer")
 # jobs that end on their own once training is done; the servers are stopped
 SELF_ENDING = ("trainer", "actor", "preprocessor")
+# the environment a job on another host is started with over ssh
+REMOTE_ENV = ("PYTHONPATH", "CUDA_VISIBLE_DEVICES")
 
 
 def _kill_groups(procs: list, sig: int) -> None:
@@ -313,14 +392,16 @@ def _kill_groups(procs: list, sig: int) -> None:
 
 
 def run_processes(cfg: Config) -> int:
-    """The stages as supervised processes on one host (JAX
-    ``launch.run_processes``): card jobs first, then, once their servers
-    answer ``/health``, the preprocessor and the actors. Each job has its
-    own process group; when a job fails, or on SIGTERM, every group is
-    killed. Once the trainer reports TrainingDone, the jobs that end on
-    their own get 30 s to do so, then the servers are stopped. With
-    ``DRY_RUN`` set it only writes each job's start script. Returns an exit
-    code."""
+    """The stages as supervised processes (JAX ``launch.run_processes``):
+    the stream hub first (when the world has one; every job's topics then
+    ride ``tcp``), then the environment servers and the card jobs, then,
+    once the hub answers a ping and every server ``/health``, the
+    preprocessor and the actors. ``cfg.environment`` lists the environment
+    servers for the rollouts. Each job has its own process group; when a
+    job fails, or on SIGTERM, every group is killed. Once the trainer
+    reports TrainingDone, the jobs that end on their own get 30 s to do so,
+    then the servers are stopped. With ``DRY_RUN`` set it only writes each
+    job's start script. Returns an exit code."""
     validate_config(cfg)
     exp_path = Path(str(cfg.output_dir))
     exp_path.mkdir(parents=True, exist_ok=True)
@@ -328,6 +409,12 @@ def run_processes(cfg: Config) -> int:
     world_map = WorldMap(cfg)
     cfg = Config(cfg.to_dict())
     cfg["jobs"] = world_map.to_config()
+    if world_map.environment_servers:
+        cfg["environment"] = world_map.environment_servers
+    if world_map.use_stream_hub:
+        # the hub's own settings (persist, hub_maxlen) stay
+        cfg["streams"] = {**cfg.get("streams", Config({})).to_dict(), "backend": "tcp",
+                          "hub": world_map.stream_hub_addr}
     config_dir = exp_path / "conf"
     cfg.save(config_dir / "exp_config.json")
     dry_run = bool(os.environ.get("DRY_RUN"))
@@ -356,6 +443,10 @@ def run_processes(cfg: Config) -> int:
         (exp_path / job.kind).mkdir(exist_ok=True)
         script = " \\\n  ".join(cmd)
         (exp_path / job.kind / f"start_{name}.sh").write_text(f"#!/bin/sh\n{script}\n")
+        if not job.is_local:
+            # another host: its environment inline over ssh (key-based auth;
+            # the experiment directory on a shared filesystem)
+            cmd = ["ssh", job.hostname, "env", *(f"{k}={env[k]}" for k in REMOTE_ENV if k in env), *cmd]
         if dry_run:
             logger.info("DRY_RUN: %s", " ".join(cmd))
             return
@@ -373,11 +464,17 @@ def run_processes(cfg: Config) -> int:
     trainer_state = TrainerState(str(exp_path))
     exit_code = 1
     try:
-        for kind in ("device", "engine", "ref_engine", "trainer"):
+        for job in world_map.jobs_of("stream_hub"):
+            spawn(job)
+        if world_map.use_stream_hub and not dry_run:
+            wait_for_hub(world_map.stream_hub_addr)
+            set_streams_backend("tcp", hub=world_map.stream_hub_addr)  # the launcher follows the trainer too
+        for kind in ("environment", "device", "engine", "ref_engine", "trainer"):
             for job in world_map.jobs_of(kind):
                 spawn(job)
         if not dry_run:
-            wait_for_http(world_map.llm_urls + world_map.ref_llm_urls, procs=procs)
+            env_urls = [f"http://{e['hostname']}:{e['port']}" for e in world_map.environment_servers]
+            wait_for_http(world_map.llm_urls + world_map.ref_llm_urls + env_urls, procs=procs)
         for job in world_map.jobs_of("preprocessor") + world_map.jobs_of("actor"):
             spawn(job)
         if dry_run:
@@ -389,6 +486,7 @@ def run_processes(cfg: Config) -> int:
         exit_code = 1
     finally:
         if not dry_run:
+            trainer_state.stop()  # before the hub it may be reading from goes
             _kill_groups(procs, signal.SIGTERM)
             for name, proc in procs:
                 try:
@@ -397,7 +495,6 @@ def run_processes(cfg: Config) -> int:
                     logger.error("Job %s ignored SIGTERM; killing its group", name)
                     _kill_groups([(name, proc)], signal.SIGKILL)
                     proc.wait(timeout=15)
-            trainer_state.stop()
             if previous is not None:  # None: a handler installed outside Python
                 signal.signal(signal.SIGTERM, previous)
     return exit_code

@@ -18,7 +18,7 @@ from typing import Callable, Sequence
 
 from .config import Config
 from .state import TrainerState
-from .streams import RangeStreamWriter, SingleStreamSpec, StreamRangeSpec, StreamReader
+from .streams import RangeStreamWriter, SingleStreamSpec, StreamRangeSpec, StreamReader, get_streams_backend
 from .train.advantages import group_advantages_all_zero, populate_rl_data
 from .train.packing import make_sentinel_batch, pack_samples
 from .types import MASKED_TOKEN_ID
@@ -130,9 +130,10 @@ class Preprocessor:
     def _emit_packs(self, writer: RangeStreamWriter) -> None:
         """One fixed-shape batch per trainer partition from the ring's head,
         sentinels filling in, so every lead sees the same number of passes."""
+        as_arrays = get_streams_backend() == "binary"
         for partition in range(self.num_trainers):
             batch = self._next_batch()
-            writer.write(batch.to_msg(), partition=partition)
+            writer.write(batch.to_msg(arrays=as_arrays), partition=partition)
             self.published_samples += batch.num_sequences
 
     def _next_batch(self):

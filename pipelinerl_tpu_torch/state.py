@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import threading
+import time
 from dataclasses import dataclass
 
 from .streams import SingleStreamSpec, StreamReader
@@ -106,3 +107,23 @@ class TrainerState:
             elif isinstance(parsed, TrainingDone):
                 self.training_done = True
             self._cond.notify_all()
+
+    def debug_mode_init(self) -> None:
+        """Version 0 for a stage run without a trainer (``debug.mode``)."""
+        with self._cond:
+            self.propagated_weight_version = 0
+            self._cond.notify_all()
+
+    def wait_for_model_version(self, min_version: int = 0, timeout: float | None = None) -> int:
+        """Block until the propagated version reaches ``min_version`` (or
+        training is done); → the version."""
+        deadline = None if timeout is None else time.monotonic() + timeout
+        with self._cond:
+            while self.propagated_weight_version is None or self.propagated_weight_version < min_version:
+                if self.training_done:
+                    break
+                remaining = None if deadline is None else deadline - time.monotonic()
+                if remaining is not None and remaining <= 0:
+                    raise TimeoutError(f"Timed out waiting for weight version >= {min_version}")
+                self._cond.wait(timeout=0.2 if remaining is None else min(0.2, remaining))
+            return self.propagated_weight_version or 0

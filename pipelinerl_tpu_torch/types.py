@@ -140,10 +140,12 @@ class TrainerBatch:
     def arrays(self) -> dict[str, np.ndarray]:
         return {name: getattr(self, name) for name in _INT_FIELDS + _FLOAT_FIELDS}
 
-    def to_msg(self) -> dict[str, Any]:
-        """The ``training_data`` stream message (JSON lists)."""
+    def to_msg(self, arrays: bool = False) -> dict[str, Any]:
+        """The ``training_data`` stream message: JSON lists, or numpy arrays
+        with ``arrays`` (the binary backend's, as the JAX package writes)."""
         msg: dict[str, Any] = {
-            name: getattr(self, name)[0].tolist() for name in _INT_FIELDS + _FLOAT_FIELDS
+            name: getattr(self, name)[0] if arrays else getattr(self, name)[0].tolist()
+            for name in _INT_FIELDS + _FLOAT_FIELDS
         }
         msg["model_version"] = self.model_version
         msg["sentinel"] = self.sentinel

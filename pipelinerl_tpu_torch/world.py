@@ -1,22 +1,29 @@
-"""WorldMap: the jobs of a ``launch_mode=processes`` deployment.
+"""WorldMap: the jobs of a ``launch_mode=processes`` deployment and where
+they run.
 
-Port of the JAX package's ``world.py`` for one host. Two layouts:
+Port of the JAX package's ``world.py``. ``world.hosts`` lists the hosts
+(the first is the head, where the launcher runs; a host other than
+``127.0.0.1`` and ``localhost`` is reached over ssh). Two layouts:
 
 - ``world.trainer_procs=0`` (the default): one ``device`` job per replica,
   engine, HTTP server and trainer in one CUDA process, weight updates
   swapped in process;
 - ``world.trainer_procs=1``: ``engine`` jobs serve rollouts and take weight
-  pushes over HTTP (PWT3) from one ``trainer`` job, each its own CUDA
-  process (two contexts on one card).
+  pushes over HTTP (PWT3) from one ``trainer`` job; with
+  ``world.actor_fraction`` and ``world.finetune_fraction`` set over more
+  than one host, the engines take the first hosts and the trainer the rest.
 
-A ``ref_engine`` job (frozen weights, the KL reference policy) joins when
-``world.ref_engine`` says so ("auto": when ``finetune.rl.kl_coef`` != 0),
-and the ``actor`` and ``preprocessor`` jobs run on the host only.
-``to_config()`` lists the jobs as the JAX package lists them.
+Beside them: a ``stream_hub`` on the head host when ``world.stream_hub``
+says so (``"auto"``: more than one host), through which every topic then
+rides; a ``ref_engine`` (frozen weights, the KL reference policy) when
+``world.ref_engine`` says so (``"auto"``: ``finetune.rl.kl_coef`` != 0);
+``world.env_replicas`` ``environment`` jobs when ``environment`` or
+``environment_class`` is set; and the host-only ``actor`` and
+``preprocessor`` jobs, spread round-robin over the hosts. ``to_config()``
+lists the jobs as the JAX package lists them.
 
-Refused, each naming its ROADMAP Queue 1 item: more than one host (ssh
-placement and the stream hub, item 5), ``world.stream_hub`` (item 5),
-environment servers (item 5) and ``trainer_procs`` > 1 (item 8).
+Refused, naming its ROADMAP Queue 1 item: ``trainer_procs`` > 1 (a sharded
+trainer world, item 8).
 """
 
 from __future__ import annotations
@@ -25,15 +32,21 @@ from dataclasses import dataclass, field
 
 from .config import Config
 
+LOCAL_HOSTS = ("127.0.0.1", "localhost")
+
 
 @dataclass
 class Job:
-    kind: str  # "device" | "engine" | "ref_engine" | "trainer" | "actor" | "preprocessor"
+    kind: str  # "device" | "engine" | "ref_engine" | "trainer" | "stream_hub" | "actor" | "preprocessor" | "environment"
     replica_idx: int = 0
     hostname: str = "127.0.0.1"
     port: int | None = None
     # extra per-job settings handed to the child as cfg.me
     extra: dict = field(default_factory=dict)
+
+    @property
+    def is_local(self) -> bool:
+        return self.hostname in LOCAL_HOSTS
 
     def to_dict(self) -> dict:
         return {"kind": self.kind, "replica_idx": self.replica_idx, "hostname": self.hostname, "port": self.port,
@@ -43,19 +56,18 @@ class Job:
 def refuse_unported(cfg: Config) -> None:
     """Raise for the deployments the port does not run yet."""
     world = cfg.get("world", Config({}))
-    problems = []
-    if len(list(world.get("hosts", ["127.0.0.1"]))) > 1:
-        problems.append("world.hosts with more than one host (ssh placement and the stream hub) "
-                        "is not ported yet (ROADMAP Queue 1, item 5)")
-    hub = world.get("stream_hub", "auto")
-    if hub != "auto" and bool(hub):
-        problems.append("world.stream_hub is not ported yet (ROADMAP Queue 1, item 5)")
     if int(world.get("trainer_procs", 0)) > 1:
-        problems.append("world.trainer_procs > 1 (a sharded trainer world) is not ported yet (ROADMAP Queue 1, item 8)")
-    if cfg.get("environment") or cfg.get("environment_class"):
-        problems.append("environment servers (run_environment) are not ported yet (ROADMAP Queue 1, item 5)")
-    if problems:
-        raise NotImplementedError("; ".join(problems))
+        raise NotImplementedError(
+            "world.trainer_procs > 1 (a sharded trainer world) is not ported yet (ROADMAP Queue 1, item 8)")
+
+
+def _fraction_split(n_hosts: int, actor_fraction: float, finetune_fraction: float) -> int:
+    """Hosts for the engines when the fractions are set, in [1, n_hosts - 1]."""
+    total = actor_fraction + finetune_fraction
+    if total <= 0:
+        return max(1, n_hosts // 2)
+    k = round(n_hosts * actor_fraction / total)
+    return min(max(k, 1), n_hosts - 1)
 
 
 class WorldMap:
@@ -65,34 +77,56 @@ class WorldMap:
         self.hosts: list[str] = list(world.get("hosts", ["127.0.0.1"]))
         self.replicas = int(world.get("replicas", 1))
         self.trainer_procs = int(world.get("trainer_procs", 0))
+        self.actor_fraction = float(world.get("actor_fraction", 0) or 0)
+        self.finetune_fraction = float(world.get("finetune_fraction", 0) or 0)
+        self.env_replicas = int(world.get("env_replicas", 1))
         engine_port = int(world.get("engine_start_port", 8080))
+        env_port = int(world.get("environment_start_port", 7777))
+        self.stream_hub_port = int(world.get("stream_hub_port", 7099))
         self.coordinator_port = int(world.get("coordinator_port", 7199))
-        host = self.hosts[0]
+        hub_setting = world.get("stream_hub", "auto")
+        self.use_stream_hub = len(self.hosts) > 1 if hub_setting == "auto" else bool(hub_setting)
+
+        def host(i: int) -> str:
+            return self.hosts[i % len(self.hosts)]
 
         self.jobs: list[Job] = []
-        # the reference policy of the KL penalty: "auto" provisions it iff
-        # kl_coef != 0
+        if self.use_stream_hub:
+            self.jobs.append(Job(kind="stream_hub", hostname=self.hosts[0], port=self.stream_hub_port))
         ref_setting = world.get("ref_engine", "auto")
         kl_coef = float(cfg.select("finetune.rl.kl_coef", 0.0) or 0.0)
         self.needs_ref_engine = kl_coef != 0.0 if ref_setting == "auto" else bool(ref_setting)
         self.ref_engine_port = int(world.get("ref_engine_port", engine_port + 500))
         if self.trainer_procs > 0:
+            n = len(self.hosts)
+            if (self.actor_fraction > 0 or self.finetune_fraction > 0) and n > 1:
+                n_engine_hosts = _fraction_split(n, self.actor_fraction, self.finetune_fraction)
+                engine_host = lambda i: self.hosts[i % n_engine_hosts]  # noqa: E731
+                trainer_host = lambda i: self.hosts[n_engine_hosts + (i % (n - n_engine_hosts))]  # noqa: E731
+            else:
+                engine_host = host
+                trainer_host = lambda i: self.hosts[n - 1 - (i % n)]  # noqa: E731
             for i in range(self.replicas):
-                self.jobs.append(Job(kind="engine", replica_idx=i, hostname=host, port=engine_port + i))
-            self.jobs.append(Job(kind="trainer", replica_idx=0, hostname=host, extra={
-                "process_id": 0, "num_processes": 1, "coordinator": f"{host}:{self.coordinator_port}",
-            }))
+                self.jobs.append(Job(kind="engine", replica_idx=i, hostname=engine_host(i), port=engine_port + i))
+            coordinator = f"{self.hosts[0]}:{self.coordinator_port}"
+            for i in range(self.trainer_procs):
+                self.jobs.append(Job(kind="trainer", replica_idx=i, hostname=trainer_host(i), extra={
+                    "process_id": i, "num_processes": self.trainer_procs, "coordinator": coordinator,
+                }))
         else:
             # one device job per replica: engine, server and trainer
             for i in range(self.replicas):
-                self.jobs.append(Job(kind="device", replica_idx=i, hostname=host, port=engine_port + i))
+                self.jobs.append(Job(kind="device", replica_idx=i, hostname=host(i), port=engine_port + i))
         if self.needs_ref_engine:
-            self.jobs.append(Job(kind="ref_engine", replica_idx=0, hostname=host, port=self.ref_engine_port,
-                                 extra={"frozen": True}))
+            self.jobs.append(Job(kind="ref_engine", replica_idx=0, hostname=host(self.replicas),
+                                 port=self.ref_engine_port, extra={"frozen": True}))
+        if cfg.get("environment") or cfg.get("environment_class"):
+            for i in range(self.env_replicas):
+                self.jobs.append(Job(kind="environment", replica_idx=i, hostname=host(i), port=env_port + i))
         n_actors = int(cfg.actor.get("replicas", 1)) if "actor" in cfg else 1
         for i in range(n_actors):
-            self.jobs.append(Job(kind="actor", replica_idx=i, hostname=host))
-        self.jobs.append(Job(kind="preprocessor", replica_idx=0, hostname=host))
+            self.jobs.append(Job(kind="actor", replica_idx=i, hostname=host(i)))
+        self.jobs.append(Job(kind="preprocessor", replica_idx=0, hostname=self.hosts[0]))
 
     @property
     def llm_urls(self) -> list[str]:
@@ -101,6 +135,20 @@ class WorldMap:
     @property
     def ref_llm_urls(self) -> list[str]:
         return [f"http://{j.hostname}:{j.port}" for j in self.jobs if j.kind == "ref_engine" and j.port]
+
+    @property
+    def stream_hub_addr(self) -> str | None:
+        return next((f"{j.hostname}:{j.port}" for j in self.jobs if j.kind == "stream_hub"), None)
+
+    @property
+    def num_trainers(self) -> int:
+        """Trainer stream partitions: one per trainer process, or per device
+        job."""
+        return self.trainer_procs if self.trainer_procs > 0 else self.replicas
+
+    @property
+    def environment_servers(self) -> list[dict]:
+        return [{"hostname": j.hostname, "port": j.port} for j in self.jobs if j.kind == "environment"]
 
     def jobs_of(self, kind: str) -> list[Job]:
         return [j for j in self.jobs if j.kind == kind]

@@ -74,7 +74,8 @@ def test_rewards_group_equals_jax_group_file_and_defaults_entry(name, tmp_path):
     "text",
     ["1", "-3", "1e-5", "4e-3", ".5", "0.25", "true", "False", "null", "~", "yes", "off", "[test]",
      "[a, b]", "[1, 2]", "[]", '"quoted"', "plain", "pipelinerl_tpu_torch.domains.bandit.load_problems",
-     "gqa", "bfloat16", ""],
+     "gqa", "bfloat16", "", "[{hostname: 127.0.0.1, port: 7777}, {hostname: h1, port: 7778}]", "{a: 1, b: [x, y]}",
+     "[[1, 2], [a, {k: v}]]", "{}"],
 )
 def test_override_values_parse_as_the_jax_cli(text):
     assert parse_value(text) == _parse_scalar(text)

@@ -3,8 +3,7 @@ its questions for several seeds, search and read, the problem sets, and
 rollouts under one scripted LLM (same rewards, ``model_dump`` metrics and
 training-text tokens: a two-hop success, a wrong answer, a rambler that hits
 ``max_loops``, invalid actions, a missing document). The corpus served over
-HTTP and research servers in ``cfg.environment`` are refused, naming the
-item that ports the environment servers. Mirrors
+HTTP is held against JAX's in ``tests/test_torch_environments.py``. Mirrors
 ``tests/test_deep_research_domain.py``."""
 
 import pytest
@@ -86,20 +85,6 @@ def test_research_rollout_equals_jax(name, finish):
     assert len(result.training_texts) == len(prompts) == len(replies)
     assert all(text.reward == result.metrics.reward for text in result.training_texts)
     assert result.metrics.overflow == (finish == "length")
-
-
-def test_research_servers_are_refused_naming_item_5():
-    """JAX reaches ``ResearchEnvironment`` jobs over HTTP when
-    ``cfg.environment`` names them; the port refuses both the server and
-    the configuration."""
-    with pytest.raises(NotImplementedError, match="item 5"):
-        t_env.ResearchEnvironment()
-    problem, replies, _ = _scripts()["wrong"]
-    j_cfg, t_cfg = _cfgs()
-    t_cfg["environment"] = [{"hostname": "127.0.0.1", "port": 7779}]
-    with pytest.raises(NotImplementedError, match="item 5"):
-        scripted_rollouts(j_rollouts.generate_research_rollout, t_rollouts.generate_research_rollout,
-                          (j_cfg, t_cfg), problem, replies)
 
 
 def test_base_preset_resolves_the_research_functions():

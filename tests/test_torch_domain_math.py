@@ -264,9 +264,3 @@ def test_math_rollout_with_discount_and_overlong_penalty_equals_jax(kind, finish
     assert t[0].metrics.penalty == pytest.approx(-(n - (n + 2 - 8)) / 8)
     assert t[1] and "Please reason step by step" in t_tok.decode(t[1][0])
 
-
-def test_environment_servers_raise_naming_item_5():
-    cfg = compose("math", ["output_dir=/tmp/unused"])
-    cfg.environment = [{"hostname": "localhost", "port": 7777}]
-    with pytest.raises(NotImplementedError, match="item 5"):
-        asyncio.run(t_rollouts.generate_math_rollout(cfg, None, ARITH, None))

@@ -2,10 +2,9 @@
 built from the same seeds, the same episodes under an oracle and under
 wrong actions, ``compute_reward`` under both modes, the task splits, and
 rollouts in process under one scripted LLM (same rewards, ``model_dump``
-metrics but the wall time, and training-text tokens). The environment-server
-pool (``environment_server.py``, failover) is refused where
-``cfg.environment`` names servers, naming the item that ports it; the
-penalized result of an all-servers-down pool is ported. Mirrors
+metrics but the wall time, and training-text tokens), and the penalized
+result of an all-servers-down pool. The server pool itself is held against
+JAX's in ``tests/test_torch_environments.py``. Mirrors
 ``tests/test_miniwob_domain.py``."""
 
 import itertools
@@ -135,15 +134,10 @@ def test_jax_test_cases_hold_on_the_port():
     assert all(p["seed"] >= 10_000 for p in t_load_tasks(["simweb_test"], n_seeds=2))
 
 
-def test_environment_servers_are_refused_naming_item_5():
-    """Where JAX's rollout would rotate over an environment-server pool, the
-    port raises; the pool's all-servers-down result equals JAX's."""
-    problem, replies, _ = _scripts()["success"]
-    j_cfg, t_cfg = config_pair("miniwob", ["model_path=toy"])
-    t_cfg["environment"] = [{"hostname": "127.0.0.1", "port": 1}, {"hostname": "127.0.0.1", "port": 7780}]
-    with pytest.raises(NotImplementedError, match="item 5"):
-        scripted_rollouts(j_rollouts.generate_miniwob_rollout, t_rollouts.generate_miniwob_rollout, (j_cfg, t_cfg),
-                          problem, replies)
+def test_failed_rollout_equals_jax():
+    """The pool's all-servers-down result (its callers are in
+    ``tests/test_torch_environments.py``)."""
+    problem, _, _ = _scripts()["success"]
     start = time.time()
     j_failed, t_failed = j_rollouts._failed_rollout(problem, start), t_rollouts._failed_rollout(problem, start)
     assert t_failed.training_texts == j_failed.training_texts == []

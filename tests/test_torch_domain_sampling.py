@@ -149,7 +149,7 @@ def test_difficulty_aware_penalty_equals_jax(overrides, group):
     j_cfg, t_cfg = config_pair("math", ["llm.parameters.max_tokens=64", *overrides])
     j_res, t_res = _results(j_types, group), _results(t_types, group)
     j_actor.ActorLoop._apply_difficulty_aware_penalty(SimpleNamespace(cfg=j_cfg, is_training=True), j_res)
-    t_actor.ActorLoop._apply_difficulty_aware_penalty(SimpleNamespace(cfg=t_cfg), t_res)
+    t_actor.ActorLoop._apply_difficulty_aware_penalty(SimpleNamespace(cfg=t_cfg, is_training=True), t_res)
     for jr, tr in zip(j_res, t_res):
         assert tr.metrics.reward == jr.metrics.reward
         assert [t.reward for t in tr.training_texts] == [t.reward for t in jr.training_texts]

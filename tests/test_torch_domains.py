@@ -1,10 +1,13 @@
 """The port's counting and guessing domains against the JAX package's: the
 same problems, and under one scripted LLM the same rewards, metrics and
 training texts, a guessing run of several turns included. Every preset's
-dataset loader and rollout policy resolve, and the ``base`` preset runs its
-guessing domain through ``run_inline``."""
+dataset loader, rollout policy and environment-server class resolve (the
+server answers ``/health``), and the ``base`` preset runs its guessing
+domain through ``run_inline``."""
 
 import asyncio
+import json
+import urllib.request
 from concurrent.futures import Future
 
 import pytest
@@ -133,6 +136,14 @@ def test_every_preset_resolves_its_domain_functions(name):
         names = HERMETIC[name]
     problems = loader(names)
     assert problems and all(callable(resolve_domain_rollout(d)) for d in {p["domain"] for p in problems})
+    if cfg.get("environment_class"):  # the environment-server job's class, served as run_environment serves it
+        env = resolve(cfg.environment_class)()
+        try:
+            port = env.start(host="127.0.0.1", port=0)
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/health", timeout=10) as resp:
+                assert resp.status == 200 and json.loads(resp.read())["status"] == "ok"
+        finally:
+            env.shutdown()
 
 
 def test_base_preset_runs_the_guessing_domain(tmp_path):

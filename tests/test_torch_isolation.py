@@ -6,7 +6,8 @@ module of ``pipelinerl_tpu_torch`` and ``chip_smoke`` imports in a process
 that refuses all of them, and the port's tokenizer reads the committed
 fixture there; every stage entrypoint, started as
 ``python -m pipelinerl_tpu_torch.entrypoints.<stage>``, imports its stage
-without them, and the host-only stages import no kernel; ``chip_smoke.main``
+without them, and the host-only stages (the actor, the preprocessor, the
+environment servers and the stream hub) import no kernel; ``chip_smoke.main``
 raises where there is no CUDA card."""
 
 import subprocess
@@ -62,8 +63,9 @@ def test_port_imports_without_jax_and_chip_smoke_needs_a_card():
     assert proc.returncode == 0, proc.stderr
     n = int(proc.stdout.split("IMPORTED ")[1].split()[0])
     # every module of the package (serving, paged KV, training, processes
-    # mode, the task domains and domain sampling), and chip_smoke
-    assert n >= 89
+    # mode, the task domains and domain sampling, the environment servers,
+    # the binary and TCP streams), and chip_smoke
+    assert n >= 99
     if not torch.cuda.is_available():
         assert "RAISED no CUDA device" in proc.stdout, proc.stdout
         assert '"ok"' not in proc.stdout
@@ -108,7 +110,8 @@ SITE = textwrap.dedent(
     atexit.register(report)
     """
 )
-STAGES = {"run_device": True, "run_engine": True, "run_trainer": True, "run_actor": False, "run_preprocess": False}
+STAGES = {"run_device": True, "run_engine": True, "run_trainer": True, "run_actor": False, "run_preprocess": False,
+          "run_environment": False, "run_stream_hub": False}
 
 
 def test_stage_children_import_no_refused_package(tmp_path):
@@ -164,14 +167,16 @@ DOMAINS_CHILD = textwrap.dedent(
 
 def test_domain_modules_import_no_model_or_kernel():
     """Every domain module (the actor's host-only code: tir, coding,
-    deep_research and miniwob among them) imports without jax, the JAX
-    package, aiohttp, pydantic, yaml or datasets, and loads no model, no
-    engine, no trainer and no kernel module."""
+    deep_research and miniwob among them, and the environment servers)
+    imports without jax, the JAX package, aiohttp, pydantic, yaml or
+    datasets, and loads no model, no engine, no trainer and no kernel
+    module."""
     proc = subprocess.run([sys.executable, "-c", DOMAINS_CHILD], cwd=ROOT, capture_output=True, text=True,
                           timeout=120, env={"PATH": "/usr/bin:/bin", "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1"})
     assert proc.returncode == 0, proc.stderr
     for name in ("tir.sandbox", "tir.tool_parser", "tir.rollouts", "coding.verifier", "coding.dataset",
                  "coding.rollouts", "deep_research.environment", "deep_research.rollouts", "miniwob.simulated_env",
-                 "miniwob.load_tasks", "miniwob.rollouts"):
+                 "miniwob.load_tasks", "miniwob.rollouts", "miniwob.environment_server", "math.verifier_api",
+                 "logic.verifier_api", "servers"):
         assert f"pipelinerl_tpu_torch.domains.{name}" in proc.stdout, name
     assert "HEAVY []" in proc.stdout, proc.stdout

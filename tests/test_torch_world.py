@@ -1,6 +1,8 @@
 """The port's WorldMap against the JAX package's: the same jobs
-(``to_config()``), URLs and trainer partitions for the same world settings
-on one host; the layouts the port does not run yet raise with their ROADMAP
+(``to_config()``), URLs, hub address, environment servers and trainer
+partitions for the same world settings, on one host and over host lists
+(round-robin placement, the stream hub, environment replicas, the
+actor/finetune host split); ``trainer_procs`` > 1 raises with its ROADMAP
 item."""
 
 import pytest
@@ -23,6 +25,18 @@ WORLDS = {
     "ports": ["world.engine_start_port=9100", "+world.ref_engine=true", "+world.ref_engine_port=9900",
               "+world.trainer_procs=1", "+world.coordinator_port=7300"],
     "actors": ["+actor.replicas=2", "+world.trainer_procs=1"],
+    "two_hosts": ["+world.hosts=[10.0.0.1,10.0.0.2]"],
+    "three_hosts_replicas": ["+world.hosts=[10.0.0.1,10.0.0.2,10.0.0.3]", "world.replicas=2", "+actor.replicas=3"],
+    "local_names": ["+world.hosts=[127.0.0.1,localhost]", "+environment_class=env.Server", "world.env_replicas=2"],
+    "hub_forced_one_host": ["+world.stream_hub=true", "+world.stream_hub_port=7300"],
+    "hub_off_two_hosts": ["+world.hosts=[10.0.0.1,10.0.0.2]", "+world.stream_hub=false"],
+    "environment": ["+environment_class=env.Server", "world.env_replicas=3", "world.environment_start_port=9000"],
+    "environment_listed": ["+environment=[{hostname: 10.0.0.9, port: 1}]"],
+    "split_fractions": ["+world.hosts=[h0,h1,h2,h3]", "+world.trainer_procs=1", "world.actor_fraction=3",
+                        "world.finetune_fraction=1", "world.replicas=3"],
+    "split_no_fractions": ["+world.hosts=[h0,h1,h2]", "+world.trainer_procs=1", "world.actor_fraction=0",
+                           "world.finetune_fraction=0", "world.replicas=2"],
+    "split_kl_hosts": ["+world.hosts=[h0,h1]", "+world.trainer_procs=1", "finetune=ppo"],
 }
 
 
@@ -44,14 +58,15 @@ def test_worldmap_equals_jax(name):
     assert port.llm_urls == ref.llm_urls
     assert port.ref_llm_urls == ref.ref_llm_urls
     assert port.needs_ref_engine == ref.needs_ref_engine
-    assert ref.use_stream_hub is False  # the one-host layouts the port runs
+    assert port.use_stream_hub == ref.use_stream_hub
+    assert port.stream_hub_addr == ref.stream_hub_addr
+    assert port.environment_servers == ref.environment_servers
+    assert port.num_trainers == ref.num_trainers
+    assert [j.is_local for j in port.jobs] == [j.is_local for j in ref.jobs]
 
 
 @pytest.mark.parametrize("overrides,item", [
-    (["+world.hosts=[10.0.0.1,10.0.0.2]"], "item 5"),
     (["+world.trainer_procs=2"], "item 8"),
-    (["+world.stream_hub=true"], "item 5"),
-    (["+environment_class=pipelinerl_tpu_torch.domains.bandit.load_problems"], "item 5"),
 ])
 def test_unported_layouts_raise(overrides, item):
     cfg = compose("bandit_cpu", [*overrides, "output_dir=/tmp/unused", "launch_mode=processes"])
