@@ -65,7 +65,8 @@ Phases, each of which stops the script on failure:
    against the sampler's logprobs and against the plain attention;
 12. the bandit RL loop (``bandit_tpu``) through the port's ``launch.main``
    with every attention on the kernels, on the slab layout and again on the
-   paged layout: it must learn both times; then with the ``ppo`` group's
+   paged layout, 30 steps each (``BANDIT_STEPS``): it must learn both
+   times; then with the ``ppo`` group's
    KL penalty against a reference engine, whose weights must stay the
    initial ones in storage of their own;
 13. the ``guessing`` preset on the toy model through ``launch.main``: every
@@ -104,7 +105,7 @@ Phases, each of which stops the script on failure:
    seconds and the largest gap between decode windows beside the steady
    gap are logged;
 17. ``bandit_tpu`` through ``python -m pipelinerl_tpu_torch.launch
-   launch_mode=processes``, as a device job and split with
+   launch_mode=processes`` (30 steps), as a device job and split with
    ``world.trainer_procs=1`` (every version after 0 reaching the engine
    over PWT3): exit 0, the trainer's steps done, the engine on the last
    pushed version, kernel launches read from the children's stats files,
@@ -155,7 +156,33 @@ Phases, each of which stops the script on failure:
    steps of 64 samples of 128 new tokens. Gates: exit 0 and no child left,
    the engine on the trainer's last version, each verifier's request log,
    the hub's ``.scf`` mirror read back with the counts the stages report, a
-   ``stats_test`` snapshot for each eval, kernels #1-#4 in the device job.
+   ``stats_test`` snapshot for each eval, kernels #1-#4 in the device job;
+25. the toy VLM: ``vlm_bandit_cpu`` inline on the card with the JAX
+   package's gate (at least 100 steps, a success tail of at least 0.7 in one
+   of two runs, here side by side in two processes; an image-blind policy
+   caps at 0.5), then its model on a slab
+   and a paged engine (16-token pages): 8 greedy requests of 4 images, two
+   each (GRPO forks), give the same tokens on both layouts (#1, #5);
+26. Qwen2.5-VL-3B-Instruct at full width (the published config.json, random
+   bf16 weights from seed 0, written by ``export_hf``; the fixture tokenizer
+   with the three vision tokens at their published ids) through the chartqa
+   route (``launch._is_vlm_checkpoint``, ``build_model``, ``build_vision``,
+   ``build_processor``) with ``finetune.train_vision_tower``, at the
+   chartqa preset's serving and training shapes with the cuts in
+   ``VLM_CUTS``: (a) chartqa prompts with feature images of 609, 1,024 and
+   1,008 merged tokens all finish, the VLM prefill on #2 at Dh 128; (b) the
+   engine's logprobs of 4 completions against the trainer's forward of the
+   same spliced [1, 8,192] rows; (c) two steps on those rows (vlm_bandit's
+   reward), #2-#4 launched, the tower's gradients nonzero; (d) the
+   trainer's tree as one 7.5 GB PWT3 body while 8 requests decode:
+   ``blob-chunked``, the embedding row-spliced, at most 2 x 256 MiB plus
+   ``PUSH_SLACK_BYTES`` over decoding's own peak device memory (and over
+   the resident weights when the same body goes into the idle engine), the
+   version landed, every leaf's checksum the body's, decode windows during
+   the push;
+   (e) the trained tower exported and read back bit for bit. Then #2 at its
+   prefill buckets, #1 at its slab and #2-#4 on its row, at Dh 128 and G 8,
+   against their plain versions and timed.
 Then one JSON line of kernel numbers, and last the result line.
 
 ``python3 chip_smoke.py --http-load URL N TOKENS OUT`` and
@@ -174,6 +201,7 @@ import json
 import math
 import os
 import re
+import shutil
 import signal
 import socket
 import statistics
@@ -233,6 +261,31 @@ QWEN05B = ModelConfig(
 QWEN05B_TIED = dataclasses.replace(QWEN05B, tie_word_embeddings=True, valid_vocab=None,
                                    hf_architecture="Qwen2ForCausalLM")
 FIXTURE_TOKENIZER = Path(__file__).resolve().parent / "pipelinerl_tpu_torch" / "fixtures" / "hf_tokenizer"
+# Qwen2.5-VL's vision tokens at their published ids (Qwen2.5-VL-3B-Instruct's
+# tokenizer_config.json), added to the fixture tokenizer for phase 26
+VL_TOKENS = {"<|vision_start|>": 151_652, "<|vision_end|>": 151_653, "<|image_pad|>": 151_655}
+
+
+def vl_tokenizer_dir(out: Path, tokens: dict[str, int] = VL_TOKENS) -> Path:
+    """A copy of the fixture tokenizer in ``out`` with ``tokens`` added as
+    special tokens at their ids, and Qwen2.5-VL's chat template
+    (``fixtures/chat_template_vl.jinja``), which places
+    ``<|vision_start|><|image_pad|><|vision_end|>`` for each image part."""
+    out.mkdir(parents=True, exist_ok=True)
+    for name in ("tokenizer.json", "tokenizer_config.json", "special_tokens_map.json"):
+        shutil.copyfile(FIXTURE_TOKENIZER / name, out / name)
+    shutil.copyfile(FIXTURE_TOKENIZER.parent / "chat_template_vl.jinja", out / "chat_template.jinja")
+    spec = json.loads((out / "tokenizer.json").read_text())
+    config = json.loads((out / "tokenizer_config.json").read_text())
+    for content, i in tokens.items():
+        flags = {"single_word": False, "lstrip": False, "rstrip": False, "normalized": False, "special": True}
+        spec["added_tokens"].append({"id": i, "content": content, **flags})
+        config["added_tokens_decoder"][str(i)] = {"content": content, **flags}
+    (out / "tokenizer.json").write_text(json.dumps(spec))
+    (out / "tokenizer_config.json").write_text(json.dumps(config))
+    return out
+
+
 SLOTS, PROMPT_LEN, MAX_TOKENS, WINDOW, DEPTH, BUCKET = 64, 128, 128, 16, 2, 128
 MAX_LEN = PROMPT_LEN + MAX_TOKENS + 72  # 328, as bench.py's headline engine
 
@@ -1255,6 +1308,12 @@ def report_profile(prof, wall_ms: float, n_steps: int, label: str) -> None:
                 f"ms/step in {sum(e.count for e in attn) // n_steps} launches/step")
 
 
+# the bandit_tpu runs of phases 12 and 17 stop at 30 steps (the preset's
+# 60): their reward passes the learning gate's 0.1 by about 0.3 within 30
+# steps, and the time goes to phases 25-26
+BANDIT_STEPS = 30
+
+
 def phase_rl_loop(exp_dir: str, paged: bool = False) -> dict:
     """The bandit RL loop through the port's entry point, every attention on
     the kernels; it must learn (tests/test_e2e_bandit.py:43-58). ``paged``
@@ -1264,7 +1323,8 @@ def phase_rl_loop(exp_dir: str, paged: bool = False) -> dict:
     reset_counts()
     t0 = time.monotonic()
     stats = launch.main(["--config-name=bandit_tpu", f"output_dir={exp_dir}", "finetune.save_checkpoint_steps=0",
-                         "engine.attn_impl=gqa", "finetune.attn_impl=gqa", *layout])
+                         f"finetune.max_train_steps={BANDIT_STEPS}", "engine.attn_impl=gqa", "finetune.attn_impl=gqa",
+                         *layout])
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = counts()
@@ -1508,8 +1568,10 @@ def phase_hf_checkpoint(dev, smi: str, tmp: str) -> dict[str, dict]:
     torch.cuda.empty_cache()
 
     out = f"{tmp}/test_run"
+    # 128 new tokens (the preset's 500): every guess of a random model runs
+    # to the budget, and the saves, resumes and exports do not need more
     common = ["--config-name=test", f"model_path={hf_dir}", f"output_dir={out}", "finetune.rl.entropy_bonus=0.001",
-              "engine.attn_impl=gqa", "finetune.attn_impl=gqa"]
+              "engine.attn_impl=gqa", "finetune.attn_impl=gqa", "llm.parameters.max_tokens=128"]
     # 2. train two steps, saving after each
     stats, first, engine, wall, launches = run_recorded([*common, "finetune.max_train_steps=2",
                                                          "finetune.save_checkpoint_steps=1"])
@@ -2450,14 +2512,18 @@ def phase_math(hf_dir: Path, smi: str, tmp: str) -> tuple[dict, dict]:
     return launches, {"engine": shape, "segment_ids": row["segment_ids"], "padding": row["padding"]}
 
 
-def time_slab(dev, kernels: list[dict], name: str, engine: tuple, live: tuple[int, int], seed: int) -> None:
+QWEN05B_HEADS = (QWEN05B.num_heads, QWEN05B.num_kv_heads, QWEN05B.head_dim_)
+
+
+def time_slab(dev, kernels: list[dict], name: str, engine: tuple, live: tuple[int, int], seed: int,
+              heads: tuple[int, int, int] = QWEN05B_HEADS) -> None:
     """Kernel #1 at a preset's slab allocation ``engine`` (slots, window,
     T_alloc) against its plain version and timed: at live lengths (a prompt
     plus the cut's new tokens), at the same lengths in an allocation that
     just holds them, and at lengths near the full allocation; into
-    ``kernels[0][name]``."""
+    ``kernels[0][name]``. ``heads`` is the model's (H, K, Dh)."""
     gen = torch.Generator(device=dev).manual_seed(seed)
-    H, K, Dh = QWEN05B.num_heads, QWEN05B.num_kv_heads, 64
+    H, K, Dh = heads
     S, W, T = engine
     log(f"device memory held before the {name} rows: {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     rng = np.random.default_rng(seed)
@@ -2486,13 +2552,14 @@ def time_slab(dev, kernels: list[dict], name: str, engine: tuple, live: tuple[in
     torch.cuda.empty_cache()
 
 
-def time_prefill(dev, kernels: list[dict], name: str, B: int, L: int, seed: int, block: int | None = None) -> None:
+def time_prefill(dev, kernels: list[dict], name: str, B: int, L: int, seed: int, block: int | None = None,
+                 heads: tuple[int, int, int] = QWEN05B_HEADS) -> None:
     """Kernel #2 at a prefill bucket: B rows of L tokens, one segment each
     (the engine's prefill), against its plain version (by blocks of
     ``block`` queries where the scores would not fit) and timed; into
     ``kernels[1][name]``."""
     gen = torch.Generator(device=dev).manual_seed(seed)
-    H, K, Dh = QWEN05B.num_heads, QWEN05B.num_kv_heads, 64
+    H, K, Dh = heads
     plain = gattn.mha_packed_gqa_plain if block is None else \
         (lambda *a: gattn.mha_packed_gqa_plain_blocked(*a, block=block))
     label = f"{name} prefill B {B} L {L}"
@@ -2505,13 +2572,13 @@ def time_prefill(dev, kernels: list[dict], name: str, B: int, L: int, seed: int,
 
 
 def time_train_row(dev, kernels: list[dict], name: str, seg: np.ndarray, padding: int, seed: int,
-                   block: int | None = None) -> None:
+                   block: int | None = None, heads: tuple[int, int, int] = QWEN05B_HEADS) -> None:
     """Kernels #2-#4 on a packed training row a preset trained on (its
     segment ids), against their plain versions (by blocks of ``block``
     queries where the row's fp32 scores would not fit) and timed beside
     SDPA and their bounds; into ``kernels[1..3][name]``."""
     gen = torch.Generator(device=dev).manual_seed(seed)
-    H, K, Dh = QWEN05B.num_heads, QWEN05B.num_kv_heads, 64
+    H, K, Dh = heads
     L = seg.shape[0]
     if block is None:
         fwd_plain, bwd_plain, how = gattn.mha_packed_gqa_plain, gattn.mha_packed_gqa_bwd_plain, ""
@@ -2904,12 +2971,13 @@ def phase_logic_processes(hf_dir: Path, smi: str, tmp: str) -> dict:
     return launches
 
 
-def phase_processes(exp: str, split: bool, smi: str, overrides: tuple[str, ...] = ()) -> dict:
+def phase_processes(exp: str, split: bool, smi: str) -> dict:
     """Phase 17: bandit_tpu through ``launch`` in processes mode."""
     layout = ["world.trainer_procs=1"] if split else []
     cmd = [sys.executable, "-m", "pipelinerl_tpu_torch.launch", "--config-name=bandit_tpu", f"output_dir={exp}",
            "launch_mode=processes", "finetune.save_checkpoint_steps=0", "engine.attn_impl=gqa",
-           "finetune.attn_impl=gqa", f"world.engine_start_port={free_port()}", *layout, *overrides]
+           "finetune.attn_impl=gqa", f"finetune.max_train_steps={BANDIT_STEPS}",
+           f"world.engine_start_port={free_port()}", *layout]
     t0 = time.monotonic()
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=Path(__file__).resolve().parent)
@@ -2955,23 +3023,469 @@ def phase_processes(exp: str, split: bool, smi: str, overrides: tuple[str, ...] 
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 25-26: the VLM path
+# ---------------------------------------------------------------------------
+
+# Qwen2.5-VL-3B-Instruct's published config.json
+# (https://huggingface.co/Qwen/Qwen2.5-VL-3B-Instruct/blob/main/config.json),
+# written out by hand; weights random from seed 0
+QWEN25VL3B_CONFIG = {
+    "architectures": ["Qwen2_5_VLForConditionalGeneration"], "attention_dropout": 0.0, "bos_token_id": 151643,
+    "eos_token_id": 151645, "vision_start_token_id": 151652, "vision_end_token_id": 151653,
+    "vision_token_id": 151654, "image_token_id": 151655, "video_token_id": 151656, "hidden_act": "silu",
+    "hidden_size": 2048, "initializer_range": 0.02, "intermediate_size": 11008, "max_position_embeddings": 128000,
+    "max_window_layers": 70, "model_type": "qwen2_5_vl", "num_attention_heads": 16, "num_hidden_layers": 36,
+    "num_key_value_heads": 2, "rms_norm_eps": 1e-06, "rope_theta": 1000000.0, "sliding_window": 32768,
+    "tie_word_embeddings": True, "torch_dtype": "bfloat16", "use_cache": True, "use_sliding_window": False,
+    "vision_config": {"depth": 32, "hidden_act": "silu", "hidden_size": 1280, "intermediate_size": 3420,
+                      "num_heads": 16, "in_chans": 3, "out_hidden_size": 2048, "patch_size": 14,
+                      "spatial_merge_size": 2, "spatial_patch_size": 14, "window_size": 112,
+                      "fullatt_block_indexes": [7, 15, 23, 31], "tokens_per_second": 2, "temporal_patch_size": 2},
+    "rope_scaling": {"type": "mrope", "mrope_section": [16, 24, 24]},
+    "vocab_size": 151936,
+}
+# phase 26's images, as Qwen2.5-VL's image processor would give them: patch
+# grids of 609, 1,024 and 1,008 merged tokens, one GRPO group each (their
+# prompts land in the 1,024 and 2,048 buckets). Each fits the tower's
+# default bucket of 1,024 merged tokens: 4,096 patches, whose dense
+# [16, N, N] fp32 scores are 1.07 GB a layer (the next bucket, 4,096
+# tokens, would hold 17.2 GB)
+VLM_GRIDS = [(1, 42, 58), (1, 64, 64), (1, 56, 72)]
+# the chartqa preset's cuts for phase 26, each logged beside the preset's
+# value
+VLM_CUTS = {"llm.parameters.max_tokens": 128, "finetune.samples_per_step": 16, "finetune.max_train_steps": 2,
+            "attempts": 8, "finetune.train_vision_tower": "true", "finetune.param_dtype": "bfloat16",
+            "finetune.save_checkpoint_steps": 0}
+# the push's extra device memory beyond two stream pieces: the decode
+# windows that run meanwhile (logits [16, 151,936] fp32, the staged band)
+# and the caching allocator's 2 MiB rounding
+PUSH_SLACK_BYTES = 64 << 20
+
+
+# a vlm_bandit_cpu run in a child process: ``launch.main``'s summary line,
+# then the child's kernel launches
+VLM_BANDIT_CHILD = (
+    "import json, sys\n"
+    "from pipelinerl_tpu_torch import launch\n"
+    "from pipelinerl_tpu_torch.ops import kernel_launches\n"
+    "launch.main(sys.argv[1:])\n"
+    "print('LAUNCHES ' + json.dumps(kernel_launches()), flush=True)\n"
+)
+
+
+def phase_vlm_bandit(tmp: str) -> dict:
+    """Phase 25: the ``vlm_bandit_cpu`` preset inline on the card with JAX's
+    gate (tests/test_e2e_vlm_bandit.py): at least 100 steps, and a success
+    tail of at least 0.7 in one of two runs (an image-blind policy caps at
+    0.5; identical runs read 0.60-0.94 on the card). The two runs go side by
+    side, one child process each, so the phase takes one run's wall. Returns
+    the kernel launches of both."""
+    procs = []
+    t0 = time.monotonic()
+    for attempt in range(2):
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", VLM_BANDIT_CHILD, "--config-name=vlm_bandit_cpu",
+             f"output_dir={tmp}/vlm_bandit{attempt}", "finetune.save_checkpoint_steps=0"],
+            cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            start_new_session=True))
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=900))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                stop_group(proc)
+    wall = time.monotonic() - t0
+    tails, total = [], {}
+    for attempt, (proc, (stdout, stderr)) in enumerate(zip(procs, outs)):
+        check(proc.returncode == 0, f"vlm_bandit run {attempt + 1} exited {proc.returncode}: {stderr[-3000:]}")
+        lines = stdout.strip().splitlines()
+        launches = json.loads(lines[-1].removeprefix("LAUNCHES "))
+        stats = json.loads(next(line for line in reversed(lines) if line.startswith("{")))
+        total = {k: total.get(k, 0) + v for k, v in launches.items()}
+        tails.append(stats["actor"]["success_tail_mean"])
+        log(f"vlm_bandit_cpu through launch.main on the card, run {attempt + 1} of 2 side by side: "
+            f"{stats['trainer']['completed_steps']} steps, success tail {tails[-1]:.4f}, success mean "
+            f"{stats['actor']['success_mean']:.4f}, engine prefills {stats['engine']['prefill_batches']} "
+            f"(reused tokens {stats['engine']['prefill_reused_tokens']}), launches {launches}")
+        check(stats["trainer"]["completed_steps"] >= 100, f"vlm_bandit trained {stats['trainer']['completed_steps']} steps")
+        check(launches["decode"] > 0, f"vlm_bandit's decode did not launch kernel #1: {launches}")
+    log(f"vlm_bandit_cpu: two runs in {wall:.1f} s of wall, success tails {[round(t, 4) for t in tails]}")
+    check(max(tails) >= 0.7, f"vlm_bandit never cleared a success tail of 0.7: {tails}")
+    return total
+
+
+def phase_vlm_paged(dev) -> tuple[dict, dict]:
+    """Phase 25, paged: the toy VLM of ``vlm_bandit_cpu`` on a slab engine
+    and on a paged one (16-token pages) from the same weights; 8 greedy
+    requests of 4 images, two of each (a GRPO fork), give the same tokens
+    on both layouts. Returns the slab's and the paged run's launches."""
+    from pipelinerl_tpu_torch.domains.vlm_bandit import make_image
+    from pipelinerl_tpu_torch.models.toy_tokenizer import ToyVisualProcessor
+    from pipelinerl_tpu_torch.train.trainer import detached_copy
+
+    base = compose("vlm_bandit_cpu", ["output_dir=/unused"])
+    params, mc, tok = launch.build_model(base, "cuda")
+    tower, vc = launch.build_vision(base, mc, "cuda")
+    processor = ToyVisualProcessor(tok, vc.spatial_merge_size)
+    specs = []
+    for i, sign in enumerate((1, -1, 1, -1)):
+        ids, visual = processor([{"role": "user", "content": [
+            {"type": "image", "image": make_image(sign, vc.patch_dim, seed=i)}, {"type": "text", "text": "press"}]}])
+        specs += [(ids, visual)] * 2
+    outs, launches = {}, {}
+    for layout in ("slab", "paged"):
+        cfg = compose("vlm_bandit_cpu", ["output_dir=/unused", f"engine.kv_layout={layout}", "engine.kv_block_size=16"])
+        engine = launch.build_engine(cfg, launch.engine_params(params), mc, tok, "cuda", detached_copy(tower), vc)
+        reset_counts()
+        futs = [engine.submit(GenRequest(list(ids), SamplingParams(temperature=0.0, max_tokens=24), visual=vis))
+                for ids, vis in specs]
+        for _ in range(5000):
+            engine.step()
+            if all(f.done() for f in futs):
+                break
+        torch.cuda.synchronize()
+        launches[layout] = counts()
+        outs[layout] = [f.result().token_ids for f in futs]
+        log(f"toy VLM on the {layout} engine: {engine.prefill_batches} prefills, "
+            f"{engine.prefill_reused_tokens} prompt tokens forked, launches {launches[layout]}")
+        engine.stop()
+    log(f"toy VLM greedy tokens, slab {outs['slab'][:2]} ... paged {outs['paged'][:2]} ...")
+    check(outs["slab"] == outs["paged"], "the paged VLM engine's greedy tokens differ from the slab's")
+    check(all(len(t) == 24 or (t and t[-1] == tok.eos_token_id) for t in outs["paged"]), "a VLM request fell short")
+    check(launches["paged"]["paged"] > 0 and launches["slab"]["decode"] > 0 and not launches["paged"]["decode"],
+          f"VLM decode launches: {launches}")
+    return launches["slab"], launches["paged"]
+
+
+def vlm_first_token_reward(problem: dict, token_ids: list[int], vocab: int) -> tuple[float, int]:
+    """vlm_bandit's reward over the fixture vocabulary: a "+" image wants a
+    first token in the lower half, a "-" image one in the upper half,
+    shaped by the distance to its half's centre. Returns (reward, success)."""
+    if not token_ids:
+        return -0.5, 0
+    first, lo = token_ids[0], problem["sign"] > 0
+    success = int(first < vocab // 2 if lo else first >= vocab // 2)
+    centre = vocab // 8 if lo else 7 * vocab // 8
+    return float(success) + 0.25 * (1.0 - abs(first - centre) / vocab), success
+
+
+def vlm_problems(vc, n_groups: int) -> list[dict]:
+    """chartqa problems over feature images: one of ``VLM_GRIDS`` each, its
+    pixels N(0, 1) / 2 plus half a sign that vlm_bandit's reward reads."""
+    rng = np.random.default_rng(0)
+    problems = []
+    for g in range(n_groups):
+        grid = VLM_GRIDS[g % len(VLM_GRIDS)]
+        sign = 1 if g % 2 == 0 else -1
+        pixels = (rng.standard_normal((int(np.prod(grid)), vc.patch_dim), dtype=np.float32) * 0.5 + 0.5 * sign)
+        problems.append({"question": f"What is the value of bar {g}?", "answer": str(g), "sign": sign,
+                         "image": {"pixel_values": pixels, "image_grid_thw": list(grid)}})
+    return problems
+
+
+QWEN25VL3B = ModelConfig(
+    vocab_size=151_936, hidden_size=2048, intermediate_size=11_008, num_layers=36, num_heads=16, num_kv_heads=2,
+    head_dim=128, rope_theta=1_000_000.0, rms_norm_eps=1e-6, attention_bias=True, tie_word_embeddings=True,
+    dtype=torch.bfloat16, mrope_section=(16, 24, 24), image_token_id=151_655,
+    hf_architecture="Qwen2_5_VLForConditionalGeneration")
+QWEN25VL3B_TEXT_PARAMS = 3_085_938_688  # the published model's language trunk, tied
+
+
+def phase_vlm_3b(dev, smi: str, tmp: str) -> tuple[dict, dict]:
+    """Phase 26: Qwen2.5-VL-3B-Instruct at full width on one card through
+    the chartqa route, with ``finetune.train_vision_tower``: an HF
+    directory from the port's ``export_hf`` (random bf16 weights, the
+    published config.json, the fixture tokenizer with the vision tokens),
+    loaded by ``launch._is_vlm_checkpoint``, ``build_model``,
+    ``build_vision`` and ``build_processor``; the preset's engine (S 16,
+    max_len 8,192, buckets 1,024-8,192, flash) serves chartqa prompts with
+    feature images; two steps train on unpacked [1, 8,192] rows; then the
+    trainer's tree goes to the engine as one PWT3 body while 8 requests
+    decode. Gates (a)-(e) are checked in turn. Returns (launches, the shapes
+    the kernels ran at)."""
+    from pipelinerl_tpu_torch.domains.chartqa.chartqa import generate_chartqa_rollout
+    from pipelinerl_tpu_torch.models.hf_loader import load_hf_vision
+    from pipelinerl_tpu_torch.models.transformer import lm_head_logits
+    from pipelinerl_tpu_torch.models.vision import VisionConfig, init_vision_params
+    from pipelinerl_tpu_torch.train.advantages import populate_rl_data, training_text_to_sample
+    from pipelinerl_tpu_torch.train.packing import pack_visual_sample
+    from pipelinerl_tpu_torch.train.trainer import batch_to_tensors, detached_copy
+
+    hf = Path(tmp) / "qwen25vl3b"
+    mc = QWEN25VL3B
+    vj = QWEN25VL3B_CONFIG["vision_config"]
+    vc = VisionConfig(hidden_size=vj["hidden_size"], intermediate_size=vj["intermediate_size"], num_heads=vj["num_heads"],
+                      depth=vj["depth"], out_hidden_size=vj["out_hidden_size"], patch_size=vj["patch_size"],
+                      temporal_patch_size=vj["temporal_patch_size"], spatial_merge_size=vj["spatial_merge_size"],
+                      window_size=vj["window_size"], fullatt_block_indexes=tuple(vj["fullatt_block_indexes"]),
+                      tokens_per_second=vj["tokens_per_second"], dtype=mc.dtype)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tree = init_params(gen, mc, dev)
+    tree["vision_tower"] = init_vision_params(gen, vc, dev)
+    n_text = sum(t.numel() for n, t in param_leaves(tree) if not n.startswith("vision_tower."))
+    n_tower = sum(t.numel() for n, t in param_leaves(tree["vision_tower"]))
+    t0 = time.monotonic()
+    export_hf(hf, tree, mc, vision_cfg=vc)
+    write_s = time.monotonic() - t0
+    del tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    hf_dir = hf / CURRENT_DIR
+    (hf_dir / "config.json").write_text(json.dumps(QWEN25VL3B_CONFIG, indent=2))
+    vl_tokenizer_dir(hf_dir)
+    size = (hf_dir / "model.safetensors").stat().st_size
+    log(f"Qwen2.5-VL-3B directory: {n_text:,} language and {n_tower:,} tower parameters, {size / 1e9:.3f} GB "
+        f"written by export_hf in {write_s:.1f} s")
+    check(n_text == QWEN25VL3B_TEXT_PARAMS, f"the language trunk has {n_text:,} parameters, Qwen2.5-VL-3B's "
+          f"has {QWEN25VL3B_TEXT_PARAMS:,}")
+
+    # the chartqa route
+    check(launch._is_vlm_checkpoint(str(hf_dir)), "the directory does not read as a VLM checkpoint")
+    base = compose("chartqa", [f"model_path={hf_dir}", f"output_dir={tmp}/chartqa"])
+    log("chartqa preset cuts: " + ", ".join(f"{k} {v} (preset {base.select(k)})" for k, v in VLM_CUTS.items()))
+    cfg = compose("chartqa", [f"model_path={hf_dir}", f"output_dir={tmp}/chartqa",
+                              *(f"{k}={v}" for k, v in VLM_CUTS.items())])
+    launch.validate_config(cfg)
+    t0 = time.monotonic()
+    params, model_cfg, tok = launch.build_model(cfg, dev)
+    tower, vcfg = launch.build_vision(cfg, model_cfg, dev)
+    processor = launch.build_processor(cfg, tok, vcfg)
+    read_s = time.monotonic() - t0
+    check((model_cfg.mrope_section, model_cfg.image_token_id, model_cfg.num_layers, vcfg) ==
+          (mc.mrope_section, mc.image_token_id, mc.num_layers, vc), f"the checkpoint read back as {model_cfg} / {vcfg}")
+    engine = launch.build_engine(cfg, launch.engine_params(params), model_cfg, tok, dev, detached_copy(tower), vcfg)
+    trainer = TrainerLoop(cfg, params, model_cfg, f"{tmp}/chartqa", vision_params=tower, vision_cfg=vcfg)
+    check(trainer.train_vision and trainer.attn_impl in ("flash", "gqa"), "the trainer's route is not the chartqa one")
+    log(f"loaded through the chartqa route in {read_s:.1f} s; engine S {engine.cfg.max_slots} max_len "
+        f"{engine.cfg.max_len} buckets {engine.buckets} attn {engine.attn_impl}/{engine.decode_attn_impl}, tower "
+        f"buckets {engine.cfg.vision_unit_buckets}; device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+
+    # (a) rollouts: chartqa prompts with feature images, GRPO groups of 8
+    attempts = int(cfg.attempts)
+    n_train = int(cfg.finetune.max_train_steps) * int(cfg.finetune.samples_per_step)
+    problems = vlm_problems(vcfg, max(len(VLM_GRIDS), -(-n_train // attempts)))
+    llm = InProcessLLM(engine, tok, dict(cfg.llm.parameters.items()), processor=processor)
+    engine.start()
+    reset_counts()
+    t0 = time.monotonic()
+
+    async def rollouts():
+        return await asyncio.gather(*(generate_chartqa_rollout(cfg, llm, p, None)
+                                      for p in problems for _ in range(attempts)))
+
+    results = asyncio.run(rollouts())
+    torch.cuda.synchronize()
+    roll_s = time.monotonic() - t0
+    launches = counts()
+    texts = [r.training_texts[0] for r in results]
+    out_tokens = sum(t.output_tokens for t in texts)
+    prompt_lens = sorted({t.prompt_tokens for t in texts})
+    log(f"VLM rollouts: {len(texts)} in {roll_s:.1f} s ({out_tokens} tokens, {out_tokens / roll_s:.1f} useful "
+        f"tokens/s), prompt lengths {prompt_lens}, finishes {sorted({t.finish_reason for t in texts})}, engine "
+        f"{ {k: engine.perf_counters()[k] for k in ('prefill_batches', 'prefill_reused_tokens', 'decode_steps')} }, "
+        f"launches {launches}")
+    check(all(t.finish_reason in ("stop", "length") and t.output_tokens > 0 for t in texts),
+          "a VLM rollout did not finish")
+    check(launches["gqa_fwd"] > 0 and launches["decode"] > 0, f"the VLM prefill or decode missed its kernel: {launches}")
+    check({engine._bucket(n) for n in prompt_lens} == {1024, 2048}, f"prompts in buckets {prompt_lens}")
+
+    # (b) the engine's logprobs against the trainer's forward of the same row
+    L = int(cfg.finetune.seq_length)
+    image_id, merge = int(model_cfg.image_token_id), vcfg.spatial_merge_size
+    errs = []
+    for text in (texts[::attempts] + texts[1:])[:4]:  # each group's first completion, then more
+        sample = training_text_to_sample(text, model_version=0)
+        batch = pack_visual_sample(sample, L, tok.eos_token_id, image_id, merge)
+        arrays = batch_to_tensors(batch, dev)
+        with torch.no_grad():
+            vlm = trainer._vlm_inputs(batch, arrays)
+            normed = forward(trainer.model_params(), model_cfg, arrays["input_ids"], arrays["position_ids"],
+                             arrays["segment_ids"], attn_impl=trainer.attn_impl, skip_unembed=True, **vlm)
+            n, m = text.prompt_tokens, text.output_tokens
+            logits = lm_head_logits(trainer.model_params(), model_cfg, normed[0, n - 1 : n + m - 1]).float()
+            lp = torch.log_softmax(logits / float(cfg.llm.parameters.temperature), -1)
+            tf = lp.gather(-1, arrays["input_ids"][0, n : n + m, None])[:, 0].double().cpu().numpy()
+        errs.append(np.abs(tf - np.asarray(text.logprobs)))
+        del normed, logits, lp, vlm
+    errs = np.concatenate(errs)
+    log(f"VLM engine logprobs against the trainer's forward of the spliced [1, {L}] rows: mean abs err "
+        f"{errs.mean():.4f} (tolerance {TF_MEAN_ATOL}), max {errs.max():.4f} (tolerance {TF_MAX_ATOL}) over "
+        f"{errs.size} tokens of 4 completions")
+    check(errs.mean() <= TF_MEAN_ATOL and errs.max() <= TF_MAX_ATOL, "the VLM engine and trainer disagree")
+
+    # (c) two steps on unpacked [1, L] rows, the tower trained
+    samples = []
+    for problem, group in zip(problems, [results[i : i + attempts] for i in range(0, len(results), attempts)]):
+        gid = f"g{len(samples)}"
+        for k, r in enumerate(group):
+            text = r.training_texts[0]
+            text.reward, _ = vlm_first_token_reward(problem, text.input_ids[text.prompt_tokens:], len(tok))
+            text.group_id = gid
+            samples.append(training_text_to_sample(text, model_version=0, rollout_index=k))
+    populate_rl_data(samples, eos_token_id=tok.eos_token_id)
+    passes, tower_grad = [], None
+    reset_counts()
+    for i, sample in enumerate(samples[:n_train]):
+        batch = pack_visual_sample(sample, L, tok.eos_token_id, image_id, merge)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        metrics = trainer.train_pass(batch)
+        torch.cuda.synchronize()
+        passes.append({"s": time.monotonic() - t0, "peak": torch.cuda.max_memory_allocated(), "loss": metrics["loss"]})
+        if i == 0:
+            tower_grad = sum(float(p.grad.float().abs().sum()) for _, p in param_leaves(trainer.params["vision_tower"])
+                             if p.grad is not None)
+        if (i + 1) % int(cfg.finetune.samples_per_step) == 0:
+            trainer.optimizer_step()
+    train_launches = counts()
+    launches = {k: launches[k] + train_launches[k] for k in launches}
+    rows = [len(s["input_ids"]) for s in samples[:n_train]]
+    log(f"VLM train: {len(passes)} passes on [1, {L}] rows ({min(rows)}-{max(rows)} real tokens, one segment plus "
+        f"padding), {[round(p['s'] * 1e3, 1) for p in passes]} ms, peak {max(p['peak'] for p in passes) / 2**30:.2f} "
+        f"GiB, losses {[round(p['loss'], 4) for p in passes[:4]]}..., steps {trainer.metrics.completed_steps}, grad "
+        f"norm {trainer.metrics.grad_norm:.4f}, tower |grad| sum after pass 1 {tower_grad:.4e}, launches "
+        f"{train_launches}; on {smi}")
+    check(trainer.metrics.completed_steps == 2 and all(math.isfinite(p["loss"]) for p in passes),
+          f"the VLM trainer ran {trainer.metrics.completed_steps} steps")
+    check(all(train_launches[k] >= len(passes) for k in ("gqa_fwd", "gqa_dq", "gqa_dkv")),
+          f"#2-#4 did not launch on the training rows: {train_launches}")
+    check(tower_grad is not None and tower_grad > 0 and math.isfinite(tower_grad), "the tower got no gradient")
+
+    # (d) the push: the trainer's tree as one PWT3 body while 8 requests decode
+    served = detached_copy(trainer.served_params())
+    t0 = time.monotonic()
+    body = serialize_params(served, version=trainer.metrics.samples)
+    ser_s = time.monotonic() - t0
+    check(len(body) > engine.cfg.push_double_buffer_max_bytes, "the push fits the double buffer")
+    futs = [engine.submit(GenRequest(tok.encode(f"Tell a long story, part {i}:"),
+                                     SamplingParams(temperature=0.7, max_tokens=4000), request_id=f"story{i}"))
+            for i in range(8)]
+    while engine.windows_dispatched < 8:
+        time.sleep(0.01)
+    # the peak over a second of decoding, then the peak over the push with
+    # the same decoding beside it: the resident weights do not change size
+    # (pieces are copied into them), so the difference is the push's
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    time.sleep(1.0)
+    torch.cuda.synchronize()
+    decode_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    version = engine.update_params_serialized(body)
+    while engine.version != version and time.monotonic() - t0 < 300:
+        time.sleep(0.01)
+    push_s = time.monotonic() - t0
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - decode_peak
+    timings = dict(engine.last_push_timings)
+    for i in range(len(futs)):
+        engine.abort(f"story{i}")
+    for f in futs:
+        f.result(timeout=60)
+    # the same body again into the idle engine: no decode transient hides
+    # what the push itself holds beside the resident weights
+    done = engine.push_counters()["pushes_completed"]
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.monotonic()
+    engine.update_params_serialized(body)
+    while engine.push_counters()["pushes_completed"] == done and time.monotonic() - t1 < 300:
+        time.sleep(0.01)
+    idle_s = time.monotonic() - t1
+    torch.cuda.synchronize()
+    idle_extra = torch.cuda.max_memory_allocated() - resident
+    idle_timings = dict(engine.last_push_timings)
+    engine.stop()
+    landed = param_checksums(engine.live_tree())
+    want = param_checksums(served)
+    bound = 2 * engine.cfg.push_stream_chunk_bytes + PUSH_SLACK_BYTES
+    log(f"VLM push: {len(body) / 1e9:.3f} GB body (serialized in {ser_s:.1f} s) over a double-buffer budget of "
+        f"{engine.cfg.push_double_buffer_max_bytes / 1e9:.3f} GB, mode {timings.get('mode')}, {timings.get('pieces')} "
+        f"pieces, row-spliced {timings.get('row_spliced')}, landed in {push_s:.2f} s ({timings.get('gbps', 0):.2f} "
+        f"GB/s); peak device memory {extra / 2**20:.1f} MiB over decoding's own peak of "
+        f"{decode_peak / 2**30:.3f} GiB (bound {bound / 2**20:.0f} MiB); windows during "
+        f"{timings.get('windows_during')}, largest gap {timings.get('max_window_gap_s')} s against a steady "
+        f"{timings.get('steady_window_gap_s')} s; the same body into the idle engine: {idle_s:.2f} s "
+        f"({idle_timings.get('gbps', 0):.2f} GB/s, mode {idle_timings.get('mode')}), peak device memory "
+        f"{idle_extra / 2**20:.1f} MiB over the resident {resident / 2**30:.3f} GiB; on {smi}")
+    check(engine.version == version, f"the push did not land: engine at v{engine.version}, pushed v{version}")
+    check(timings.get("mode") == idle_timings.get("mode") == "blob-chunked", f"the push took mode {timings.get('mode')}")
+    check("embed" in (timings.get("row_spliced") or []), "the embedding was not row-spliced")
+    check(extra <= bound and idle_extra <= bound,
+          f"the push raised peak device memory by {extra / 2**20:.1f} MiB ({idle_extra / 2**20:.1f} MiB idle)")
+    check(landed == want, f"{sum(landed[k] != want.get(k) for k in landed)} engine leaves differ from the body")
+    check(any(k.startswith("vision_tower/") for k in landed), "the tower's leaves were not compared")
+    check(timings.get("windows_during", 0) >= 1, "no decode window completed while the push was in flight")
+    del body, served
+    gc.collect()
+
+    # (e) export_hf of the trained tower reads back bit for bit
+    t0 = time.monotonic()
+    out = export_hf(Path(tmp) / "qwen25vl3b_trained", trainer.served_params(), model_cfg, None, vcfg)
+    back, back_cfg = load_hf_vision(out, dtype=mc.dtype, device=dev)
+    exp_s = time.monotonic() - t0
+    trained = dict(param_leaves(trainer.params["vision_tower"]))
+    same = all(torch.equal(t, trained[n].detach()) for n, t in param_leaves(back))
+    log(f"trained tower export and read-back: {exp_s:.1f} s, {len(trained)} tensors, equal {same}")
+    check(same and back_cfg == vcfg, "the exported tower does not read back bit for bit")
+    shapes = {"engine": (engine.cfg.max_slots, engine.cfg.decode_window, engine.T_alloc),
+              "row": (L, max(rows)), "prompts": prompt_lens, "buckets": sorted({engine._bucket(n) for n in prompt_lens}),
+              "heads": (model_cfg.num_heads, model_cfg.num_kv_heads, model_cfg.head_dim_)}
+    del trainer, engine, params, tower, back, trained
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, shapes
+
+
+def time_vlm_shapes(dev, kernels: list[dict], shapes: dict) -> None:
+    """Kernel #2 at phase 26's prefill buckets (B 1), #1 at its slab (live
+    lengths of a prompt plus up to 128 tokens, and full lengths), and #2-#4
+    on an unpacked [1, 8,192] row (one segment plus padding), at Dh 128 and
+    G 8, each against its plain version and timed beside SDPA and its
+    bound."""
+    heads = shapes["heads"]
+    for bucket in shapes["buckets"]:
+        time_prefill(dev, kernels, f"vlm_prefill_{bucket}_shape", 1, bucket, 26, heads=heads)
+    time_slab(dev, kernels, "vlm_slab_shape", shapes["engine"], (min(shapes["prompts"]), max(shapes["prompts"]) + 128),
+              26, heads=heads)
+    L, n = shapes["row"]
+    seg = np.concatenate([np.zeros(n, np.int32), np.ones(L - n, np.int32)])
+    time_train_row(dev, kernels, "vlm_row_shape", seg, L - n, 26, heads=heads)
+
+
 def main() -> None:
+    marks = [time.monotonic()]
+
+    def lap(name: str) -> None:
+        """Log the seconds since the previous mark: each phase's wall."""
+        marks.append(time.monotonic())
+        log(f"phase wall: {name} {marks[-1] - marks[-2]:.1f} s (total {marks[-1] - marks[0]:.1f} s)")
+
     info = phase_device()
     dev = torch.device("cuda")
     ptxas = phase_build()
     kernels = [phase_decode_kernel(dev), phase_gqa_kernel(dev, ptxas.get("gqa_attention_fwd", "")),
                *phase_gqa_bwd_kernels(dev, ptxas.get("gqa_attention_bwd", "")),
                phase_paged_kernel(dev)]
+    lap("kernels")
     torch.cuda.empty_cache()
     paths = {}
     with tempfile.TemporaryDirectory() as tmp:
         trainer, paths["train_step"] = phase_train_step(dev, info["smi"], f"{tmp}/train")
         paths["engine"] = phase_engine(dev, info["smi"], trainer, f"{tmp}/train")
+        lap("train step, engine")
         del trainer
         torch.cuda.empty_cache()
         paths["paged_engine"], snapshots = phase_paged_engine(dev, info["smi"])
         torch.cuda.empty_cache()
         time_paged_working_set(dev, snapshots, kernels[-1])
+        lap("paged engine")
         del snapshots
         torch.cuda.empty_cache()
         paths["prefix_cache"] = phase_prefix_cache(dev)
@@ -2979,36 +3493,58 @@ def main() -> None:
         paths["slab_prefix"], paths["score_tokens"] = phase_slab_prefix(dev, info["smi"])
         torch.cuda.empty_cache()
         phase_client(dev)
+        lap("prefix cache, slab prefix, client")
         paths["rl_loop"] = phase_rl_loop(f"{tmp}/bandit")
         paths["rl_loop_paged"] = phase_rl_loop(f"{tmp}/bandit_paged", paged=True)
         paths["rl_loop_kl"] = phase_rl_loop_kl(f"{tmp}/bandit_kl")
+        lap("rl loops")
         paths["guessing"] = phase_guessing(f"{tmp}/guessing")
+        lap("guessing")
         torch.cuda.empty_cache()
         paths.update(phase_hf_checkpoint(dev, info["smi"], f"{tmp}/hf"))
+        lap("hf checkpoint")
         # phase 14's recording trainers sit in a reference cycle (instance,
         # class, the closure's list): about 24 GiB that phase 18 needs
         gc.collect()
         torch.cuda.empty_cache()
         paths["served_engine"], paths["push_while_decoding"] = phase_served_engine(dev, info["smi"], tmp)
+        lap("served engine, push")
         paths["processes_device"] = phase_processes(f"{tmp}/processes_device", False, info["smi"])
         paths["processes_split"] = phase_processes(f"{tmp}/processes_split", True, info["smi"])
+        lap("processes mode")
         hf_dir = Path(f"{tmp}/hf/hf_in") / CURRENT_DIR  # where phase 14's export_hf wrote
         paths["math"], math_shapes = phase_math(hf_dir, info["smi"], tmp)
         torch.cuda.empty_cache()
         time_math_shapes(dev, kernels, math_shapes)
+        lap("math")
         paths["multi_domain"] = phase_multi_domain(hf_dir, info["smi"], tmp)
+        lap("multi_domain")
         torch.cuda.empty_cache()
         paths.update(phase_short_domains(hf_dir, info["smi"], tmp))
+        lap("logic, ifeval, fn_calling")
         gc.collect()
         torch.cuda.empty_cache()
         paths["tir"], tir_shapes = phase_tir(hf_dir, info["smi"], tmp)
         gc.collect()
         torch.cuda.empty_cache()
         time_tir_shapes(dev, kernels, tir_shapes)
+        lap("tir")
         paths.update(phase_coding_miniwob(hf_dir, info["smi"], tmp))
         paths["deep_research"] = phase_deep_research(hf_dir, info["smi"], tmp)
+        lap("coding, miniwob, deep_research")
         torch.cuda.empty_cache()
         paths["logic_processes"] = phase_logic_processes(hf_dir, info["smi"], tmp)
+        lap("logic in processes mode")
+        gc.collect()
+        torch.cuda.empty_cache()
+        paths["vlm_bandit"] = phase_vlm_bandit(tmp)
+        paths["vlm_slab"], paths["vlm_paged"] = phase_vlm_paged(dev)
+        lap("vlm_bandit, toy VLM slab and paged")
+        gc.collect()
+        torch.cuda.empty_cache()
+        paths["vlm_3b"], vlm_shapes = phase_vlm_3b(dev, info["smi"], tmp)
+        time_vlm_shapes(dev, kernels, vlm_shapes)
+        lap("Qwen2.5-VL-3B")
     for record, key in zip(kernels, ("decode", "gqa_fwd", "gqa_dq", "gqa_dkv", "paged")):
         record["launches_by_path"] = {path: c[key] for path, c in paths.items()}
         record["launches"] = sum(record["launches_by_path"].values())

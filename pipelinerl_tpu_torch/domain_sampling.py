@@ -87,12 +87,13 @@ class DomainWeightedSampler:
         return self.random.choice(self.samples_by_domain[self._pick_domain()])
 
 
-# the JAX package's loader table, renamed; chartqa waits for the VLM slice
+# the JAX package's loader table, renamed
 _LOADERS = {
     "math": "pipelinerl_tpu_torch.domains.math.load_datasets.load_datasets",
     "guessing": "pipelinerl_tpu_torch.domains.guessing.load_problems",
     "counting": "pipelinerl_tpu_torch.domains.counting.load_problems",
     "bandit": "pipelinerl_tpu_torch.domains.bandit.load_problems",
+    "chartqa": "pipelinerl_tpu_torch.domains.chartqa.load_datasets",
 }
 
 
@@ -104,8 +105,6 @@ def load_multidomain(dataset_names: list[str]) -> list[dict]:
         if "::" not in name:
             raise ValueError(f"multidomain dataset name must be domain::dataset, got {name!r}")
         domain, _, dataset = name.partition("::")
-        if domain == "chartqa":
-            raise ValueError(f"{name!r}: the chartqa loader is not ported yet (ROADMAP Queue 1, item 10)")
         if domain not in _LOADERS:
             raise ValueError(f"unknown domain {domain!r} in {name!r}")
         grouped[domain].append(dataset)

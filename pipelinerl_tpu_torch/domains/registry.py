@@ -1,9 +1,7 @@
 """Dotted-path function resolution and multi-domain dispatch.
 
-Port of the JAX package's ``domains/registry.py`` with every text domain of
-its table. A domain of the table that the port lacks (``chartqa`` and
-``vlm_bandit``, which need the VLM slice) raises a ``KeyError`` that names
-the ROADMAP Queue 1 item it waits for.
+Port of the JAX package's ``domains/registry.py`` with every domain of its
+table.
 """
 
 from __future__ import annotations
@@ -23,10 +21,9 @@ DEFAULT_DOMAIN_ROLLOUTS: dict[str, str] = {
     "logic": "pipelinerl_tpu_torch.domains.logic.rollouts.generate_logic_rollout",
     "deep_research": "pipelinerl_tpu_torch.domains.deep_research.rollouts.generate_research_rollout",
     "miniwob": "pipelinerl_tpu_torch.domains.miniwob.rollouts.generate_miniwob_rollout",
+    "chartqa": "pipelinerl_tpu_torch.domains.chartqa.generate_chartqa_rollout",
+    "vlm_bandit": "pipelinerl_tpu_torch.domains.vlm_bandit.generate_vlm_bandit_rollout",
 }
-
-# the JAX table's other domains -> the ROADMAP Queue 1 item each waits for
-_NOT_PORTED = {"chartqa": 10, "vlm_bandit": 10}
 
 
 def resolve(dotted_path: str) -> Callable:
@@ -43,8 +40,6 @@ def resolve(dotted_path: str) -> Callable:
 def resolve_domain_rollout(domain: str, overrides: dict[str, str] | None = None) -> Callable:
     table = {**DEFAULT_DOMAIN_ROLLOUTS, **(overrides or {})}
     if domain not in table:
-        if domain in _NOT_PORTED:
-            raise KeyError(f"The {domain!r} domain is not ported yet (ROADMAP Queue 1, item {_NOT_PORTED[domain]})")
         raise KeyError(f"No rollout generator registered for domain {domain!r}")
     return resolve(table[domain])
 

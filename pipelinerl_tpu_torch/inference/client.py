@@ -1,12 +1,13 @@
 """LLM client data model and the in-process client.
 
-Port of the JAX package's ``inference/client.py`` without its VLM branch
-(the engine loads only when an ``InProcessLLM`` makes a request, so the
-data model imports no kernel):
-``Prompt(messages)`` in, ``LLMCall`` out with exact token ids and per-token
-sampler logprobs, and ``make_training_text`` building the token-exact RL
-sample from one call. Plain dataclasses take the place of the pydantic
-models.
+Port of the JAX package's ``inference/client.py`` (the engine loads only
+when an ``InProcessLLM`` makes a request, so the data model imports no
+kernel): ``Prompt(messages)`` in, ``LLMCall`` out with exact token ids and
+per-token sampler logprobs, and ``make_training_text`` building the
+token-exact RL sample from one call. A prompt with image parts goes through
+the client's visual processor (``inference/processor.py``), whose features
+ride with the call into the sample. Plain dataclasses take the place of the
+pydantic models.
 """
 
 from __future__ import annotations
@@ -29,6 +30,13 @@ class Prompt:
     tools: list[dict] | None = None
     id: str = field(default_factory=lambda: str(uuid.uuid4()))
 
+    def has_images(self) -> bool:
+        """Whether any message's content is a parts list with an image part."""
+        return any(
+            isinstance(m.get("content"), list) and any(p.get("type") in ("image", "image_url") for p in m["content"])
+            for m in self.messages
+        )
+
 
 @dataclass
 class LLMMessage:
@@ -50,6 +58,8 @@ class LLMCall:
     model_version_start: int = 0
     model_version_end: int = 0
     latency: float = 0.0
+    # VLM: {"pixel_values", "image_grid_thw"} as the processor extracted them
+    visual: dict | None = None
 
     @property
     def prompt_length_tokens(self) -> int:
@@ -83,11 +93,13 @@ class InProcessLLM(BaseLLM):
         tokenizer,  # eos_token_id, apply_chat_template, decode (HF-compatible)
         parameters: dict | None = None,
         chat_template_kwargs: dict | None = None,
+        processor=None,  # inference.processor.VisualProcessorLike, VLM only
     ):
         self.engine = engine
         self.tokenizer = tokenizer
         self.parameters = dict(parameters or {})
         self.chat_template_kwargs = dict(chat_template_kwargs or {})
+        self.processor = processor
 
     def make_sampling_params(self, **overrides) -> SamplingParams:
         from .engine import SamplingParams
@@ -113,11 +125,18 @@ class InProcessLLM(BaseLLM):
         from .engine import GenRequest
 
         start = time.monotonic()
-        prompt_ids = self.prompt_token_ids(prompt)
+        visual = None
+        if prompt.has_images():
+            if self.processor is None:
+                raise ValueError("prompt contains images but the client has no processor")
+            prompt_ids, visual = self.processor(prompt.messages, tools=prompt.tools)
+        else:
+            prompt_ids = self.prompt_token_ids(prompt)
         request = GenRequest(
             prompt_ids=prompt_ids,
             params=self.make_sampling_params(**overrides),
             request_id=prompt.id,
+            visual=visual,
         )
         try:
             result: GenResult = await asyncio.wrap_future(self.engine.submit(request))
@@ -136,6 +155,7 @@ class InProcessLLM(BaseLLM):
             model_version_start=result.model_version_start,
             model_version_end=result.model_version_end,
             latency=time.monotonic() - start,
+            visual=visual,
         )
 
 
@@ -147,6 +167,9 @@ def make_training_text(llm: BaseLLM, llm_call: LLMCall) -> TrainingText:
     completion_ids = llm_call.output_token_ids
     input_ids = prompt_ids + completion_ids
     output_text = llm.tokenizer.decode(completion_ids, skip_special_tokens=False)
+    visual_features = None
+    if llm_call.visual is not None:
+        visual_features = {k: _tolist(llm_call.visual[k]) for k in ("pixel_values", "image_grid_thw")}
     return TrainingText(
         text=llm.tokenizer.decode(input_ids, skip_special_tokens=False),
         n_predicted=len(output_text),
@@ -157,10 +180,15 @@ def make_training_text(llm: BaseLLM, llm_call: LLMCall) -> TrainingText:
         finish_reason=llm_call.finish_reason,
         prompt_tokens=len(prompt_ids),
         output_tokens=len(completion_ids),
+        visual_features=visual_features,
         # the version the engine generated under (a sample that spans an
         # in-flight update keeps its start)
         metadata={"model_version": llm_call.model_version_start},
     )
+
+
+def _tolist(x):
+    return x.tolist() if hasattr(x, "tolist") else x
 
 
 async def llm_async_generate(llm: BaseLLM, prompt: Prompt, session: Any = None, **overrides) -> LLMCall:

@@ -22,21 +22,40 @@ layouts:
   parameter dict between windows; requests in flight continue on the new
   weights. A push from another process (``update_params_serialized``, a
   PWT3 body) or a host tree of numpy arrays goes through the transfer
-  thread first: it copies each dtype group as one run from a pinned
-  staging ring into one device buffer on a side CUDA stream, carves the
-  leaves as views of it, waits for the copies' event and only then hands
-  the tree to the engine thread. The buffers are recorded on the engine's
-  stream, so a later swap that drops them cannot free them under a decode
-  window that still reads them. A push of a newer version that arrives
-  mid-transfer supersedes the one in flight at most once in a row; one of
-  an older version (two bodies read at once can queue out of order) waits
-  and is dropped unstaged once a newer one has been published (the swap
-  keeps its version check as a backstop). The JAX engine paces
-  its copies through a gate the engine thread opens, because host-to-device
-  copies on its TPU link serialise with execution; an H100's copy engines
-  run beside the SMs, so pacing is not ported. Pushes over
-  ``push_double_buffer_max_bytes`` (the JAX engine's streamed mode and row
-  splice) raise: they wait for ROADMAP Queue 1 item 6.
+  thread first, in one of three modes by size:
+  - up to ``push_double_buffer_max_bytes`` ("blob", "double-buffer"): each dtype
+    group is copied as one run from a pinned staging ring into one device
+    buffer on a side CUDA stream, the leaves are carved as views of it, and
+    once the copies' event has fired the whole tree goes to the engine
+    thread, which swaps it between windows. The buffers are recorded on the
+    engine's stream, so a later swap that drops them cannot free them under
+    a decode window that still reads them;
+  - over it ("blob-chunked" for a PWT3 body, "streamed" for a host tree, the
+    JAX engine's chunked ``_transfer_blob`` and ``_stream_leaves_inplace``):
+    whole tensors are staged in chunks of at most ``push_stream_chunk_bytes``,
+    and a tensor larger than a chunk by ranges of whole rows (the row
+    splice). Each piece is copied into the live weights on the engine's
+    stream, after the piece's copy event and between two windows, so the
+    extra device memory is about two pieces, never a second tree. Windows
+    that run meanwhile see a mix of old and new weights, as in the JAX
+    engine: each token's logprob still comes from the logits that sampled
+    it, and the version stamps bracket the change; the version moves when
+    the last piece is in.
+  A push of a newer version that arrives mid-transfer supersedes the one in
+  flight at most once in a row, after any group or piece (a cut stream
+  leaves a mixed tree with no version bump, as in JAX); one of an older
+  version (two bodies read at once can queue out of order) waits and is
+  dropped unstaged once a newer one has been published (the swap keeps its
+  version check as a backstop). The JAX engine paces its copies through a
+  gate the engine thread opens, because host-to-device copies on its TPU
+  link serialise with execution; an H100's copy engines run beside the SMs,
+  so pacing is not ported.
+- VLM requests (``GenRequest.visual``) prefill one row per GRPO cluster
+  (``_prefill_vlm``): the vision tower encodes the pixels at a bucketed
+  patch count, the merged tokens are spliced at the image placeholders,
+  the row runs with mrope positions, and identical siblings fork its KV.
+  Each slot keeps an mrope ``pos_delta`` that shifts its decode positions.
+  A push that carries ``vision_tower`` refreshes the engine's tower.
 - Token-native: prompts arrive as token ids, completions leave as token ids
   plus per-token processed logprobs.
 - Windows are pipelined: up to ``window_pipeline_depth`` windows are queued
@@ -52,8 +71,10 @@ from __future__ import annotations
 
 import contextlib
 import logging
+import math
 import threading
 import time
+import zlib
 from collections import deque
 from concurrent.futures import Future
 from dataclasses import dataclass, field
@@ -62,6 +83,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..models.mrope import mrope_positions
 from ..models.transformer import (
     ModelConfig,
     decode_step_staged,
@@ -69,6 +91,7 @@ from ..models.transformer import (
     forward_extend,
     lm_head_logits,
 )
+from ..models.vision import prepare_vision_inputs, vision_forward, vision_inputs_to
 from ..ops.paged_attention import gather_pages, paged_append, paged_decode_attention
 from ..ops.sampling import sample_fast, sample_masked
 from ..train.rl_loss import token_logprobs_from_logits
@@ -125,9 +148,12 @@ class EngineConfig:
     # pool size in pages; None sizes it to slab parity, S * ceil(T_alloc / BT)
     kv_pool_blocks: int | None = None
     # host-side pushes up to this size are staged whole beside the live
-    # weights and swapped atomically; a larger one raises (the streamed mode
-    # waits for ROADMAP Queue 1 item 6)
+    # weights and swapped atomically; a larger one streams into the live
+    # weights in pieces of at most push_stream_chunk_bytes
     push_double_buffer_max_bytes: int = 6 << 30
+    push_stream_chunk_bytes: int = 256 << 20
+    # VLM: merged-visual-token buckets of the vision tower's input
+    vision_unit_buckets: tuple[int, ...] = (64, 256, 1024, 4096)
 
 
 @dataclass
@@ -148,6 +174,9 @@ class GenRequest:
     prompt_ids: list[int]
     params: SamplingParams
     request_id: str = ""
+    # VLM: {"pixel_values": [N, patch_dim], "image_grid_thw": [n, 3]};
+    # prompt_ids hold one image placeholder per merged visual token
+    visual: dict | None = None
     # streaming: called from the engine thread as tokens materialize, once
     # per window: cb(token_ids, logprobs, finish); the last call has finish
     # set. Must be fast and must not block.
@@ -247,6 +276,8 @@ class InferenceEngine:
         eos_token_id: int,
         version: int = 0,
         device="cuda",
+        vision_params: dict | None = None,
+        vision_cfg=None,  # models.vision.VisionConfig
     ):
         self.device = torch.device(device)
         self.model_cfg = model_cfg
@@ -254,8 +285,16 @@ class InferenceEngine:
         self.eos_token_id = eos_token_id
         self.params = params
         self.version = version
+        # the vision tower (models/vision.py): visual requests are refused
+        # without one; a push that carries ``vision_tower`` refreshes it
+        self.vision_params = vision_params
+        self.vision_cfg = vision_cfg
         self._pending_params: tuple[dict, int] | None = None
+        self._pending_vision: dict | None = None
         self._params_lock = threading.Lock()
+        # held while the engine thread dispatches, and by the transfer thread
+        # to queue a streamed piece's copy, so pieces land between windows
+        self._dispatch_lock = threading.Lock()
 
         S, T = cfg.max_slots, cfg.max_len
         L = model_cfg.num_layers
@@ -298,6 +337,9 @@ class InferenceEngine:
         # device-resident last sampled token per slot: each window starts
         # from the previous window's carry, not the host's stale view
         self._device_tokens = torch.zeros(S, dtype=torch.int64, device=dev)
+        # per-slot mrope decode offset: max(position) + 1 - prompt length of
+        # a VLM prompt, 0 for text
+        self._pos_delta = np.zeros(S, np.int64)
         self._generator = torch.Generator(device=dev)
         self._generator.manual_seed(cfg.seed + 1)
 
@@ -368,6 +410,9 @@ class InferenceEngine:
         # abort(), and the engine always resolves the future itself
         future.set_running_or_notify_cancel()
         prompt_len = len(request.prompt_ids)
+        if request.visual is not None and (self.vision_params is None or self.vision_cfg is None):
+            future.set_exception(RuntimeError("engine has no vision tower but got a visual request"))
+            return future
         if prompt_len == 0 or prompt_len >= self.cfg.max_len:
             self._notify(request, [], [], "abort")
             future.set_result(GenResult([], [], "abort", self.version, self.version, prompt_len))
@@ -390,44 +435,47 @@ class InferenceEngine:
     def update_params(self, params: dict, version: int) -> None:
         """Swap weights between decode windows: no pause, no drain. The
         engine thread installs ``params`` at its next step unless a newer
-        version is already installed. A tree of numpy arrays goes through
-        the transfer thread, which copies it to the engine's device first."""
+        version is already installed; a ``vision_tower`` subtree refreshes
+        the tower with it. A tree of numpy arrays goes through the transfer
+        thread, which copies it to the engine's device first."""
         leaves = [leaf for _, leaf in flatten_params(params)]
         if leaves and all(isinstance(leaf, np.ndarray) for leaf in leaves):
-            self._check_push_budget(sum(leaf.nbytes for leaf in leaves))
             self._enqueue_transfer(("tree", params, version))
             return
+        vision = None
+        if "vision_tower" in params:
+            params = dict(params)
+            vision = params.pop("vision_tower")
         with self._params_lock:
             self._pending_params = (params, version)
+            self._pending_vision = vision
         self._work_event.set()
 
     def update_params_serialized(self, body) -> int:
         """Swap weights from a PWT3 body (``weight_transfer.py``): the
         transfer thread stages it on the device while decoding goes on.
-        Raises ValueError on a tree that does not match the engine's weights
-        and on a push over the double-buffer budget. Returns the version."""
+        Raises ValueError on a tree that does not match the engine's weights.
+        Returns the version."""
         groups, tensors, version, base = parse_push_header(body)
         self._validate_push_spec(tensors)
-        keep = [t for t in tensors if not _trainer_only(t["name"])]
-        self._check_push_budget(sum(entry_count(t) * torch_dtype(t["dtype"]).itemsize for t in keep))
+        keep = [t for t in tensors if self._pushed(t["name"])]
         self._enqueue_transfer(("blob", body, groups, keep, base, version))
         return version
 
-    def _check_push_budget(self, nbytes: int) -> None:
-        if nbytes > self.cfg.push_double_buffer_max_bytes:
-            raise ValueError(
-                f"weight push of {nbytes} bytes exceeds push_double_buffer_max_bytes "
-                f"({self.cfg.push_double_buffer_max_bytes}); the streamed push is not ported yet "
-                "(ROADMAP Queue 1, item 6)"
-            )
+    def _pushed(self, name: str) -> bool:
+        """Whether a pushed tensor reaches the engine: the value head is the
+        trainer's, and a tower reaches only an engine that has one."""
+        return not _trainer_only(name) and (self.vision_params is not None or not name.startswith("vision_tower/"))
 
     def _validate_push_spec(self, tensors: list[dict]) -> None:
         """A pushed tree must match the engine's weights exactly (names,
-        shapes, dtypes); the value head is the trainer's and is dropped."""
+        shapes, dtypes), ``vision_tower/*`` the engine's tower where it has
+        one; the value head is the trainer's and is dropped, and so is a
+        tower pushed to an engine without one."""
         expected = {name: (str(t.dtype).removeprefix("torch."), tuple(t.shape))
-                    for name, t in flatten_params(self.params)}
+                    for name, t in flatten_params(self.live_tree())}
         got = {t["name"]: (t["dtype"], tuple(int(x) for x in t["shape"]))
-               for t in tensors if not _trainer_only(t["name"])}
+               for t in tensors if self._pushed(t["name"])}
         if set(got) != set(expected):
             missing = sorted(set(expected) - set(got))[:5]
             extra = sorted(set(got) - set(expected))[:5]
@@ -503,10 +551,33 @@ class InferenceEngine:
             except Exception:  # noqa: BLE001 - a bad push must not kill the thread
                 logger.exception("weight push failed; dropped")
 
+    def live_tree(self) -> dict:
+        """The weights a push replaces: the model's, with the tower under
+        ``vision_tower`` where the engine has one."""
+        if self.vision_params is None:
+            return self.params
+        return {**self.params, "vision_tower": self.vision_params}
+
     def _transfer_blob(self, body, groups: list[dict], tensors: list[dict], base: int, version: int) -> None:
-        """Each dtype group's run in one device buffer, its tensors carved
-        as views; the tree is published once every copy has landed."""
+        """Within the double-buffer budget, each dtype group's run in one
+        device buffer, its tensors carved as views, and the tree published
+        once every copy has landed; over it, the chunked stream into the
+        live weights."""
         t0 = time.monotonic()
+        total = sum(entry_count(t) * torch_dtype(t["dtype"]).itemsize for t in tensors)
+        if total > self.cfg.push_double_buffer_max_bytes:
+            pieces = []
+            for g in groups:
+                entries = sorted((t for t in tensors if t["dtype"] == g["dtype"]), key=lambda t: int(t["elem_offset"]))
+                dt = torch_dtype(g["dtype"])
+                start = base + int(g["byte_offset"])
+                for lo, hi, targets in self._plan_pieces(
+                        [(t["name"], tuple(int(x) for x in t["shape"]), int(t["elem_offset"])) for t in entries],
+                        dt.itemsize):
+                    pieces.append((byte_view(body, start + lo * dt.itemsize, (hi - lo) * dt.itemsize), dt,
+                                   hi - lo, targets))
+            self._stream_pieces(pieces, version, t0, total, "blob-chunked")
+            return
         staged, nbytes = {}, 0
         for g in groups:
             entries = [t for t in tensors if t["dtype"] == g["dtype"]]
@@ -526,17 +597,120 @@ class InferenceEngine:
         self._publish(unflatten_params(staged), version, t0, nbytes, "blob")
 
     def _transfer_tree(self, params: dict, version: int) -> None:
-        """A host tree of numpy arrays, one staged run per leaf."""
+        """A host tree of numpy arrays: one staged run per leaf within the
+        double-buffer budget, else streamed into the live weights leaf by
+        leaf (a leaf larger than a chunk by rows)."""
         t0 = time.monotonic()
-        staged, nbytes = {}, 0
-        for name, leaf in flatten_params(params):
-            if _trainer_only(name):
-                continue
-            src = as_tensor(leaf)
+        leaves = [(name, as_tensor(leaf)) for name, leaf in flatten_params(params) if self._pushed(name)]
+        total = sum(t.numel() * t.element_size() for _, t in leaves)
+        if total > self.cfg.push_double_buffer_max_bytes:
+            pieces = []
+            for name, src in leaves:
+                raw = src.reshape(-1).view(torch.uint8)
+                for lo, hi, targets in self._plan_pieces([(name, tuple(src.shape), 0)], src.element_size()):
+                    size = src.element_size()
+                    pieces.append((raw[lo * size : hi * size], src.dtype, hi - lo, targets))
+            self._stream_pieces(pieces, version, t0, total, "streamed")
+            return
+        staged = {}
+        for name, src in leaves:
             run = self._stage_run(src.reshape(-1).view(torch.uint8), src.dtype, src.numel())
             staged[name] = run.view(src.shape)
-            nbytes += leaf.nbytes
-        self._publish(unflatten_params(staged), version, t0, nbytes, "tree")
+        self._publish(unflatten_params(staged), version, t0, total, "double-buffer")
+
+    def _plan_pieces(self, entries: list[tuple[str, tuple, int]], itemsize: int) -> list[tuple[int, int, list]]:
+        """Cut one dtype run's tensors, ``(name, shape, elem_offset)`` in
+        offset order, into pieces of at most ``push_stream_chunk_bytes``:
+        consecutive whole tensors share a piece, and a tensor larger than a
+        piece goes by ranges of whole rows (a single row larger than a piece
+        is a piece of its own). Returns ``(lo, hi, targets)`` element ranges
+        of the run, each target ``(name, first row, rows or None for the
+        whole tensor, element offset in the piece)``."""
+        budget = max(1, int(self.cfg.push_stream_chunk_bytes) // itemsize)
+        pieces: list[tuple[int, int, list]] = []
+        lo = hi = None
+        targets: list = []
+
+        def flush():
+            nonlocal lo, hi, targets
+            if targets:
+                pieces.append((lo, hi, targets))
+            lo = hi = None
+            targets = []
+
+        for name, shape, off in entries:
+            count = math.prod(shape)
+            if count > budget:
+                flush()
+                row = math.prod(shape[1:]) if len(shape) > 1 else 1
+                rows = max(1, budget // row)
+                for r in range(0, shape[0] if len(shape) > 1 else count, rows):
+                    n = min(rows, (shape[0] if len(shape) > 1 else count) - r)
+                    pieces.append((off + r * row, off + (r + n) * row, [(name, r, n, 0)]))
+                continue
+            if targets and off + count - lo > budget:
+                flush()
+            if lo is None:
+                lo = off
+            targets.append((name, None, None, off - lo))
+            hi = off + count
+        flush()
+        return pieces
+
+    def _stream_pieces(self, pieces: list[tuple], version: int, t0: float, total: int, mode: str) -> None:
+        """Stage each piece on the copy stream and copy it into the live
+        weights on the engine's stream between two windows. At most two
+        pieces' buffers are alive: a piece's splice is waited for before the
+        piece after next is staged. A newer push may cut the stream after
+        any piece; the version moves when the last piece is in."""
+        engine_stream = torch.cuda.default_stream(self.device) if self.device.type == "cuda" else None
+        previous = None
+        done_bytes, row_spliced = 0, []
+        for src, dtype, count, targets in pieces:
+            run = self._stage_run(src, dtype, count)
+            copied = None
+            if self._copy_stream is not None:
+                copied = torch.cuda.Event()
+                copied.record(self._copy_stream)
+            with self._dispatch_lock:
+                live = dict(flatten_params(self.live_tree()))
+                with torch.cuda.stream(engine_stream) if engine_stream is not None else contextlib.nullcontext():
+                    if copied is not None:
+                        engine_stream.wait_event(copied)
+                    for name, row, rows, off in targets:
+                        dst = live[name] if row is None else live[name][row : row + rows]
+                        dst.copy_(run[off : off + dst.numel()].view(dst.shape))
+                    spliced = None
+                    if engine_stream is not None:
+                        spliced = torch.cuda.Event()
+                        spliced.record(engine_stream)
+            del run
+            if previous is not None:
+                previous.synchronize()
+            previous = spliced
+            done_bytes += count * dtype.itemsize
+            row_spliced += [name for name, row, _, _ in targets if row == 0]
+            self.last_push_timings = {"transfer_s": time.monotonic() - t0, "bytes_done": done_bytes, "bytes": total,
+                                      "in_progress": True, "mode": mode, "pieces": len(pieces),
+                                      "row_spliced": row_spliced}
+            if self._should_yield_to_newer(version):
+                return  # the newer push wins; the tree stays mixed, the version unmoved
+            with self._params_lock:
+                if self._pending_params is not None and self._pending_params[1] >= version:
+                    return  # a fully staged tree of an equal or newer version supersedes
+        if previous is not None:
+            previous.synchronize()
+        t1 = time.monotonic()
+        with self._params_lock:
+            if self._pending_params is not None and self._pending_params[1] >= version:
+                return
+            if version > self.version:
+                self.version = version
+        self._note_push_complete(t0, t1, version)
+        self.last_push_timings = {"transfer_s": t1 - t0, "bytes": total, "gbps": total / max(t1 - t0, 1e-9) / 1e9,
+                                  "mode": mode, "pieces": len(pieces), "row_spliced": row_spliced,
+                                  **self.window_gaps(t0, t1)}
+        self._work_event.set()
 
     def _stage_run(self, src: torch.Tensor, dtype: torch.dtype, count: int) -> torch.Tensor:
         """Copy ``src`` (uint8 bytes on the host) into a new device tensor of
@@ -575,18 +749,23 @@ class InferenceEngine:
             done.record(self._copy_stream)
             done.synchronize()
         t1 = time.monotonic()
+        vision = tree.pop("vision_tower", None)
         with self._params_lock:
             if self._pending_params is not None and self._pending_params[1] >= version:
                 return
             self._pending_params = (tree, version)
+            self._pending_vision = vision
             self._published_at = t1
+        self._note_push_complete(t0, t1, version)
+        self.last_push_timings = {"transfer_s": t1 - t0, "bytes": nbytes, "gbps": nbytes / max(t1 - t0, 1e-9) / 1e9,
+                                  "mode": mode, **self.window_gaps(t0, t1)}
+        self._work_event.set()
+
+    def _note_push_complete(self, t0: float, t1: float, version: int) -> None:
         self._push_yields = 0
         self._push_last_span_s = t1 - t0
         self._push_last_version = version
         self._pushes_completed += 1
-        self.last_push_timings = {"transfer_s": t1 - t0, "bytes": nbytes, "gbps": nbytes / max(t1 - t0, 1e-9) / 1e9,
-                                  "mode": mode, **self.window_gaps(t0, t1)}
-        self._work_event.set()
 
     def window_gaps(self, t0: float, t1: float) -> dict:
         """Windows read back during [t0, t1], the largest gap between read
@@ -696,19 +875,23 @@ class InferenceEngine:
     def step(self) -> bool:
         """One scheduling iteration: weight swap, aborts, early retirement,
         admission, one decode window."""
-        self._maybe_swap_params()
-        aborted = self._process_aborts()
-        self._retire_exhausted()
-        admitted = self._admit()
-        decoded = self._decode()
+        with self._dispatch_lock:
+            self._maybe_swap_params()
+            aborted = self._process_aborts()
+            self._retire_exhausted()
+            admitted = self._admit()
+            decoded = self._decode()
         return aborted or admitted or decoded
 
     def _maybe_swap_params(self) -> None:
         # a push that finished after a newer one was installed is dropped
         with self._params_lock:
             pending, self._pending_params = self._pending_params, None
+            vision, self._pending_vision = self._pending_vision, None
             if pending is not None and pending[1] >= self.version:
                 self.params, self.version = pending
+                if vision is not None:
+                    self.vision_params = vision
                 if self._published_at is not None:
                     self.last_push_timings["publish_to_swap_s"] = time.monotonic() - self._published_at
                     self._published_at = None
@@ -774,7 +957,7 @@ class InferenceEngine:
         transcripts leave it out: no step may have fed it yet, so its K/V
         row can be unwritten (the JAX paged engine registers it; ROADMAP
         Queue 3)."""
-        if self.prefix_cache is not None and state.token_ids:
+        if self.prefix_cache is not None and state.token_ids and self._text_slot(slot, state):
             self.prefix_cache.register(
                 state.request.prompt_ids + state.token_ids[:-1], self.block_pool.table[slot]
             )
@@ -851,15 +1034,26 @@ class InferenceEngine:
         def next_slot() -> int:
             return free_slots.pop(0) if free_slots else self._evict_parked()
 
+        # a VLM request clusters on (prompt, image bytes): a GRPO group shares
+        # one image, so its siblings still fork the KV
         clusters: dict[tuple, list[tuple]] = {}
         for pair in pairs:
-            clusters.setdefault(tuple(pair[0].prompt_ids), []).append(pair)
+            key: tuple = tuple(pair[0].prompt_ids)
+            if pair[0].visual is not None:
+                pix = np.ascontiguousarray(pair[0].visual["pixel_values"])
+                key = key + ("#img", pix.shape, zlib.crc32(pix.tobytes()))
+            clusters.setdefault(key, []).append(pair)
         by_bucket: dict[int, list] = {}
         extends: dict[tuple[int, int], list] = {}
         slab_extends: dict[tuple[int, int], list] = {}
+        vlm_entries: list[tuple[int, list]] = []
         for members in clusters.values():
             request, future = members[0]
             n = len(request.prompt_ids)
+            if request.visual is not None:
+                entry = [next_slot(), request, future, members[1:], [next_slot() for _ in members[1:]]]
+                vlm_entries.append((self._bucket(n), entry))
+                continue
             hit = slab_hit = None
             if self.prefix_cache is not None:
                 hit = self.prefix_cache.lookup(request.prompt_ids)
@@ -887,6 +1081,8 @@ class InferenceEngine:
         for (tail_bucket, pfx_bucket), group in slab_extends.items():
             for batch in self._batches(group):
                 self._prefill_extend_slab(tail_bucket, pfx_bucket, batch)
+        for bucket, entry in vlm_entries:
+            self._prefill_vlm(bucket, entry)
         for bucket, group in by_bucket.items():
             for batch in self._batches(group):
                 self._prefill_batch(bucket, batch)
@@ -895,6 +1091,7 @@ class InferenceEngine:
     def _new_slot(self, slot: int, request: GenRequest, future: Future) -> None:
         max_new = min(request.params.max_tokens, self.cfg.max_len - len(request.prompt_ids))
         self._gen_counter += 1
+        self._pos_delta[slot] = 0
         self._slots[slot] = _Slot(
             request=request, future=future, version_start=self.version,
             max_new_tokens=max_new, gen=self._gen_counter,
@@ -948,6 +1145,53 @@ class InferenceEngine:
             self._new_slot(slot, request, future)
             if siblings:
                 self._fork_slots(slot, last_logits[b], siblings, sibling_slots)
+
+    def _prefill_vlm(self, bucket: int, entry: list) -> None:
+        """Admit one VLM cluster (the JAX engine's ``_prefill_vlm``): the
+        tower encodes the pixels at a bucketed patch count, the primary slot
+        prefills one row with the visual tokens spliced at the placeholders
+        and mrope positions (the pads after the prompt continue the rows),
+        and identical siblings fork its KV."""
+        slot, request, future, siblings, sibling_slots = entry
+        vis, vcfg = request.visual, self.vision_cfg
+        grid = np.asarray(vis["image_grid_thw"], np.int64).reshape(-1, 3)
+        vin = prepare_vision_inputs(vis["pixel_values"], grid, vcfg, self.cfg.vision_unit_buckets)
+        ids = request.prompt_ids
+        n = len(ids)
+        pos3, delta = mrope_positions(ids, grid, self.model_cfg.image_token_id, vcfg.spatial_merge_size,
+                                      tokens_per_second=vcfg.tokens_per_second)
+        padded = np.zeros((1, bucket), np.int64)
+        padded[0, :n] = ids
+        pos_p = np.zeros((3, 1, bucket), np.int64)
+        pos_p[:, 0, :n] = pos3
+        pos_p[:, 0, n:] = pos3.max() + 1 + np.arange(bucket - n)
+        dev = self.device
+        input_ids = torch.from_numpy(padded).to(dev)
+        lengths = torch.tensor([n], dtype=torch.int64, device=dev)
+        slots_t = torch.tensor([slot], dtype=torch.int64, device=dev)
+        vlm = dict(positions=torch.from_numpy(pos_p).to(dev), image_mask=input_ids == int(self.model_cfg.image_token_id),
+                   vin=vision_inputs_to(vin, dev))
+        if self.paged:
+            reserve = self._reserve_tokens(request)
+            self.block_pool.allocate(slot, reserve)
+            self._slot_capacity[slot] = reserve
+            last_logits = _prefill_vlm_paged_fn(
+                self.params, self.model_cfg, self.attn_impl, self.vision_params, vcfg, self.k_pool, self.v_pool,
+                self.cache_lens, input_ids, lengths, slots_t, torch.from_numpy(self.block_pool.table[[slot]]).to(dev),
+                **vlm,
+            )
+        else:
+            last_logits = _prefill_vlm_fn(
+                self.params, self.model_cfg, self.attn_impl, self.vision_params, vcfg, self.k_cache, self.v_cache,
+                self.cache_lens, input_ids, lengths, slots_t, **vlm,
+            )
+        self.prefill_batches += 1
+        self._sample_first_tokens(last_logits, [slot], [request])
+        self.total_prefill_tokens += n
+        self._new_slot(slot, request, future)
+        self._pos_delta[slot] = delta
+        if siblings:
+            self._fork_slots(slot, last_logits[0], siblings, sibling_slots)
 
     def _tail_arrays(self, tail_bucket: int, group: list[tuple]):
         """The padded tails [B, tail_bucket], tail lengths and prefix lengths
@@ -1063,6 +1307,7 @@ class InferenceEngine:
         for (request, future), slot in zip(siblings, dst_slots):
             self.prefill_reused_tokens += len(request.prompt_ids)
             self._new_slot(slot, request, future)
+            self._pos_delta[slot] = self._pos_delta[src_slot]
 
     def _stop_tokens(self, p: SamplingParams) -> tuple[int, ...]:
         return (self.eos_token_id,) + tuple(p.stop_token_ids)
@@ -1096,7 +1341,7 @@ class InferenceEngine:
         step, an abort). Windows still in flight for the old occupant write
         only past the parked rows, and they are queued on the engine's one
         stream before any extend that resumes the slot."""
-        if not self.cfg.prefix_cache:
+        if not self.cfg.prefix_cache or not self._text_slot(slot, state):
             return
         transcript = state.request.prompt_ids + state.token_ids[:-1]
         if not self.cfg.slab_prefix_min_tokens <= len(transcript) < self.cfg.max_len:
@@ -1104,6 +1349,11 @@ class InferenceEngine:
         self._park_stamp += 1
         state.park_stamp = self._park_stamp
         self._parked[slot] = (transcript, self._park_stamp)
+
+    def _text_slot(self, slot: int, state: _Slot) -> bool:
+        """Whether a slot's transcript is text alone: a VLM transcript's KV
+        depends on its pixels, so it is never parked or cached."""
+        return state.request.visual is None and self._pos_delta[slot] == 0
 
     def _park_lookup(self, prompt_ids: list[int]) -> tuple[int, int] | None:
         """The longest parked transcript of at least
@@ -1218,7 +1468,7 @@ class InferenceEngine:
         window_args = (
             self.cache_lens, self._device_tokens, torch.from_numpy(active).to(dev),
             torch.from_numpy(pending_mask).to(dev), self.first_info, self._generator,
-            temperature, top_p, top_k,
+            temperature, top_p, top_k, torch.from_numpy(self._pos_delta.copy()).to(dev),
         )
         if self.paged:
             # the table snapshot, sliced to the power-of-two bucket of the
@@ -1349,9 +1599,12 @@ def _decode_steps(
     temperature: torch.Tensor,  # [S]
     top_p: torch.Tensor | None,  # [S]; None: no top-p/top-k in this window
     top_k: torch.Tensor | None,
+    pos_delta: torch.Tensor,  # [S] mrope decode offset (0 for text slots)
 ):
     """``n_steps`` decode steps with no host read: each sampled token feeds
     the next step on the device, and new K/V go to a [L, W, S, K, Dh] band.
+    A VLM slot's rope position is its cache index plus ``pos_delta`` (its
+    three mrope rows are equal past the prompt, so the 1D rope serves).
     Returns (k_staged, v_staged, tokens [N, S], logprobs [N, S], carry)."""
     L, S = cache_k.shape[0], tokens.shape[0]
     K, Dh = model_cfg.num_kv_heads, model_cfg.head_dim_
@@ -1359,7 +1612,7 @@ def _decode_steps(
     v_staged = torch.zeros_like(k_staged)
     win_tokens, win_logprobs = [], []
     for step in range(n_steps):
-        positions = (base_lens + step).clamp(max=max_position)
+        positions = (base_lens + step).clamp(max=max_position) + pos_delta
         logits, k_new, v_new = decode_step_staged(
             params, model_cfg, tokens, positions, cache_k, cache_v,
             base_lens, k_staged, v_staged, step, attn_impl=attn_impl,
@@ -1402,6 +1655,7 @@ def _decode_window_fn(
     temperature: torch.Tensor,  # [S]
     top_p: torch.Tensor | None,  # [S]; None: no top-p/top-k in this window
     top_k: torch.Tensor | None,
+    pos_delta: torch.Tensor,  # [S]
 ):
     """A slab decode window: ``_decode_steps`` over the frozen cache, then
     the band merges into the cache once. Returns the packed window output
@@ -1411,7 +1665,7 @@ def _decode_window_fn(
     base_lens = cache_lens.clone()  # frozen for the whole window
     k_staged, v_staged, win_tokens, win_logprobs, tokens = _decode_steps(
         params, model_cfg, attn_impl, n_steps, k_cache, v_cache, base_lens, T_alloc - 1,
-        tokens, active, generator, temperature, top_p, top_k,
+        tokens, active, generator, temperature, top_p, top_k, pos_delta,
     )
     _merge_staged(k_cache, k_staged, base_lens)
     _merge_staged(v_cache, v_staged, base_lens)
@@ -1437,6 +1691,7 @@ def _decode_window_paged_fn(
     temperature: torch.Tensor,
     top_p: torch.Tensor | None,
     top_k: torch.Tensor | None,
+    pos_delta: torch.Tensor,  # [S]
 ):
     """A paged decode window. "ragged" runs kernel #5 through the table at
     every step; "xla" gathers each slot's pages once per window into a
@@ -1462,7 +1717,7 @@ def _decode_window_paged_fn(
         raise ValueError(f"unknown attention implementation {attn_impl!r}")
     k_staged, v_staged, win_tokens, win_logprobs, tokens = _decode_steps(
         params, model_cfg, attn, n_steps, cache_k, cache_v, base_lens, MAXB * BT - 1,
-        tokens, active, generator, temperature, top_p, top_k,
+        tokens, active, generator, temperature, top_p, top_k, pos_delta,
     )
     count = torch.where(active, n_steps, 0)
     paged_append(k_pool, k_staged.transpose(1, 2), block_table, base_lens, count)
@@ -1471,16 +1726,20 @@ def _decode_window_paged_fn(
     return _pack_window(first_info, win_tokens, win_logprobs), tokens
 
 
-def _prefill_forward(params, model_cfg, attn_impl, input_ids, lengths):
-    """Forward over B padded prompts. Returns (fp32 logits [B, V] of each
-    row's last prompt token, k [L, B, P, K, Dh], v): the lm_head runs at one
-    position per row, not over the whole bucket."""
+def _prefill_forward(params, model_cfg, attn_impl, input_ids, lengths, positions=None, image_embeds=None,
+                     image_mask=None):
+    """Forward over B padded prompts (``positions`` default to 0..P-1; a VLM
+    row passes its ``[3, 1, P]`` mrope rows and spliced visual tokens).
+    Returns (fp32 logits [B, V] of each row's last prompt token, k [L, B, P,
+    K, Dh], v): the lm_head runs at one position per row, not over the
+    whole bucket."""
     B, P = input_ids.shape
-    positions = torch.arange(P, device=input_ids.device)[None, :].expand(B, P)
+    if positions is None:
+        positions = torch.arange(P, device=input_ids.device)[None, :].expand(B, P)
     segments = torch.zeros((B, P), dtype=torch.int32, device=input_ids.device)
     normed, (k_new, v_new) = forward(
         params, model_cfg, input_ids, positions, segments, return_kv=True,
-        attn_impl=attn_impl, skip_unembed=True,
+        attn_impl=attn_impl, skip_unembed=True, image_embeds=image_embeds, image_mask=image_mask,
     )
     return _last_logits(params, model_cfg, normed, lengths), k_new, v_new
 
@@ -1500,10 +1759,11 @@ def _prefill_fn(
     input_ids: torch.Tensor,  # [B, P] padded bucket
     lengths: torch.Tensor,  # [B] true prompt lengths
     slots: torch.Tensor,  # [B]
+    **vlm,  # positions, image_embeds, image_mask of a VLM row
 ) -> torch.Tensor:
     """Prefill B padded prompts into their slots' cache prefixes. Returns the
     fp32 logits [B, V] of each row's last prompt token."""
-    last_logits, k_new, v_new = _prefill_forward(params, model_cfg, attn_impl, input_ids, lengths)
+    last_logits, k_new, v_new = _prefill_forward(params, model_cfg, attn_impl, input_ids, lengths, **vlm)
     P = input_ids.shape[1]
     k_cache[:, slots, :P] = k_new.to(k_cache.dtype)
     v_cache[:, slots, :P] = v_new.to(v_cache.dtype)
@@ -1522,15 +1782,36 @@ def _prefill_paged_fn(
     lengths: torch.Tensor,  # [B]
     slots: torch.Tensor,  # [B]
     table_rows: torch.Tensor,  # [B, MAXB] — the rows' freshly allocated pages
+    **vlm,  # positions, image_embeds, image_mask of a VLM row
 ) -> torch.Tensor:
     """Paged prefill: the forward of ``_prefill_fn``, then each row's prompt
     K/V appended into its pages (pad rows dropped by ``count``)."""
-    last_logits, k_new, v_new = _prefill_forward(params, model_cfg, attn_impl, input_ids, lengths)
+    last_logits, k_new, v_new = _prefill_forward(params, model_cfg, attn_impl, input_ids, lengths, **vlm)
     zero = torch.zeros_like(lengths)
     paged_append(k_pool, k_new, table_rows, zero, lengths)
     paged_append(v_pool, v_new, table_rows, zero, lengths)
     cache_lens[slots] = lengths.to(torch.int32)
     return last_logits
+
+
+def _prefill_vlm_fn(params, model_cfg, attn_impl, vision_params, vision_cfg, k_cache, v_cache, cache_lens,
+                    input_ids, lengths, slots, positions, image_mask, vin) -> torch.Tensor:
+    """One-row VLM prefill into the slab (the JAX ``_prefill_vlm_fn``): the
+    tower encodes the bucketed patches ``vin``, its merged tokens are
+    spliced at ``image_mask`` ([1, P]), and the row runs with mrope
+    ``positions`` ([3, 1, P]). Returns the last-token fp32 logits [1, V]."""
+    embeds = vision_forward(vision_params, vision_cfg, **vin)
+    return _prefill_fn(params, model_cfg, attn_impl, k_cache, v_cache, cache_lens, input_ids, lengths, slots,
+                       positions=positions, image_embeds=embeds[None], image_mask=image_mask)
+
+
+def _prefill_vlm_paged_fn(params, model_cfg, attn_impl, vision_params, vision_cfg, k_pool, v_pool, cache_lens,
+                          input_ids, lengths, slots, table_rows, positions, image_mask, vin) -> torch.Tensor:
+    """``_prefill_vlm_fn`` into the paged pool (the JAX
+    ``_prefill_vlm_paged_fn``)."""
+    embeds = vision_forward(vision_params, vision_cfg, **vin)
+    return _prefill_paged_fn(params, model_cfg, attn_impl, k_pool, v_pool, cache_lens, input_ids, lengths, slots,
+                             table_rows, positions=positions, image_embeds=embeds[None], image_mask=image_mask)
 
 
 def _prefill_extend_fn(

@@ -21,8 +21,11 @@ future or, for SSE, on a queue the engine thread's stream callback fills.
   an HF directory. A ``frozen`` server (the KL reference) answers 403;
 - ``GET /weight_version``, ``GET /health`` (with ``perf_counters``,
   ``push_counters`` and this process's kernel launch counts), ``GET /v1/models``, and ``GET /debug/param_checksums``,
-  two integer sums of each weight's bits, which a pusher compares with its
-  own to show that a push landed bit for bit.
+  two integer sums of each weight's bits (the vision tower's under
+  ``vision_tower/``), which a pusher compares with its own to show that a
+  push landed bit for bit. ``/health``'s ``last_push`` carries the push's
+  mode ("blob", "blob-chunked", "double-buffer", "streamed") and, while a chunked
+  push is in flight, its ``bytes_done``.
 """
 
 from __future__ import annotations
@@ -125,7 +128,7 @@ class InferenceServer:
 
     def checksums(self) -> dict:
         with torch.no_grad():
-            return {"version": self.engine.version, "checksums": param_checksums(self.engine.params)}
+            return {"version": self.engine.version, "checksums": param_checksums(self.engine.live_tree())}
 
     @staticmethod
     def _sampling_params(body: dict) -> SamplingParams:

@@ -4,7 +4,9 @@ Port of the JAX package's ``inference/weight_transfer.py``. The trainer
 serializes its weights into one body and POSTs it to every engine's
 ``/receive_weight_update`` in parallel; the engine's transfer thread copies
 the body to the card while decoding goes on, and the engine thread swaps
-the new tree in between decode windows.
+the new tree in between decode windows (a body over the engine's
+double-buffer budget is instead copied into the live weights piece by
+piece, ``blob-chunked``).
 
 Wire format, byte for byte the JAX package's:
 ``PWT3 | u64 header_len | msgpack header | dtype-grouped blob``. The header

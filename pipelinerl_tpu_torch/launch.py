@@ -6,7 +6,11 @@ beside the actor's asyncio scheduler, all decoupled through file streams.
 Weight updates are in-process swaps (``InferenceEngine.update_params``) of
 copies the trainer hands over. The model is the toy model (``model_path``
 ``toy`` or null) or an HF checkpoint directory (``model_path=<dir>``: its
-safetensors, ``config.json`` and byte-level BPE tokenizer).
+safetensors, ``config.json`` and byte-level BPE tokenizer). A VLM run
+(``toy_vision``, or a checkpoint whose ``config.json`` has a
+``vision_config``) also builds the vision tower (``build_vision``), which
+the engine and the trainer share by copy, and the client's visual processor
+(``build_processor``).
 
 ``launch_mode=processes`` (``run_processes``) runs the stages as separate
 processes on one host, supervised fail-fast: a ``device`` job (engine,
@@ -17,8 +21,8 @@ servers, the ``stream_hub`` through which every topic rides when the world
 spans hosts, and the ``actor`` and ``preprocessor`` jobs
 (``CUDA_VISIBLE_DEVICES=""``). A job on a host other than this one starts
 as ``ssh <host> env <assignments> <command>`` (the experiment directory on
-a shared filesystem). Left out: VLM and ``trainer_procs`` > 1
-(``world.py``).
+a shared filesystem). Left out: ``trainer_procs`` > 1 (``world.py``) and
+VLM runs, which run inline.
 
 Both modes interleave evals (``eval_every_n_versions``: the test problems
 through an eval ``ActorLoop`` onto ``actor_test`` and ``stats_test``), and
@@ -55,10 +59,12 @@ from .domains.registry import resolve
 from .entrypoints.common import wait_for_http
 from .inference import EngineConfig, InferenceEngine
 from .inference.client import InProcessLLM
-from .models.hf_loader import load_hf_model
+from .inference.processor import HFVisualProcessor
+from .models.hf_loader import load_hf_model, load_hf_vision
 from .models.hf_tokenizer import HFTokenizer
-from .models.toy_tokenizer import ToyTokenizer
+from .models.toy_tokenizer import IMAGE, ToyTokenizer, ToyVisualProcessor
 from .models.transformer import ModelConfig, init_params, init_value_head
+from .models.vision import VisionConfig, init_vision_params
 from .preprocess import Preprocessor
 from .state import TrainerState
 from .streams import set_streams_backend
@@ -84,10 +90,13 @@ def build_model(cfg: Config, device="cuda"):
     model_path = cfg.get("model_path")
     dtype = _DTYPES[cfg.finetune.get("param_dtype", "float32")]
     if model_path in (None, "toy"):
-        if cfg.get("toy_vision") is not None:
-            raise NotImplementedError("the toy VLM is not ported yet (ROADMAP Queue 1, item 10)")
         tokenizer = ToyTokenizer()
         toy = cfg.get("toy_model", Config({}))
+        mrope = toy.get("mrope_section")
+        if mrope is None and cfg.get("toy_vision") is not None:
+            # the toy VLM's (t, h, w) split of the head_dim / 2 rotary channels
+            half = (int(toy.get("hidden_size", 128)) // int(toy.get("num_heads", 4))) // 2
+            mrope = (half - 2 * (half // 4), half // 4, half // 4)
         model_cfg = ModelConfig(
             vocab_size=int(toy.get("vocab_size", tokenizer.vocab_size)),
             hidden_size=int(toy.get("hidden_size", 128)),
@@ -96,6 +105,8 @@ def build_model(cfg: Config, device="cuda"):
             num_heads=int(toy.get("num_heads", 4)),
             num_kv_heads=int(toy.get("num_kv_heads", 2)),
             dtype=dtype,
+            mrope_section=tuple(int(x) for x in mrope) if mrope else None,
+            image_token_id=int(toy.get("image_token_id", IMAGE)) if cfg.get("toy_vision") is not None else None,
         )
         seed = int(cfg.get("seed", 0))
         params = init_params(torch.Generator().manual_seed(seed), model_cfg, device)
@@ -112,15 +123,64 @@ def build_model(cfg: Config, device="cuda"):
     return params, model_cfg, tokenizer
 
 
+def build_vision(cfg: Config, model_cfg: ModelConfig, device="cuda"):
+    """→ (tower params, ``VisionConfig``), or (None, None) for a text run:
+    the toy tower of ``toy_vision`` with random weights from ``seed`` + 3,
+    or the tower of a VLM checkpoint at ``model_path``."""
+    dtype = _DTYPES[cfg.finetune.get("param_dtype", "float32")]
+    toy = cfg.get("toy_vision")
+    if toy is not None:
+        vcfg = VisionConfig(
+            hidden_size=int(toy.get("hidden_size", 16)),
+            intermediate_size=int(toy.get("intermediate_size", 32)),
+            num_heads=int(toy.get("num_heads", 2)),
+            depth=int(toy.get("depth", 2)),
+            out_hidden_size=model_cfg.hidden_size,
+            patch_size=int(toy.get("patch_size", 2)),
+            temporal_patch_size=int(toy.get("temporal_patch_size", 1)),
+            spatial_merge_size=int(toy.get("spatial_merge_size", 2)),
+            window_size=int(toy.get("window_size", 8)),
+            fullatt_block_indexes=tuple(toy.get("fullatt_block_indexes", (1,))),
+            dtype=dtype,
+        )
+        return init_vision_params(torch.Generator().manual_seed(int(cfg.get("seed", 0)) + 3), vcfg, device), vcfg
+    if cfg.get("model_path") in (None, "toy"):
+        return None, None
+    return load_hf_vision(cfg.model_path, dtype=dtype, device=device)
+
+
+def build_processor(cfg: Config, tokenizer, vision_cfg):
+    """The client's visual processor, or None for a text run."""
+    if vision_cfg is None:
+        return None
+    if cfg.get("model_path") in (None, "toy"):
+        return ToyVisualProcessor(tokenizer, vision_cfg.spatial_merge_size)
+    return HFVisualProcessor(cfg.model_path, tokenizer)
+
+
+def _is_vlm_checkpoint(model_path) -> bool:
+    """Whether ``model_path`` is a checkpoint directory whose
+    ``config.json`` has a ``vision_config`` (the JAX ``_is_vlm_checkpoint``)."""
+    if model_path in (None, "toy"):
+        return False
+    try:
+        with open(Path(model_path) / "config.json") as f:
+            return bool(json.load(f).get("vision_config"))
+    except (OSError, ValueError):
+        return False
+
+
 def engine_params(params: dict) -> dict:
     """A copy of the weights the engine runs on: the value head is the
     trainer's alone."""
     return detached_copy({k: v for k, v in params.items() if k != "value_head"})
 
 
-def build_engine(cfg: Config, params: dict, model_cfg: ModelConfig, tokenizer, device="cuda") -> InferenceEngine:
+def build_engine(cfg: Config, params: dict, model_cfg: ModelConfig, tokenizer, device="cuda",
+                 vision_params: dict | None = None, vision_cfg=None) -> InferenceEngine:
     """The engine with the JAX package's defaults for keys the config leaves
-    out (prefill attention "xla", decode attention "auto")."""
+    out (prefill attention "xla", decode attention "auto"), with the vision
+    tower of a VLM run."""
     ecfg = cfg.get("engine", Config({}))
     for key in ("tp", "pp"):
         if int(ecfg.get(key, 1)) != 1:
@@ -147,6 +207,8 @@ def build_engine(cfg: Config, params: dict, model_cfg: ModelConfig, tokenizer, d
         ),
         eos_token_id=tokenizer.eos_token_id,
         device=device,
+        vision_params=vision_params,
+        vision_cfg=vision_cfg,
     )
 
 
@@ -205,6 +267,14 @@ def validate_config(cfg: Config) -> None:
     policy = cfg.select("finetune.rl.policy_loss", "reinforce")
     if policy not in ("reinforce", "ppo", "gspo"):
         problems.append(f"unknown finetune.rl.policy_loss {policy!r}")
+    # VLM rows are unpacked [1, L] and cannot be cp-sliced
+    if cfg.get("toy_vision") is not None or _is_vlm_checkpoint(cfg.get("model_path")):
+        par = cfg.get("parallel") or {}
+        if int(par.get("cp", 1)) > 1 or int(par.get("dp", 1)) > 1:
+            problems.append("VLM training requires parallel.cp == 1 and dp == 1 "
+                            "(multimodal rows are unpacked and cannot be cp-sliced)")
+        if mode == "processes":
+            problems.append("VLM runs are inline only: processes mode does not carry the vision tower")
     rl_node = cfg.select("finetune.rl")
     if rl_node:
         unknown = [k for k in rl_node.keys() if k not in RLLossConfig.__dataclass_fields__]
@@ -300,10 +370,12 @@ def run_inline(cfg: Config, device="cuda") -> dict[str, Any]:
         debug_link_streams(exp_path, str(streams_from), debug_replay_topics(stages))
 
     params, model_cfg, tokenizer = build_model(cfg, device)
+    vision_params, vision_cfg = build_vision(cfg, model_cfg, device)
     engine = None
     if "actor" in stages:
         # the engine owns copies: AdamW updates the trainer's tensors in place
-        engine = build_engine(cfg, engine_params(params), model_cfg, tokenizer, device)
+        engine = build_engine(cfg, engine_params(params), model_cfg, tokenizer, device,
+                              detached_copy(vision_params) if vision_params is not None else None, vision_cfg)
         engine.start()
     trainer_state = TrainerState(exp_path)
     trainer_state.start_listening()
@@ -321,18 +393,21 @@ def run_inline(cfg: Config, device="cuda") -> dict[str, Any]:
             ref_engine = build_engine(cfg, engine_params(params), model_cfg, tokenizer, device)
             ref_score_fn = ref_engine.score_tokens
         preprocessor = Preprocessor(cfg, exp_path, trainer_state, eos_token_id=tokenizer.eos_token_id,
-                                    ref_score_fn=ref_score_fn)
+                                    ref_score_fn=ref_score_fn, image_token_id=model_cfg.image_token_id,
+                                    spatial_merge_size=vision_cfg.spatial_merge_size if vision_cfg else 2)
         threads.append(threading.Thread(target=_stage(preprocessor.run, failures, trainer_state, "preprocessor"),
                                         name="preprocessor", daemon=True))
     if "trainer" in stages:
         trainer = TrainerLoop(cfg, params, model_cfg, exp_path,
-                              weight_update_cb=engine.update_params if engine is not None else None)
+                              weight_update_cb=engine.update_params if engine is not None else None,
+                              vision_params=vision_params, vision_cfg=vision_cfg)
         threads.append(threading.Thread(target=_stage(trainer.run, failures, trainer_state, "trainer"),
                                         args=(int(cfg.finetune.get("max_train_steps", 100)),), name="trainer",
                                         daemon=True))
     actor = None
     if "actor" in stages:
-        llm = InProcessLLM(engine, tokenizer, dict(cfg.llm.parameters.items()))
+        processor = build_processor(cfg, tokenizer, vision_cfg)
+        llm = InProcessLLM(engine, tokenizer, dict(cfg.llm.parameters.items()), processor=processor)
         problems = resolve(cfg.dataset_loader)(list(cfg.get("train_dataset_names", ["train"])))
         if cfg.get("train_subset"):
             problems = problems[: int(cfg.train_subset)]
@@ -343,7 +418,8 @@ def run_inline(cfg: Config, device="cuda") -> dict[str, Any]:
         actor_stats = ActorStats()
         if actor is not None:
             test_problems = load_test_problems(cfg)
-            test_llms = [InProcessLLM(engine, tokenizer, dict(cfg.test_llm.parameters.items()))] if test_problems else []
+            test_llms = [InProcessLLM(engine, tokenizer, dict(cfg.test_llm.parameters.items()), processor=processor)
+                         ] if test_problems else []
             actor_stats, _ = asyncio.run(run_with_evals(actor, test_llms, test_problems, cfg.get("total_groups")))
         if "trainer" in stages:  # let the trainer drain
             deadline = time.monotonic() + float(cfg.get("drain_timeout_s", 120))

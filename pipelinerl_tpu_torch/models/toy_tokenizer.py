@@ -1,7 +1,8 @@
 """A deterministic byte-level tokenizer with a minimal chat template.
 
-A copy of the JAX package's ``models/toy_tokenizer.py`` (text part), so the
-port's client runs and is tested without HF tokenizers.
+A copy of the JAX package's ``models/toy_tokenizer.py``, so the port's
+client runs and is tested without HF tokenizers; ``ToyVisualProcessor`` is
+its multimodal processor.
 
 Used by hermetic tests and tiny from-scratch training runs where downloading
 a real HF tokenizer is impossible (zero-egress environment). Implements the
@@ -23,6 +24,7 @@ IM_START = 256
 IM_END = 257
 EOS = 257  # <|im_end|> doubles as EOS, Qwen-style
 PAD = 258
+IMAGE = 259  # image placeholder (one per merged visual token, Qwen-style)
 VOCAB_SIZE = 260  # small headroom
 
 
@@ -78,3 +80,49 @@ class ToyTokenizer:
         if tokenize:
             return ids
         return self.decode(ids)
+
+
+class ToyVisualProcessor:
+    """Deterministic multimodal processor for hermetic VLM runs and tests,
+    with the interface of ``inference.processor.HFVisualProcessor``. An
+    image part carries its features directly, ``{"type": "image", "image":
+    {"pixel_values": [N, patch_dim], "image_grid_thw": [t, h, w]}}``, so
+    token counts are exact. Each image expands to t*(h/m)*(w/m) ``IMAGE``
+    placeholder tokens, the Qwen convention."""
+
+    def __init__(self, tokenizer: ToyTokenizer, spatial_merge_size: int = 2):
+        self.tokenizer = tokenizer
+        self.merge = spatial_merge_size
+        self.image_token_id = IMAGE
+
+    def __call__(self, messages: list[dict], tools: list[dict] | None = None):
+        import numpy as np
+
+        ids: list[int] = []
+        pixels: list = []
+        grids: list = []
+        for msg in messages:
+            ids.append(IM_START)
+            ids.extend(self.tokenizer.encode(f"{msg['role']}\n"))
+            content = msg.get("content")
+            if isinstance(content, list):
+                for part in content:
+                    if part.get("type") == "text":
+                        ids.extend(self.tokenizer.encode(part["text"]))
+                    elif part.get("type") == "image":
+                        img = part["image"]
+                        t, h, w = (int(x) for x in img["image_grid_thw"])
+                        ids.extend([IMAGE] * (t * (h // self.merge) * (w // self.merge)))
+                        pixels.append(np.asarray(img["pixel_values"], np.float32))
+                        grids.append((t, h, w))
+                    else:
+                        raise ValueError(f"Unknown content part {part.get('type')!r}")
+            else:
+                ids.extend(self.tokenizer.encode(str(content or "")))
+            ids.append(IM_END)
+        ids.append(IM_START)
+        ids.extend(self.tokenizer.encode("assistant\n"))
+        visual = None
+        if pixels:
+            visual = {"pixel_values": np.concatenate(pixels, axis=0), "image_grid_thw": np.asarray(grids, np.int64)}
+        return ids, visual

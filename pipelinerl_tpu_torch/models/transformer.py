@@ -57,6 +57,13 @@ class ModelConfig:
     # the HF ``architectures`` entry the config came from (written back by
     # ``train.checkpoints.export_hf``)
     hf_architecture: str | None = None
+    # multimodal rotary sections (t, h, w) over head_dim / 2 channels, set
+    # for Qwen2.5-VL-family models; None is the standard 1D rope
+    mrope_section: tuple[int, ...] | None = None
+    # VLM special tokens (image placeholder expansion, mrope indexing)
+    image_token_id: int | None = None
+    vision_start_token_id: int | None = None
+    vision_end_token_id: int | None = None
 
     @property
     def head_dim_(self) -> int:
@@ -127,7 +134,9 @@ def _tensor_from_numpy(a, dtype: torch.dtype, device) -> torch.Tensor:
 
 def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
     """The JAX parameter pytree, as numpy arrays under the same keys and
-    shapes, to the port's parameters in ``cfg.dtype`` on ``device``."""
+    shapes, to the port's parameters in ``cfg.dtype`` on ``device``. Any
+    subtree converts the same way: a ``vision_tower`` entry (the trained
+    tower of a VLM), or the tower's own tree passed alone."""
 
     def convert(node):
         if isinstance(node, dict):
@@ -158,6 +167,50 @@ def rope_cos_sin(
     angles = positions.float()[..., None] * inv_freq  # [..., Dh/2]
     emb = torch.cat([angles, angles], dim=-1)
     return torch.cos(emb), torch.sin(emb)
+
+
+def mrope_cos_sin(
+    positions: torch.Tensor,  # [3, ...] (t, h, w) position rows
+    head_dim: int,
+    theta: float,
+    section: tuple[int, ...],
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Multimodal 3D rope (Qwen2.5-VL): the rotary channels split into (t,
+    h, w) sections of ``section`` channels each (per cos/sin half), each
+    section rotated by its own position row. Text tokens carry three equal
+    rows, where this is the standard rope. Returns cos/sin [..., head_dim]
+    in ``apply_rope``'s rotate-half layout."""
+    cos3, sin3 = rope_cos_sin(positions, head_dim, theta)  # [3, ..., Dh]
+    row = torch.empty(head_dim, dtype=torch.int64)
+    offset = 0
+    for i, width in enumerate(list(section) * 2):
+        row[offset : offset + width] = i % 3
+        offset += width
+    if offset != head_dim:
+        raise ValueError(f"mrope sections {section} do not fill head_dim {head_dim}")
+    idx = row.to(positions.device).expand(*cos3.shape[1:])[None]
+    return cos3.gather(0, idx)[0], sin3.gather(0, idx)[0]
+
+
+def positional_cos_sin(cfg: ModelConfig, position_ids: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The standard rope, or mrope for ``[3, B, L]`` position rows of a
+    model with ``mrope_section``."""
+    if cfg.mrope_section is not None and position_ids.ndim == 3 and position_ids.shape[0] == 3:
+        return mrope_cos_sin(position_ids, cfg.head_dim_, cfg.rope_theta, cfg.mrope_section)
+    return rope_cos_sin(position_ids, cfg.head_dim_, cfg.rope_theta)
+
+
+def splice_image_embeds(
+    x: torch.Tensor,  # [B, L, D] token embeddings
+    image_embeds: torch.Tensor,  # [B, M, D] visual tokens (bucket-padded)
+    image_mask: torch.Tensor,  # [B, L] bool, image placeholder positions
+) -> torch.Tensor:
+    """The k-th placeholder position's embedding becomes the k-th visual
+    token, at a static shape: a running count over the mask indexes the
+    visual rows."""
+    idx = (torch.cumsum(image_mask.long(), dim=1) - 1).clamp(0, image_embeds.shape[1] - 1)
+    gathered = torch.gather(image_embeds.to(x.dtype), 1, idx[..., None].expand(-1, -1, x.shape[-1]))
+    return torch.where(image_mask[..., None], gathered, x)
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
@@ -233,13 +286,15 @@ def forward(
     params: dict,
     cfg: ModelConfig,
     input_ids: torch.Tensor,  # [B, L]
-    position_ids: torch.Tensor,  # [B, L]
+    position_ids: torch.Tensor,  # [B, L], or [3, B, L] mrope rows (VLM)
     segment_ids: torch.Tensor,  # [B, L]
     return_kv: bool = False,
     remat: bool | str = False,  # True: per layer; "mlp": the MLP only
     attn_impl: str = "xla",  # "xla" (plain torch) | "gqa" | "flash" | "blockwise" (CUDA kernels)
     skip_unembed: bool = False,
     return_hidden: bool = False,
+    image_embeds: torch.Tensor | None = None,  # [B, M, D] visual tokens
+    image_mask: torch.Tensor | None = None,  # [B, L] bool placeholder positions
 ):
     """Full forward over packed rows. Returns fp32 logits [B, L, V]; with
     ``return_kv`` also the per-layer keys/values, each [L, B, T, K, Dh]; with
@@ -250,7 +305,11 @@ def forward(
     them: ``True`` checkpoints each layer, ``"mlp"`` only each MLP (the
     attention residuals stay). ``skip_unembed`` returns the final-norm'd
     hidden [B, L, D] in the logits slot instead: prefill callers need one
-    position's logits only, and the chunked loss unembeds by pieces."""
+    position's logits only, and the chunked loss unembeds by pieces.
+
+    A VLM row passes ``image_embeds`` (the tower's merged tokens), spliced
+    at ``image_mask``, and ``[3, B, L]`` mrope position rows; attention
+    masks by segment and flat index, so it sees no positions."""
     if attn_impl in ("gqa", "blockwise"):
         # JAX's blockwise attention computes kernel #2's function
         # (pipelinerl_tpu/ops/gqa_attention.py:19); the port routes it there
@@ -264,7 +323,11 @@ def forward(
     if remat not in (False, True, "mlp"):
         raise ValueError(f"unknown remat {remat!r}")
     x = params["embed"][input_ids]
-    cos, sin = rope_cos_sin(position_ids, cfg.head_dim_, cfg.rope_theta)
+    if image_embeds is not None:
+        x = splice_image_embeds(x, image_embeds, image_mask)
+    cos, sin = positional_cos_sin(cfg, position_ids)
+    if position_ids.ndim == 3:
+        position_ids = position_ids[0]
 
     def mlp_block(h, layer):
         return _mlp(layer, rms_norm(h, layer["ln2"], cfg.rms_norm_eps))

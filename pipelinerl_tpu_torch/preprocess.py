@@ -1,9 +1,10 @@
 """Preprocessor: groups → advantages → packing → the partitioned
 ``training_data`` stream, with backpressure.
 
-Port of the JAX package's ``preprocess.py`` for text rows. With a
-``ref_score_fn`` (the KL reference engine's ``score_tokens``) each sample
-gets its reference-policy logprobs. Packs are padded to the static
+Port of the JAX package's ``preprocess.py``; a visual sample becomes a row
+of its own (``pack_visual_sample``). With a ``ref_score_fn`` (the KL
+reference engine's ``score_tokens``) each sample gets its reference-policy
+logprobs. Packs are padded to the static
 ``finetune.seq_length``; the ring buffer, zero-advantage filtering, sentinel
 equalization and ``samples_processed`` backpressure keep the JAX package's
 semantics.
@@ -20,7 +21,7 @@ from .config import Config
 from .state import TrainerState
 from .streams import RangeStreamWriter, SingleStreamSpec, StreamRangeSpec, StreamReader, get_streams_backend
 from .train.advantages import group_advantages_all_zero, populate_rl_data
-from .train.packing import make_sentinel_batch, pack_samples
+from .train.packing import make_sentinel_batch, pack_samples, pack_visual_sample
 from .types import MASKED_TOKEN_ID
 
 logger = logging.getLogger(__name__)
@@ -37,6 +38,8 @@ class Preprocessor:
         ref_score_fn: Callable[[Sequence[int]], list[float]] | None = None,
         input_topic: str = "actor",
         output_topic: str = "training_data",
+        image_token_id: int | None = None,
+        spatial_merge_size: int = 2,
     ):
         self.cfg = cfg
         self.exp_path = exp_path
@@ -47,6 +50,9 @@ class Preprocessor:
         self.input_spec = SingleStreamSpec(exp_path=exp_path, topic=input_topic)
         self.output_spec = StreamRangeSpec(exp_path=exp_path, topic=output_topic, partitions=tuple(range(num_trainers)))
         self.seq_length = int(cfg.finetune.seq_length)
+        # VLM: the mrope rows of a visual sample are made at packing time
+        self.image_token_id = image_token_id
+        self.spatial_merge_size = spatial_merge_size
         ring_size = int(cfg.preprocess.get("ring_buffer_size", 128))
         self.ring: deque[dict] = deque(maxlen=ring_size if cfg.get("pop_old_data", True) else None)
         self.published_samples = 0
@@ -140,7 +146,15 @@ class Preprocessor:
         chosen: list[dict] = []
         used = 0
         while self.ring:
-            n = len(self.ring[0]["input_ids"])
+            head = self.ring[0]
+            if head.get("visual_features"):
+                if chosen:
+                    break  # the text pack goes first; the visual row is next
+                if self.image_token_id is None:
+                    raise ValueError("multimodal sample but the preprocessor has no image_token_id")
+                return pack_visual_sample(self.ring.popleft(), self.seq_length, self.eos_token_id,
+                                          self.image_token_id, self.spatial_merge_size)
+            n = len(head["input_ids"])
             if used + n > self.seq_length:
                 break
             chosen.append(self.ring.popleft())

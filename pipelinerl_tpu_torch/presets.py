@@ -4,7 +4,8 @@ Each preset mirrors the JAX package's composed YAML of the same name key for
 key (``conf/base.yaml`` with its group defaults; ``conf/bandit_cpu.yaml``;
 ``conf/bandit_tpu.yaml``; ``conf/counting.yaml``; ``conf/guessing.yaml``;
 ``conf/test.yaml``;
-``conf/{math,logic,ifeval,fn_calling,multi_domain,tir,coding,miniwob}.yaml``),
+``conf/{math,logic,ifeval,fn_calling,multi_domain,tir,coding,miniwob}.yaml``;
+``conf/vlm_bandit_cpu.yaml``; ``conf/chartqa.yaml``),
 with dotted paths renamed from the JAX package to this one. The hub dataset
 names stay as they are; the port's loaders raise on them. The config groups
 (``conf/finetune/{base,grpo,ppo,actor_critic}.yaml``,
@@ -399,6 +400,66 @@ _GROUPS = {
     },
 }
 
+_VLM_BANDIT_CPU = {
+    "model_path": None,
+    "dataset_loader": "pipelinerl_tpu_torch.domains.vlm_bandit.load_problems",
+    "rollout_policy": "pipelinerl_tpu_torch.domains.vlm_bandit.generate_vlm_bandit_rollout",
+    "attempts": 8,
+    "total_groups": 900,
+    "max_lag": 32,
+    "toy_model": {"hidden_size": 64, "intermediate_size": 128, "num_layers": 2, "num_heads": 2, "num_kv_heads": 2},
+    "toy_vision": {
+        "hidden_size": 16,
+        "intermediate_size": 32,
+        "num_heads": 2,
+        "depth": 2,
+        "patch_size": 2,  # patch_dim = 3 * 1 * 2 * 2 = 12 (vlm_bandit.make_image)
+        "temporal_patch_size": 1,
+        "spatial_merge_size": 2,
+        "window_size": 8,
+        "fullatt_block_indexes": [1],
+    },
+    "llm": {"parameters": {"max_tokens": 3, "temperature": 1.0}},
+    "engine": {
+        "max_slots": 8,
+        "max_len": 64,
+        "prefill_buckets": [32, 64],
+        "cache_dtype": "float32",
+        "decode_window": 4,
+        "adaptive_window": False,
+    },
+    "finetune": {
+        "seq_length": 64,  # VLM rows are unpacked [1, L]
+        "samples_per_step": 16,
+        "learning_rate": 4e-3,
+        "num_warmup_steps": 0,
+        "max_train_steps": 190,
+        "param_dtype": "float32",
+        "gradient_checkpointing": False,
+        "rl": {"entropy_bonus": 0.05, "final_entropy_bonus": 0.02},
+    },
+}
+
+_CHARTQA = {
+    "dataset_loader": "pipelinerl_tpu_torch.domains.chartqa.load_datasets",
+    "rollout_policy": "pipelinerl_tpu_torch.domains.chartqa.generate_chartqa_rollout",
+    "train_dataset_names": ["chartqa_train"],
+    "test_dataset_names": ["chartqa_test"],
+    "model_path": "???",
+    "actor": {
+        "system_prompt": "You are an expert at analyzing charts and graphs. Please examine the chart carefully and "
+                         "answer the question accurately. Remember to provide your final answer in a boxed format, "
+                         "like \\boxed{your answer}.",
+        "task_template": "Question: {question}\n\nPlease analyze the chart step by step and put your final answer "
+                         "within \\boxed{}.",
+        "llm_max_rollouts": 16,
+    },
+    "llm": {"parameters": {"max_tokens": 2048, "temperature": 0.7}},
+    "test_llm": {"parameters": {"max_tokens": 2048, "temperature": 0.7}},
+    "engine": {"max_len": 8192, "max_slots": 16, "prefill_buckets": [1024, 2048, 4096, 8192], "attn_impl": "flash"},
+    "finetune": {"seq_length": 8192, "samples_per_step": 512, "learning_rate": 1e-6, "attn_impl": "flash"},
+}
+
 # name -> (parent preset or None, own body); a body merges over its parent,
 # and a root preset over its groups
 _PRESETS = {
@@ -416,6 +477,8 @@ _PRESETS = {
     "tir": ("base", _TIR),
     "coding": ("base", _CODING),
     "miniwob": ("base", _MINIWOB),
+    "vlm_bandit_cpu": ("base", _VLM_BANDIT_CPU),
+    "chartqa": ("base", _CHARTQA),
 }
 
 

@@ -60,6 +60,9 @@ def training_text_to_sample(
         "finished": bool(text.finished),
         "finish_reason": text.finish_reason,
     }
+    if text.visual_features is not None:
+        # VLM: the pixel features ride with the sample to pack_visual_sample
+        sample["visual_features"] = text.visual_features
     return prepare_rl_fields(sample)
 
 

@@ -28,7 +28,7 @@ from typing import Any
 
 import torch
 
-from ..models.hf_loader import LAYER_TENSORS
+from ..models.hf_loader import LAYER_TENSORS, VISION_LAYER_TENSORS
 from ..models.transformer import ModelConfig
 from ..utils.safetensors_io import save_file
 
@@ -105,10 +105,11 @@ def load_training_state(
 
 def hf_tensors(params: dict, model_cfg: ModelConfig) -> dict[str, torch.Tensor]:
     """The text trunk's tensors under HF names, as views of ``params`` (the
-    inverse of ``models.hf_loader.load_hf_model``). Keys other than the
-    trunk's (``value_head``) are left out."""
-    if "vision_tower" in params:
-        raise NotImplementedError("exporting a vision tower is not ported yet (ROADMAP Queue 1, item 10)")
+    inverse of ``models.hf_loader.load_hf_model``), and a trained
+    ``vision_tower``'s under Qwen2.5-VL's ``visual.*`` names (the inverse of
+    ``load_hf_vision``; the patch embed goes flat, ``[D, patch_dim]``, which
+    the loader's reshape reads as it reads the Conv3d layout). Other keys
+    (``value_head``) are left out."""
     tensors = {"model.embed_tokens.weight": params["embed"], "model.norm.weight": params["final_norm"]}
     if "lm_head" in params:
         tensors["lm_head.weight"] = params["lm_head"].T
@@ -118,16 +119,32 @@ def hf_tensors(params: dict, model_cfg: ModelConfig) -> dict[str, torch.Tensor]:
             if ours in layers:
                 w = layers[ours][i]
                 tensors[f"model.layers.{i}.{hf_name}"] = w.T if transpose else w
+    tower = params.get("vision_tower")
+    if tower is not None:
+        tensors["visual.patch_embed.proj.weight"] = tower["patch_embed"].T
+        vlayers = tower["layers"]
+        for i in range(vlayers["ln1"].shape[0]):
+            for hf_name, ours, transpose in VISION_LAYER_TENSORS:
+                w = vlayers[ours][i]
+                tensors[f"visual.blocks.{i}.{hf_name}"] = w.T if transpose else w
+        merger = tower["merger"]
+        tensors["visual.merger.ln_q.weight"] = merger["ln"]
+        tensors["visual.merger.mlp.0.weight"] = merger["w1"].T
+        tensors["visual.merger.mlp.0.bias"] = merger["b1"]
+        tensors["visual.merger.mlp.2.weight"] = merger["w2"].T
+        tensors["visual.merger.mlp.2.bias"] = merger["b2"]
     return tensors
 
 
-def hf_config(model_cfg: ModelConfig) -> dict[str, Any]:
-    """``config.json`` as the JAX package's ``export_hf`` writes it."""
+def hf_config(model_cfg: ModelConfig, vision_cfg=None) -> dict[str, Any]:
+    """``config.json`` as the JAX package's ``export_hf`` writes it; with a
+    ``vision_cfg`` (a trained tower's export) its ``vision_config`` and the
+    image token id too."""
     arch = model_cfg.hf_architecture or (
         "Qwen2ForCausalLM" if model_cfg.attention_bias
         else ("Qwen3ForCausalLM" if model_cfg.qk_norm else "LlamaForCausalLM")
     )
-    return {
+    config = {
         "architectures": [arch],
         "vocab_size": model_cfg.vocab_size,
         "hidden_size": model_cfg.hidden_size,
@@ -143,17 +160,38 @@ def hf_config(model_cfg: ModelConfig) -> dict[str, Any]:
         "torch_dtype": "bfloat16",
         "model_type": {"Qwen2ForCausalLM": "qwen2", "Qwen3ForCausalLM": "qwen3"}.get(arch, "llama"),
     }
+    if vision_cfg is not None:
+        config["vision_config"] = {
+            "hidden_size": vision_cfg.hidden_size,
+            "intermediate_size": vision_cfg.intermediate_size,
+            "num_heads": vision_cfg.num_heads,
+            "depth": vision_cfg.depth,
+            "out_hidden_size": vision_cfg.out_hidden_size,
+            "patch_size": vision_cfg.patch_size,
+            "temporal_patch_size": vision_cfg.temporal_patch_size,
+            "spatial_merge_size": vision_cfg.spatial_merge_size,
+            "window_size": vision_cfg.window_size,
+            "fullatt_block_indexes": list(vision_cfg.fullatt_block_indexes),
+            "in_channels": vision_cfg.in_channels,
+            "tokens_per_second": vision_cfg.tokens_per_second,
+        }
+        if model_cfg.image_token_id is not None:
+            config["image_token_id"] = model_cfg.image_token_id
+    return config
 
 
 @torch.no_grad()
-def export_hf(out_dir: str | Path, params: dict, model_cfg: ModelConfig, tokenizer: Any | None = None) -> Path:
+def export_hf(out_dir: str | Path, params: dict, model_cfg: ModelConfig, tokenizer: Any | None = None,
+              vision_cfg=None) -> Path:
     """Write ``model.safetensors`` and ``config.json`` (and the tokenizer's
     files, when it can save them) to ``out_dir/current`` atomically; returns
-    that directory."""
+    that directory. A trained ``vision_tower`` in ``params`` goes under
+    ``visual.*``, and ``vision_cfg`` into ``config.json`` with it."""
     out_dir = Path(out_dir)
     tmp = _fresh_tmp(out_dir, CURRENT_DIR)
     save_file(hf_tensors(params, model_cfg), tmp / "model.safetensors")
-    (tmp / "config.json").write_text(json.dumps(hf_config(model_cfg), indent=2))
+    config = hf_config(model_cfg, vision_cfg if "vision_tower" in params else None)
+    (tmp / "config.json").write_text(json.dumps(config, indent=2))
     if tokenizer is not None and hasattr(tokenizer, "save_pretrained"):
         tokenizer.save_pretrained(tmp)
     final = out_dir / CURRENT_DIR

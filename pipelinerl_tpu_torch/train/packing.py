@@ -1,7 +1,6 @@
 """Sequence packing into fixed-shape trainer batches.
 
-Port of the JAX package's ``train/packing.py`` (text rows; the visual row
-packer is not ported). Every pack is padded to the static ``seq_length``
+Port of the JAX package's ``train/packing.py``. Every pack is padded to the static ``seq_length``
 with a padding segment (EOS tokens, labels -100, num_labels and
 group_tokens 1), so every micro-batch has one shape.
 """
@@ -73,6 +72,35 @@ def pack_samples(
         num_sequences=len(samples),
         **floats,
     )
+
+
+def pack_visual_sample(
+    sample: dict[str, Any],
+    seq_length: int,
+    eos_token_id: int,
+    image_token_id: int,
+    spatial_merge_size: int = 2,
+) -> TrainerBatch:
+    """One multimodal sample as its own ``[1, seq_length]`` batch (VLM rows
+    are never packed with others), with its pixel features and mrope
+    position rows (``models/mrope.py``) for the trainer's spliced forward.
+    The padding continues the rows from the prompt's largest position."""
+    from ..models.mrope import mrope_positions
+
+    batch = pack_samples([sample], seq_length, eos_token_id)
+    vis = sample["visual_features"]
+    grid = np.asarray(vis["image_grid_thw"], np.int64).reshape(-1, 3)
+    n = len(sample["input_ids"])
+    pos3, _ = mrope_positions(sample["input_ids"], grid, image_token_id, spatial_merge_size)
+    pos_full = np.zeros((3, seq_length), np.int32)
+    pos_full[:, :n] = pos3
+    pos_full[:, n:] = pos3.max() + 1 + np.arange(seq_length - n, dtype=np.int32)
+    batch.visual = {
+        "pixel_values": np.asarray(vis["pixel_values"], np.float32),
+        "image_grid_thw": grid,
+        "mrope_position_ids": pos_full,
+    }
+    return batch
 
 
 def make_sentinel_batch(seq_length: int, eos_token_id: int, model_version: int = 0) -> TrainerBatch:

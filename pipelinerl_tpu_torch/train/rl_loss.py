@@ -293,17 +293,22 @@ def rl_loss(
     remat: bool | str = True,
     attn_impl: str = "xla",
     logits_chunk: int | None = None,
+    image_embeds: torch.Tensor | None = None,  # [B, M, D] the tower's merged tokens
+    image_mask: torch.Tensor | None = None,  # [B, L] placeholder positions
 ) -> tuple[torch.Tensor, dict]:
     """Forward and loss for one packed micro-batch. With ``logits_chunk``
     (single-device long rows) the [L, V] fp32 logits are never whole: the
     unembed and its statistics run chunk by chunk under checkpoint. A
-    ``value_head`` entry of ``params`` adds the actor-critic value path."""
-    model_params = {k: v for k, v in params.items() if k != "value_head"}
+    ``value_head`` entry of ``params`` adds the actor-critic value path. A
+    VLM row passes mrope rows as ``batch["position_ids"]`` ([3, B, L]) and
+    the visual tokens to splice."""
+    model_params = {k: v for k, v in params.items() if k not in ("value_head", "vision_tower")}
     L = batch["input_ids"].shape[1]
     chunked = logits_chunk is not None and L % logits_chunk == 0 and L > logits_chunk
     out = forward(
         model_params, model_cfg, batch["input_ids"], batch["position_ids"], batch["segment_ids"],
         remat=remat, attn_impl=attn_impl, skip_unembed=chunked, return_hidden="value_head" in params,
+        image_embeds=image_embeds, image_mask=image_mask,
     )
     values = None
     if "value_head" in params:

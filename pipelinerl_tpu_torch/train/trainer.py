@@ -3,9 +3,9 @@ accumulation, AdamW, Lion or Adafactor with optax's semantics,
 weight-version publishing and in-flight weight pushes.
 
 Port of the JAX package's ``train/trainer.py`` ``TrainerLoop`` for one
-device. Left out: the device mesh (dp/cp/tp) and VLM rows, which raise, and
-the memory debugger and step profiler, which ``launch.validate_config``
-refuses (``finetune.memory_debug.enabled``, ``finetune.profile.enabled``).
+device. Left out: the device mesh (dp/cp/tp), which raises, and the memory
+debugger and step profiler, which ``launch.validate_config`` refuses
+(``finetune.memory_debug.enabled``, ``finetune.profile.enabled``).
 
 - ``train_pass`` runs forward and backward of one packed micro-batch and
   accumulates into ``.grad``; the loss is pre-normalized by the step's
@@ -18,6 +18,14 @@ refuses (``finetune.memory_debug.enabled``, ``finetune.profile.enabled``).
 - LoRA (``finetune.lora.enabled``): the trainable tensors are the adapters
   (``train/lora.py``), the base weights freeze, and the forward, pushes and
   exports run on the merged weights.
+- VLM rows (``TrainerBatch.visual``, one unpacked ``[1, L]`` sample) take
+  the VLM pass (``_vlm_inputs``, the JAX ``_vlm_pass``): the vision tower
+  encodes the pixels, its merged tokens are spliced at the image
+  placeholders, and the row runs with mrope positions. The tower is
+  frozen, or trained with the rest under
+  ``finetune.train_vision_tower`` (``params["vision_tower"]``, pushed,
+  saved and exported with the rest; each tower layer recomputed in the
+  backward pass under remat).
 - Checkpoints: every ``save_checkpoint_steps`` steps and at the end, the
   training state and an HF export under ``finetune/`` (``checkpoints.py``);
   ``run`` resumes from a saved state unless ``force_restart``, and its first
@@ -40,6 +48,7 @@ import torch
 
 from ..config import Config
 from ..models.transformer import ModelConfig
+from ..models.vision import prepare_vision_inputs, vision_forward, vision_inputs_to
 from ..state import SamplesProcessed, TrainingDone, WeightUpdateSuccess
 from ..streams import SingleStreamSpec, StreamReader, StreamWriter
 from ..types import TrainerBatch
@@ -180,10 +189,10 @@ class TrainerLoop:
         model_cfg: ModelConfig,
         exp_path: str,
         weight_update_cb: Callable[[dict, int], None] | None = None,
+        vision_params: dict | None = None,
+        vision_cfg=None,  # models.vision.VisionConfig
     ):
         ft = cfg.finetune
-        if ft.get("train_vision_tower"):
-            raise NotImplementedError("finetune.train_vision_tower is not ported yet (ROADMAP Queue 1, item 10)")
         if cfg.get("parallel") and math.prod(int(v) for v in dict(cfg.parallel.items()).values()) > 1:
             raise NotImplementedError("the trainer mesh is not ported yet (ROADMAP Queue 1, item 8)")
         self.cfg = cfg
@@ -191,8 +200,22 @@ class TrainerLoop:
         self.exp_path = exp_path
         self.weight_update_cb = weight_update_cb
         self.metrics = TrainingMetrics()
+        # the vision tower of VLM rows: frozen, or trained with the rest as
+        # params["vision_tower"] under finetune.train_vision_tower
+        self.vision_cfg = vision_cfg
+        self.vision_params = vision_params
+        self.train_vision = bool(ft.get("train_vision_tower", False)) and vision_params is not None
+        if vision_params is not None:
+            for _, p in param_leaves(vision_params):
+                p.requires_grad_(False)
         # LoRA: the trainable tensors become the adapters; the base freezes
         self.lora_cfg = lora_config_from(ft)
+        if self.lora_cfg.enabled and self.train_vision:
+            raise ValueError("train_vision_tower is incompatible with LoRA (the tower is not a "
+                             "low-rank-adaptable matmul set in this design)")
+        if self.train_vision:
+            params = {**params, "vision_tower": vision_params}
+            self.vision_params = None  # it lives in the trainable tree now
         self.frozen_params: dict = {}
         if self.lora_cfg.enabled:
             self.frozen_params = params
@@ -255,7 +278,7 @@ class TrainerLoop:
         save_training_state(self.checkpoint_dir, param_leaves(self.params), self.optimizer, self.scheduler,
                             dataclasses.asdict(self.metrics))
         with torch.no_grad():
-            export_hf(self.checkpoint_dir, self.served_params(), self.model_cfg, tokenizer)
+            export_hf(self.checkpoint_dir, self.served_params(), self.model_cfg, tokenizer, self.vision_cfg)
         logger.info("Saved checkpoint at step %d (%d samples)", self.metrics.completed_steps, self.metrics.samples)
 
     def try_resume(self) -> bool:
@@ -274,10 +297,11 @@ class TrainerLoop:
         """One micro-batch: forward, loss, backward into ``.grad``. Returns
         the loss metrics as floats."""
         arrays = batch_to_tensors(batch, self.device)
+        vlm = self._vlm_inputs(batch, arrays) if batch.visual is not None else {}
         loss, metrics = rl_loss(
             self.model_params(), self.model_cfg, self.loss_cfg, arrays,
             float(self.metrics.completed_steps), self.max_train_steps, 1.0 if batch.sentinel else 0.0,
-            remat=self.remat, attn_impl=self.attn_impl, logits_chunk=self.logits_chunk,
+            remat=self.remat, attn_impl=self.attn_impl, logits_chunk=self.logits_chunk, **vlm,
         )
         loss.backward()
         self._has_grads = True
@@ -291,6 +315,23 @@ class TrainerLoop:
         host = dict(zip(metrics, values))
         self.metrics.train_loss = host["loss"]
         return host
+
+    def _vlm_inputs(self, batch: TrainerBatch, arrays: dict) -> dict:
+        """The VLM pass's inputs (the JAX ``_vlm_pass``): mrope rows in
+        ``arrays["position_ids"]`` ([3, 1, L]), and the tower's merged tokens
+        with the placeholder mask. A trained tower runs inside the graph, so
+        its weights get gradients; a frozen one runs without it."""
+        if self.vision_cfg is None or (self.vision_params is None and not self.train_vision):
+            raise ValueError("multimodal batch but the trainer has no vision tower")
+        vin = vision_inputs_to(prepare_vision_inputs(batch.visual["pixel_values"], batch.visual["image_grid_thw"],
+                                                     self.vision_cfg), self.device)
+        arrays["position_ids"] = torch.from_numpy(batch.visual["mrope_position_ids"]).long()[:, None, :].to(self.device)
+        if self.train_vision:
+            embeds = vision_forward(self.params["vision_tower"], self.vision_cfg, **vin, remat=self.remat is True)
+        else:
+            with torch.no_grad():
+                embeds = vision_forward(self.vision_params, self.vision_cfg, **vin)
+        return {"image_embeds": embeds[None], "image_mask": arrays["input_ids"] == int(self.model_cfg.image_token_id)}
 
     def zero_grad(self) -> None:
         """Drop the accumulated gradients without a step."""

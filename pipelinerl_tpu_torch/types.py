@@ -51,6 +51,8 @@ class TrainingText:
     finish_reason: str | None = None
     prompt_tokens: int = 0
     output_tokens: int = 0
+    # VLM: {"pixel_values", "image_grid_thw"} as the processor extracted them
+    visual_features: dict[str, Any] | None = None
     metadata: dict = field(default_factory=dict)
 
 
@@ -94,7 +96,7 @@ class TrainerBatch:
     the loss."""
 
     __slots__ = (*_INT_FIELDS, *_FLOAT_FIELDS, "model_version", "sentinel", "padding",
-                 "seq_boundaries", "num_sequences")
+                 "seq_boundaries", "num_sequences", "visual")
 
     def __init__(
         self,
@@ -115,6 +117,7 @@ class TrainerBatch:
         padding: int = 0,
         seq_boundaries=None,
         num_sequences: int = 0,
+        visual: dict | None = None,
     ):
         def as2d(x, dtype):
             arr = np.asarray(x, dtype=dtype)
@@ -132,6 +135,15 @@ class TrainerBatch:
             np.asarray(seq_boundaries, dtype=np.int32) if seq_boundaries is not None else None
         )
         self.num_sequences = int(num_sequences)
+        # a VLM row (one unpacked sample): {"pixel_values" [N, patch_dim]
+        # f32, "image_grid_thw" [n, 3] i64, "mrope_position_ids" [3, L] i32}
+        if visual is not None:
+            visual = {
+                "pixel_values": np.asarray(visual["pixel_values"], np.float32),
+                "image_grid_thw": np.asarray(visual["image_grid_thw"], np.int64).reshape(-1, 3),
+                "mrope_position_ids": np.asarray(visual["mrope_position_ids"], np.int32),
+            }
+        self.visual = visual
 
     @property
     def length(self) -> int:
@@ -153,17 +165,18 @@ class TrainerBatch:
         msg["num_sequences"] = self.num_sequences
         if self.seq_boundaries is not None:
             msg["seq_boundaries"] = self.seq_boundaries.tolist()
+        if self.visual is not None:
+            msg["visual"] = dict(self.visual) if arrays else {k: v.tolist() for k, v in self.visual.items()}
         return msg
 
     @classmethod
     def from_msg(cls, msg: dict[str, Any]) -> "TrainerBatch":
-        if msg.get("visual") is not None:
-            raise NotImplementedError("multimodal rows are not ported yet (ROADMAP Queue 1, VLM)")
         return cls(
             model_version=msg.get("model_version", 0),
             sentinel=msg.get("sentinel", False),
             padding=msg.get("padding", 0),
             num_sequences=msg.get("num_sequences", 0),
             seq_boundaries=msg.get("seq_boundaries"),
+            visual=msg.get("visual"),
             **{name: np.asarray(msg[name]) for name in _INT_FIELDS + _FLOAT_FIELDS},
         )

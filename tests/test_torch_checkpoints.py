@@ -177,7 +177,26 @@ def tt_bytes(t: torch.Tensor) -> bytes:
 
 
 def test_export_of_a_vision_tower_raises(tmp_path):
+    """A trained ``vision_tower`` exports under Qwen2.5-VL's ``visual.*``
+    names with its ``vision_config``, and both packages' ``load_hf_vision``
+    read it back bit for bit. (Until the VLM path was ported this export
+    raised; the byte comparison with JAX's export is in
+    ``test_torch_vlm_trainer.py``.)"""
+    from pipelinerl_tpu_torch.models import hf_loader as tl
+    from pipelinerl_tpu_torch.models import vision as tv
+
     params = tt.init_params(torch.Generator().manual_seed(0), MODEL, "cpu")
-    params["vision_tower"] = {"patch_embed": torch.zeros(2, 2)}
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ck.export_hf(tmp_path, params, MODEL)
+    vcfg = tv.VisionConfig(hidden_size=16, intermediate_size=32, num_heads=2, depth=2, out_hidden_size=32,
+                           patch_size=2, temporal_patch_size=1, window_size=8, fullatt_block_indexes=(1,),
+                           dtype=torch.float32)
+    params["vision_tower"] = tv.init_vision_params(torch.Generator().manual_seed(1), vcfg, "cpu")
+    out = ck.export_hf(tmp_path, params, MODEL, vision_cfg=vcfg)
+    assert json.loads((out / "config.json").read_text())["vision_config"]["depth"] == 2
+    back, back_cfg = tl.load_hf_vision(out, dtype=torch.float32, device="cpu")
+    jback, _ = jl.load_hf_vision(out, dtype=jnp.float32)
+    assert back_cfg == vcfg
+    ours = dict(param_leaves(params["vision_tower"]))
+    for name, t in param_leaves(back):
+        assert torch.equal(t, ours[name]), name
+    for name, a in param_leaves(jax.tree.map(np.asarray, jback)):
+        assert a.tobytes() == tt_bytes(ours[name]), name

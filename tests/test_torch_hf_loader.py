@@ -144,12 +144,29 @@ def test_language_model_prefixed_names_load(tmp_path):
 
 
 def test_vlm_and_unknown_architectures_raise(tmp_path):
+    """A Qwen2.5-VL config, flat and with its language keys nested under
+    ``text_config``, loads as the JAX loader loads it (mrope sections and
+    vision token ids included), and its trunk's tensors equal JAX's; an
+    unknown architecture still raises. (Until the VLM path was ported the
+    VLM architecture raised too.)"""
     path, _, _ = jax_export(tmp_path, "llama")
     config = json.loads((path / "config.json").read_text())
-    config["architectures"] = ["Qwen2_5_VLForConditionalGeneration"]
-    (path / "config.json").write_text(json.dumps(config))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tl.load_hf_model(path, device="cpu")
+    config.update(architectures=["Qwen2_5_VLForConditionalGeneration"], image_token_id=151655,
+                  vision_start_token_id=151652, vision_end_token_id=151653,
+                  rope_scaling={"type": "mrope", "mrope_section": [1, 1, 2]})
+    nested = {k: v for k, v in config.items() if k in ("architectures", "image_token_id", "vision_start_token_id",
+                                                      "vision_end_token_id", "torch_dtype")}
+    nested["text_config"] = {k: v for k, v in config.items() if k not in nested}
+    for layout in (config, nested):
+        (path / "config.json").write_text(json.dumps(layout))
+        jcfg = jl.load_model_config(path, dtype=jnp.float32)
+        tcfg = tl.load_model_config(path, dtype=torch.float32)
+        assert_configs_agree(jcfg, tcfg)
+        assert tcfg.mrope_section == jcfg.mrope_section == (1, 1, 2)
+        assert (tcfg.image_token_id, tcfg.vision_start_token_id, tcfg.vision_end_token_id) == (151655, 151652, 151653)
+        assert_same_tensors(jl.load_hf_model(path, dtype=jnp.float32)[0],
+                            tl.load_hf_model(path, dtype=torch.float32, device="cpu")[0])
+    assert tl.load_hf_vision(path, device="cpu") == (None, None) == jl.load_hf_vision(path)
     config["architectures"] = ["GPT2LMHeadModel"]
     (path / "config.json").write_text(json.dumps(config))
     with pytest.raises(ValueError, match="Unsupported architecture"):

@@ -1,7 +1,7 @@
 """The port imports nothing of JAX or of the JAX package, nor the
 ``safetensors``, ``tokenizers``, ``transformers``, ``regex``, ``msgpack``,
-``aiohttp``, ``yaml``, ``pydantic`` and ``datasets`` packages (the H100 host
-has none of them): every
+``aiohttp``, ``yaml``, ``pydantic``, ``datasets`` and ``PIL`` packages (the
+H100 host has none of them): every
 module of ``pipelinerl_tpu_torch`` and ``chip_smoke`` imports in a process
 that refuses all of them, and the port's tokenizer reads the committed
 fixture there; every stage entrypoint, started as
@@ -24,7 +24,7 @@ CHILD = textwrap.dedent(
     import importlib, pkgutil, sys
 
     REFUSED = ("jax", "jaxlib", "pipelinerl_tpu", "safetensors", "tokenizers", "transformers", "regex",
-               "msgpack", "aiohttp", "yaml", "pydantic", "datasets")
+               "msgpack", "aiohttp", "yaml", "pydantic", "datasets", "PIL")
 
     class Refuse:
         def find_spec(self, name, path=None, target=None):
@@ -64,8 +64,9 @@ def test_port_imports_without_jax_and_chip_smoke_needs_a_card():
     n = int(proc.stdout.split("IMPORTED ")[1].split()[0])
     # every module of the package (serving, paged KV, training, processes
     # mode, the task domains and domain sampling, the environment servers,
-    # the binary and TCP streams), and chip_smoke
-    assert n >= 99
+    # the binary and TCP streams; the vision tower, mrope, the visual
+    # processors, vlm_bandit and chartqa), and chip_smoke
+    assert n >= 107
     if not torch.cuda.is_available():
         assert "RAISED no CUDA device" in proc.stdout, proc.stdout
         assert '"ok"' not in proc.stdout
@@ -90,7 +91,7 @@ SITE = textwrap.dedent(
     import atexit, sys
 
     REFUSED = ("jax", "jaxlib", "pipelinerl_tpu", "msgpack", "aiohttp", "yaml", "transformers", "tokenizers",
-               "pydantic", "datasets")
+               "pydantic", "datasets", "PIL")
 
     class Refuse:
         def find_spec(self, name, path=None, target=None):

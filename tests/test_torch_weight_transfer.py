@@ -3,7 +3,7 @@ from the same tree (fp32 and bf16), a header codec equal to msgpack, bodies
 that land bit for bit across the two packages in both directions, and the
 port's counterparts of tests/test_weight_transfer.py (a mismatched tree is
 rejected, rapid pushes converge, a sustained supersede completes, a push
-over the double-buffer budget raises)."""
+over the double-buffer budget streams in as the JAX engine's does)."""
 
 import time
 
@@ -152,7 +152,7 @@ def test_numpy_tree_goes_through_the_transfer_thread(small_chunks):
     engine = port_engine(to_torch(numpy_tree(0, "float32")))
     engine.update_params(new, 3)
     wait_version(engine, 3)
-    assert engine.last_push_timings["mode"] == "tree"
+    assert engine.last_push_timings["mode"] == "double-buffer"
     assert all(isinstance(t, torch.Tensor) for _, t in twt.flatten_params(engine.params))
     assert_same_bits(engine.params, new)
     engine.stop()
@@ -279,16 +279,30 @@ def test_an_older_push_queued_behind_a_newer_one_is_never_staged(order):
 
 
 def test_push_over_budget_raises():
-    """The streamed push is not ported: over the budget both paths raise
-    and name the ROADMAP item, and nothing is enqueued."""
-    tree = numpy_tree(0, "float32")
+    """Over the double-buffer budget both paths stream into the live weights
+    as the JAX engine's do (the refusal this test held until the streamed
+    push was ported): a body goes "blob-chunked", a host tree "streamed", each
+    landing bit for bit and naming its mode as the JAX engine names it."""
+    tree, new = numpy_tree(0, "float32"), numpy_tree(6, "float32")
     engine = port_engine(to_torch(tree), push_double_buffer_max_bytes=1024)
-    with pytest.raises(ValueError, match="Queue 1, item 6"):
-        engine.update_params_serialized(twt.serialize_params(to_torch(tree), version=1))
-    with pytest.raises(ValueError, match="Queue 1, item 6"):
-        engine.update_params(tree, 1)
-    assert engine.push_counters()["pushes_received"] == 0 and engine.version == 0
+    jengine = je.InferenceEngine(jax.tree.map(jnp.asarray, tree), jt.ModelConfig(dtype=jnp.float32, **KW),
+                                 je.EngineConfig(max_slots=2, max_len=32, prefill_buckets=(16,),
+                                                 cache_dtype=jnp.float32, push_double_buffer_max_bytes=1024),
+                                 eos_token_id=0)
+    body = bytes(twt.serialize_params(to_torch(new), version=1))
+    for e in (engine, jengine):
+        assert e.update_params_serialized(body) == 1
+        wait_version(e, 1)
+    assert engine.last_push_timings["mode"] == jengine.last_push_timings["mode"] == "blob-chunked"
+    assert_same_bits(engine.params, new)
+    for e in (engine, jengine):
+        e.update_params(tree, 2)
+        wait_version(e, 2)
+    assert engine.last_push_timings["mode"] == jengine.last_push_timings["mode"] == "streamed"
+    assert_same_bits(engine.params, tree)
+    assert engine.push_counters()["pushes_received"] == 2
     engine.stop()
+    jengine.stop()
 
 
 def test_device_tensors_swap_directly():
