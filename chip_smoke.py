@@ -65,7 +65,7 @@ Phases, each of which stops the script on failure:
    against the sampler's logprobs and against the plain attention;
 12. the bandit RL loop (``bandit_tpu``) through the port's ``launch.main``
    with every attention on the kernels, on the slab layout and again on the
-   paged layout, 30 steps each (``BANDIT_STEPS``): it must learn both
+   paged layout, the preset's 60 steps each: it must learn both
    times; then with the ``ppo`` group's
    KL penalty against a reference engine, whose weights must stay the
    initial ones in storage of their own;
@@ -105,11 +105,12 @@ Phases, each of which stops the script on failure:
    seconds and the largest gap between decode windows beside the steady
    gap are logged;
 17. ``bandit_tpu`` through ``python -m pipelinerl_tpu_torch.launch
-   launch_mode=processes`` (30 steps), as a device job and split with
+   launch_mode=processes`` (the preset's 60 steps), as a device job and split with
    ``world.trainer_procs=1`` (every version after 0 reaching the engine
    over PWT3): exit 0, the trainer's steps done, the engine on the last
    pushed version, kernel launches read from the children's stats files,
-   phase 12's learning gate, and no child left alive;
+   phase 12's learning gate, and no child left alive; the two runs go side
+   by side;
 18. the ``math`` preset (the reference's flagship run) through
    ``launch.main`` from phase 14's HF directory at the preset's own engine
    and trainer widths (64 slots of max_len 10,240, prefill buckets
@@ -182,12 +183,34 @@ Phases, each of which stops the script on failure:
    the push;
    (e) the trained tower exported and read back bit for bit. Then #2 at its
    prefill buckets, #1 at its slab and #2-#4 on its row, at Dh 128 and G 8,
-   against their plain versions and timed.
+   against their plain versions and timed;
+27. the sharded trainer (``parallel/``) as two rank processes on this one
+   card (gloo: NCCL refuses two ranks on one GPU): (a) which of
+   all_gather_into_tensor, reduce_scatter_tensor, all_reduce and broadcast
+   gloo takes on CUDA tensors (the phase fails if one the port calls is
+   refused); (b) cp 2 at the tir preset's width on one packed L 32,768 row
+   over phase 21's segment ids, each rank's #2-#4 at its q_offset (0,
+   16,384), the loss, grad norm, each leaf's Adam first moment and the
+   updated params after one step at lr 1e-3 (no warmup) held against one
+   rank's pass of the row, each rank's pass time and peak memory logged;
+   (c) dp 2 at Qwen2.5-0.5B width on two L 2,048 rows with the params cut
+   by the rule table and gathered a layer at a time, held the same way
+   against one rank's two passes; (d) ``launch`` in processes
+   mode with ``world.trainer_procs=2 parallel.dp=2`` on the ``test`` preset
+   from phase 14's directory: rank 0's pushes reach the engine, the version
+   is the trained samples, both ranks exit 0 ((d) runs beside phase 25's two
+   toy runs, which leave the card and most cores idle; phase 17's two runs
+   go side by side the same way). Then #2-#4 at each cp rank's
+   shape of that row against their plain versions by blocks and timed
+   beside SDPA and their bounds.
 Then one JSON line of kernel numbers, and last the result line.
 
 ``python3 chip_smoke.py --http-load URL N TOKENS OUT`` and
 ``python3 chip_smoke.py --push URL HF_DIR DIR DEVICE`` are the client and pusher
-processes of phases 15 and 16.
+processes of phases 15 and 16; ``python3 chip_smoke.py --world-rank RANK
+WORLD HOST:PORT DIR HF_DIR`` is a rank of phase 27, and ``python3
+chip_smoke.py --trainer-world N`` runs phase 27's (b) and (c) alone as N
+ranks (N=4 on a host with four cards, over NCCL).
 
 It needs a CUDA device and raises without one; it never falls back to the CPU.
 """
@@ -243,7 +266,7 @@ from pipelinerl_tpu_torch.streams import SingleStreamSpec, StreamReader, StreamW
 from pipelinerl_tpu_torch.streams_binary import FrameReader
 from pipelinerl_tpu_torch.train.checkpoints import CURRENT_DIR, export_hf
 from pipelinerl_tpu_torch.train.lora import merge_lora
-from pipelinerl_tpu_torch.train.trainer import TrainerLoop, param_leaves
+from pipelinerl_tpu_torch.train.trainer import TrainerLoop, detached_copy, param_leaves
 from pipelinerl_tpu_torch.types import TrainerBatch
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 flop/s
@@ -755,9 +778,11 @@ def time_paged_working_set(dev, snapshots, record: dict) -> None:
     record["inactive_row_share"] = share
 
 
-def _gqa_inputs(gen, B, Lq, Lkv, H, K, Dh, segs, dev):
+def _gqa_inputs(gen, B, Lq, Lkv, H, K, Dh, segs, dev, q_offset=None):
     """``segs``: a number of equal segments over the row, their lengths, or
-    (a numpy array) the id of every position."""
+    (a numpy array) the id of every position. The queries are the row's
+    last ``Lq`` positions, or those from ``q_offset`` (a cp rank's slice
+    against the gathered keys)."""
     bf = torch.bfloat16
     q = torch.randn((B, Lq, H, Dh), generator=gen, device=dev).to(bf)
     k = torch.randn((B, Lkv, K, Dh), generator=gen, device=dev).to(bf)
@@ -772,8 +797,9 @@ def _gqa_inputs(gen, B, Lq, Lkv, H, K, Dh, segs, dev):
         seg = torch.repeat_interleave(torch.arange(len(segs), dtype=torch.int32, device=dev),
                                       torch.tensor(segs, device=dev))
     kv_seg = seg[None].expand(B, Lkv).contiguous()
-    q_seg = kv_seg[:, Lkv - Lq :].contiguous()
-    return q, k, v, q_seg, kv_seg, Lkv - Lq
+    q_off = Lkv - Lq if q_offset is None else q_offset
+    q_seg = kv_seg[:, q_off : q_off + Lq].contiguous()
+    return q, k, v, q_seg, kv_seg, q_off
 
 
 def _extend_inputs(gen, Lt, Pfx, prefix_lens, H, K, Dh, dev):
@@ -988,10 +1014,10 @@ def counts() -> dict[str, int]:
     return kernel_launches()
 
 
-def _gqa_bwd_args(gen, B, Lq, Lkv, H, K, Dh, segs, dev, masked_row=None):
+def _gqa_bwd_args(gen, B, Lq, Lkv, H, K, Dh, segs, dev, masked_row=None, q_offset=None):
     """(q, k, v, q_seg, kv_seg, q_offset, scale, out, lse, do, delta), out
     and lse from kernel #2."""
-    q, k, v, q_seg, kv_seg, q_off = _gqa_inputs(gen, B, Lq, Lkv, H, K, Dh, segs, dev)
+    q, k, v, q_seg, kv_seg, q_off = _gqa_inputs(gen, B, Lq, Lkv, H, K, Dh, segs, dev, q_offset)
     q_seg = q_seg.clone()  # at Lq == Lkv it is kv_seg itself
     if masked_row is not None:
         q_seg[0, masked_row] = int(kv_seg.max()) + 7  # no key carries it
@@ -1049,9 +1075,9 @@ def _time_gqa_bwd(label: str, make, dev, plain_iters: int = 4,
     L2), beside the whole plain backward, the backward alone of one masked
     SDPA call, and each kernel's bound. Returns {"dq": times, "dkv": times}."""
     a = make()
-    q, k, lse, q_seg, kv_seg = a[0], a[1], a[8], a[3], a[4]
-    H, L = q.shape[2], q.shape[1]
-    _, _, visible = _gqa_work(q, k, q_seg, kv_seg, 0)
+    q, k, lse, q_seg, kv_seg, q_off = a[0], a[1], a[8], a[3], a[4], a[5]
+    H, Lq, Lkv = q.shape[2], q.shape[1], k.shape[1]
+    _, _, visible = _gqa_work(q, k, q_seg, kv_seg, q_off)
     product = 2 * q.shape[3] * H * visible  # one Dh-long product over every visible (query head, key) pair
     in_bytes = 2 * q.numel() * 2 + 2 * k.numel() * 2 + 2 * lse.numel() * 4 + 4 * (q_seg.numel() + kv_seg.numel())
     work = {"dq": (in_bytes + q.numel() * 2, 3 * product), "dkv": (in_bytes + 2 * k.numel() * 2, 4 * product)}
@@ -1061,8 +1087,8 @@ def _time_gqa_bwd(label: str, make, dev, plain_iters: int = 4,
     del sets
     plain_ms = time_events_ms(lambda: plain(*a[:10]), plain_iters)
     # yardstick only: the backward alone of one SDPA call with a boolean mask
-    i = torch.arange(L, device=dev)
-    mask = ((i[:, None] >= i[None, :])[None] & (q_seg[:, :, None] == kv_seg[:, None, :]))[:, None]
+    i, j = torch.arange(Lq, device=dev) + q_off, torch.arange(Lkv, device=dev)
+    mask = ((i[:, None] >= j[None, :])[None] & (q_seg[:, :, None] == kv_seg[:, None, :]))[:, None]
     sq, sk, sv = (t.transpose(1, 2).detach().requires_grad_() for t in a[:3])
     s_out = F.scaled_dot_product_attention(sq, sk, sv, attn_mask=mask, enable_gqa=True)
     s_do = a[9].transpose(1, 2)
@@ -1308,22 +1334,18 @@ def report_profile(prof, wall_ms: float, n_steps: int, label: str) -> None:
                 f"ms/step in {sum(e.count for e in attn) // n_steps} launches/step")
 
 
-# the bandit_tpu runs of phases 12 and 17 stop at 30 steps (the preset's
-# 60): their reward passes the learning gate's 0.1 by about 0.3 within 30
-# steps, and the time goes to phases 25-26
-BANDIT_STEPS = 30
-
-
 def phase_rl_loop(exp_dir: str, paged: bool = False) -> dict:
     """The bandit RL loop through the port's entry point, every attention on
-    the kernels; it must learn (tests/test_e2e_bandit.py:43-58). ``paged``
-    runs its engine on the paged layout in 16-token pages (kernel #5 in
-    place of #1)."""
+    the kernels, the preset's 60 steps; it must learn
+    (tests/test_e2e_bandit.py:43-58). At 30 steps a run failed the gate
+    (paged, 0.579 -> 0.477; a split run of phase 17, 0.573 -> 0.642).
+    ``paged`` runs its engine on the paged layout in 16-token pages (kernel
+    #5 in place of #1)."""
     layout = ["engine.kv_layout=paged", "engine.kv_block_size=16"] if paged else []
     reset_counts()
     t0 = time.monotonic()
     stats = launch.main(["--config-name=bandit_tpu", f"output_dir={exp_dir}", "finetune.save_checkpoint_steps=0",
-                         f"finetune.max_train_steps={BANDIT_STEPS}", "engine.attn_impl=gqa", "finetune.attn_impl=gqa",
+                         "engine.attn_impl=gqa", "finetune.attn_impl=gqa",
                          *layout])
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
@@ -1568,10 +1590,11 @@ def phase_hf_checkpoint(dev, smi: str, tmp: str) -> dict[str, dict]:
     torch.cuda.empty_cache()
 
     out = f"{tmp}/test_run"
-    # 128 new tokens (the preset's 500): every guess of a random model runs
-    # to the budget, and the saves, resumes and exports do not need more
+    # 32 new tokens (the preset's 500; 128 before phase 27 joined the
+    # smoke): every guess of a random model runs to the budget, and the
+    # saves, resumes and exports do not need more
     common = ["--config-name=test", f"model_path={hf_dir}", f"output_dir={out}", "finetune.rl.entropy_bonus=0.001",
-              "engine.attn_impl=gqa", "finetune.attn_impl=gqa", "llm.parameters.max_tokens=128"]
+              "engine.attn_impl=gqa", "finetune.attn_impl=gqa", "llm.parameters.max_tokens=32"]
     # 2. train two steps, saving after each
     stats, first, engine, wall, launches = run_recorded([*common, "finetune.max_train_steps=2",
                                                          "finetune.save_checkpoint_steps=1"])
@@ -2971,21 +2994,50 @@ def phase_logic_processes(hf_dir: Path, smi: str, tmp: str) -> dict:
     return launches
 
 
-def phase_processes(exp: str, split: bool, smi: str) -> dict:
-    """Phase 17: bandit_tpu through ``launch`` in processes mode."""
-    layout = ["world.trainer_procs=1"] if split else []
-    cmd = [sys.executable, "-m", "pipelinerl_tpu_torch.launch", "--config-name=bandit_tpu", f"output_dir={exp}",
-           "launch_mode=processes", "finetune.save_checkpoint_steps=0", "engine.attn_impl=gqa",
-           "finetune.attn_impl=gqa", f"finetune.max_train_steps={BANDIT_STEPS}",
-           f"world.engine_start_port={free_port()}", *layout]
-    t0 = time.monotonic()
+def start_launch(cmd: list[str], out: str) -> tuple[subprocess.Popen, float]:
+    """A ``launch`` run in a child process, its output to ``<out>.out`` and
+    ``<out>.err``; → (the process, its start time on the wall clock)."""
+    t0 = time.time()
+    with open(f"{out}.out", "w") as so, open(f"{out}.err", "w") as se:
+        proc = subprocess.Popen(cmd, stdout=so, stderr=se, text=True, cwd=Path(__file__).resolve().parent,
+                                start_new_session=True)
+    return proc, t0
+
+
+def finish_launch(run: tuple[subprocess.Popen, float], exp: str, out: str, timeout: float) -> tuple[int, str, str,
+                                                                                                     float, list]:
+    """Wait for a ``start_launch`` run, then kill what it left; → (exit
+    code, stdout, stderr, wall, the pids that outlived it). The wall runs to
+    the run's last write (its summary line), not to this wait: a run read
+    after another phase ended before it."""
+    proc, t0 = run
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=Path(__file__).resolve().parent)
+        proc.wait(timeout=max(1.0, t0 + timeout - time.time()))
+    except subprocess.TimeoutExpired:
+        stop_group(proc)
     finally:
         left = survivors(f"--config-dir={exp}/conf")
         for pid in left:
             os.kill(pid, signal.SIGKILL)
-    wall = time.monotonic() - t0
+    wall = max(os.path.getmtime(f"{out}.out"), os.path.getmtime(f"{out}.err")) - t0
+    return proc.returncode, Path(f"{out}.out").read_text(), Path(f"{out}.err").read_text(), wall, left
+
+
+def start_processes(exp: str, split: bool) -> tuple[subprocess.Popen, float]:
+    """Phase 17's run: bandit_tpu through ``launch`` in processes mode."""
+    layout = ["world.trainer_procs=1"] if split else []
+    cmd = [sys.executable, "-m", "pipelinerl_tpu_torch.launch", "--config-name=bandit_tpu", f"output_dir={exp}",
+           "launch_mode=processes", "finetune.save_checkpoint_steps=0", "engine.attn_impl=gqa",
+           "finetune.attn_impl=gqa", f"world.engine_start_port={free_port()}", *layout]
+    return start_launch(cmd, exp)
+
+
+def phase_processes(exp: str, split: bool, smi: str, run: tuple[subprocess.Popen, float]) -> dict:
+    """Phase 17: a ``start_processes`` run's gates. The device-job and the
+    split runs go side by side (a toy model: the card and most cores sit
+    idle under one), so the phase takes about one run's wall."""
+    returncode, stdout, stderr, wall, left = finish_launch(run, exp, exp, 600)
+    proc = subprocess.CompletedProcess([], returncode, stdout, stderr)
     label = "split (engine job + trainer job)" if split else "device job"
     check(proc.returncode == 0, f"processes mode ({label}) exited {proc.returncode}: {proc.stderr[-3000:]}")
     check(not left, f"children outlived the launcher: {left}")
@@ -3459,6 +3511,456 @@ def time_vlm_shapes(dev, kernels: list[dict], shapes: dict) -> None:
     time_train_row(dev, kernels, "vlm_row_shape", seg, L - n, 26, heads=heads)
 
 
+# ---------------------------------------------------------------------------
+# phase 27: the trainer world (dp x cp ranks on torch.distributed)
+# ---------------------------------------------------------------------------
+
+# the world against one rank on the same rows, both bf16, after one AdamW
+# step at WORLD_LR with no warmup (the preset's 50 warmup steps give the
+# first update a rate of 0, and its lr of 1e-6 moves no bf16 weight): the
+# loss and the grad norm; each leaf's Adam first moment (0.1 of its
+# clipped gradient) as the norm of the difference over the reference's
+# (a wrong cp or dp gradient is off by O(1)); and the updated params, where
+# an element more than one bf16 step of |ref| + lr away is a flipped update
+# (a gradient at its bf16 noise changes sign: 2 lr). The reference must
+# have moved most of its elements. Kernel #2's split of a row's keys, the
+# logits chunks and the order of the bf16 sums differ between the layouts.
+# The limits are about three times the readings on an H100 (loss equal,
+# grad norm 1.0e-3 to 3.1e-3, worst moment 1.5e-2, flips 5.6e-3); a wrong
+# cp or dp gradient reads O(1) on each
+WORLD_LR = 1e-3
+WORLD_LOSS_RTOL = 1e-4
+WORLD_NORM_RTOL = 1e-2
+WORLD_MOMENT_RTOL = 5e-2
+WORLD_FLIP_FRAC = 2e-2
+WORLD_MOVED_FRAC = 0.5
+DP_ROW_L = 2048  # (c)'s two rows: phase 6's training length halved
+WORLD_TIMEOUT = 420.0
+
+
+def world_row(seg: np.ndarray, seed: int) -> TrainerBatch:
+    """A packed row over the segment ids ``seg`` (contiguous runs): token
+    ids within the fixture tokenizer's 540, the first 16 tokens of each
+    segment its prompt, advantages and rewards +-1 by segment, old logprobs
+    -1."""
+    rng = np.random.default_rng(seed)
+    L = seg.shape[0]
+    ids = rng.integers(1, 540, (1, L)).astype(np.int32)
+    starts = np.r_[0, np.flatnonzero(np.diff(seg)) + 1]
+    lengths = np.diff(np.r_[starts, L])
+    pos = (np.arange(L) - np.repeat(starts, lengths))[None].astype(np.int32)
+    adv = np.repeat(rng.choice([-1.0, 1.0], len(lengths)), lengths)[None].astype(np.float32)
+    ones = np.ones((1, L), np.float32)
+    return TrainerBatch(
+        input_ids=ids, labels=np.where(pos < 16, -100, ids).astype(np.int32), position_ids=pos,
+        segment_ids=seg[None].astype(np.int32), rewards=adv, advantages=adv, ref_logprobs=0 * ones,
+        old_logprobs=-ones, group_tokens=np.repeat(lengths, lengths)[None].astype(np.float32),
+        num_labels=np.repeat(np.maximum(lengths - 16, 1), lengths)[None].astype(np.float32), overflow=0 * ones,
+        num_sequences=len(lengths))
+
+
+def world_args(hf_dir, out: str, part: str, n: int) -> list[str]:
+    """The tir preset's overrides for (b) (``part`` "cp": its L 32,768 rows
+    over ``n`` cp ranks) or (c) (``part`` "dp": L 2,048 rows over ``n`` dp
+    ranks), training only."""
+    common = [f"model_path={hf_dir}", f"output_dir={out}", "finetune.save_checkpoint_steps=0",
+              f"finetune.learning_rate={WORLD_LR}", "finetune.num_warmup_steps=0"]
+    if part == "cp":
+        return [*common, f"parallel.cp={n}", "parallel.dp=1"]
+    return [*common, f"finetune.seq_length={DP_ROW_L}", f"parallel.dp={n}", "parallel.cp=1"]
+
+
+def spy_q_offsets() -> dict[str, set]:
+    """Record the q_offset of every launch of #2-#4 in this process (the
+    launch counts stay the wrappers')."""
+    seen: dict[str, set] = {"gqa_fwd": set(), "gqa_dq": set(), "gqa_dkv": set()}
+    for key, name in (("gqa_fwd", "_gqa_fwd_cuda"), ("gqa_dq", "mha_packed_gqa_bwd_dq"),
+                      ("gqa_dkv", "mha_packed_gqa_bwd_dkv")):
+        inner = getattr(gattn, name)
+
+        def spy(*a, _inner=inner, _key=key):
+            if a[0].is_cuda:
+                seen[_key].add(int(a[5]))
+            return _inner(*a)
+
+        setattr(gattn, name, spy)
+    return seen
+
+
+def probe_gloo_cuda(dev) -> dict[str, bool]:
+    """Which of the four collectives gloo takes on CUDA tensors, each tried
+    on every rank of the world; the ranks agree through a CPU all-reduce
+    (an op refused on one counts as refused on all). Gloo refuses an op
+    before it communicates."""
+    dist = torch.distributed
+    world = dist.get_world_size()
+    calls = {
+        "all_gather_into_tensor": lambda x: dist.all_gather_into_tensor(torch.empty(2 * world, device=dev), x),
+        "reduce_scatter_tensor": lambda x: dist.reduce_scatter_tensor(torch.empty(2, device=dev),
+                                                                      x.repeat(world)),
+        "all_reduce": dist.all_reduce,
+        "broadcast": lambda x: dist.broadcast(x, src=0),
+    }
+    ok = []
+    for call in calls.values():
+        try:
+            call(torch.ones(2, device=dev))
+            torch.cuda.synchronize()
+            ok.append(1.0)
+        except (RuntimeError, ValueError, NotImplementedError):
+            ok.append(0.0)
+    agreed = torch.tensor(ok)
+    dist.all_reduce(agreed, op=dist.ReduceOp.MIN)
+    return dict(zip(calls, map(bool, agreed.tolist())))
+
+
+def world_step(trainer: TrainerLoop, rows: list[TrainerBatch]) -> dict:
+    """The rows' passes and one optimizer step, each pass timed
+    (synchronized) with its peak device memory."""
+    out = {"pass_s": [], "peak": [], "loss": 0.0}
+    for row in rows:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        trainer.train_pass(row)
+        torch.cuda.synchronize()
+        out["pass_s"].append(time.monotonic() - t0)
+        out["peak"].append(torch.cuda.max_memory_allocated())
+        out["loss"] += trainer.metrics.train_loss
+    t0 = time.monotonic()
+    trainer.optimizer_step()
+    torch.cuda.synchronize()
+    out.update(step_s=time.monotonic() - t0, grad_norm=trainer.metrics.grad_norm,
+               lr=float(trainer.cfg.finetune.learning_rate))
+    return out
+
+
+def step_state(trainer: TrainerLoop) -> tuple[dict, dict]:
+    """The full updated params and Adam first moments by leaf name, on the
+    card (a world's ranks all join the gathers)."""
+    named, state = trainer.gathered_state()
+    return dict(named), {n: st["exp_avg"] for n, st in trainer.leaf_state(state).items()}
+
+
+def world_vs_ref(params: dict, moments: dict, ref: dict, lr: float) -> dict:
+    """The world's updated params and first moments against the one-rank
+    reference's, on the card: the worst leaf's moment difference (norm over
+    the reference's norm), and the share of elements off by more than one
+    bf16 step of |ref| + lr (flipped updates)."""
+    worst, leaf, off, total, most = 0.0, "", 0, 0, 0.0
+    for name, r in ref["moments"].items():
+        r = r.float()
+        rel = ((moments[name].float() - r).norm() / r.norm().clamp_min(1e-30)).item()
+        if rel >= worst:
+            worst, leaf = rel, name
+    for name, r in ref["params"].items():
+        d = (params[name].float() - r.float()).abs()
+        off += int((d > 2.0**-7 * (r.float().abs() + lr)).sum())
+        total += r.numel()
+        most = max(most, d.max().item())
+    return {"moment_rel": worst, "moment_leaf": leaf, "flip_frac": off / total, "param_max_abs": most}
+
+
+def world_rank_main(rank: int, world: int, coordinator: str, work: str, hf_dir: str) -> None:
+    """One rank of (b) and (c): start and join the gloo world on the one
+    card while the parent runs the one-rank references, then, once their
+    passes are done, for each part one pass of this rank's rows (cp: its
+    half of the L 32,768 row; dp: its row of two) and one optimizer step;
+    rank 0 holds the gathered params and moments against the references.
+    Writes ``<work>/rank<rank>.json`` with the seconds each stage took."""
+    from pipelinerl_tpu_torch.parallel.multihost import leave_world, maybe_initialize_distributed
+
+    t0, marks = time.monotonic(), {}
+    host, port = coordinator.rsplit(":", 1)
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), MASTER_ADDR=host, MASTER_PORT=port)
+    _, dev = maybe_initialize_distributed(None, "cuda")
+    marks["joined"] = time.monotonic() - t0
+    rows = torch.load(f"{work}/rows.pt", weights_only=False)
+    backend = torch.distributed.get_backend()
+    out = {"rank": rank, "backend": backend, "gloo_cuda": probe_gloo_cuda(dev) if backend == "gloo" else {}}
+    wait_for(Path(work) / "refs.timed", "the one-rank references' passes")
+    marks["refs_timed"] = time.monotonic() - t0
+    params, model_cfg, _ = launch.build_model(compose("tir", world_args(hf_dir, work, "cp", world)), dev)
+    offsets = spy_q_offsets()
+    marks["built"] = time.monotonic() - t0
+    for part in ("cp", "dp"):
+        exp = f"{work}/{part}_{rank}"
+        trainer = TrainerLoop(compose("tir", world_args(hf_dir, exp, part, world)), params, model_cfg, exp)
+        mine = rows[part] if part == "cp" else rows[part][rank::world]
+        for seen in offsets.values():
+            seen.clear()
+        reset_counts()
+        res = world_step(trainer, mine)
+        res.update(launches=counts(), q_offsets={k: sorted(v) for k, v in offsets.items()},
+                   shard=list(trainer.params["embed"].shape), mesh=list(trainer.mesh.shape))
+        marks[f"{part}_stepped"] = time.monotonic() - t0
+        full, moments = step_state(trainer)
+        if rank == 0:
+            wait_for(Path(work) / "refs.done", "the one-rank references' files")
+            ref = torch.load(f"{work}/ref_{part}.pt", map_location=dev, weights_only=False)
+            res.update(world_vs_ref(full, moments, ref, res["lr"]))
+            del ref
+        marks[f"{part}_compared"] = time.monotonic() - t0
+        out[part] = res
+        del trainer, full, moments
+        gc.collect()
+        torch.cuda.empty_cache()
+    leave_world()
+    out["marks"] = {k: round(v, 2) for k, v in marks.items()}
+    Path(f"{work}/rank{rank}.json").write_text(json.dumps(out))
+
+
+def wait_for(path: Path, what: str) -> None:
+    deadline = time.monotonic() + WORLD_TIMEOUT
+    while not path.exists():
+        check(time.monotonic() < deadline, f"{what} never came")
+        time.sleep(0.1)
+
+
+def start_world_ranks(work: Path, hf_dir: Path, world: int = 2) -> list[subprocess.Popen]:
+    """``world`` rank processes of ``world_rank_main`` on this card."""
+    coordinator = f"127.0.0.1:{free_port()}"
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in (str(root), os.environ.get("PYTHONPATH")) if p))
+    procs = []
+    for r in range(world):
+        with open(work / f"rank{r}.log", "w") as f:
+            procs.append(subprocess.Popen([sys.executable, str(root / "chip_smoke.py"), "--world-rank", str(r),
+                                           str(world), coordinator, str(work), str(hf_dir)],
+                                          stdout=f, stderr=subprocess.STDOUT, env=env, cwd=root,
+                                          start_new_session=True))
+    return procs
+
+
+def wait_world_ranks(procs: list[subprocess.Popen], work: Path, deadline: float) -> list[dict]:
+    """The ranks' results, or a failure with their logs."""
+    try:
+        while any(p.poll() is None for p in procs) and time.monotonic() < deadline:
+            if any(p.returncode for p in procs):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                stop_group(p, 10)
+    failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+    logs = {r: (work / f"rank{r}.log").read_text()[-3000:] for r in failed}
+    check(not failed, f"trainer world rank(s) {failed} failed: {logs}")
+    return [json.loads((work / f"rank{r}.json").read_text()) for r in range(len(procs))]
+
+
+def phase_trainer_world(hf_dir: Path, smi: str, tmp: str, tir_seg: np.ndarray, world: int = 2) -> dict:
+    """Phase 27 (a)-(c): the sharded trainer on one card as two gloo ranks.
+    (a) which collectives gloo takes on CUDA tensors in this torch; (b) cp 2
+    at the tir preset's width: one
+    packed L 32,768 row over phase 21's segment ids, each rank its half
+    against the gathered K/V (#2-#4 at q_offset 0 and 16,384), held against
+    one rank's pass of the same row (loss, grad norm, each leaf's Adam
+    first moment, the updated params, after one step at ``WORLD_LR``);
+    (c) dp 2 at Qwen2.5-0.5B width: two L 2,048 rows, the params cut by the
+    rule table, held against one rank's two passes ((d), the trainer world
+    through ``launch``, is ``phase_world_launch``). ``world`` ranks (one card each where the host has as many, NCCL) run
+    (b) at cp ``world`` and (c) on ``world`` rows; ``--trainer-world``.
+    Returns the world's kernel launches."""
+    dev = torch.device("cuda")
+    work = Path(tmp) / "world"
+    work.mkdir()
+    rng = np.random.default_rng(27)
+    rows = {"cp": [world_row(tir_seg, 27)],
+            "dp": [world_row(np.repeat(np.arange(6), rng.multinomial(DP_ROW_L - 6 * 64, np.ones(6) / 6) + 64), s)
+                   for s in range(28, 28 + world)]}
+    torch.save(rows, work / "rows.pt")
+    # the ranks start (import, join) while this process runs the one-rank
+    # references; they build once the references' passes are done
+    # (refs.timed) and rank 0 reads their files after its own step
+    # (refs.done)
+    t0 = time.monotonic()
+    procs = start_world_ranks(work, hf_dir, world)
+    try:
+        params, model_cfg, _ = launch.build_model(compose("tir", world_args(hf_dir, tmp, "cp", 1)), dev)
+        refs, moved, states = {}, {}, {}
+        for part in ("cp", "dp"):
+            exp = f"{work}/ref_{part}"
+            trainer = TrainerLoop(compose("tir", world_args(hf_dir, exp, part, 1)), detached_copy(params),
+                                  model_cfg, exp)
+            reset_counts()
+            refs[part] = world_step(trainer, rows[part])
+            refs[part]["launches"] = counts()
+            new, moments = step_state(trainer)
+            n_moved = sum(int((new[k] != p0).sum()) for k, p0 in param_leaves(params))
+            moved[part] = n_moved / sum(p0.numel() for _, p0 in param_leaves(params))
+            states[part] = {"params": {k: v.cpu() for k, v in new.items()},
+                            "moments": {k: v.cpu() for k, v in moments.items()}}
+            del trainer, new, moments
+            gc.collect()
+            torch.cuda.empty_cache()
+        del params
+        torch.cuda.empty_cache()
+        refs_s = time.monotonic() - t0
+        (work / "refs.timed").touch()
+        for part, state in states.items():
+            torch.save(state, work / f"ref_{part}.pt")
+        del states
+        (work / "refs.done").touch()
+    except BaseException:
+        for p in procs:
+            stop_group(p, 10)
+        raise
+    ranks = wait_world_ranks(procs, work, t0 + WORLD_TIMEOUT)
+    wall = time.monotonic() - t0
+    r0 = ranks[0]
+    log(f"trainer world (a): backend {r0['backend']}, torch {torch.__version__}; gloo takes on CUDA tensors "
+        f"{r0['gloo_cuda'] or '(not asked: not gloo)'}")
+    check(r0["backend"] != "gloo" or all(r0["gloo_cuda"].values()),
+          f"gloo refuses a collective the port calls on CUDA tensors: {r0['gloo_cuda']}")
+    launches = {k: 0 for k in KERNEL_KEYS + ("paged",)}
+    n_layers = QWEN05B.num_layers
+    for part, label in (("cp", f"(b) cp {world}, the tir row L {tir_seg.shape[0]}"),
+                        ("dp", f"(c) dp {world}, {world} rows of L {DP_ROW_L}")):
+        ref, res = refs[part], [r[part] for r in ranks]
+        loss_err = abs(res[0]["loss"] - ref["loss"]) / max(abs(ref["loss"]), 1e-30)
+        norm_err = abs(res[0]["grad_norm"] - ref["grad_norm"]) / max(ref["grad_norm"], 1e-30)
+        log(f"trainer world {label} on {smi}: " + "; ".join(
+            f"rank {i} mesh {res[i]['mesh']} embed shard {res[i]['shard']}: pass "
+            f"{[round(s, 3) for s in res[i]['pass_s']]} s, peak {[round(b / 2**30, 2) for b in res[i]['peak']]} GiB, "
+            f"step {res[i]['step_s']:.3f} s, launches {res[i]['launches']}, q_offsets {res[i]['q_offsets']}"
+            for i, r in enumerate(ranks))
+            + f"; one rank: pass {[round(s, 3) for s in ref['pass_s']]} s, peak "
+            f"{[round(b / 2**30, 2) for b in ref['peak']]} GiB, launches {ref['launches']}; loss {res[0]['loss']:.6f} "
+            f"vs {ref['loss']:.6f} (relative {loss_err:.2e}, tolerance {WORLD_LOSS_RTOL}), grad norm "
+            f"{res[0]['grad_norm']:.6f} vs {ref['grad_norm']:.6f} (relative {norm_err:.2e}, tolerance "
+            f"{WORLD_NORM_RTOL}), Adam first moments: worst leaf {res[0]['moment_leaf']} off by "
+            f"{res[0]['moment_rel']:.3e} of its norm (tolerance {WORLD_MOMENT_RTOL}), updated params (lr {ref['lr']}, "
+            f"no warmup): the reference moved {moved[part]:.4f} of its elements (at least {WORLD_MOVED_FRAC}), "
+            f"{res[0]['flip_frac']:.3e} of them more than one bf16 step of |ref| + lr off (at most "
+            f"{WORLD_FLIP_FRAC}), max abs difference {res[0]['param_max_abs']:.3e}; world wall {wall:.1f} s "
+            f"(the references' passes {refs_s:.1f} s, beside the ranks' start; rank 0's marks {ranks[0]['marks']} s)")
+        check(all(math.isfinite(r["loss"]) for r in res) and loss_err <= WORLD_LOSS_RTOL,
+              f"{label}: loss {res[0]['loss']} vs one rank's {ref['loss']}")
+        check(norm_err <= WORLD_NORM_RTOL, f"{label}: grad norm {res[0]['grad_norm']} vs {ref['grad_norm']}")
+        check(res[0]["moment_rel"] <= WORLD_MOMENT_RTOL,
+              f"{label}: the first moment of {res[0]['moment_leaf']} off by {res[0]['moment_rel']}")
+        check(moved[part] >= WORLD_MOVED_FRAC, f"{label}: the reference step moved {moved[part]} of the params")
+        check(res[0]["flip_frac"] <= WORLD_FLIP_FRAC, f"{label}: {res[0]['flip_frac']} of the updated params off")
+        # remat: each layer's forward runs again in the backward pass
+        want = {"gqa_fwd": 2 * n_layers, "gqa_dq": n_layers, "gqa_dkv": n_layers}
+        for i, r in enumerate(res):
+            check(all(r["launches"][k] == n * len(rows[part] if part == "cp" else rows[part][i::world])
+                      for k, n in want.items()), f"{label}: rank {i} launches {r['launches']}, want {want} a pass")
+            for k in want:
+                launches[k] += r["launches"][k]
+        if part == "cp":
+            c = tir_seg.shape[0] // world
+            for i, r in enumerate(res):
+                check(all(r["q_offsets"][k] == [i * c] for k in want),
+                      f"(b) rank {i} launched #2-#4 at q_offsets {r['q_offsets']}, want {i * c}")
+    return launches
+
+
+def trainer_world_main(world: int) -> None:
+    """``python3 chip_smoke.py --trainer-world N``: phases 1-2, then phase
+    27's (b) and (c) as N ranks (one card each on a host of N cards: NCCL)
+    on a tir-width row of 24 even segments from seed 21, from an
+    ``export_hf`` directory of random Qwen2.5-0.5B weights."""
+    info = phase_device()
+    dev = torch.device("cuda")
+    phase_build()
+    with tempfile.TemporaryDirectory() as tmp:
+        params = init_params(torch.Generator(device=dev).manual_seed(0), QWEN05B_TIED, dev)
+        hf_dir = export_hf(f"{tmp}/hf_in", params, QWEN05B_TIED, HFTokenizer(FIXTURE_TOKENIZER))
+        del params
+        torch.cuda.empty_cache()
+        rng = np.random.default_rng(21)
+        seg = np.repeat(np.arange(24), rng.multinomial(32768 - 24 * 256, np.ones(24) / 24) + 256)
+        t0 = time.monotonic()
+        phase_trainer_world(hf_dir, info["smi"], tmp, seg, world)
+        log(f"trainer world of {world}: {time.monotonic() - t0:.1f} s")
+
+
+def start_world_launch(hf_dir: Path, tmp: str) -> tuple[subprocess.Popen, float]:
+    """Phase 27 (d)'s run: the ``test`` preset through ``launch`` in
+    processes mode as an engine job and a trainer world of two ranks (dp 2)
+    on this card. It goes beside phase 25's two toy runs, which leave the
+    card and most cores idle, and ``phase_world_launch`` reads it."""
+    exp = f"{tmp}/world_launch"
+    cmd = [sys.executable, "-m", "pipelinerl_tpu_torch.launch", "--config-name=test", f"model_path={hf_dir}",
+           f"output_dir={exp}", "launch_mode=processes", "world.trainer_procs=2", "parallel.dp=2",
+           "finetune.max_train_steps=2", "finetune.save_checkpoint_steps=0", "llm.parameters.max_tokens=32",
+           "finetune.rl.entropy_bonus=0.001", "engine.attn_impl=gqa", "finetune.attn_impl=gqa",
+           f"world.engine_start_port={free_port()}", f"world.coordinator_port={free_port()}"]
+    return start_launch(cmd, exp)
+
+
+def phase_world_launch(smi: str, tmp: str, run: tuple[subprocess.Popen, float]) -> dict:
+    """Phase 27 (d): ``start_world_launch``'s run; every push from rank 0
+    reaches the engine, the version is the trained samples, both ranks exit
+    0. Returns the ranks' launches."""
+    exp = f"{tmp}/world_launch"
+    returncode, stdout, stderr, wall, left = finish_launch(run, exp, exp, 300)
+    check(returncode == 0, f"(d) the trainer world through launch exited {returncode}: {stderr[-3000:]}")
+    check(not left, f"(d) children outlived the launcher: {left}")
+    jobs = json.loads(stdout.strip().splitlines()[-1])["jobs"]
+    engine, ranks = jobs["engine_0"], [jobs["trainer_0"], jobs["trainer_1"]]
+    trainer = ranks[0]["trainer"]
+    pushes = ranks[0]["pushes"]
+    log(f"trainer world (d) through launch (test preset, engine job + 2 trainer ranks, dp 2): {wall:.1f} s wall, "
+        f"ranks {[(r['rank'], r['world'], r['trainer']['completed_steps'], r['trainer']['samples']) for r in ranks]} "
+        f"(rank, world, steps, samples), {len(pushes)} PWT3 pushes from rank 0 "
+        f"({len(ranks[1]['pushes'])} from rank 1), engine version {engine['version']} (pushes "
+        f"{engine['push']['pushes_completed']}/{engine['push']['pushes_received']}), launches "
+        f"{[r['kernel_launches'] for r in ranks]}; on {smi}")
+    check(all(r["trainer"]["completed_steps"] == 2 and r["world"] == 2 for r in ranks), f"(d) ranks {ranks}")
+    check(pushes and not ranks[1]["pushes"] and engine["push"]["pushes_completed"] == len(pushes)
+          and engine["push"]["push_last_version"] == pushes[-1]["version"],
+          f"(d) rank 0's pushes did not all reach the engine: {engine['push']}, {len(pushes)} pushes")
+    check(engine["version"] == trainer["last_broadcasted_version"] == trainer["samples"] > 0,
+          f"(d) engine version {engine['version']}, trainer {trainer}")
+    check(all(r["kernel_launches"][k] for r in ranks for k in ("gqa_fwd", "gqa_dq", "gqa_dkv")),
+          f"(d) launches {[r['kernel_launches'] for r in ranks]}")
+    return {k: sum(r["kernel_launches"][k] for r in ranks) for k in ranks[0]["kernel_launches"]}
+
+
+def time_cp_rows(dev, kernels: list[dict], seg: np.ndarray, cp: int = 2) -> None:
+    """#2-#4 at each cp rank's shape of the tir row (Lq L/cp against the
+    gathered L keys at q_offset rank * L/cp) against their plain versions by
+    blocks of queries, timed beside one masked SDPA call and their bounds
+    from the rank's visible pairs; into ``kernels[1..3]["tir_cp2_rank<r>"]``."""
+    gen = torch.Generator(device=dev).manual_seed(27)
+    H, K, Dh = QWEN05B_HEADS
+    L = seg.shape[0]
+    Lq = L // cp
+    fwd_plain = lambda *a: gattn.mha_packed_gqa_plain_blocked(*a, block=TIR_ROW_BLOCK)  # noqa: E731
+    bwd_plain = lambda *a: gattn.mha_packed_gqa_bwd_plain_blocked(*a, block=TIR_ROW_BLOCK)  # noqa: E731
+    for rank in range(cp):
+        off = rank * Lq
+        name = f"tir_cp{cp}_rank{rank}_shape"
+        label = (f"tir row at cp {cp}, rank {rank}: Lq {Lq} at q_offset {off} against the gathered L={L}, "
+                 f"{int(seg.max()) + 1} segments, the plain versions by blocks of {TIR_ROW_BLOCK} queries")
+        make = lambda off=off: _gqa_inputs(gen, 1, Lq, L, H, K, Dh, seg, dev, off)  # noqa: E731
+        args = make()
+        kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"], _check_gqa_forward(label, args, plain=fwd_plain))
+        kernels[1][name] = _time_gqa_forward(label, args, make, dev, plain_by_events=True, plain=fwd_plain)
+        del args
+        torch.cuda.empty_cache()
+        a = _gqa_bwd_args(gen, 1, Lq, L, H, K, Dh, seg, dev, q_offset=off)
+        grads = gattn.mha_packed_gqa_bwd(*a[:10])
+        refs = bwd_plain(*a[:10])
+        errs = {n: _rel_err(g, r) for n, g, r in zip(("dq", "dk", "dv"), grads, refs)}
+        del a, grads, refs
+        log(f"gqa backward kernels vs plain, {label}: " + ", ".join(
+            f"{n} max abs err {e:.3e} ({rel:.2e} of max |ref|)" for n, (e, rel) in errs.items())
+            + f" (tolerance {GQA_BWD_RTOL} of max |ref|)")
+        check(all(math.isfinite(e) and rel <= GQA_BWD_RTOL for e, rel in errs.values()),
+              f"gqa backward disagrees ({label})")
+        kernels[2]["max_abs_err"] = max(kernels[2]["max_abs_err"], errs["dq"][0])
+        kernels[3]["max_abs_err"] = max(kernels[3]["max_abs_err"], errs["dk"][0], errs["dv"][0])
+        torch.cuda.empty_cache()
+        t = _time_gqa_bwd(label, lambda off=off: _gqa_bwd_args(gen, 1, Lq, L, H, K, Dh, seg, dev, q_offset=off),
+                          dev, plain_iters=2, plain=bwd_plain)
+        kernels[2][name], kernels[3][name] = t["dq"], t["dkv"]
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     marks = [time.monotonic()]
 
@@ -3509,8 +4011,15 @@ def main() -> None:
         torch.cuda.empty_cache()
         paths["served_engine"], paths["push_while_decoding"] = phase_served_engine(dev, info["smi"], tmp)
         lap("served engine, push")
-        paths["processes_device"] = phase_processes(f"{tmp}/processes_device", False, info["smi"])
-        paths["processes_split"] = phase_processes(f"{tmp}/processes_split", True, info["smi"])
+        runs = {split: start_processes(f"{tmp}/processes_{name}", split)
+                for split, name in ((False, "device"), (True, "split"))}
+        try:
+            paths["processes_device"] = phase_processes(f"{tmp}/processes_device", False, info["smi"], runs[False])
+            paths["processes_split"] = phase_processes(f"{tmp}/processes_split", True, info["smi"], runs[True])
+        finally:
+            for proc, _ in runs.values():
+                if proc.poll() is None:
+                    stop_group(proc)
         lap("processes mode")
         hf_dir = Path(f"{tmp}/hf/hf_in") / CURRENT_DIR  # where phase 14's export_hf wrote
         paths["math"], math_shapes = phase_math(hf_dir, info["smi"], tmp)
@@ -3537,7 +4046,13 @@ def main() -> None:
         lap("logic in processes mode")
         gc.collect()
         torch.cuda.empty_cache()
-        paths["vlm_bandit"] = phase_vlm_bandit(tmp)
+        world_launch = start_world_launch(hf_dir, tmp)
+        try:
+            paths["vlm_bandit"] = phase_vlm_bandit(tmp)
+        except BaseException:
+            stop_group(world_launch[0])
+            raise
+        paths["trainer_world_launch"] = phase_world_launch(info["smi"], tmp, world_launch)
         paths["vlm_slab"], paths["vlm_paged"] = phase_vlm_paged(dev)
         lap("vlm_bandit, toy VLM slab and paged")
         gc.collect()
@@ -3545,6 +4060,12 @@ def main() -> None:
         paths["vlm_3b"], vlm_shapes = phase_vlm_3b(dev, info["smi"], tmp)
         time_vlm_shapes(dev, kernels, vlm_shapes)
         lap("Qwen2.5-VL-3B")
+        gc.collect()
+        torch.cuda.empty_cache()
+        paths["trainer_world"] = phase_trainer_world(hf_dir, info["smi"], tmp, tir_shapes["segment_ids"])
+        torch.cuda.empty_cache()
+        time_cp_rows(dev, kernels, tir_shapes["segment_ids"])
+        lap("trainer world")
     for record, key in zip(kernels, ("decode", "gqa_fwd", "gqa_dq", "gqa_dkv", "paged")):
         record["launches_by_path"] = {path: c[key] for path, c in paths.items()}
         record["launches"] = sum(record["launches_by_path"].values())
@@ -3557,5 +4078,9 @@ if __name__ == "__main__":
         http_load(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), sys.argv[5])
     elif sys.argv[1:2] == ["--push"]:
         push_client(*sys.argv[2:6])
+    elif sys.argv[1:2] == ["--trainer-world"]:
+        trainer_world_main(int(sys.argv[2]))
+    elif sys.argv[1:2] == ["--world-rank"]:
+        world_rank_main(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:7])
     else:
         main()

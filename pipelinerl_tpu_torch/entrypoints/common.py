@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import json
+import os
 import signal
 import sys
 import threading
@@ -42,8 +43,16 @@ def stage_setup(cfg: Config, stage: str) -> str:
 
 
 def stage_device(cfg: Config) -> str:
-    """The card, unless the config says ``device=cpu``."""
-    return str(cfg.get("device", "cuda"))
+    """The card, unless the config says ``device=cpu``: ``cuda:<slot %
+    cards>`` where the launcher gave the job its place among its host's
+    card jobs (``CARD_SLOT``, ``launch.card_slots``), else ``cuda``."""
+    device = str(cfg.get("device", "cuda"))
+    slot = os.environ.get("CARD_SLOT")
+    if device != "cuda" or slot is None:
+        return device
+    import torch
+
+    return f"cuda:{int(slot) % torch.cuda.device_count()}"
 
 
 def build_tokenizer(cfg: Config):

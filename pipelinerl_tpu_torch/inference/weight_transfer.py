@@ -18,8 +18,11 @@ it. The card host has no ``msgpack``, so the header goes through the port's
 own codec (``utils/msgpack_codec.py``), which writes what ``msgpack.packb``
 writes.
 
-Left out: ``gather_for_push`` and ``parallel_device_put`` serve trainer
-meshes and TPU sub-streams; they wait for ROADMAP Queue 1 item 8.
+``gather_for_push`` gives a push the full tensors of a trainer world's
+shards: every rank joins the all-gather, and rank 0 serializes them. JAX's
+``parallel_device_put`` (TPU sub-streams splitting a host-to-device copy)
+has no port: the engine's transfer thread (``InferenceEngine``) copies a
+body to the card while decoding goes on, which is that function's job.
 """
 
 from __future__ import annotations
@@ -47,6 +50,17 @@ _DTYPES = {
     "int32": torch.int32, "int64": torch.int64, "float16": torch.float16,
     "bfloat16": torch.bfloat16, "float32": torch.float32, "float64": torch.float64,
 }
+
+
+def gather_for_push(params: dict, mesh) -> dict:
+    """The full tensors a cross-process push serializes: with ``mesh`` None
+    the params as they are, else every leaf all-gathered over dp on every
+    rank (a collective: each rank calls it; rank 0 then serializes)."""
+    if mesh is None:
+        return params
+    from ..parallel.sharding import unshard_params
+
+    return unshard_params(params, mesh)
 
 
 def dtype_name(dtype: torch.dtype) -> str:

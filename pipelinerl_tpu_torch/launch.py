@@ -21,8 +21,14 @@ servers, the ``stream_hub`` through which every topic rides when the world
 spans hosts, and the ``actor`` and ``preprocessor`` jobs
 (``CUDA_VISIBLE_DEVICES=""``). A job on a host other than this one starts
 as ``ssh <host> env <assignments> <command>`` (the experiment directory on
-a shared filesystem). Left out: ``trainer_procs`` > 1 (``world.py``) and
-VLM runs, which run inline.
+a shared filesystem). VLM runs are inline only.
+
+A ``parallel`` product dp*cp above 1 (the ``tir`` preset's ``cp: 8``)
+trains as a world of dp*cp trainer ranks, one per device
+(``world.trainer_ranks``): ``main`` runs such a config in processes mode
+in the split layout, and logs that it switched. JAX drives a whole mesh
+from one process inline; the port's one rank per device cannot share the
+inline process, so the switch is deliberate.
 
 Both modes interleave evals (``eval_every_n_versions``: the test problems
 through an eval ``ActorLoop`` onto ``actor_test`` and ``stats_test``), and
@@ -32,6 +38,7 @@ missing upstream streams from ``debug.streams_from``.
     python3 -m pipelinerl_tpu_torch.launch --config-name=bandit_tpu output_dir=/tmp/run
     python3 -m pipelinerl_tpu_torch.launch --config-name=test model_path=<hf dir> output_dir=/tmp/run
     python3 -m pipelinerl_tpu_torch.launch --config-name=bandit_tpu output_dir=/tmp/run launch_mode=processes [world.trainer_procs=1]
+    python3 -m pipelinerl_tpu_torch.launch --config-name=test model_path=<hf dir> output_dir=/tmp/run launch_mode=processes world.trainer_procs=2 parallel.dp=2
 
 prints the run's summary as one JSON line, last.
 """
@@ -72,7 +79,7 @@ from .streams_tcp import wait_for_hub
 from .train.rl_loss import RLLossConfig
 from .train.trainer import TrainerLoop, detached_copy, summary
 from .utils import setup_logging
-from .world import WorldMap, refuse_unported
+from .world import WorldMap, parallel_product, refuse_unported, trainer_ranks
 
 logger = logging.getLogger(__name__)
 
@@ -184,7 +191,8 @@ def build_engine(cfg: Config, params: dict, model_cfg: ModelConfig, tokenizer, d
     ecfg = cfg.get("engine", Config({}))
     for key in ("tp", "pp"):
         if int(ecfg.get(key, 1)) != 1:
-            raise NotImplementedError(f"engine.{key} > 1 is not ported yet (ROADMAP Queue 1, item 8)")
+            raise NotImplementedError(f"engine.{key} > 1 is not ported yet: a multi-process engine waits for "
+                                      "ROADMAP Queue 1, item 15")
     return InferenceEngine(
         params,
         model_cfg,
@@ -285,10 +293,18 @@ def validate_config(cfg: Config) -> None:
             and not cfg.select("debug.streams_from"):
         problems.append(f"debug.mode={debug_mode!r} drops the actor but debug.streams_from is unset — "
                         "nothing would feed the pipeline")
+    dp, cp = parallel_product(cfg)
+    if dp < 1 or cp < 1:
+        problems.append(f"parallel.dp ({dp}) and parallel.cp ({cp}) must be at least 1")
+    elif seq_length % cp:
+        problems.append(f"finetune.seq_length ({seq_length}) must split over parallel.cp ({cp})")
+    try:
+        trainer_ranks(cfg)
+    except ValueError as e:
+        problems.append(str(e))
     if problems:
         raise ValueError("Invalid config:\n- " + "\n- ".join(problems))
-    if mode == "processes":
-        refuse_unported(cfg)
+    refuse_unported(cfg)
 
 
 def _stage(target, failures: list, trainer_state: TrainerState, name: str):
@@ -456,7 +472,21 @@ CARD_JOBS = ("device", "engine", "ref_engine", "trainer")
 # jobs that end on their own once training is done; the servers are stopped
 SELF_ENDING = ("trainer", "actor", "preprocessor")
 # the environment a job on another host is started with over ssh
-REMOTE_ENV = ("PYTHONPATH", "CUDA_VISIBLE_DEVICES")
+REMOTE_ENV = ("PYTHONPATH", "CUDA_VISIBLE_DEVICES", "CARD_SLOT", "LOCAL_RANK", "LOCAL_WORLD_SIZE")
+
+
+def card_slots(world_map: WorldMap) -> dict[str, int]:
+    """Each card job's place among the card jobs of its host, the servers
+    (device, engine, ref_engine) first and the trainer ranks after them:
+    the job takes card ``slot % cards`` (``entrypoints.common.stage_device``),
+    so a host with as many cards as slots gives every job its own."""
+    slots: dict[str, int] = {}
+    taken: dict[str, int] = {}
+    for kind in CARD_JOBS:
+        for job in world_map.jobs_of(kind):
+            slots[f"{job.kind}_{job.replica_idx}"] = taken.get(job.hostname, 0)
+            taken[job.hostname] = taken.get(job.hostname, 0) + 1
+    return slots
 
 
 def _kill_groups(procs: list, sig: int) -> None:
@@ -497,6 +527,13 @@ def run_processes(cfg: Config) -> int:
     log_dir = exp_path / "logs"
     procs: list[tuple[str, subprocess.Popen]] = []
     root = str(Path(__file__).resolve().parent.parent)
+    slots = card_slots(world_map)
+    local = [name for kind in CARD_JOBS for name in (f"{j.kind}_{j.replica_idx}" for j in world_map.jobs_of(kind)
+                                                     if j.is_local)]
+    cards = torch.cuda.device_count() if local and not dry_run else 0
+    if cards and len(local) > cards:
+        logger.warning("%d card jobs on this host's %d cards: slot s takes card s %% %d, so jobs share cards (%s)",
+                       len(local), cards, cards, {n: slots[n] % cards for n in local})
 
     def spawn(job) -> None:
         name = f"{job.kind}_{job.replica_idx}"
@@ -516,6 +553,11 @@ def run_processes(cfg: Config) -> int:
         env["PYTHONPATH"] = os.pathsep.join(p for p in (root, env.get("PYTHONPATH")) if p)
         if job.kind not in CARD_JOBS:
             env["CUDA_VISIBLE_DEVICES"] = ""  # host-only jobs never touch the card
+        else:
+            env["CARD_SLOT"] = str(slots[name])
+        if job.kind == "trainer":  # its device among the trainer ranks of its host
+            peers = [j for j in world_map.jobs_of("trainer") if j.hostname == job.hostname]
+            env["LOCAL_RANK"], env["LOCAL_WORLD_SIZE"] = str(peers.index(job)), str(len(peers))
         (exp_path / job.kind).mkdir(exist_ok=True)
         script = " \\\n  ".join(cmd)
         (exp_path / job.kind / f"start_{name}.sh").write_text(f"#!/bin/sh\n{script}\n")
@@ -618,6 +660,12 @@ def main(argv: list[str] | None = None) -> dict[str, Any]:
         else:
             overrides.append(arg)
     cfg = compose(config_name, overrides)
+    dp, cp = parallel_product(cfg)
+    if dp * cp > 1 and str(cfg.get("launch_mode", "inline")) == "inline":
+        setup_logging()
+        logger.info("parallel dp*cp=%d: a trainer world of %d ranks, one per device; running in processes mode "
+                    "(split layout) instead of inline", dp * cp, dp * cp)
+        cfg["launch_mode"] = "processes"
     if str(cfg.get("launch_mode", "inline")) == "processes":
         rc = run_processes(cfg)
         if not os.environ.get("DRY_RUN"):

@@ -24,6 +24,7 @@ takes the place of ``lax.scan``.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Callable
 
 import numpy as np
 import torch
@@ -290,11 +291,12 @@ def forward(
     segment_ids: torch.Tensor,  # [B, L]
     return_kv: bool = False,
     remat: bool | str = False,  # True: per layer; "mlp": the MLP only
-    attn_impl: str = "xla",  # "xla" (plain torch) | "gqa" | "flash" | "blockwise" (CUDA kernels)
+    attn_impl="xla",  # "xla" (plain torch) | "gqa" | "flash" | "blockwise" (CUDA kernels) | a callable
     skip_unembed: bool = False,
     return_hidden: bool = False,
     image_embeds: torch.Tensor | None = None,  # [B, M, D] visual tokens
     image_mask: torch.Tensor | None = None,  # [B, L] bool placeholder positions
+    gather_layer: Callable[[dict], dict] | None = None,  # a world's per-layer dp gather
 ):
     """Full forward over packed rows. Returns fp32 logits [B, L, V]; with
     ``return_kv`` also the per-layer keys/values, each [L, B, T, K, Dh]; with
@@ -309,8 +311,14 @@ def forward(
 
     A VLM row passes ``image_embeds`` (the tower's merged tokens), spliced
     at ``image_mask``, and ``[3, B, L]`` mrope position rows; attention
-    masks by segment and flat index, so it sees no positions."""
-    if attn_impl in ("gqa", "blockwise"):
+    masks by segment and flat index, so it sees no positions. A callable
+    ``attn_impl`` takes ``mha_packed``'s arguments (context-parallel
+    attention, ``parallel/cp_attention.py``). ``gather_layer`` turns a
+    layer's dp slices into its full weights inside the layer's (remat)
+    region (``parallel.sharding.layer_gather``)."""
+    if callable(attn_impl):
+        attn_fn = attn_impl
+    elif attn_impl in ("gqa", "blockwise"):
         # JAX's blockwise attention computes kernel #2's function
         # (pipelinerl_tpu/ops/gqa_attention.py:19); the port routes it there
         from ..ops.gqa_attention import mha_packed_gqa_simple as attn_fn
@@ -333,6 +341,8 @@ def forward(
         return _mlp(layer, rms_norm(h, layer["ln2"], cfg.rms_norm_eps))
 
     def layer_fn(h, layer):
+        if gather_layer is not None:
+            layer = gather_layer(layer)
         normed = rms_norm(h, layer["ln1"], cfg.rms_norm_eps)
         q, k, v = _project_qkv(layer, cfg, normed)
         q = apply_rope(q, cos, sin)

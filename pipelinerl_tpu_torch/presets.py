@@ -347,8 +347,8 @@ _TIR = {
     "llm": {"parameters": {"max_tokens": 16000}},
     "engine": {"max_len": 32768, "max_slots": 32, "prefill_buckets": [512, 1024, 2048, 4096, 8192, 16384],
                "attn_impl": "flash"},
-    # the JAX package trains these rows context-parallel over 8 chips; the
-    # port's trainer refuses a cp axis (ROADMAP Queue 1, item 8)
+    # context-parallel over 8 devices: a trainer world of 8 ranks
+    # (parallel/, launch runs it in processes mode)
     "parallel": {"dp": 1, "cp": 8, "tp": 1},
     "finetune": {"seq_length": 32768, "samples_per_step": 1024, "attn_impl": "auto", "cp_block_kv": 1024,
                  "rl": {"policy_loss": "gspo", "divide_advantage_by_std": True}},

@@ -24,7 +24,7 @@ import json
 import os
 import shutil
 from pathlib import Path
-from typing import Any
+from typing import Any, Callable
 
 import torch
 
@@ -53,18 +53,19 @@ def _move_into_place(tmp: Path, final: Path) -> None:
 def save_training_state(
     out_dir: str | Path,
     named_params: list[tuple[str, torch.Tensor]],
-    optimizer: torch.optim.Optimizer,
+    optimizer: torch.optim.Optimizer | dict,
     scheduler: Any,
     metrics: dict[str, Any],
 ) -> Path:
-    """Atomic save of the trainable tensors, the optimizer's and scheduler's
-    state and ``metrics`` under ``out_dir/training_state``."""
+    """Atomic save of the trainable tensors, the optimizer's (or a given
+    optimizer ``state_dict``: a trainer world's, gathered to full tensors)
+    and scheduler's state and ``metrics`` under ``out_dir/training_state``."""
     out_dir = Path(out_dir).resolve()
     tmp = _fresh_tmp(out_dir, STATE_DIR)
     torch.save(
         {
             "params": {name: p.detach() for name, p in named_params},
-            "optimizer": optimizer.state_dict(),
+            "optimizer": optimizer if isinstance(optimizer, dict) else optimizer.state_dict(),
             "scheduler": scheduler.state_dict(),
         },
         tmp / "state.pt",
@@ -81,10 +82,15 @@ def load_training_state(
     named_params: list[tuple[str, torch.Tensor]],
     optimizer: torch.optim.Optimizer,
     scheduler: Any,
+    piece: Callable[[int, torch.Tensor], torch.Tensor] | None = None,
+    optimizer_state: Callable[[dict], dict] | None = None,
 ) -> dict[str, Any] | None:
     """Restore a saved state into ``named_params`` (copied in place, so the
     optimizer's references stay valid), ``optimizer`` and ``scheduler``;
-    returns the saved metrics, or None when there is no saved state."""
+    returns the saved metrics, or None when there is no saved state. A rank
+    of a trainer world reads the full state and keeps its part:
+    ``piece(i, full)`` of the ``i``-th tensor, ``optimizer_state(saved)``
+    of the optimizer's."""
     path = Path(out_dir).resolve() / STATE_DIR
     if not (path / "state.pt").exists():
         return None
@@ -93,12 +99,12 @@ def load_training_state(
     names = [name for name, _ in named_params]
     if sorted(saved) != sorted(names):
         raise ValueError(f"{path} holds tensors {sorted(saved)}, the trainer has {sorted(names)}")
-    for name, p in named_params:
-        if saved[name].shape != p.shape or saved[name].dtype != p.dtype:
-            raise ValueError(f"{path}: {name} is {saved[name].dtype}{list(saved[name].shape)}, "
-                             f"the trainer's {p.dtype}{list(p.shape)}")
-        p.copy_(saved[name])
-    optimizer.load_state_dict(state["optimizer"])
+    for i, (name, p) in enumerate(named_params):
+        t = saved[name] if piece is None else piece(i, saved[name])
+        if t.shape != p.shape or t.dtype != p.dtype:
+            raise ValueError(f"{path}: {name} is {t.dtype}{list(t.shape)}, the trainer's {p.dtype}{list(p.shape)}")
+        p.copy_(t)
+    optimizer.load_state_dict(state["optimizer"] if optimizer_state is None else optimizer_state(state["optimizer"]))
     scheduler.load_state_dict(state["scheduler"])
     return json.loads((path / "metrics.json").read_text())
 

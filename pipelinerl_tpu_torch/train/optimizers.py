@@ -19,6 +19,13 @@ tensors, step by step, in the parameter's dtype where optax does:
 
 Weight decay applies where a group's ``weight_decay`` is nonzero (Lion's
 mask); Adafactor, as ``optax.adafactor`` is built, takes none.
+
+On a trainer world's dp shards Lion is per element and runs as is.
+Adafactor's factored moments and block RMS span the whole stacked leaf, so
+it takes ``views``: per param, ``(to_full, to_local)`` (an all-gather over
+dp and this rank's slice) or None. It gathers the leaf and its gradient,
+keeps the moments of the whole leaf (the same on every rank), and applies
+its slice of the update.
 """
 
 from __future__ import annotations
@@ -101,18 +108,22 @@ class Adafactor(torch.optim.Optimizer):
     ``clip_by_block_rms(1.0)``, the learning rate,
     ``scale_by_param_block_rms`` (``max(rms(p), 1e-3)``) and ``scale(-1)``."""
 
-    def __init__(self, params, lr: float):
+    def __init__(self, params, lr: float, views: list | None = None):
+        params = list(params)
         super().__init__(params, {"lr": lr})
+        self._views = {id(p): v for p, v in zip(params, views or []) if v is not None}
 
     @torch.no_grad()
     def step(self, closure=None):
         for group in self.param_groups:
-            for p in group["params"]:
-                if p.grad is None:
+            for shard in group["params"]:
+                if shard.grad is None:
                     continue
-                g = p.grad
+                to_full, to_local = self._views.get(id(shard), (None, None))
+                p = to_full(shard) if to_full else shard
+                g = to_full(shard.grad) if to_full else shard.grad
+                state = self.state[shard]
                 dims = factored_dims(tuple(p.shape))
-                state = self.state[p]
                 if not state:
                     state["step"] = torch.zeros((), dtype=torch.int64)
                     if dims is None:
@@ -145,5 +156,5 @@ class Adafactor(torch.optim.Optimizer):
                 rms = _block_rms(p)
                 min_scale = _scalar(MIN_SCALE, p)
                 update = update * torch.where(rms <= min_scale, min_scale, rms)
-                p.add_(-update)
+                shard.add_(-(to_local(update) if to_local else update))
                 state["step"] += 1

@@ -1,7 +1,6 @@
 """RL policy-gradient losses (REINFORCE / PPO / GSPO) in PyTorch.
 
-Port of the JAX package's ``train/rl_loss.py``, without its context-parallel
-``psum`` path (ROADMAP Queue 1, item 8):
+Port of the JAX package's ``train/rl_loss.py``:
 
 - logprobs of realized tokens as gather minus logsumexp, and exact entropy;
 - Schulman KL approximations to the reference and behaviour policies, with
@@ -18,6 +17,15 @@ Port of the JAX package's ``train/rl_loss.py``, without its context-parallel
 
 ``jax.lax.stop_gradient`` is ``detach``. Batches are packed ``[B, L]``
 rows (``types.TrainerBatch``) as torch tensors.
+
+Under context parallelism (``cp_group``) each rank holds an ``L/cp`` slice
+of the rows plus one halo column (``parallel.sharding.cp_slice``): the
+forward runs on the slice, and its last position predicts the halo's
+token, so no position is dropped. GSPO's segment sums span the slices:
+they are summed over the cp group before any nonlinearity
+(``collectives.all_reduce_sum``, whose backward sums the gradient), and the
+sequence-level term is divided by the group size, so the cp ranks' local
+losses sum to the row's loss, as every other (token-additive) term does.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..models.transformer import ModelConfig, forward, lm_head_logits, value_predictions
+from ..parallel.collectives import all_reduce_sum
 
 
 @dataclass(frozen=True)
@@ -96,13 +105,17 @@ def _token_stats_chunked(
     input_ids: torch.Tensor,  # [B, L]
     temperature: float,
     chunk: int,
+    halo: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``_token_stats_from_logits`` with the [*, V] fp32 logits alive one
     sequence chunk at a time: each chunk's unembed runs under
-    ``checkpoint`` and is recomputed in the backward pass."""
+    ``checkpoint`` and is recomputed in the backward pass. With ``halo``
+    (a cp slice) ``input_ids`` has one column more than the hidden, and
+    every position keeps its statistics."""
     B, L, _ = normed_hidden.shape
-    # position i predicts input_ids[i + 1]; the last target is a dummy
-    targets = torch.cat([input_ids[:, 1:], input_ids[:, :1]], dim=1)
+    # position i predicts input_ids[i + 1]; without a halo the last target
+    # is a dummy
+    targets = input_ids[:, 1:] if halo else torch.cat([input_ids[:, 1:], input_ids[:, :1]], dim=1)
 
     def body(h_c, t_c):
         return _stats(lm_head_logits(model_params, model_cfg, h_c) / temperature, t_c)
@@ -112,7 +125,8 @@ def _token_stats_chunked(
         lp, ent = checkpoint(body, normed_hidden[:, c : c + chunk], targets[:, c : c + chunk], use_reentrant=False)
         lps.append(lp)
         ents.append(ent)
-    return torch.cat(lps, 1)[:, :-1], torch.cat(ents, 1)[:, :-1]
+    lp, ent = torch.cat(lps, 1), torch.cat(ents, 1)
+    return (lp, ent) if halo else (lp[:, :-1], ent[:, :-1])
 
 
 def rl_loss_from_logits(
@@ -132,6 +146,7 @@ def _rl_loss_from_stats(
     max_step: int,
     cfg: RLLossConfig,
     values: torch.Tensor | None = None,
+    cp_group=None,
 ) -> tuple[torch.Tensor, dict]:
     masks = (batch["labels"] != -100)[:, 1:]
     masks_f = masks.float()
@@ -147,7 +162,7 @@ def _rl_loss_from_stats(
     if values is not None:
         # actor-critic: advantages are the MC return minus V(s); the policy
         # term detaches them below, the value loss keeps the gradient
-        values_t = values[:, :-1]
+        values_t = values if cp_group is not None else values[:, :-1]
         advantages = rewards - values_t
     else:
         values_t = None
@@ -212,10 +227,11 @@ def _rl_loss_from_stats(
             src = (x * masks_f).reshape(-1) * in_range
             return torch.zeros(n_seg, dtype=src.dtype, device=src.device).index_add(0, seg, src)
 
-        lrn_sum = seg_sum(log_ratio_new_old)
-        adv_sum = seg_sum(advantages)
-        tok_count = seg_sum(torch.ones_like(masks_f))
-        weight_sum = seg_sum(tokens_weights)
+        sums = torch.stack([seg_sum(log_ratio_new_old), seg_sum(advantages),
+                            seg_sum(torch.ones_like(masks_f)), seg_sum(tokens_weights)])
+        if cp_group is not None:  # a segment can cross cp slices
+            sums = all_reduce_sum(sums, cp_group)
+        lrn_sum, adv_sum, tok_count, weight_sum = sums.unbind(0)
 
         group_ratio = torch.exp(lrn_sum / tok_count.clamp(min=1e-6))
         group_adv = (adv_sum / tok_count.clamp(min=1e-6)).detach()
@@ -224,6 +240,8 @@ def _rl_loss_from_stats(
         clamp_seg_ind = ((clamped_group != group_ratio) & valid).float()
         min_terms = torch.minimum(group_ratio * group_adv, clamped_group * group_adv) * valid.float() * weight_sum
         total_loss = -min_terms.sum()
+        if cp_group is not None:  # every cp rank holds the row's sums
+            total_loss = total_loss / torch.distributed.get_world_size(cp_group)
         clamp_new_old_ind = clamp_seg_ind[seg].reshape(masks_f.shape)
     else:
         raise ValueError(f"Unknown policy_loss {cfg.policy_loss!r}")
@@ -295,20 +313,26 @@ def rl_loss(
     logits_chunk: int | None = None,
     image_embeds: torch.Tensor | None = None,  # [B, M, D] the tower's merged tokens
     image_mask: torch.Tensor | None = None,  # [B, L] placeholder positions
+    cp_group=None,  # the cp axis's group: ``batch`` is this rank's slice plus its halo
+    gather_layer=None,  # a world's per-layer dp gather (``parallel.sharding.layer_gather``)
 ) -> tuple[torch.Tensor, dict]:
     """Forward and loss for one packed micro-batch. With ``logits_chunk``
-    (single-device long rows) the [L, V] fp32 logits are never whole: the
-    unembed and its statistics run chunk by chunk under checkpoint. A
-    ``value_head`` entry of ``params`` adds the actor-critic value path. A
-    VLM row passes mrope rows as ``batch["position_ids"]`` ([3, B, L]) and
-    the visual tokens to splice."""
+    (long rows) the [L, V] fp32 logits are never whole: the unembed and
+    its statistics run chunk by chunk under checkpoint. A ``value_head``
+    entry of ``params`` adds the actor-critic value path. A VLM row passes
+    mrope rows as ``batch["position_ids"]`` ([3, B, L]) and the visual
+    tokens to splice. Under ``cp_group`` the returned loss is this rank's
+    share (the group's shares sum to the row's loss)."""
     model_params = {k: v for k, v in params.items() if k not in ("value_head", "vision_tower")}
-    L = batch["input_ids"].shape[1]
+    ids, pos, seg = batch["input_ids"], batch["position_ids"], batch["segment_ids"]
+    if cp_group is not None:  # drop the halo column: it is the next slice's
+        ids, pos, seg = ids[:, :-1], pos[:, :-1], seg[:, :-1]
+    L = ids.shape[1]
     chunked = logits_chunk is not None and L % logits_chunk == 0 and L > logits_chunk
     out = forward(
-        model_params, model_cfg, batch["input_ids"], batch["position_ids"], batch["segment_ids"],
+        model_params, model_cfg, ids, pos, seg,
         remat=remat, attn_impl=attn_impl, skip_unembed=chunked, return_hidden="value_head" in params,
-        image_embeds=image_embeds, image_mask=image_mask,
+        image_embeds=image_embeds, image_mask=image_mask, gather_layer=gather_layer,
     )
     values = None
     if "value_head" in params:
@@ -316,11 +340,14 @@ def rl_loss(
         values = value_predictions(params["value_head"], hidden)
     if chunked:  # ``out`` is the final-norm'd hidden
         new_logprobs, entropy = _token_stats_chunked(
-            model_params, model_cfg, out, batch["input_ids"], loss_cfg.temperature, logits_chunk
+            model_params, model_cfg, out, batch["input_ids"], loss_cfg.temperature, logits_chunk,
+            halo=cp_group is not None,
         )
-        loss, metrics = _rl_loss_from_stats(new_logprobs, entropy, batch, step, max_step, loss_cfg, values)
+    elif cp_group is not None:
+        new_logprobs, entropy = _stats(out.float() / loss_cfg.temperature, batch["input_ids"][:, 1:])
     else:
-        loss, metrics = rl_loss_from_logits(out, batch, step, max_step, loss_cfg, values)
+        new_logprobs, entropy = _token_stats_from_logits(out, batch["input_ids"], loss_cfg.temperature)
+    loss, metrics = _rl_loss_from_stats(new_logprobs, entropy, batch, step, max_step, loss_cfg, values, cp_group)
     loss = loss * (1.0 - sentinel)
     metrics["loss"] = loss
     return loss, metrics

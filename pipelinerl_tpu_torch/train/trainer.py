@@ -1,11 +1,34 @@
-"""The finetune loop on one device: stream-fed micro-batches, gradient
-accumulation, AdamW, Lion or Adafactor with optax's semantics,
-weight-version publishing and in-flight weight pushes.
+"""The finetune loop: stream-fed micro-batches, gradient accumulation,
+AdamW, Lion or Adafactor with optax's semantics, weight-version publishing
+and in-flight weight pushes, on one device or as one rank of a trainer
+world.
 
-Port of the JAX package's ``train/trainer.py`` ``TrainerLoop`` for one
-device. Left out: the device mesh (dp/cp/tp), which raises, and the memory
-debugger and step profiler, which ``launch.validate_config`` refuses
+Port of the JAX package's ``train/trainer.py`` ``TrainerLoop``. Left out:
+``tp``/``pp`` above 1, which raise (ROADMAP Queue 1, item 15), and the
+memory debugger and step profiler, which ``launch.validate_config`` refuses
 (``finetune.memory_debug.enabled``, ``finetune.profile.enabled``).
+
+A trainer world (``torch.distributed`` joined, ``parallel/multihost.py``)
+runs a ``(world / cp, cp)`` mesh, one rank per device:
+
+- the params (the frozen base under LoRA, whose adapters are replicated)
+  are cut along their dp dims (``parallel/sharding.py``); a pass gathers
+  the top leaves over dp and the layers one at a time inside the forward
+  (again in the backward under remat), whose backward reduce-scatters the
+  gradients; under LoRA the frozen base is gathered whole for a pass.
+  AdamW and Lion update the rank's slices, Adafactor gathers a leaf to
+  compute its factored moments over the whole of it;
+- each rank reads the ``training_data`` partition of its dp rank, buffers
+  ``parallel.dp / dp_ranks`` rows a pass (``dp_local``) and takes its cp
+  slice of them; attention under a cp axis is ``parallel/cp_attention.py``
+  whatever ``attn_impl`` says (a slice needs the other slices' keys);
+- the pass's metrics and its (samples, tokens) counts are summed over the
+  world, so every rank steps, publishes the same version and saves at the
+  same time; only rank 0 writes the control streams and the checkpoint,
+  after every rank has joined the gathers;
+- the gradient norm is the global one in fp32 (single device: optax's
+  arithmetic, bit for bit); results match one device up to the order of
+  the sums.
 
 - ``train_pass`` runs forward and backward of one packed micro-batch and
   accumulates into ``.grad``; the loss is pre-normalized by the step's
@@ -44,11 +67,20 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import Any, Callable
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import Config
 from ..models.transformer import ModelConfig
 from ..models.vision import prepare_vision_inputs, vision_forward, vision_inputs_to
+from ..inference.weight_transfer import gather_for_push
+from ..parallel import collectives
+from ..parallel.cp_attention import make_cp_attention
+from ..parallel.mesh import axis_group, axis_rank, axis_size, refuse_tp_pp
+from ..parallel.multihost import make_multihost_mesh
+from ..parallel.sharding import cp_slice, dp_dim, gather_params, layer_gather, leaf_specs, shard_params, unshard_params
+from ..parallel.train_step import batch_tensors, pass_backward, step_grads
 from ..state import SamplesProcessed, TrainingDone, WeightUpdateSuccess
 from ..streams import SingleStreamSpec, StreamReader, StreamWriter
 from ..types import TrainerBatch
@@ -56,7 +88,7 @@ from ..utils.metrics_logger import MetricsLogger
 from .checkpoints import export_hf, load_training_state, save_training_state
 from .lora import init_lora_params, lora_config_from, merge_lora
 from .optimizers import Adafactor, Lion
-from .rl_loss import RLLossConfig, rl_loss
+from .rl_loss import RLLossConfig
 
 logger = logging.getLogger(__name__)
 
@@ -115,14 +147,17 @@ def lr_lambda(cfg: Config) -> Callable[[int], float]:
     raise ValueError(f"Unknown lr_scheduler_type {kind!r}")
 
 
-def make_optimizer(cfg: Config, params: dict):
+def make_optimizer(cfg: Config, params: dict, views: list | None = None):
     """→ (optimizer, LambdaLR), each as the JAX package's ``make_optimizer``
     builds it with optax. AdamW and Lion take optax's decay mask: decay only
     tensors with ``ndim >= 2`` (on the stacked ``[L, ...]`` layout that
-    includes the norms and biases, as in the JAX package).
-    ``torch.optim.AdamW`` decays ``p`` by ``lr * wd`` before the Adam step,
-    which is optax's ``-lr * (adam + wd * p)`` on the same pre-update ``p``.
-    Adafactor takes no weight decay, as ``optax.adafactor(schedule)``."""
+    includes the norms and biases, as in the JAX package); a dp shard keeps
+    its leaf's ``ndim`` (the cut is along a dim), so the mask is the full
+    leaf's. ``torch.optim.AdamW`` decays ``p`` by ``lr * wd`` before the
+    Adam step, which is optax's ``-lr * (adam + wd * p)`` on the same
+    pre-update ``p``. Adafactor takes no weight decay, as
+    ``optax.adafactor(schedule)``; ``views`` (per leaf, ``(to_full,
+    to_local)`` or None) let it see the whole of a sharded leaf."""
     name = cfg.finetune.get("optim", "adamw")
     if name not in ("adamw", "adamw_torch", "lion", "adafactor"):
         raise ValueError(f"Unknown optimizer {name!r}")
@@ -130,7 +165,7 @@ def make_optimizer(cfg: Config, params: dict):
     wd = float(cfg.finetune.get("weight_decay", 0.0))
     leaves = [p for _, p in param_leaves(params)]
     if name == "adafactor":
-        optimizer = Adafactor(leaves, lr=lr)
+        optimizer = Adafactor(leaves, lr=lr, views=views)
     else:
         groups = [
             {"params": [p for p in leaves if p.ndim >= 2], "weight_decay": wd},
@@ -144,13 +179,16 @@ def make_optimizer(cfg: Config, params: dict):
     return optimizer, torch.optim.lr_scheduler.LambdaLR(optimizer, lr_lambda(cfg))
 
 
-def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float | None) -> torch.Tensor:
+def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float | None,
+                        norm: torch.Tensor | None = None) -> torch.Tensor:
     """The pre-clip global norm, and ``g / norm * max_norm`` in place when
     ``norm >= max_norm``, as optax's ``global_norm`` and
     ``clip_by_global_norm`` compute them: each tensor's sum of squares in
     its own dtype, summed and rooted in that dtype, and the threshold
-    rounded to it (no eps, unlike ``clip_grad_norm_``)."""
-    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    rounded to it (no eps, unlike ``clip_grad_norm_``). A sharded trainer
+    passes the world's ``norm`` (``parallel.sharding.grad_norm``)."""
+    if norm is None:
+        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
     if max_norm is not None and bool(norm >= torch.tensor(max_norm, dtype=norm.dtype, device=norm.device)):
         for g in grads:
             g.div_(norm.to(g.dtype)).mul_(torch.tensor(max_norm, dtype=g.dtype, device=g.device))
@@ -160,25 +198,42 @@ def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float | None) -> to
 def batch_to_tensors(batch: TrainerBatch, device) -> dict[str, torch.Tensor]:
     """The batch's arrays on ``device``: token ids int64 (gather indices),
     segment ids int32 (the kernels' type), the RL columns fp32."""
-    out = {}
-    for name, arr in batch.arrays().items():
-        t = torch.from_numpy(arr)
-        if name in ("input_ids", "labels"):
-            t = t.long()
-        out[name] = t.to(device, non_blocking=True)
-    return out
+    return batch_tensors(batch.arrays(), device)
 
 
-def resolve_attn_impl(name: str, seq_length: int, device: torch.device) -> str:
-    """``"auto"``: the GQA kernels on CUDA at ``seq_length >= 2048``, the
-    plain attention below that or on the CPU. ``"cp"`` without a cp axis
-    (the trainer mesh refuses one) runs ``"xla"``, as the JAX trainer does;
+def resolve_attn_impl(name: str, seq_length: int, device: torch.device, mesh=None, num_kv_heads: int = 0,
+                      cp_impl: str = "blockwise"):
+    """Under a cp axis, context-parallel attention (``make_cp_attention``)
+    whatever the name. Else ``"auto"``: the GQA kernels on CUDA at
+    ``seq_length >= 2048``, the plain attention below that or on the CPU;
+    ``"cp"`` without a cp axis runs ``"xla"``, as the JAX trainer does;
     ``"blockwise"`` goes to the GQA kernels, which compute its function."""
+    if axis_size(mesh, "cp") > 1:
+        return make_cp_attention(mesh, num_kv_heads=num_kv_heads, impl=cp_impl)
     if name == "auto":
         return "gqa" if device.type == "cuda" and seq_length >= 2048 else "xla"
     if name == "cp":
         return "xla"
     return name
+
+
+def parallel_shape(cfg: Config, world: int) -> tuple[int, int]:
+    """(dp, cp) of the trainer from ``parallel`` and the world size, with the
+    JAX trainer's checks: ``tp``/``pp`` above 1 raise (item 15), cp needs
+    cp ranks of the world, and dp must be a multiple of the world's dp
+    ranks. A world with no ``parallel`` product is all dp."""
+    par = cfg.get("parallel") or Config({})
+    refuse_tp_pp(int(par.get("tp", 1)), int(par.get("pp", 1)))
+    dp, cp = int(par.get("dp", 1)), int(par.get("cp", 1))
+    if dp * cp == 1 and world > 1:
+        dp = world
+    if world % cp:
+        raise ValueError(f"parallel.cp={cp} needs a trainer world of a multiple of {cp} ranks, it has {world} "
+                         "(launch starts dp*cp ranks)")
+    if dp % (world // cp):
+        raise ValueError(f"parallel.dp={dp} must be a multiple of the world's dp ranks {world // cp} "
+                         "(each dp rank contributes dp / dp_ranks rows a pass)")
+    return dp, cp
 
 
 class TrainerLoop:
@@ -193,8 +248,9 @@ class TrainerLoop:
         vision_cfg=None,  # models.vision.VisionConfig
     ):
         ft = cfg.finetune
-        if cfg.get("parallel") and math.prod(int(v) for v in dict(cfg.parallel.items()).values()) > 1:
-            raise NotImplementedError("the trainer mesh is not ported yet (ROADMAP Queue 1, item 8)")
+        self.world = dist.get_world_size() if dist.is_initialized() else 1
+        self.rank = dist.get_rank() if dist.is_initialized() else 0
+        self.dp, self.cp = parallel_shape(cfg, self.world)
         self.cfg = cfg
         self.model_cfg = model_cfg
         self.exp_path = exp_path
@@ -205,6 +261,13 @@ class TrainerLoop:
         self.vision_cfg = vision_cfg
         self.vision_params = vision_params
         self.train_vision = bool(ft.get("train_vision_tower", False)) and vision_params is not None
+        if self.train_vision and self.dp * self.cp > 1:
+            raise ValueError("train_vision_tower requires an unsharded trainer "
+                             "(VLM rows train at batch 1, one row a pass)")
+        # the mesh: (dp ranks, cp); each dp rank runs dp_local rows a pass
+        n_dp = self.world // self.cp
+        self.dp_local = self.dp // n_dp
+        self.mesh = make_multihost_mesh(n_dp, self.cp) if self.world > 1 else None
         if vision_params is not None:
             for _, p in param_leaves(vision_params):
                 p.requires_grad_(False)
@@ -224,11 +287,18 @@ class TrainerLoop:
             device = param_leaves(params)[0][1].device
             generator = torch.Generator(device=device).manual_seed(int(cfg.get("seed", 0)) + 7)
             params = init_lora_params(generator, params, self.lora_cfg)
+            # the adapters are small: replicated; the frozen base is sharded
+            self.frozen_params = shard_params(self.frozen_params, self.mesh) if self.mesh else self.frozen_params
+        elif self.mesh is not None:
+            params = shard_params(params, self.mesh)
+        # the rule table's spec of each trainable leaf; replicated adapters
+        self._specs = leaf_specs(params) if self._sharded_params() else [(None,)] * len(param_leaves(params))
         self.params = params
         self._leaves = [p for _, p in param_leaves(params)]
         for p in self._leaves:
             p.requires_grad_(True)
         self.device = self._leaves[0].device
+        self._rows: list[TrainerBatch] = []
 
         self.samples_per_step = int(ft.samples_per_step)
         self.weight_update_interval = int(ft.get("weight_update_interval", 1))
@@ -238,18 +308,28 @@ class TrainerLoop:
         rl["batch_size"] = int(rl.get("batch_size", self.samples_per_step)) or self.samples_per_step
         self.loss_cfg = RLLossConfig(**rl)
 
-        self.optimizer, self.scheduler = make_optimizer(cfg, params)
+        self.optimizer, self.scheduler = make_optimizer(cfg, params, self._dp_views())
+        # AdamW's and Lion's state is per element: sliced as its leaf is
+        self._sharded_state = self.mesh is not None and not isinstance(self.optimizer, Adafactor)
         self.clip = ft.get("gradient_clipping_threshold")
         self._has_grads = False
         self.last_pass_samples = 0
-        self.input_spec = SingleStreamSpec(exp_path=exp_path, topic="training_data")
+        # one partition per dp rank; cp peers read the same one
+        self.input_spec = SingleStreamSpec(exp_path=exp_path, topic="training_data",
+                                           partition=axis_rank(self.mesh, "dp"))
         self.save_checkpoint_steps = int(ft.get("save_checkpoint_steps", 0) or 0)
         self.checkpoint_dir = Path(exp_path) / "finetune"
 
         seq_length = int(ft.get("seq_length", 1024))
-        self.attn_impl = resolve_attn_impl(str(ft.get("attn_impl", "auto")), seq_length, self.device)
-        # never materialize the [L, V] fp32 logits of a long row whole
-        self.logits_chunk = 2048 if seq_length >= 8192 else None
+        self.attn_impl = resolve_attn_impl(str(ft.get("attn_impl", "auto")), seq_length, self.device, self.mesh,
+                                           model_cfg.num_kv_heads if self.mesh else 0,
+                                           str(ft.get("cp_attn_impl", "blockwise")))
+        # a world's layers are gathered one at a time in the forward
+        self.gather_layer = layer_gather(self.mesh) if self._sharded_params() else None
+        # never materialize the [L, V] fp32 logits of a long row whole: by
+        # the local length (the JAX trainer drops chunking under cp, where
+        # each chip holds L/cp logits; at L/cp 16,384 that is still 9.96 GB)
+        self.logits_chunk = 2048 if seq_length // self.cp >= 8192 else None
         remat_cfg = ft.get("gradient_checkpointing", True)
         if remat_cfg in (True, "auto", "full", "true"):
             self.remat: bool | str = True
@@ -259,32 +339,96 @@ class TrainerLoop:
             self.remat = False
 
     # ------------------------------------------------------------------
+    def _dp_views(self) -> list:
+        """Per leaf, ``(to_full, to_local)`` of a dp-sliced leaf, else None."""
+        if self.mesh is None:
+            return [None] * len(self._leaves)
+        group, n, r = axis_group(self.mesh, "dp"), axis_size(self.mesh, "dp"), axis_rank(self.mesh, "dp")
+
+        def view(d):
+            return (lambda x: collectives.gather(x, d, group), lambda x: x.chunk(n, dim=d)[r].contiguous())
+
+        return [None if dp_dim(s) is None or n == 1 else view(dp_dim(s)) for s in self._specs]
+
     def model_params(self) -> dict:
         """The weights the model runs on: the trainable params, or under LoRA
-        the frozen base merged with the adapters (differentiable in them)."""
+        the frozen base merged with the adapters (differentiable in them). In
+        a world the top leaves are gathered over dp (differentiably) and the
+        layers stay sliced for ``forward``'s ``gather_layer``
+        (``self.gather_layer``); under LoRA the frozen base is gathered whole
+        (it takes no gradient)."""
         if self.lora_cfg.enabled:
-            return merge_lora(self.frozen_params, self.params, self.lora_cfg)
-        return self.params
+            frozen = unshard_params(self.frozen_params, self.mesh) if self.mesh else self.frozen_params
+            return merge_lora(frozen, self.params, self.lora_cfg)
+        return gather_params(self.params, self.mesh) if self.mesh else self.params
 
+    @torch.no_grad()
     def served_params(self) -> dict:
-        """What pushes and exports carry: ``model_params`` without the value
-        head, which is the trainer's alone."""
-        return {k: v for k, v in self.model_params().items() if k != "value_head"}
+        """What pushes and exports carry: the full weights the model runs on
+        (every rank of a world joins the gather) without the value head,
+        which is the trainer's alone."""
+        params = self.model_params() if self.lora_cfg.enabled else gather_for_push(self.params, self.mesh)
+        return {k: v for k, v in params.items() if k != "value_head"}
 
     # -- checkpoint / resume ------------------------------------------------
+    def _optimizer_leaf(self) -> list[int]:
+        """The leaf index of each of the optimizer's state indices."""
+        ids = {id(p): i for i, p in enumerate(self._leaves)}
+        return [ids[id(p)] for g in self.optimizer.param_groups for p in g["params"]]
+
+    def _optimizer_state(self, to: int) -> Callable[[dict], dict]:
+        """A state-dict transform: ``to`` 0 gathers the sliced leaves'
+        per-element state to the full leaves, 1 takes this rank's slice of
+        full state. Identity without per-element sharded state."""
+        views, order = self._dp_views(), self._optimizer_leaf()
+
+        def transform(state: dict) -> dict:
+            if not self._sharded_state:
+                return state
+            out = dict(state, state={})
+            for idx, st in state["state"].items():
+                view = views[order[int(idx)]]
+                out["state"][idx] = {k: view[to](v) if view and isinstance(v, torch.Tensor) and v.ndim else v
+                                     for k, v in st.items()}
+            return out
+
+        return transform
+
+    def gathered_state(self) -> tuple[list[tuple[str, torch.Tensor]], dict]:
+        """The full trainable leaves by name and the optimizer's state dict
+        over them (a world's slices gathered; every rank joins)."""
+        named = param_leaves(unshard_params(self.params, self.mesh) if self._sharded_params() else self.params)
+        return named, self._optimizer_state(0)(self.optimizer.state_dict())
+
+    def leaf_state(self, optimizer_state: dict) -> dict[str, dict]:
+        """An optimizer state dict's per-parameter entries by leaf name."""
+        names, order = [n for n, _ in param_leaves(self.params)], self._optimizer_leaf()
+        return {names[order[int(i)]]: st for i, st in optimizer_state["state"].items()}
+
     def save_checkpoint(self, tokenizer=None) -> None:
         """The training state (the adapters under LoRA) and an HF export of
-        the merged weights without the value head."""
-        save_training_state(self.checkpoint_dir, param_leaves(self.params), self.optimizer, self.scheduler,
+        the merged weights without the value head. In a world every rank
+        joins the gathers of the full state and rank 0 writes it."""
+        named, optimizer_state = self.gathered_state()
+        served = self.served_params()
+        if self.rank != 0:
+            return
+        save_training_state(self.checkpoint_dir, named, optimizer_state, self.scheduler,
                             dataclasses.asdict(self.metrics))
-        with torch.no_grad():
-            export_hf(self.checkpoint_dir, self.served_params(), self.model_cfg, tokenizer, self.vision_cfg)
+        export_hf(self.checkpoint_dir, served, self.model_cfg, tokenizer, self.vision_cfg)
         logger.info("Saved checkpoint at step %d (%d samples)", self.metrics.completed_steps, self.metrics.samples)
+
+    def _sharded_params(self) -> bool:
+        return self.mesh is not None and not self.lora_cfg.enabled
 
     def try_resume(self) -> bool:
         """Restore the saved training state, if any: the trainable tensors
-        in place, the optimizer, the scheduler and the metrics."""
-        metrics = load_training_state(self.checkpoint_dir, param_leaves(self.params), self.optimizer, self.scheduler)
+        in place, the optimizer, the scheduler and the metrics. In a world
+        each rank reads the full state and keeps its slices."""
+        views = self._dp_views() if self._sharded_params() else [None] * len(self._leaves)
+        metrics = load_training_state(self.checkpoint_dir, param_leaves(self.params), self.optimizer, self.scheduler,
+                                      piece=lambda i, t: views[i][1](t) if views[i] else t,
+                                      optimizer_state=self._optimizer_state(1))
         if metrics is None:
             return False
         for key, value in metrics.items():
@@ -295,24 +439,56 @@ class TrainerLoop:
 
     def train_pass(self, batch: TrainerBatch) -> dict:
         """One micro-batch: forward, loss, backward into ``.grad``. Returns
-        the loss metrics as floats."""
+        the loss metrics as floats, the world's sums in a world. With
+        ``dp_local`` > 1 rows buffer until the pass has them all (``{}``
+        meanwhile); a sentinel row's labels are all masked, so it adds zero
+        loss, and the pass is a sentinel only when all its rows are."""
+        if batch.visual is not None:
+            return self._vlm_pass(batch)
+        self._rows.append(batch)
+        if len(self._rows) < self.dp_local:
+            self.last_pass_samples = 0
+            return {}
+        rows, self._rows = self._rows, []
+        if len(rows) == 1:
+            stacked = batch.arrays()
+        else:
+            stacked = {name: np.concatenate([r.arrays()[name] for r in rows]) for name in batch.arrays()}
+        # (samples, tokens) of the rows, counted once per dp rank: cp peers
+        # hold the same rows
+        own = axis_rank(self.mesh, "cp") == 0
+        counts = {"global_samples": torch.tensor(float(sum(r.num_sequences for r in rows if not r.sentinel) * own)),
+                  "global_tokens": torch.tensor(float(sum(r.length - r.padding for r in rows if not r.sentinel) * own))}
+        arrays = batch_tensors(cp_slice(stacked, self.mesh), self.device)
+        return self._after_pass(pass_backward(
+            self.model_params(), self.model_cfg, self.loss_cfg, arrays, float(self.metrics.completed_steps),
+            self.max_train_steps, 1.0 if all(r.sentinel for r in rows) else 0.0, self.mesh, self.gather_layer, counts, remat=self.remat, attn_impl=self.attn_impl,
+            logits_chunk=self.logits_chunk,
+        ))
+
+    def _vlm_pass(self, batch: TrainerBatch) -> dict:
+        if self.mesh is not None or self.dp > 1:
+            raise ValueError("VLM training requires dp=1 and a single rank (the reference trains chartqa at batch 1)")
         arrays = batch_to_tensors(batch, self.device)
-        vlm = self._vlm_inputs(batch, arrays) if batch.visual is not None else {}
-        loss, metrics = rl_loss(
+        vlm = self._vlm_inputs(batch, arrays)  # sets the mrope rows in ``arrays``
+        counts = {"global_samples": torch.tensor(0.0 if batch.sentinel else float(batch.num_sequences)),
+                  "global_tokens": torch.tensor(0.0 if batch.sentinel else float(batch.length - batch.padding))}
+        return self._after_pass(pass_backward(
             self.model_params(), self.model_cfg, self.loss_cfg, arrays,
             float(self.metrics.completed_steps), self.max_train_steps, 1.0 if batch.sentinel else 0.0,
-            remat=self.remat, attn_impl=self.attn_impl, logits_chunk=self.logits_chunk, **vlm,
-        )
-        loss.backward()
+            extra=counts, remat=self.remat, attn_impl=self.attn_impl, logits_chunk=self.logits_chunk, **vlm,
+        ))
+
+    def _after_pass(self, metrics: dict) -> dict:
         self._has_grads = True
-        samples = 0 if batch.sentinel else batch.num_sequences
+        # one device-to-host read for all metrics
+        values = torch.stack([v.detach().float().reshape(()) for v in metrics.values()]).tolist()
+        host = dict(zip(metrics, values))
+        samples = int(round(host.pop("global_samples")))
         self.metrics.passes += 1
         self.metrics.samples += samples
-        self.metrics.tokens += 0 if batch.sentinel else batch.length - batch.padding
+        self.metrics.tokens += int(round(host.pop("global_tokens")))
         self.last_pass_samples = samples
-        # one device-to-host read for all metrics
-        values = torch.stack([v.detach().float().reshape(()).to(self.device) for v in metrics.values()]).tolist()
-        host = dict(zip(metrics, values))
         self.metrics.train_loss = host["loss"]
         return host
 
@@ -340,8 +516,9 @@ class TrainerLoop:
 
     def optimizer_step(self) -> None:
         assert self._has_grads, "optimizer_step before any train_pass"
+        norm = step_grads(self._leaves, self._specs, self.mesh) if self.mesh is not None else None
         grads = [p.grad for p in self._leaves if p.grad is not None]
-        norm = clip_by_global_norm(grads, None if self.clip is None else float(self.clip))
+        norm = clip_by_global_norm(grads, None if self.clip is None else float(self.clip), norm)
         self.optimizer.step()
         self.zero_grad()
         self.metrics.grad_norm = float(norm)
@@ -353,18 +530,25 @@ class TrainerLoop:
         version = self.metrics.samples
         if force or version - self.metrics.last_broadcasted_version >= self.weight_update_interval:
             if self.weight_update_cb is not None:
-                with torch.no_grad():
-                    self.weight_update_cb(detached_copy(self.served_params()), version)
-            writer.write(WeightUpdateSuccess(version=version).model_dump())
+                # a world's gather makes new tensors; one device's are live
+                served = self.served_params()
+                self.weight_update_cb(served if self.mesh is not None else detached_copy(served), version)
+            self.publish(writer, WeightUpdateSuccess(version=version))
             self.metrics.last_broadcasted_version = version
             return True
         return False
+
+    def publish(self, writer: StreamWriter, msg) -> None:
+        """Rank 0 alone speaks on the control streams: versions are the same
+        on every rank by construction."""
+        if self.rank == 0:
+            writer.write(msg.model_dump())
 
     def run(self, max_steps: int | None = None) -> TrainingMetrics:
         """Consume the training_data stream until ``max_steps`` optimizer
         steps (or ``finetune.max_train_steps``)."""
         target_steps = min(self.max_train_steps, max_steps if max_steps is not None else self.max_train_steps)
-        mlog = MetricsLogger(self.exp_path, "trainer_0")
+        mlog = MetricsLogger(self.exp_path, f"trainer_{self.rank}")
         reader = StreamReader(self.input_spec, poll_interval=0.01)
         writer = StreamWriter(SingleStreamSpec(exp_path=self.exp_path, topic="weight_update_request"))
         # a loader thread tails the stream and decodes messages off the step
@@ -387,12 +571,12 @@ class TrainerLoop:
                 if not got:
                     time.sleep(0.005)
 
-        loader_thread = threading.Thread(target=loader, name="trainer-loader", daemon=True)
+        loader_thread = threading.Thread(target=loader, name=f"trainer-loader-{self.rank}", daemon=True)
         if not bool(self.cfg.get("force_restart", False)):
             self.try_resume()
         # initial broadcast so actors can start, and resync after a resume
         self.maybe_push_weights(writer, force=True)
-        writer.write(SamplesProcessed(samples=self.metrics.samples).model_dump())
+        self.publish(writer, SamplesProcessed(samples=self.metrics.samples))
         samples_this_step = 0
         sums: dict[str, float] = {}
         lag_min, lag_max = float("inf"), -1
@@ -417,7 +601,7 @@ class TrainerLoop:
                 for key, value in self.train_pass(batch).items():
                     sums[key] = sums.get(key, 0.0) + value
                 samples_this_step += self.last_pass_samples
-                writer.write(SamplesProcessed(samples=self.metrics.samples).model_dump())
+                self.publish(writer, SamplesProcessed(samples=self.metrics.samples))
                 if samples_this_step < self.samples_per_step:
                     continue
                 self.optimizer_step()
@@ -460,7 +644,7 @@ class TrainerLoop:
             self.maybe_push_weights(writer, force=True)
             if self.save_checkpoint_steps:
                 self.save_checkpoint()
-            writer.write(TrainingDone().model_dump())
+            self.publish(writer, TrainingDone())
         finally:
             stop.set()
             loader_thread.join(timeout=5)

@@ -8,10 +8,18 @@ Port of the JAX package's ``world.py``. ``world.hosts`` lists the hosts
 - ``world.trainer_procs=0`` (the default): one ``device`` job per replica,
   engine, HTTP server and trainer in one CUDA process, weight updates
   swapped in process;
-- ``world.trainer_procs=1``: ``engine`` jobs serve rollouts and take weight
-  pushes over HTTP (PWT3) from one ``trainer`` job; with
+- ``world.trainer_procs`` >= 1: ``engine`` jobs serve rollouts and take
+  weight pushes over HTTP (PWT3) from the ``trainer`` jobs; with
   ``world.actor_fraction`` and ``world.finetune_fraction`` set over more
-  than one host, the engines take the first hosts and the trainer the rest.
+  than one host, the engines take the first hosts and the trainers the
+  rest. More than one trainer job is a trainer world
+  (``parallel/multihost.py``): each carries ``process_id``,
+  ``num_processes`` and ``coordinator`` (the head host's
+  ``world.coordinator_port``). The port runs one rank per device, so a
+  ``parallel`` product dp*cp above 1 is a world of dp*cp trainer jobs
+  whatever ``trainer_procs`` says (``trainer_ranks``), and the trainer
+  partitions are one per dp rank (``num_trainers``): cp peers read the same
+  one.
 
 Beside them: a ``stream_hub`` on the head host when ``world.stream_hub``
 says so (``"auto"``: more than one host), through which every topic then
@@ -22,8 +30,8 @@ rides; a ``ref_engine`` (frozen weights, the KL reference policy) when
 ``preprocessor`` jobs, spread round-robin over the hosts. ``to_config()``
 lists the jobs as the JAX package lists them.
 
-Refused, naming its ROADMAP Queue 1 item: ``trainer_procs`` > 1 (a sharded
-trainer world, item 8).
+Refused, naming its ROADMAP Queue 1 item: ``parallel.tp``/``pp`` and
+``engine.tp``/``pp`` above 1 (item 15).
 """
 
 from __future__ import annotations
@@ -54,11 +62,32 @@ class Job:
 
 
 def refuse_unported(cfg: Config) -> None:
-    """Raise for the deployments the port does not run yet."""
-    world = cfg.get("world", Config({}))
-    if int(world.get("trainer_procs", 0)) > 1:
-        raise NotImplementedError(
-            "world.trainer_procs > 1 (a sharded trainer world) is not ported yet (ROADMAP Queue 1, item 8)")
+    """Raise for the deployments the port does not run yet: tensor and
+    pipeline parallelism, in the trainer or the engine."""
+    for node in ("parallel", "engine"):
+        for key in ("tp", "pp"):
+            if int(cfg.select(f"{node}.{key}", 1) or 1) > 1:
+                raise NotImplementedError(f"{node}.{key} > 1 is not ported yet: tensor and pipeline parallelism "
+                                          "wait for ROADMAP Queue 1, item 15")
+
+
+def parallel_product(cfg: Config) -> tuple[int, int]:
+    """(dp, cp) of the ``parallel`` node (1, 1 when absent)."""
+    par = cfg.get("parallel") or Config({})
+    return int(par.get("dp", 1)), int(par.get("cp", 1))
+
+
+def trainer_ranks(cfg: Config) -> int:
+    """The trainer jobs: dp*cp when that product is above 1 (one rank per
+    device), else ``world.trainer_procs``."""
+    procs = int(cfg.select("world.trainer_procs", 0) or 0)
+    dp, cp = parallel_product(cfg)
+    if dp * cp > 1:
+        if procs > 1 and procs != dp * cp:
+            raise ValueError(f"world.trainer_procs={procs} but parallel dp*cp={dp * cp}: "
+                             "the port runs one trainer rank per device")
+        return dp * cp
+    return procs
 
 
 def _fraction_split(n_hosts: int, actor_fraction: float, finetune_fraction: float) -> int:
@@ -76,7 +105,8 @@ class WorldMap:
         world = cfg.get("world", Config({}))
         self.hosts: list[str] = list(world.get("hosts", ["127.0.0.1"]))
         self.replicas = int(world.get("replicas", 1))
-        self.trainer_procs = int(world.get("trainer_procs", 0))
+        self.trainer_procs = trainer_ranks(cfg)
+        self.cp = parallel_product(cfg)[1]
         self.actor_fraction = float(world.get("actor_fraction", 0) or 0)
         self.finetune_fraction = float(world.get("finetune_fraction", 0) or 0)
         self.env_replicas = int(world.get("env_replicas", 1))
@@ -142,9 +172,9 @@ class WorldMap:
 
     @property
     def num_trainers(self) -> int:
-        """Trainer stream partitions: one per trainer process, or per device
-        job."""
-        return self.trainer_procs if self.trainer_procs > 0 else self.replicas
+        """Trainer stream partitions: one per dp rank of the trainer world
+        (its processes over cp), or per device job."""
+        return self.trainer_procs // self.cp if self.trainer_procs > 0 else self.replicas
 
     @property
     def environment_servers(self) -> list[dict]:

@@ -642,3 +642,33 @@ def test_lion_and_adafactor_on_the_card_match_the_cpu(cuda, optim):
         runs.append(([p.cpu().float() for p in params], state))
     for a, b in zip(runs[0][0] + runs[0][1], runs[1][0] + runs[1][1]):
         torch.testing.assert_close(b, a, rtol=2**-7, atol=1e-6)
+
+
+@pytest.mark.parametrize("cp", [2, 4])
+def test_cp_attention_slices_match_the_plain_row(cuda, cp):
+    """What each rank of ``parallel.cp_attention`` runs: its slice of a
+    packed row's queries (q_offset rank * L/cp) against the gathered keys,
+    forward and backward through #2-#4, against autograd through the plain
+    forward of the whole row in fp32; the ranks' dk/dv summed, as the
+    gather's backward reduce-scatters them. Segments cross the slices."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    B, L, H, K, Dh = 1, 4096, 14, 2, 64
+    c = L // cp
+    q, k, v, do = _bf16(gen, B, L, H, Dh), _bf16(gen, B, L, K, Dh), _bf16(gen, B, L, K, Dh), _bf16(gen, B, L, H, Dh)
+    seg = _segment_ids([700, 1500, 300, 1100, 496], B, cuda)
+    ref = [t.float().requires_grad_() for t in (q, k, v)]
+    ref_out, _ = gattn.mha_packed_gqa_plain(*ref, seg, seg, 0)
+    ref_out.backward(do.float())
+    dk, dv = torch.zeros(k.shape, device=cuda), torch.zeros(v.shape, device=cuda)
+    for rank in range(cp):
+        rows = slice(rank * c, (rank + 1) * c)
+        leaves = [t.clone().requires_grad_() for t in (q[:, rows].contiguous(), k, v)]
+        before = (gattn.launches, gattn.dq_launches, gattn.dkv_launches)
+        out, _ = gattn.mha_packed_gqa(*leaves, seg[:, rows].contiguous(), seg, rank * c)
+        out.backward(do[:, rows])
+        torch.cuda.synchronize()
+        assert (gattn.launches, gattn.dq_launches, gattn.dkv_launches) == tuple(b + 1 for b in before)
+        assert _close(out, ref_out[:, rows]) and _close(leaves[0].grad, ref[0].grad[:, rows])
+        dk += leaves[1].grad.float()
+        dv += leaves[2].grad.float()
+    assert _close(dk, ref[1].grad) and _close(dv, ref[2].grad)

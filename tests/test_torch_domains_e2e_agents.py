@@ -49,17 +49,21 @@ def n_output(sample):
     return sum(1 for label in sample["labels"] if label != -100)
 
 
-def test_tir_preset_runs_on_one_device(hf_dir, tmp_path):
-    """``parallel.cp=1`` (the trainer refuses a cp axis): each rollout's
-    reward is the one its texts give for some answer status (the math
-    table's entry, ``compute_shaping`` of its python calls and mean turn
-    length, the overlong term of that mean), as ``chip_smoke.py`` phase 21
-    holds it; no rollout passes ``max_turns``."""
+def test_tir_preset_runs_on_one_device(hf_dir, tmp_path, monkeypatch):
+    """``parallel.cp=1`` (as shipped, ``cp: 8`` is a trainer world of eight
+    ranks, one per device: its DRY_RUN lists them): each rollout's reward is
+    the one its texts give for some answer status (the math table's entry,
+    ``compute_shaping`` of its python calls and mean turn length, the
+    overlong term of that mean), as ``chip_smoke.py`` phase 21 holds it; no
+    rollout passes ``max_turns``."""
     out = tmp_path / "tir"
-    with pytest.raises(NotImplementedError, match="item 8"):
-        launch.main(["--config-name=tir", f"model_path={hf_dir}", f"output_dir={tmp_path}/cp", *CUTS,
-                     "llm.parameters.max_tokens=16", "engine.max_len=512", "engine.prefill_buckets=[256]",
-                     "finetune.seq_length=512", "train_dataset_names=[synthetic_arithmetic]"])
+    with monkeypatch.context() as m:
+        m.setenv("DRY_RUN", "1")
+        with pytest.raises(SystemExit) as done:
+            launch.main(["--config-name=tir", f"model_path={hf_dir}", f"output_dir={tmp_path}/cp", *CUTS,
+                         "llm.parameters.max_tokens=16", "engine.max_len=512", "engine.prefill_buckets=[256]",
+                         "finetune.seq_length=512", "train_dataset_names=[synthetic_arithmetic]"])
+    assert done.value.code == 0 and len(list((tmp_path / "cp" / "trainer").glob("start_trainer_*.sh"))) == 8
     overrides = ["parallel.cp=1", "llm.parameters.max_tokens=16", "engine.max_len=512",
                  "engine.prefill_buckets=[256]", "finetune.seq_length=512", "rewards.buffer_tokens=8",
                  "train_dataset_names=[synthetic_arithmetic]"]

@@ -39,6 +39,7 @@ def dry_run_commands(exp: Path) -> list[list[str]]:
 LAYOUTS = {
     "device": [],
     "split": ["+world.trainer_procs=1"],
+    "trainer_world": ["+world.trainer_procs=2"],
     "ref_engine": ["+world.ref_engine=true"],
     "stream_hub": ["+world.stream_hub=true", "+world.stream_hub_port=7301", "+streams.hub_maxlen=1000"],
     "environment": ["+environment_class=env.Server", "world.env_replicas=2"],

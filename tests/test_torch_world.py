@@ -2,8 +2,8 @@
 (``to_config()``), URLs, hub address, environment servers and trainer
 partitions for the same world settings, on one host and over host lists
 (round-robin placement, the stream hub, environment replicas, the
-actor/finetune host split); ``trainer_procs`` > 1 raises with its ROADMAP
-item."""
+actor/finetune host split, a trainer world of two processes);
+``parallel.tp`` > 1 raises with its ROADMAP item."""
 
 import pytest
 
@@ -37,6 +37,7 @@ WORLDS = {
     "split_no_fractions": ["+world.hosts=[h0,h1,h2]", "+world.trainer_procs=1", "world.actor_fraction=0",
                            "world.finetune_fraction=0", "world.replicas=2"],
     "split_kl_hosts": ["+world.hosts=[h0,h1]", "+world.trainer_procs=1", "finetune=ppo"],
+    "trainer_world": ["+world.hosts=[h0,h1]", "+world.trainer_procs=2", "world.replicas=2"],
 }
 
 
@@ -66,7 +67,7 @@ def test_worldmap_equals_jax(name):
 
 
 @pytest.mark.parametrize("overrides,item", [
-    (["+world.trainer_procs=2"], "item 8"),
+    (["+parallel.tp=2"], "item 15"),
 ])
 def test_unported_layouts_raise(overrides, item):
     cfg = compose("bandit_cpu", [*overrides, "output_dir=/tmp/unused", "launch_mode=processes"])
