@@ -115,8 +115,7 @@ Phases, each of which stops the script on failure:
    ``launch.main`` from phase 14's HF directory at the preset's own engine
    and trainer widths (64 slots of max_len 10,240, prefill buckets
    256-2,048, L 12,288 rows, flash attention) on the synthetic arithmetic
-   and countdown sets, cut to 512 new tokens, 64 samples a step and 2
-   steps, with the difficulty-aware penalty over a 128-token buffer: every
+   and countdown sets, cut to 512 new tokens and one step of 64 samples, with the difficulty-aware penalty over a 128-token buffer: every
    reward is the reward table's plus a penalty in [-1, 0], a rollout cut at
    ``max_tokens`` carries the full penalty, the losses are finite, no
    sampled id reaches ``valid_vocab``, kernels #1-#4 launched; each train
@@ -173,7 +172,7 @@ Phases, each of which stops the script on failure:
    ``VLM_CUTS``: (a) chartqa prompts with feature images of 609, 1,024 and
    1,008 merged tokens all finish, the VLM prefill on #2 at Dh 128; (b) the
    engine's logprobs of 4 completions against the trainer's forward of the
-   same spliced [1, 8,192] rows; (c) two steps on those rows (vlm_bandit's
+   same spliced [1, 8,192] rows; (c) a step on those rows (vlm_bandit's
    reward), #2-#4 launched, the tower's gradients nonzero; (d) the
    trainer's tree as one 7.5 GB PWT3 body while 8 requests decode:
    ``blob-chunked``, the embedding row-spliced, at most 2 x 256 MiB plus
@@ -198,11 +197,34 @@ Phases, each of which stops the script on failure:
    against one rank's two passes; (d) ``launch`` in processes
    mode with ``world.trainer_procs=2 parallel.dp=2`` on the ``test`` preset
    from phase 14's directory: rank 0's pushes reach the engine, the version
-   is the trained samples, both ranks exit 0 ((d) runs beside phase 25's two
-   toy runs, which leave the card and most cores idle; phase 17's two runs
-   go side by side the same way). Then #2-#4 at each cp rank's
+   is the trained samples, both ranks exit 0 ((d) runs beside phases
+   18-23, whose one process leaves most cores idle; phase 17's two runs go
+   side by side the same way, and phase 25's two beside phases 26 and 27).
+   Then #2-#4 at each cp rank's
    shape of that row against their plain versions by blocks and timed
-   beside SDPA and their bounds.
+   beside SDPA and their bounds;
+28. tensor parallelism as two gloo rank processes on this card, from phase
+   14's directory at Qwen2.5-0.5B width (7 query heads, 1 KV head, 2,432
+   FFN columns and 75,968 vocabulary rows a rank): (a) the tp engine on the
+   slab layout (S 64, max_len 2,048, W 16, the kernels): 32 greedy requests
+   (a GRPO group of 8 among them) against one rank's engine on the same
+   prompts (equal tokens, or a divergence at a near-tie of the one-rank
+   model; the shared tokens' logprobs within phase 7's teacher-forcing
+   limits), a sampled batch, and a 988 MB PWT3 push into rank 0 while 16
+   requests decode: the version lands on both ranks, each rank's checksums
+   equal its slice of the pushed tree, and the window gaps are logged; the
+   ranks read back the same windows; (b) the same on the paged layout; (c)
+   one pass of the math preset's L 12,288 row (phase 18's segments; the
+   logits by chunks) and one AdamW step at lr 1e-3 (no warmup) at
+   ``parallel.tp=2``, held against one rank as phase 27 holds its steps;
+   (d) the ``test`` preset through ``launch`` with ``engine.tp=2
+   parallel.tp=2``, 2 steps (after 27 (d), beside phases 18-23; not beside
+   phase 26, whose 3B trainer needs the device memory its four processes
+   hold): both trainer ranks step, both engine ranks end on the
+   trainer's version with one window digest; (e) #1 at the tp slab (S 64, K
+   1, G 7), #5 on the tp paged engine's own tables, #2-#4 on (c)'s row at K
+   1, G 7, against their plain versions and timed beside SDPA and their
+   bounds.
 Then one JSON line of kernel numbers, and last the result line.
 
 ``python3 chip_smoke.py --http-load URL N TOKENS OUT`` and
@@ -210,7 +232,9 @@ Then one JSON line of kernel numbers, and last the result line.
 processes of phases 15 and 16; ``python3 chip_smoke.py --world-rank RANK
 WORLD HOST:PORT DIR HF_DIR`` is a rank of phase 27, and ``python3
 chip_smoke.py --trainer-world N`` runs phase 27's (b) and (c) alone as N
-ranks (N=4 on a host with four cards, over NCCL).
+ranks (N=4 on a host with four cards, over NCCL); ``python3 chip_smoke.py
+--tp-rank RANK WORLD HOST:PORT DIR HF_DIR`` is a rank of phase 28, and
+``python3 chip_smoke.py --tp-world`` runs phase 28 alone after phases 1-2.
 
 It needs a CUDA device and raises without one; it never falls back to the CPU.
 """
@@ -283,6 +307,7 @@ QWEN05B = ModelConfig(
 # directory; its vocabulary is padded past the fixture tokenizer's 540
 QWEN05B_TIED = dataclasses.replace(QWEN05B, tie_word_embeddings=True, valid_vocab=None,
                                    hf_architecture="Qwen2ForCausalLM")
+QWEN05B_HEADS = (QWEN05B.num_heads, QWEN05B.num_kv_heads, QWEN05B.head_dim_)
 FIXTURE_TOKENIZER = Path(__file__).resolve().parent / "pipelinerl_tpu_torch" / "fixtures" / "hf_tokenizer"
 # Qwen2.5-VL's vision tokens at their published ids (Qwen2.5-VL-3B-Instruct's
 # tokenizer_config.json), added to the fixture tokenizer for phase 26
@@ -742,14 +767,16 @@ def phase_paged_kernel(dev) -> dict:
     }
 
 
-def time_paged_working_set(dev, snapshots, record: dict) -> None:
-    """Kernel #5 on the tables and lengths the paged engine of phase 9 handed
-    its decode windows (one snapshot every few steps), at the last step of a
-    window, with random q, pools and band: first against its plain version
-    on every snapshot, then timed over all of them. These are the record's
-    times; case (i)'s stay beside them."""
+def time_paged_working_set(dev, snapshots, record: dict, heads: tuple[int, int, int] = QWEN05B_HEADS,
+                           pool: int = P_POOL, bt: int = P_BT, window: int = P_WINDOW, slots: int = P_SLOTS) -> None:
+    """Kernel #5 on the tables and lengths the paged engine of phase 9 (or
+    phase 28's tp engine: its ``heads``, ``pool`` pages of ``bt`` tokens,
+    ``window``, ``slots``) handed its decode windows (one snapshot every few
+    steps), at the last step of a window, with random q, pools and band:
+    first against its plain version on every snapshot, then timed over all
+    of them. These are the record's times; case (i)'s stay beside them."""
     gen = torch.Generator(device=dev).manual_seed(9)
-    H, K, Dh, W = QWEN05B.num_heads, QWEN05B.num_kv_heads, 64, P_WINDOW
+    (H, K, Dh), W = heads, window
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
@@ -758,9 +785,9 @@ def time_paged_working_set(dev, snapshots, record: dict) -> None:
     rows_read = rows_inactive = 0
     for table, lens, active in snapshots:
         S = lens.shape[0]
-        sets.append((rnd(S, H, Dh), rnd(S, K, Dh), rnd(S, K, Dh), rnd(P_POOL, P_BT, K, Dh), rnd(P_POOL, P_BT, K, Dh),
+        sets.append((rnd(S, H, Dh), rnd(S, K, Dh), rnd(S, K, Dh), rnd(pool, bt, K, Dh), rnd(pool, bt, K, Dh),
                      table, lens, rnd(W, S, K, Dh), rnd(W, S, K, Dh), W - 1))
-        rows = lens.long().clamp(max=table.shape[1] * P_BT)
+        rows = lens.long().clamp(max=table.shape[1] * bt)
         rows_read += int(rows.sum())
         rows_inactive += int(rows[~active[:S].bool()].sum())
     err = max(_check_paged(f"paged engine snapshot {i}", a) for i, a in enumerate(sets))
@@ -768,7 +795,7 @@ def time_paged_working_set(dev, snapshots, record: dict) -> None:
     t = _time_paged(sets)
     widths = sorted({int(a[5].shape[1]) for a in sets})
     _log_paged_times(f"on the paged engine's own tables and lengths ({len(sets)} snapshots, table widths {widths}, "
-                     f"W={W} step={W - 1}, {grid_note(P_SLOTS, K, widths[-1] * P_BT)} at the widest)", t)
+                     f"W={W} step={W - 1}, H={H} K={K}, {grid_note(slots, K, widths[-1] * bt)} at the widest)", t)
     share = rows_inactive / max(1, rows_read)
     log(f"paged engine snapshots: {rows_inactive} of the {rows_read} cache rows kernel #5 reads belong to "
         f"inactive slots (share {share:.3f}), stale lengths capped at the table's width")
@@ -2402,14 +2429,14 @@ def phase_served_engine(dev, smi: str, tmp: str) -> tuple[dict, dict]:
 # the task presets at Qwen2.5-0.5B width (phases 18-20): the HF directory of
 # phase 14, and the cuts each run makes to the preset, logged with the
 # preset's own value
-MATH_CUTS = {"llm.parameters.max_tokens": 512, "finetune.samples_per_step": 64, "finetune.max_train_steps": 2,
+MATH_CUTS = {"llm.parameters.max_tokens": 512, "finetune.samples_per_step": 64, "finetune.max_train_steps": 1,
              "total_groups": 16, "rewards.buffer_tokens": 128, "actor.difficulty_aware_penalty.enabled": "true",
              "finetune.rl.entropy_bonus": 0.001, "finetune.save_checkpoint_steps": 0}
 MATH_SETS = "[synthetic_arithmetic,countdown]"
 MULTI_SETS = "[math::synthetic_arithmetic,math::countdown,guessing::train,counting::train]"
-MULTI_CUTS = {"llm.parameters.max_tokens": 256, "finetune.samples_per_step": 64, "finetune.max_train_steps": 2,
+MULTI_CUTS = {"llm.parameters.max_tokens": 128, "finetune.samples_per_step": 64, "finetune.max_train_steps": 2,
               "total_groups": 16, "finetune.rl.entropy_bonus": 0.001, "finetune.save_checkpoint_steps": 0}
-SHORT_CUTS = {"llm.parameters.max_tokens": 128, "finetune.samples_per_step": 64, "finetune.max_train_steps": 1,
+SHORT_CUTS = {"llm.parameters.max_tokens": 128, "finetune.samples_per_step": 32, "finetune.max_train_steps": 1,
               "total_groups": 8, "finetune.rl.entropy_bonus": 0.001, "finetune.save_checkpoint_steps": 0}
 # each domain's prompt carries this text (phase 19's dispatch gate)
 DOMAIN_PROMPTS = {"math": ("What is ", "Using the numbers"), "guessing": ("You must guess a number",),
@@ -2527,7 +2554,8 @@ def phase_math(hf_dir: Path, smi: str, tmp: str) -> tuple[dict, dict]:
         f"(valid_vocab 540); launches {launches}; on {smi}")
     check(not off_table, f"rewards off the table plus a penalty in [-1, 0]: {off_table[:5]}")
     check(cut > 0, "no rollout reached max_tokens: the full-penalty gate saw nothing")
-    check(stats["trainer"]["completed_steps"] == 2 and len(losses) == 2 and all(map(math.isfinite, losses)),
+    steps = MATH_CUTS["finetune.max_train_steps"]
+    check(stats["trainer"]["completed_steps"] == steps and len(losses) == steps and all(map(math.isfinite, losses)),
           f"math trainer {stats['trainer']}, losses {losses}")
     check(all(launches[k] for k in ("decode", "gqa_fwd", "gqa_dq", "gqa_dkv")), f"math launches {launches}")
     check(ids and max(ids) < 540, f"a sampled id reached valid_vocab: {max(ids)}")
@@ -2535,7 +2563,6 @@ def phase_math(hf_dir: Path, smi: str, tmp: str) -> tuple[dict, dict]:
     return launches, {"engine": shape, "segment_ids": row["segment_ids"], "padding": row["padding"]}
 
 
-QWEN05B_HEADS = (QWEN05B.num_heads, QWEN05B.num_kv_heads, QWEN05B.head_dim_)
 
 
 def time_slab(dev, kernels: list[dict], name: str, engine: tuple, live: tuple[int, int], seed: int,
@@ -2726,17 +2753,17 @@ TIR_SETS = "[synthetic_arithmetic]"
 TIR_ROW_BLOCK = 1024  # queries per block of the plain checks at L 32,768: 1.9 GB of fp32 scores a block
 # phase 22: the hermetic sets, a short budget and one step each (32 new
 # tokens a turn for miniwob's 8 sequential turns, which set its wall)
-CODING_CUTS = {"llm.parameters.max_tokens": 256, "finetune.samples_per_step": 64, "finetune.max_train_steps": 1,
+CODING_CUTS = {"llm.parameters.max_tokens": 256, "finetune.samples_per_step": 32, "finetune.max_train_steps": 1,
                "total_groups": 10, "rewards.buffer_tokens": 64, "finetune.rl.entropy_bonus": 0.001,
                "finetune.save_checkpoint_steps": 0}
-MINIWOB_CUTS = {"llm.parameters.max_tokens": 32, "finetune.samples_per_step": 64, "finetune.max_train_steps": 1,
+MINIWOB_CUTS = {"llm.parameters.max_tokens": 32, "finetune.samples_per_step": 32, "finetune.max_train_steps": 1,
                 "total_groups": 2, "finetune.rl.entropy_bonus": 0.001, "finetune.save_checkpoint_steps": 0}
 # phase 23: the base preset with the research policy and loader (JAX's launch
 # takes the same overrides; there is no preset), its rows as long as the
 # engine's max_len as validate_config asks
 RESEARCH_CUTS = {"rollout_policy": "pipelinerl_tpu_torch.domains.deep_research.generate_research_rollout",
                  "dataset_loader": "pipelinerl_tpu_torch.domains.deep_research.load_problems",
-                 "finetune.seq_length": 2048, "llm.parameters.max_tokens": 32, "finetune.samples_per_step": 64,
+                 "finetune.seq_length": 2048, "llm.parameters.max_tokens": 32, "finetune.samples_per_step": 32,
                  "finetune.max_train_steps": 1, "total_groups": 2, "finetune.rl.entropy_bonus": 0.001,
                  "finetune.save_checkpoint_steps": 0}
 KERNEL_KEYS = ("decode", "gqa_fwd", "gqa_dq", "gqa_dkv")
@@ -3106,7 +3133,7 @@ QWEN25VL3B_CONFIG = {
 VLM_GRIDS = [(1, 42, 58), (1, 64, 64), (1, 56, 72)]
 # the chartqa preset's cuts for phase 26, each logged beside the preset's
 # value
-VLM_CUTS = {"llm.parameters.max_tokens": 128, "finetune.samples_per_step": 16, "finetune.max_train_steps": 2,
+VLM_CUTS = {"llm.parameters.max_tokens": 128, "finetune.samples_per_step": 8, "finetune.max_train_steps": 1,
             "attempts": 8, "finetune.train_vision_tower": "true", "finetune.param_dtype": "bfloat16",
             "finetune.save_checkpoint_steps": 0}
 # the push's extra device memory beyond two stream pieces: the decode
@@ -3126,32 +3153,41 @@ VLM_BANDIT_CHILD = (
 )
 
 
-def phase_vlm_bandit(tmp: str) -> dict:
-    """Phase 25: the ``vlm_bandit_cpu`` preset inline on the card with JAX's
-    gate (tests/test_e2e_vlm_bandit.py): at least 100 steps, and a success
-    tail of at least 0.7 in one of two runs (an image-blind policy caps at
-    0.5; identical runs read 0.60-0.94 on the card). The two runs go side by
-    side, one child process each, so the phase takes one run's wall. Returns
-    the kernel launches of both."""
+def start_vlm_bandit(tmp: str) -> tuple[list[subprocess.Popen], float]:
+    """Phase 25's two runs of the ``vlm_bandit_cpu`` preset, one child
+    process each, their output to ``<tmp>/vlm_bandit<i>.out`` and ``.err``;
+    → (the processes, their start on the monotonic clock)."""
     procs = []
     t0 = time.monotonic()
     for attempt in range(2):
-        procs.append(subprocess.Popen(
-            [sys.executable, "-c", VLM_BANDIT_CHILD, "--config-name=vlm_bandit_cpu",
-             f"output_dir={tmp}/vlm_bandit{attempt}", "finetune.save_checkpoint_steps=0"],
-            cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-            start_new_session=True))
-    outs = []
+        out = f"{tmp}/vlm_bandit{attempt}"
+        with open(f"{out}.out", "w") as so, open(f"{out}.err", "w") as se:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", VLM_BANDIT_CHILD, "--config-name=vlm_bandit_cpu", f"output_dir={out}",
+                 "finetune.save_checkpoint_steps=0"],
+                cwd=Path(__file__).resolve().parent, stdout=so, stderr=se, text=True, start_new_session=True))
+    return procs, t0
+
+
+def phase_vlm_bandit(tmp: str, run: tuple[list[subprocess.Popen], float]) -> dict:
+    """Phase 25: ``start_vlm_bandit``'s runs, the ``vlm_bandit_cpu`` preset
+    inline on the card with JAX's gate (tests/test_e2e_vlm_bandit.py): at
+    least 100 steps, and a success tail of at least 0.7 in one of two runs
+    (an image-blind policy caps at 0.5; identical runs read 0.60-0.94 on the
+    card). The two runs go side by side, so the phase takes one run's wall.
+    Returns the kernel launches of both."""
+    procs, t0 = run
     try:
         for proc in procs:
-            outs.append(proc.communicate(timeout=900))
+            proc.wait(timeout=max(1.0, t0 + 900 - time.monotonic()))
     finally:
         for proc in procs:
             if proc.poll() is None:
                 stop_group(proc)
     wall = time.monotonic() - t0
     tails, total = [], {}
-    for attempt, (proc, (stdout, stderr)) in enumerate(zip(procs, outs)):
+    for attempt, proc in enumerate(procs):
+        stdout, stderr = (Path(f"{tmp}/vlm_bandit{attempt}.{ext}").read_text() for ext in ("out", "err"))
         check(proc.returncode == 0, f"vlm_bandit run {attempt + 1} exited {proc.returncode}: {stderr[-3000:]}")
         lines = stdout.strip().splitlines()
         launches = json.loads(lines[-1].removeprefix("LAUNCHES "))
@@ -3254,7 +3290,7 @@ def phase_vlm_3b(dev, smi: str, tmp: str) -> tuple[dict, dict]:
     loaded by ``launch._is_vlm_checkpoint``, ``build_model``,
     ``build_vision`` and ``build_processor``; the preset's engine (S 16,
     max_len 8,192, buckets 1,024-8,192, flash) serves chartqa prompts with
-    feature images; two steps train on unpacked [1, 8,192] rows; then the
+    feature images; a step trains on unpacked [1, 8,192] rows; then the
     trainer's tree goes to the engine as one PWT3 body while 8 requests
     decode. Gates (a)-(e) are checked in turn. Returns (launches, the shapes
     the kernels ran at)."""
@@ -3368,7 +3404,7 @@ def phase_vlm_3b(dev, smi: str, tmp: str) -> tuple[dict, dict]:
         f"{errs.size} tokens of 4 completions")
     check(errs.mean() <= TF_MEAN_ATOL and errs.max() <= TF_MAX_ATOL, "the VLM engine and trainer disagree")
 
-    # (c) two steps on unpacked [1, L] rows, the tower trained
+    # (c) a step on unpacked [1, L] rows, the tower trained
     samples = []
     for problem, group in zip(problems, [results[i : i + attempts] for i in range(0, len(results), attempts)]):
         gid = f"g{len(samples)}"
@@ -3401,7 +3437,8 @@ def phase_vlm_3b(dev, smi: str, tmp: str) -> tuple[dict, dict]:
         f"GiB, losses {[round(p['loss'], 4) for p in passes[:4]]}..., steps {trainer.metrics.completed_steps}, grad "
         f"norm {trainer.metrics.grad_norm:.4f}, tower |grad| sum after pass 1 {tower_grad:.4e}, launches "
         f"{train_launches}; on {smi}")
-    check(trainer.metrics.completed_steps == 2 and all(math.isfinite(p["loss"]) for p in passes),
+    check(trainer.metrics.completed_steps == int(cfg.finetune.max_train_steps)
+          and all(math.isfinite(p["loss"]) for p in passes),
           f"the VLM trainer ran {trainer.metrics.completed_steps} steps")
     check(all(train_launches[k] >= len(passes) for k in ("gqa_fwd", "gqa_dq", "gqa_dkv")),
           f"#2-#4 did not launch on the training rows: {train_launches}")
@@ -3538,18 +3575,19 @@ DP_ROW_L = 2048  # (c)'s two rows: phase 6's training length halved
 WORLD_TIMEOUT = 420.0
 
 
-def world_row(seg: np.ndarray, seed: int) -> TrainerBatch:
+def world_row(seg: np.ndarray, seed: int, signed: bool = True) -> TrainerBatch:
     """A packed row over the segment ids ``seg`` (contiguous runs): token
     ids within the fixture tokenizer's 540, the first 16 tokens of each
-    segment its prompt, advantages and rewards +-1 by segment, old logprobs
-    -1."""
+    segment its prompt, advantages and rewards +-1 by segment (``signed``)
+    or +1 throughout, old logprobs -1."""
     rng = np.random.default_rng(seed)
     L = seg.shape[0]
     ids = rng.integers(1, 540, (1, L)).astype(np.int32)
     starts = np.r_[0, np.flatnonzero(np.diff(seg)) + 1]
     lengths = np.diff(np.r_[starts, L])
     pos = (np.arange(L) - np.repeat(starts, lengths))[None].astype(np.int32)
-    adv = np.repeat(rng.choice([-1.0, 1.0], len(lengths)), lengths)[None].astype(np.float32)
+    signs = rng.choice([-1.0, 1.0], len(lengths)) if signed else np.ones(len(lengths))
+    adv = np.repeat(signs, lengths)[None].astype(np.float32)
     ones = np.ones((1, L), np.float32)
     return TrainerBatch(
         input_ids=ids, labels=np.where(pos < 16, -100, ids).astype(np.int32), position_ids=pos,
@@ -3880,8 +3918,8 @@ def trainer_world_main(world: int) -> None:
 def start_world_launch(hf_dir: Path, tmp: str) -> tuple[subprocess.Popen, float]:
     """Phase 27 (d)'s run: the ``test`` preset through ``launch`` in
     processes mode as an engine job and a trainer world of two ranks (dp 2)
-    on this card. It goes beside phase 25's two toy runs, which leave the
-    card and most cores idle, and ``phase_world_launch`` reads it."""
+    on this card. It goes beside phases 18-23, which leave most cores
+    idle, and ``phase_world_launch`` reads it."""
     exp = f"{tmp}/world_launch"
     cmd = [sys.executable, "-m", "pipelinerl_tpu_torch.launch", "--config-name=test", f"model_path={hf_dir}",
            f"output_dir={exp}", "launch_mode=processes", "world.trainer_procs=2", "parallel.dp=2",
@@ -3961,6 +3999,475 @@ def time_cp_rows(dev, kernels: list[dict], seg: np.ndarray, cp: int = 2) -> None
         torch.cuda.empty_cache()
 
 
+# -- phase 28: tensor parallelism on one card ---------------------------------
+#
+# (a)-(c) run in two gloo rank processes on the one card (NCCL refuses two
+# ranks on one GPU), beside the one-rank references in this process, as
+# phase 27's do. Greedy tokens: a rank's GEMMs run at half the widths (other
+# cuBLAS tiles and split-K), kernel #2 splits its work by B·K, so sums run
+# in another order and a bf16 rounding can fall the other way; an argmax
+# between two tokens that close can flip. Where the tp engine's tokens
+# leave the one-rank engine's, the one-rank model must rate its own token
+# above the tp engine's by at most TP_TIE_NATS (a near-tie, not a wrong
+# token), and the logprobs of the tokens both produced agree within the
+# teacher-forcing limits of phase 7.
+TP_RANKS = 2
+TP_HEADS = (QWEN05B.num_heads // TP_RANKS, QWEN05B.num_kv_heads // TP_RANKS, 64)  # (7, 1, 64)
+TP_SLOTS, TP_MAX_LEN, TP_WINDOW, TP_BT = 64, 2048, 16, 128
+TP_BUCKETS = (128, 256, 512)
+TP_NEW = 16  # new tokens of each request: one window
+# about three times the largest margin read on the card (0.0366 nats, my
+# chip runs of phase 28); a random model's next-token distribution is
+# nearly flat
+TP_TIE_NATS = 0.1
+TP_ROW_L = 12288  # (c)'s row: the math preset's seq_length, so the logits go by chunks
+# (c)'s limits where phase 27's are too tight for tp: cp and dp change no
+# product, tp changes the widths of every GEMM (above), so every activation
+# can move by a bf16 step. About three times the readings on an H100 (loss
+# 2.42e-5 and 3.96e-5 relative on (c)'s rows of +1 advantages, whose loss
+# near 0.089 has no terms that cancel; worst first moment 2.8e-2 to 3.5e-2;
+# flips 2.4e-2 to 2.7e-2; phase 28 on an NVIDIA H100 80GB HBM3 at 700 W); a
+# wrong tp gradient reads O(1)
+TP_LOSS_RTOL = 1.25e-4
+TP_MOMENT_RTOL = 0.1
+TP_FLIP_FRAC = 8e-2
+TP_TIMEOUT = 600.0
+TP_PUSH_SCALE = 0.5  # exact in bf16: the pushed weights are known bit for bit
+
+
+def tp_args(hf_dir, out: str, tp: int) -> list[str]:
+    """The math preset's overrides for phase 28: the HF directory, no
+    saves, (c)'s step at ``WORLD_LR`` with no warmup, ``parallel.tp``."""
+    return [f"model_path={hf_dir}", f"output_dir={out}", "finetune.save_checkpoint_steps=0",
+            f"finetune.learning_rate={WORLD_LR}", "finetune.num_warmup_steps=0", f"parallel.tp={tp}"]
+
+
+def tp_engine_cfg(layout: str) -> EngineConfig:
+    """Phase 28's engine: 64 slots of max_len 2,048, window 16, the kernels;
+    the paged layout in 128-token pages."""
+    return EngineConfig(max_slots=TP_SLOTS, max_len=TP_MAX_LEN, prefill_buckets=TP_BUCKETS, decode_window=TP_WINDOW,
+                        attn_impl="gqa", decode_attn_impl="ragged", kv_layout=layout, kv_block_size=TP_BT)
+
+
+def tp_workload(seed: int) -> dict:
+    """16 greedy prompts of 64-400 fixture-tokenizer ids and a GRPO group of
+    8 identical ones (forks); 8 sampled prompts."""
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(1, 540, int(n)).tolist() for n in rng.integers(64, 401, 16)]
+    group = rng.integers(1, 540, 300).tolist()
+    return {"greedy": prompts + [group] * 8, "sampled": [rng.integers(1, 540, 128).tolist() for _ in range(8)]}
+
+
+def tp_serve(engine: InferenceEngine, w: dict) -> dict:
+    """The greedy and sampled batches through a started engine, each timed;
+    → their tokens and logprobs."""
+    out = {}
+    for key, params in (("greedy", SamplingParams(temperature=0.0, max_tokens=TP_NEW)),
+                        ("sampled", SamplingParams(temperature=1.0, top_p=0.95, max_tokens=TP_NEW))):
+        t0 = time.monotonic()
+        res = [f.result(timeout=300) for f in [engine.submit(GenRequest(list(p), params)) for p in w[key]]]
+        out[key] = [{"tokens": r.token_ids, "logprobs": r.logprobs, "finish": r.finish_reason} for r in res]
+        out[f"{key}_s"] = time.monotonic() - t0
+    return out
+
+
+def tp_push(engine: InferenceEngine, params: dict, w: dict, model_cfg) -> dict:
+    """A 988 MB PWT3 body of TP_PUSH_SCALE times the weights pushed into
+    rank 0 while 8 sampled requests decode: the seconds to the swap, the
+    window gaps, the versions the requests saw, and each rank's checksums
+    against its slice of the pushed tree."""
+    from pipelinerl_tpu_torch.models.transformer import replicate_kv
+    from pipelinerl_tpu_torch.parallel.sharding import tp_local
+
+    pushed = scaled({k: v for k, v in params.items() if k != "value_head"}, TP_PUSH_SCALE)
+    body = bytes(serialize_params(pushed, 1))
+    live = [engine.submit(GenRequest(list(p), SamplingParams(temperature=1.0, max_tokens=2 * TP_NEW)))
+            for p in w["sampled"]]
+    time.sleep(0.5)  # the requests are decoding
+    t0 = time.monotonic()
+    engine.update_params_serialized(body)
+    deadline = t0 + 120
+    while engine.version != 1 and time.monotonic() < deadline:
+        time.sleep(0.005)
+    swap_s = time.monotonic() - t0
+    timings = dict(engine.last_push_timings)
+    done = [f.result(timeout=300) for f in live]
+    sums = engine.rank_checksums()
+    kv = replicate_kv(model_cfg, TP_RANKS)
+    want = [param_checksums(tp_local(pushed, r, TP_RANKS, kv)) for r in range(TP_RANKS)]
+    return {"version": engine.version, "swap_s": swap_s, "bytes": len(body), "timings": timings,
+            "checksums_equal": [s == x for s, x in zip(sums, want)], "live_tokens": sum(len(r.token_ids) for r in done),
+            "live_versions": sorted({(r.model_version_start, r.model_version_end) for r in done})}
+
+
+def tp_collective_ms(dev) -> dict:
+    """Wall ms of one decode step's collectives on this world (host clock,
+    synchronized, mean of 20): the all-reduce after ``wo``/``wdown`` ([64,
+    896] bf16) and the logits' all-gather ([64, 75,968] fp32 a rank)."""
+    from pipelinerl_tpu_torch.parallel import collectives
+
+    group = torch.distributed.group.WORLD
+    cases = {"all_reduce_64x896_bf16": (lambda x: collectives.reduce_(x, group),
+                                        torch.ones(TP_SLOTS, QWEN05B.hidden_size, dtype=torch.bfloat16, device=dev)),
+             "all_gather_64x75968_fp32": (lambda x: collectives.gather(x, 1, group),
+                                          torch.ones(TP_SLOTS, QWEN05B.vocab_size // TP_RANKS, device=dev))}
+    out = {}
+    for name, (fn, x) in cases.items():
+        fn(x)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(20):
+            fn(x)
+        torch.cuda.synchronize()
+        out[name] = (time.monotonic() - t0) / 20 * 1e3
+    return out
+
+
+def tp_rank_main(rank: int, world: int, coordinator: str, work: str, hf_dir: str) -> None:
+    """One rank of phase 28 (a)-(c): join the gloo world on the one card
+    while the parent runs the one-rank references; then the tp engine on
+    the slab layout (rank 0 drives it: greedy and sampled batches, a push
+    while decoding), on the paged layout (rank 0 keeps every fourth
+    window's table for (e)), and one trainer pass and AdamW step at
+    ``parallel.tp`` 2. Writes ``<work>/rank<rank>.json``."""
+    from pipelinerl_tpu_torch.inference.tp_ranks import join_engine_world
+    from pipelinerl_tpu_torch.parallel.multihost import leave_world, maybe_initialize_distributed
+
+    t0, marks = time.monotonic(), {}
+    host, port = coordinator.rsplit(":", 1)
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), MASTER_ADDR=host, MASTER_PORT=port)
+    _, dev = maybe_initialize_distributed(None, "cuda")
+    out = {"rank": rank, "backend": torch.distributed.get_backend()}
+    w = torch.load(f"{work}/tp_work.pt", weights_only=False)
+    wait_for(Path(work) / "refs.timed", "the one-rank references' runs")
+    marks["refs_timed"] = time.monotonic() - t0
+    out["collectives_ms"] = tp_collective_ms(dev)
+    params, model_cfg, tok = launch.build_model(compose("math", tp_args(hf_dir, work, 1)), dev)
+    for layout in ("slab", "paged"):
+        ew = join_engine_world(rank, world, "", dev)
+        snapshots, window_fn = [], engine_mod._decode_window_paged_fn
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        engine = InferenceEngine(launch.engine_params(params), model_cfg, tp_engine_cfg(layout), tok.eos_token_id,
+                                 device=dev, tp_world=ew)
+        res = {"cache_heads": (engine.k_pool if engine.paged else engine.k_cache).shape[-2]}
+        if rank == 0:
+            if layout == "paged":
+                def spy(*args, **kw):
+                    if engine.windows_dispatched % 4 == 1:
+                        snapshots.append((args[6].cpu(), args[8].cpu(), args[10].cpu()))
+                    return window_fn(*args, **kw)
+
+                engine_mod._decode_window_paged_fn = spy
+            engine.start()
+            try:
+                res.update(tp_serve(engine, w))
+                if layout == "slab":
+                    res["push"] = tp_push(engine, params, w, model_cfg)
+            finally:
+                engine_mod._decode_window_paged_fn = window_fn
+                engine.stop()
+            if snapshots:
+                torch.save(snapshots, f"{work}/tp_snapshots.pt")
+        else:
+            engine.serve_tp_worker()
+        torch.cuda.synchronize()
+        res.update(launches=counts(), digest=engine.window_digest, version=engine.version,
+                   peak=torch.cuda.max_memory_allocated())
+        out[layout] = res
+        marks[layout] = time.monotonic() - t0
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    exp = f"{work}/train_{rank}"
+    trainer = TrainerLoop(compose("math", tp_args(hf_dir, exp, world)), params, model_cfg, exp)
+    del params
+    reset_counts()
+    res = world_step(trainer, [w["row"]])
+    res.update(launches=counts(), shard=list(trainer.params["layers"]["wq"].shape), mesh=list(trainer.mesh.shape),
+               chunk=trainer.logits_chunk)
+    marks["stepped"] = time.monotonic() - t0
+    full, moments = step_state(trainer)
+    if rank == 0:
+        wait_for(Path(work) / "refs.done", "the one-rank references' files")
+        ref = torch.load(f"{work}/ref_tp.pt", map_location=dev, weights_only=False)
+        res.update(world_vs_ref(full, moments, ref, res["lr"]))
+        del ref
+    out["train"] = res
+    del trainer, full, moments
+    leave_world()
+    out["marks"] = {k: round(v, 2) for k, v in marks.items()}
+    Path(f"{work}/rank{rank}.json").write_text(json.dumps(out))
+
+
+def start_tp_ranks(work: Path, hf_dir: Path, world: int = TP_RANKS) -> list[subprocess.Popen]:
+    """``world`` rank processes of ``tp_rank_main`` on this card."""
+    coordinator = f"127.0.0.1:{free_port()}"
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in (str(root), os.environ.get("PYTHONPATH")) if p))
+    procs = []
+    for r in range(world):
+        with open(work / f"rank{r}.log", "w") as f:
+            procs.append(subprocess.Popen([sys.executable, str(root / "chip_smoke.py"), "--tp-rank", str(r), str(world),
+                                           coordinator, str(work), str(hf_dir)],
+                                          stdout=f, stderr=subprocess.STDOUT, env=env, cwd=root,
+                                          start_new_session=True))
+    return procs
+
+
+def tp_compare(label: str, got: list[dict], ref: list[dict], prompts: list, ref_engine: InferenceEngine) -> dict:
+    """The tp engine's greedy results against the one-rank engine's: how
+    many are equal, the logprobs of the tokens both produced, and at each
+    first divergence the one-rank model's margin for its own token over the
+    tp engine's (teacher forcing through ``score_tokens``)."""
+    equal, diffs, margins, agreed = 0, [], [], []
+    for g, r, prompt in zip(got, ref, prompts):
+        n = next((i for i, (a, b) in enumerate(zip(g["tokens"], r["tokens"])) if a != b),
+                 min(len(g["tokens"]), len(r["tokens"])))
+        agreed.append(n / max(1, len(r["tokens"])))
+        diffs += [abs(a - b) for a, b in zip(g["logprobs"][:n], r["logprobs"][:n])]
+        if g["tokens"] == r["tokens"]:
+            equal += 1
+        elif n < min(len(g["tokens"]), len(r["tokens"])):
+            tf = ref_engine.score_tokens(list(prompt) + g["tokens"][: n + 1])[-1]
+            margins.append(r["logprobs"][n] - tf)
+    errs = np.asarray(diffs or [0.0])
+    out = {"equal": equal, "n": len(got), "agreed_mean": float(np.mean(agreed)), "lp_mean": float(errs.mean()),
+           "lp_max": float(errs.max()), "margins": [round(m, 4) for m in margins]}
+    log(f"tp engine (a)/(b) {label}: {equal} of {len(got)} greedy requests equal to the one-rank engine's, "
+        f"{out['agreed_mean']:.3f} of the tokens before the first divergence on average; logprobs of the tokens "
+        f"both produced: mean abs diff {out['lp_mean']:.4f} (tolerance {TF_MEAN_ATOL}), max {out['lp_max']:.4f} "
+        f"(tolerance {TF_MAX_ATOL}); the one-rank model's margin for its own token at each divergence "
+        f"{out['margins']} nats (at most {TP_TIE_NATS})")
+    check(out["lp_mean"] <= TF_MEAN_ATOL and out["lp_max"] <= TF_MAX_ATOL, f"tp {label}: logprobs off: {out}")
+    check(all(m <= TP_TIE_NATS for m in margins), f"tp {label}: a divergence that is no near-tie: {out['margins']}")
+    return out
+
+
+def phase_tp(hf_dir: Path, smi: str, tmp: str, seg: np.ndarray, padding: int) -> tuple[dict, dict]:
+    """Phase 28 (a)-(c): the tp engine (slab, then paged) and one trainer
+    step at tp 2, two gloo ranks on this card, each held against one rank
+    in this process. → (the ranks' kernel launches, (e)'s inputs)."""
+    dev = torch.device("cuda")
+    work = Path(tmp) / "tp"
+    work.mkdir()
+    w = tp_workload(28)
+    # +1 advantages throughout: with +-1 by segment the loss is a difference
+    # of two near-equal sums (it read -0.0049 and -0.00018 on two of phase
+    # 18's rows), and its relative gap measured that, not tp
+    torch.save({**w, "row": world_row(seg, 28, signed=False)}, work / "tp_work.pt")
+    t0 = time.monotonic()
+    procs = start_tp_ranks(work, hf_dir)
+    try:
+        params, model_cfg, tok = launch.build_model(compose("math", tp_args(hf_dir, tmp, 1)), dev)
+        refs, engines = {}, {}
+        for layout in ("slab", "paged"):
+            engine = InferenceEngine(launch.engine_params(params), model_cfg, tp_engine_cfg(layout), tok.eos_token_id,
+                                     device=dev)
+            engine.start()
+            refs[layout] = tp_serve(engine, w)
+            engine.stop()
+            engines[layout] = engine
+        exp = f"{work}/ref_train"
+        trainer = TrainerLoop(compose("math", tp_args(hf_dir, exp, 1)), detached_copy(params), model_cfg, exp)
+        reset_counts()
+        refs["train"] = world_step(trainer, [torch.load(work / "tp_work.pt", weights_only=False)["row"]])
+        refs["train"]["launches"] = counts()
+        new, moments = step_state(trainer)
+        moved = sum(int((new[k] != p0).sum()) for k, p0 in param_leaves(params)) / sum(
+            p0.numel() for _, p0 in param_leaves(params))
+        state = {"params": {k: v.cpu() for k, v in new.items()}, "moments": {k: v.cpu() for k, v in moments.items()}}
+        del trainer, new, moments, engines["paged"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        refs_s = time.monotonic() - t0
+        (work / "refs.timed").touch()
+        torch.save(state, work / "ref_tp.pt")
+        del state
+        (work / "refs.done").touch()
+    except BaseException:
+        for p in procs:
+            stop_group(p, 10)
+        raise
+    ranks = wait_world_ranks(procs, work, t0 + TP_TIMEOUT)
+    wall = time.monotonic() - t0
+    r0 = ranks[0]
+    log(f"tp world: backend {r0['backend']}, {TP_RANKS} ranks on {smi}; world wall {wall:.1f} s (the one-rank "
+        f"references {refs_s:.1f} s beside the ranks' start; rank 0's marks {r0['marks']} s); a decode step's "
+        f"collectives on rank 0, ms each (host clock): "
+        f"{ {k: round(v, 3) for k, v in r0['collectives_ms'].items()} }")
+    for layout in ("slab", "paged"):
+        res = [r[layout] for r in ranks]
+        log(f"tp engine ({'a' if layout == 'slab' else 'b'}) {layout}: greedy {res[0]['greedy_s']:.2f} s, sampled "
+            f"{res[0]['sampled_s']:.2f} s (one rank: {refs[layout]['greedy_s']:.2f} s, {refs[layout]['sampled_s']:.2f} "
+            f"s); cache heads {[r['cache_heads'] for r in res]}; peak {[round(r['peak'] / 2**30, 2) for r in res]} GiB; "
+            f"launches {[r['launches'] for r in res]}; window digests {[r['digest'] for r in res]}")
+        check(res[0]["digest"] == res[1]["digest"] != 0, f"tp {layout}: the ranks read back other windows")
+        check(all(r["cache_heads"] == TP_HEADS[1] for r in res), f"tp {layout}: cache heads {res}")
+        key = "decode" if layout == "slab" else "paged"
+        check(all(r["launches"][key] > 0 and r["launches"]["gqa_fwd"] > 0 for r in res),
+              f"tp {layout}: launches {[r['launches'] for r in res]}")
+        tp_compare(layout, res[0]["greedy"], refs[layout]["greedy"], w["greedy"], engines["slab"])
+        for s in res[0]["sampled"]:
+            check(0 < len(s["tokens"]) <= TP_NEW and all(math.isfinite(x) and x <= 0 for x in s["logprobs"]),
+                  f"tp {layout}: a sampled result {s['finish']}, {len(s['tokens'])} tokens")
+    push = r0["slab"]["push"]
+    t = push["timings"]
+    log(f"tp engine (a) push: {push['bytes'] / 1e6:.1f} MB PWT3 body into rank 0 while 8 requests decode, swapped on "
+        f"both ranks {push['swap_s']:.3f} s after the call ({t.get('mode')}, staged {t.get('transfer_s', 0):.3f} s, "
+        f"publish to swap {t.get('publish_to_swap_s', 0):.3f} s); {t.get('windows_during')} windows read back during "
+        f"it, largest gap {t.get('max_window_gap_s', 0):.3f} s against the steady {t.get('steady_window_gap_s')} s; "
+        f"the live requests' (start, end) versions {push['live_versions']}; each rank's checksums equal its slice of "
+        f"the pushed tree: {push['checksums_equal']}; ranks' versions {[r['slab']['version'] for r in ranks]}")
+    check(all(r["slab"]["version"] == 1 for r in ranks) and push["version"] == 1, f"tp push: versions {push}")
+    check(all(push["checksums_equal"]) and len(push["checksums_equal"]) == TP_RANKS, f"tp push checksums {push}")
+    # a window takes seconds here (two ranks' gloo traffic on one card), so
+    # the push lands between two windows of requests that go on decoding
+    check(push["live_versions"] == [[0, 1]], f"tp push: the live requests did not decode through it: {push}")
+    engines["slab"] = None
+    ref, res = refs["train"], [r["train"] for r in ranks]
+    loss_err = abs(res[0]["loss"] - ref["loss"]) / max(abs(ref["loss"]), 1e-30)
+    norm_err = abs(res[0]["grad_norm"] - ref["grad_norm"]) / max(ref["grad_norm"], 1e-30)
+    log(f"tp trainer (c) tp {TP_RANKS}, the math preset's L {seg.shape[0]} row ({int(seg.max()) + 1} segments, logits "
+        f"chunk {res[0]['chunk']}) on {smi}: " + "; ".join(
+            f"rank {i} mesh {r['mesh']} wq shard {r['shard']}: pass {[round(s, 3) for s in r['pass_s']]} s, peak "
+            f"{[round(b / 2**30, 2) for b in r['peak']]} GiB, step {r['step_s']:.3f} s, launches {r['launches']}"
+            for i, r in enumerate(res))
+        + f"; one rank: pass {[round(s, 3) for s in ref['pass_s']]} s, peak {[round(b / 2**30, 2) for b in ref['peak']]}"
+        f" GiB; loss {res[0]['loss']:.6f} vs {ref['loss']:.6f} (relative {loss_err:.2e}, tolerance {TP_LOSS_RTOL}), "
+        f"grad norm {res[0]['grad_norm']:.6f} vs {ref['grad_norm']:.6f} (relative {norm_err:.2e}, tolerance "
+        f"{WORLD_NORM_RTOL}), worst first moment {res[0]['moment_leaf']} off by {res[0]['moment_rel']:.3e} (tolerance "
+        f"{TP_MOMENT_RTOL}); the reference moved {moved:.4f} of its elements (at least {WORLD_MOVED_FRAC}), "
+        f"{res[0]['flip_frac']:.3e} more than one bf16 step of |ref| + lr off (at most {TP_FLIP_FRAC}), max abs "
+        f"difference {res[0]['param_max_abs']:.3e}")
+    check(all(math.isfinite(r["loss"]) for r in res) and loss_err <= TP_LOSS_RTOL, f"tp (c) loss {res[0]['loss']}")
+    check(norm_err <= WORLD_NORM_RTOL, f"tp (c) grad norm {res[0]['grad_norm']} vs {ref['grad_norm']}")
+    check(res[0]["moment_rel"] <= TP_MOMENT_RTOL, f"tp (c) first moment of {res[0]['moment_leaf']} off")
+    check(moved >= WORLD_MOVED_FRAC, f"tp (c): the reference step moved {moved} of the params")
+    check(res[0]["flip_frac"] <= TP_FLIP_FRAC, f"tp (c): {res[0]['flip_frac']} of the updated params off")
+    n_layers = QWEN05B.num_layers
+    want = {"gqa_fwd": 2 * n_layers, "gqa_dq": n_layers, "gqa_dkv": n_layers}
+    check(all(r["launches"][k] == n for r in res for k, n in want.items()), f"tp (c) launches {res}")
+    launches = {k: sum(r[part]["launches"][k] for r in ranks for part in ("slab", "paged", "train"))
+                for k in KERNEL_KEYS + ("paged",)}
+    snapshots = torch.load(work / "tp_snapshots.pt", weights_only=False)
+    return launches, {"snapshots": snapshots, "segment_ids": seg, "padding": padding}
+
+
+def start_after(first: tuple[subprocess.Popen, float],
+                start: Callable[[], tuple[subprocess.Popen, float]]) -> Callable[..., tuple | None]:
+    """Call ``start`` on a thread once ``first``'s process has ended. → a
+    function that waits for that call and returns its run; given
+    ``cancel=True`` it keeps the call from being made, or stops its run."""
+    runs: list = []
+    cancelled = threading.Event()
+
+    def chain() -> None:
+        while first[0].poll() is None and not cancelled.is_set():
+            time.sleep(0.5)
+        if not cancelled.is_set():
+            runs.append(start())
+
+    thread = threading.Thread(target=chain, daemon=True)
+    thread.start()
+
+    def started(cancel: bool = False) -> tuple | None:
+        if cancel:
+            cancelled.set()
+        thread.join()
+        if cancel:
+            for proc, _ in runs:
+                stop_group(proc)
+        return runs[0] if runs else None
+
+    return started
+
+
+def start_tp_launch(hf_dir: Path, tmp: str) -> tuple[subprocess.Popen, float]:
+    """Phase 28 (d)'s run: the ``test`` preset through ``launch`` with
+    ``engine.tp=2 parallel.tp=2`` (two engine ranks, two trainer ranks on
+    this card), 2 steps, beside a phase that leaves the card idle."""
+    exp = f"{tmp}/tp_launch"
+    cmd = [sys.executable, "-m", "pipelinerl_tpu_torch.launch", "--config-name=test", f"model_path={hf_dir}",
+           f"output_dir={exp}", "engine.tp=2", "parallel.tp=2", "finetune.max_train_steps=2",
+           "finetune.save_checkpoint_steps=0", "llm.parameters.max_tokens=32", "finetune.rl.entropy_bonus=0.001",
+           "engine.attn_impl=gqa", "finetune.attn_impl=gqa", f"world.engine_start_port={free_port()}",
+           f"world.coordinator_port={free_port()}", f"world.engine_tp_port={free_port()}"]
+    return start_launch(cmd, exp)
+
+
+def phase_tp_launch(smi: str, tmp: str, run: tuple[subprocess.Popen, float]) -> dict:
+    """Phase 28 (d): ``start_tp_launch``'s run; both trainer ranks step, the
+    two engine ranks end on the trainer's last version with the same window
+    digest, every push from trainer rank 0 lands. → the jobs' launches."""
+    exp = f"{tmp}/tp_launch"
+    returncode, stdout, stderr, wall, left = finish_launch(run, exp, exp, 400)
+    check(returncode == 0, f"(d) the tp run through launch exited {returncode}: {stderr[-3000:]}")
+    check(not left, f"(d) children outlived the launcher: {left}")
+    jobs = json.loads(stdout.strip().splitlines()[-1])["jobs"]
+    engine, follower = jobs["engine_0"], jobs["engine_rank_0"]
+    ranks = [jobs["trainer_0"], jobs["trainer_1"]]
+    trainer = ranks[0]["trainer"]
+    log(f"tp (d) through launch (test preset, engine.tp=2 parallel.tp=2: 2 engine ranks, 2 trainer ranks): {wall:.1f} "
+        f"s wall, trainer ranks {[(r['rank'], r['trainer']['completed_steps'], r['trainer']['samples']) for r in ranks]}"
+        f" (rank, steps, samples), {len(ranks[0]['pushes'])} pushes, engine versions {engine['version']} / "
+        f"{follower['version']} (pushes {engine['push']['pushes_completed']}/{engine['push']['pushes_received']}), "
+        f"window digests {engine['window_digest']} / {follower['window_digest']}, launches "
+        f"{[j['kernel_launches'] for j in (engine, follower, *ranks)]}; on {smi}")
+    check(all(r["trainer"]["completed_steps"] == 2 and r["world"] == 2 for r in ranks), f"(d) ranks {ranks}")
+    check(engine["version"] == follower["version"] == trainer["last_broadcasted_version"] == trainer["samples"] > 0,
+          f"(d) engine versions {engine['version']}, {follower['version']}, trainer {trainer}")
+    check(engine["window_digest"] == follower["window_digest"] != 0, "(d) the engine ranks read back other windows")
+    check(engine["push"]["pushes_completed"] == len(ranks[0]["pushes"]) > 0, f"(d) pushes {engine['push']}")
+    jobs_launches = [j["kernel_launches"] for j in (engine, follower, *ranks)]
+    check(all(j["decode"] for j in jobs_launches[:2]) and all(j["gqa_dkv"] for j in jobs_launches[2:]),
+          f"(d) launches {jobs_launches}")
+    return {k: sum(j[k] for j in jobs_launches) for k in jobs_launches[0]}
+
+
+def time_tp_shapes(dev, kernels: list[dict], shapes: dict) -> None:
+    """(e): kernel #1 at the tp engine's slab (S 64, K 1, G 7), #5 on the tp
+    paged engine's own tables, #2-#4 on (c)'s row at K 1, G 7, each against
+    its plain version, timed beside SDPA and its bound."""
+    time_slab(dev, kernels, "tp2_slab_shape", (TP_SLOTS, TP_WINDOW, TP_MAX_LEN + TP_WINDOW), (64, 464), 28,
+              heads=TP_HEADS)
+    record: dict = {"max_abs_err": 0.0}
+    time_paged_working_set(dev, [tuple(t.to(dev) for t in s) for s in shapes["snapshots"]], record,
+                           heads=TP_HEADS, pool=TP_SLOTS * -(-(TP_MAX_LEN + TP_WINDOW) // TP_BT), bt=TP_BT,
+                           window=TP_WINDOW, slots=TP_SLOTS)
+    kernels[4]["max_abs_err"] = max(kernels[4]["max_abs_err"], record.pop("max_abs_err"))
+    kernels[4]["tp2_paged_tables"] = record
+    time_train_row(dev, kernels, "tp2_math_row_shape", shapes["segment_ids"], shapes["padding"], 28, heads=TP_HEADS)
+
+
+def tp_main() -> None:
+    """``python3 chip_smoke.py --tp-world``: phases 1-2, then phase 28
+    (a)-(e) alone from an ``export_hf`` directory of random Qwen2.5-0.5B
+    weights, on a math-width row of 28 segments from seed 28."""
+    info = phase_device()
+    dev = torch.device("cuda")
+    phase_build()
+    kernels = [{"max_abs_err": 0.0} for _ in range(5)]
+    with tempfile.TemporaryDirectory() as tmp:
+        params = init_params(torch.Generator(device=dev).manual_seed(0), QWEN05B_TIED, dev)
+        hf_dir = export_hf(f"{tmp}/hf_in", params, QWEN05B_TIED, HFTokenizer(FIXTURE_TOKENIZER))
+        del params
+        torch.cuda.empty_cache()
+        rng = np.random.default_rng(28)
+        seg = np.repeat(np.arange(28), rng.multinomial(TP_ROW_L - 63 - 28 * 128, np.ones(28) / 28) + 128)
+        seg = np.concatenate([seg, np.full(63, 28)])
+        t0 = time.monotonic()
+        launches, shapes = phase_tp(hf_dir, info["smi"], tmp, seg, 63)
+        log(f"phase wall: tp (a)-(c) {time.monotonic() - t0:.1f} s")
+        t1 = time.monotonic()
+        launches_d = phase_tp_launch(info["smi"], tmp, start_tp_launch(hf_dir, tmp))
+        log(f"phase wall: tp (d) {time.monotonic() - t1:.1f} s")
+        t2 = time.monotonic()
+        time_tp_shapes(dev, kernels, shapes)
+        log(f"phase wall: tp (e) {time.monotonic() - t2:.1f} s; launches {launches}, (d) {launches_d}")
+    log(json.dumps({"kernels": kernels}))
+
+
 def main() -> None:
     marks = [time.monotonic()]
 
@@ -4022,50 +4529,83 @@ def main() -> None:
                     stop_group(proc)
         lap("processes mode")
         hf_dir = Path(f"{tmp}/hf/hf_in") / CURRENT_DIR  # where phase 14's export_hf wrote
-        paths["math"], math_shapes = phase_math(hf_dir, info["smi"], tmp)
+        # phases 27 (d) and then 28 (d) go beside phases 18-23, whose single
+        # process leaves most cores idle and holds at most about 26 GiB of the
+        # card beside their 33; the kernel rows wait until they have ended
+        world_launch = start_world_launch(hf_dir, tmp)
+        tp_launch = start_after(world_launch, lambda: start_tp_launch(hf_dir, tmp))
+        try:
+            paths["math"], math_shapes = phase_math(hf_dir, info["smi"], tmp)
+            lap("math")
+            gc.collect()
+            torch.cuda.empty_cache()
+            paths["multi_domain"] = phase_multi_domain(hf_dir, info["smi"], tmp)
+            lap("multi_domain")
+            torch.cuda.empty_cache()
+            paths.update(phase_short_domains(hf_dir, info["smi"], tmp))
+            lap("logic, ifeval, fn_calling")
+            gc.collect()
+            torch.cuda.empty_cache()
+            paths["tir"], tir_shapes = phase_tir(hf_dir, info["smi"], tmp)
+            lap("tir")
+            gc.collect()
+            torch.cuda.empty_cache()
+            paths.update(phase_coding_miniwob(hf_dir, info["smi"], tmp))
+            paths["deep_research"] = phase_deep_research(hf_dir, info["smi"], tmp)
+            lap("coding, miniwob, deep_research")
+            paths["trainer_world_launch"] = phase_world_launch(info["smi"], tmp, world_launch)
+            paths["tp_launch"] = phase_tp_launch(info["smi"], tmp, tp_launch())
+        except BaseException:
+            if world_launch[0].poll() is None:
+                stop_group(world_launch[0])
+            tp_launch(cancel=True)
+            raise
+        lap("trainer world (d) and tp (d), the rest of their wall beside phases 18-23")
+        gc.collect()
         torch.cuda.empty_cache()
         time_math_shapes(dev, kernels, math_shapes)
-        lap("math")
-        paths["multi_domain"] = phase_multi_domain(hf_dir, info["smi"], tmp)
-        lap("multi_domain")
-        torch.cuda.empty_cache()
-        paths.update(phase_short_domains(hf_dir, info["smi"], tmp))
-        lap("logic, ifeval, fn_calling")
-        gc.collect()
-        torch.cuda.empty_cache()
-        paths["tir"], tir_shapes = phase_tir(hf_dir, info["smi"], tmp)
-        gc.collect()
-        torch.cuda.empty_cache()
         time_tir_shapes(dev, kernels, tir_shapes)
-        lap("tir")
-        paths.update(phase_coding_miniwob(hf_dir, info["smi"], tmp))
-        paths["deep_research"] = phase_deep_research(hf_dir, info["smi"], tmp)
-        lap("coding, miniwob, deep_research")
+        lap("math and tir kernel rows")
         torch.cuda.empty_cache()
         paths["logic_processes"] = phase_logic_processes(hf_dir, info["smi"], tmp)
         lap("logic in processes mode")
         gc.collect()
         torch.cuda.empty_cache()
-        world_launch = start_world_launch(hf_dir, tmp)
+        # phase 25's two toy runs go beside phases 26 and 27, which leave most
+        # cores idle; the kernel rows wait until they have ended
+        vlm_bandit = start_vlm_bandit(tmp)
         try:
-            paths["vlm_bandit"] = phase_vlm_bandit(tmp)
+            paths["vlm_slab"], paths["vlm_paged"] = phase_vlm_paged(dev)
+            lap("toy VLM slab and paged")
+            gc.collect()
+            torch.cuda.empty_cache()
+            free, total = torch.cuda.mem_get_info()
+            log(f"device memory free before phase 26: {free / 2**30:.2f} of {total / 2**30:.2f} GiB")
+            paths["vlm_3b"], vlm_shapes = phase_vlm_3b(dev, info["smi"], tmp)
+            lap("Qwen2.5-VL-3B")
+            gc.collect()
+            torch.cuda.empty_cache()
+            paths["trainer_world"] = phase_trainer_world(hf_dir, info["smi"], tmp, tir_shapes["segment_ids"])
+            lap("trainer world")
         except BaseException:
-            stop_group(world_launch[0])
+            for proc in vlm_bandit[0]:
+                if proc.poll() is None:
+                    stop_group(proc)
             raise
-        paths["trainer_world_launch"] = phase_world_launch(info["smi"], tmp, world_launch)
-        paths["vlm_slab"], paths["vlm_paged"] = phase_vlm_paged(dev)
-        lap("vlm_bandit, toy VLM slab and paged")
+        paths["vlm_bandit"] = phase_vlm_bandit(tmp, vlm_bandit)
+        lap("vlm_bandit, the rest of its wall beside phases 26-27")
         gc.collect()
         torch.cuda.empty_cache()
-        paths["vlm_3b"], vlm_shapes = phase_vlm_3b(dev, info["smi"], tmp)
         time_vlm_shapes(dev, kernels, vlm_shapes)
-        lap("Qwen2.5-VL-3B")
-        gc.collect()
-        torch.cuda.empty_cache()
-        paths["trainer_world"] = phase_trainer_world(hf_dir, info["smi"], tmp, tir_shapes["segment_ids"])
         torch.cuda.empty_cache()
         time_cp_rows(dev, kernels, tir_shapes["segment_ids"])
-        lap("trainer world")
+        lap("VLM and cp kernel rows")
+        gc.collect()
+        torch.cuda.empty_cache()
+        paths["tp"], tp_shapes = phase_tp(hf_dir, info["smi"], tmp, math_shapes["segment_ids"], math_shapes["padding"])
+        torch.cuda.empty_cache()
+        time_tp_shapes(dev, kernels, tp_shapes)
+        lap("tensor parallelism")
     for record, key in zip(kernels, ("decode", "gqa_fwd", "gqa_dq", "gqa_dkv", "paged")):
         record["launches_by_path"] = {path: c[key] for path, c in paths.items()}
         record["launches"] = sum(record["launches_by_path"].values())
@@ -4082,5 +4622,9 @@ if __name__ == "__main__":
         trainer_world_main(int(sys.argv[2]))
     elif sys.argv[1:2] == ["--world-rank"]:
         world_rank_main(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:7])
+    elif sys.argv[1:2] == ["--tp-world"]:
+        tp_main()
+    elif sys.argv[1:2] == ["--tp-rank"]:
+        tp_rank_main(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:7])
     else:
         main()

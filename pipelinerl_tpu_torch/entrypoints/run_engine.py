@@ -6,15 +6,27 @@ updated in flight by PWT3 pushes to ``/receive_weight_update``; with
 
 It serves until SIGTERM, then writes its version, counters and kernel
 launches to ``<output_dir>/<kind>/stats_<kind>_<replica>.json``.
+
+One rank of a tp engine (``+me.tp_rank``, ``+me.tp_size``,
+``+me.tp_coordinator``, which the launcher gives each ``engine`` and
+``engine_rank`` job at ``engine.tp`` above 1) joins the engine's world
+(``inference/tp_ranks.py``) and keeps its slice of the weights; rank 0
+serves HTTP and leads, the others follow its commands until it stops.
 """
 
 from __future__ import annotations
 
 import logging
 
+import signal
+
+import torch
+
 from ..inference.server import InferenceServer
+from ..inference.tp_ranks import join_engine_world
 from ..launch import build_engine, build_model, engine_params
 from ..ops import kernel_launches
+from ..parallel.multihost import leave_world
 from .common import exit_on_sigterm, load_stage_config, serve_until_terminated, stage_device, stage_setup, write_stats
 
 logger = logging.getLogger(__name__)
@@ -23,12 +35,30 @@ logger = logging.getLogger(__name__)
 def main(argv: list[str] | None = None) -> None:
     cfg = load_stage_config(argv)
     frozen = bool(cfg.select("me.frozen", False))
-    stage_setup(cfg, "ref_engine" if frozen else "engine")
+    stage_setup(cfg, str(cfg.select("me.kind", "ref_engine" if frozen else "engine")))
     device = stage_device(cfg)
-    exit_on_sigterm()
+    tp_size, tp_rank = int(cfg.select("me.tp_size", 1) or 1), int(cfg.select("me.tp_rank", 0) or 0)
+    if tp_rank > 0:
+        # a follower ends when rank 0 stops it (rank 0's SIGTERM does), so
+        # that rank 0's last commands still find it
+        signal.signal(signal.SIGTERM, signal.SIG_IGN)
+    else:
+        exit_on_sigterm()
+    world = None
+    if tp_size > 1:
+        world = join_engine_world(tp_rank, tp_size, str(cfg.select("me.tp_coordinator")), torch.device(device))
     params, model_cfg, tokenizer = build_model(cfg, device)
-    engine = build_engine(cfg, engine_params(params), model_cfg, tokenizer, device)
+    engine = build_engine(cfg, engine_params(params), model_cfg, tokenizer, device, tp_world=world)
     del params
+    if tp_rank > 0:
+        try:
+            engine.serve_tp_worker()
+        finally:
+            write_stats(cfg, {"tp_rank": tp_rank, "version": engine.version, "window_digest": engine.window_digest,
+                              "kernel_launches": kernel_launches()})
+        leave_world()
+        logger.info("Engine rank %d done at version %d", tp_rank, engine.version)
+        return
     engine.start()
     server = InferenceServer(engine, tokenizer, frozen=frozen)
     server.start(port=int(cfg.select("me.port", 8080)))
@@ -39,7 +69,10 @@ def main(argv: list[str] | None = None) -> None:
         engine.stop()
         write_stats(cfg, {"version": engine.version, "counters": engine.perf_counters(),
                           "push": engine.push_counters(), "last_push": engine.last_push_timings,
-                          "kernel_launches": kernel_launches()})
+                          "kernel_launches": kernel_launches(), "tp_rank": tp_rank, "tp_size": tp_size,
+                          "window_digest": engine.window_digest})
+        if world is not None:
+            leave_world()
     logger.info("Engine job done at version %d", engine.version)
 
 

@@ -62,6 +62,14 @@ layouts:
   on the device before the oldest is read back, and the device carries the
   last sampled token of each slot from one window to the next.
 
+- Tensor parallelism (``tp_world``, ``engine.tp`` rank processes,
+  ``tp_ranks.py``): each rank holds its slice of the weights and a cache of
+  its KV heads (``[L, S, T, K_local, Dh]``, or its page pool); rank 0
+  schedules and broadcasts each step's inputs, every rank runs the step,
+  and the logits are all-gathered over tp before the sampler, so every
+  rank samples the same tokens. Pushes land through the tree path on
+  every rank.
+
 The scheduling loop runs on its own thread (``start``) or is driven by
 calling ``step``; ``submit`` returns a ``concurrent.futures.Future`` and is
 thread-safe.
@@ -90,13 +98,27 @@ from ..models.transformer import (
     forward,
     forward_extend,
     lm_head_logits,
+    replicate_kv,
+    tp_kv_heads,
 )
+from ..parallel.collectives import TP, gather_vocab
 from ..models.vision import prepare_vision_inputs, vision_forward, vision_inputs_to
 from ..ops.paged_attention import gather_pages, paged_append, paged_decode_attention
 from ..ops.sampling import sample_fast, sample_masked
 from ..train.rl_loss import token_logprobs_from_logits
+from . import tp_ranks
 from .block_pool import BlockPool, PrefixCache
-from .weight_transfer import as_tensor, byte_view, entry_count, flatten_params, parse_push_header, torch_dtype, unflatten_params
+from .weight_transfer import (
+    as_tensor,
+    byte_view,
+    deserialize_params,
+    entry_count,
+    flatten_params,
+    parse_push_header,
+    serialize_params,
+    torch_dtype,
+    unflatten_params,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -278,13 +300,22 @@ class InferenceEngine:
         device="cuda",
         vision_params: dict | None = None,
         vision_cfg=None,  # models.vision.VisionConfig
+        tp_world: tp_ranks.EngineWorld | None = None,  # this rank of a tp engine
     ):
         self.device = torch.device(device)
         self.model_cfg = model_cfg
         self.cfg = cfg
         self.eos_token_id = eos_token_id
-        self.params = params
         self.version = version
+        # tensor parallelism: the names, dtypes and whole shapes a push must
+        # carry, then this rank's slice of the weights
+        self.tp_world = tp_world
+        self.tp: TP | None = tp_world.tp if tp_world is not None and tp_world.size > 1 else None
+        self._replicate_kv = self.tp is not None and replicate_kv(model_cfg, self.tp.size)
+        self._push_spec = {name: (str(t.dtype).removeprefix("torch."), tuple(t.shape))
+                           for name, t in flatten_params({**params, **({"vision_tower": vision_params}
+                                                                       if vision_params is not None else {})})}
+        self.params = self._local(params)
         # the vision tower (models/vision.py): visual requests are refused
         # without one; a push that carries ``vision_tower`` refreshes it
         self.vision_params = vision_params
@@ -298,7 +329,7 @@ class InferenceEngine:
 
         S, T = cfg.max_slots, cfg.max_len
         L = model_cfg.num_layers
-        K, Dh = model_cfg.num_kv_heads, model_cfg.head_dim_
+        K, Dh = tp_kv_heads(model_cfg, self.tp), model_cfg.head_dim_
         # + window: band merges stay in bounds (valid tokens never pass
         # position max_len - 1; the tail is speculative scratch)
         self.T_alloc = T + max(1, cfg.decode_window)
@@ -400,6 +431,29 @@ class InferenceEngine:
         self._published_at: float | None = None
         # read-back times of the last windows: the decode gaps during a push
         self._window_times: deque[float] = deque(maxlen=4096)
+        # a tp engine's rank 0: requests and jobs waiting for the next
+        # step's command; a worker: its staged pushes by version
+        self._inbox: list[tuple[GenRequest, Future]] = []
+        self._tp_jobs: list[tuple[str, Any, Future]] = []
+        self._tp_staged: dict[int, dict] = {}
+        self._tp_swap: tuple | None = None
+        self._tp_futures: list[Future] = []
+        self._tp_aborts: set[str] = set()
+        # a running CRC of every window read back: equal on a tp engine's
+        # ranks while they stay in lockstep
+        self.window_digest = 0
+        self._tp_receiver: threading.Thread | None = None
+        if self.tp is not None and self.tp.rank > 0:
+            self._tp_receiver = threading.Thread(target=self._tp_receive_pushes, daemon=True, name="tp-push-receiver")
+            self._tp_receiver.start()
+
+    def _local(self, params: dict) -> dict:
+        """This rank's slice of a full model tree (the tree itself at tp 1)."""
+        if self.tp is None:
+            return params
+        from ..parallel.sharding import tp_local
+
+        return tp_local(params, self.tp.rank, self.tp.size, self._replicate_kv)
 
     # ------------------------------------------------------------------
     # public API (thread-safe)
@@ -418,7 +472,8 @@ class InferenceEngine:
             future.set_result(GenResult([], [], "abort", self.version, self.version, prompt_len))
             return future
         with self._queue_lock:
-            self._queue.append((request, future))
+            # a tp engine's rank 0 queues it with the next step's command
+            (self._inbox if self.tp is not None else self._queue).append((request, future))
         self._work_event.set()
         return future
 
@@ -429,7 +484,7 @@ class InferenceEngine:
         if not request_id:
             return
         with self._queue_lock:
-            self._abort_ids.add(request_id)
+            (self._tp_aborts if self.tp is not None else self._abort_ids).add(request_id)
         self._work_event.set()
 
     def update_params(self, params: dict, version: int) -> None:
@@ -439,6 +494,10 @@ class InferenceEngine:
         the tower with it. A tree of numpy arrays goes through the transfer
         thread, which copies it to the engine's device first."""
         leaves = [leaf for _, leaf in flatten_params(params)]
+        if self.tp is not None:
+            # every rank lands its slice: the tree goes as a PWT3 body
+            self.update_params_serialized(serialize_params(params, version))
+            return
         if leaves and all(isinstance(leaf, np.ndarray) for leaf in leaves):
             self._enqueue_transfer(("tree", params, version))
             return
@@ -458,6 +517,9 @@ class InferenceEngine:
         Returns the version."""
         groups, tensors, version, base = parse_push_header(body)
         self._validate_push_spec(tensors)
+        if self.tp is not None:  # the tree path on every rank, as JAX's tp engines
+            self._enqueue_transfer(("tp", body, version))
+            return version
         keep = [t for t in tensors if self._pushed(t["name"])]
         self._enqueue_transfer(("blob", body, groups, keep, base, version))
         return version
@@ -472,8 +534,7 @@ class InferenceEngine:
         shapes, dtypes), ``vision_tower/*`` the engine's tower where it has
         one; the value head is the trainer's and is dropped, and so is a
         tower pushed to an engine without one."""
-        expected = {name: (str(t.dtype).removeprefix("torch."), tuple(t.shape))
-                    for name, t in flatten_params(self.live_tree())}
+        expected = self._push_spec
         got = {t["name"]: (t["dtype"], tuple(int(x) for x in t["shape"]))
                for t in tensors if self._pushed(t["name"])}
         if set(got) != set(expected):
@@ -546,6 +607,8 @@ class InferenceEngine:
             try:
                 if job[0] == "blob":
                     self._transfer_blob(*job[1:])
+                elif job[0] == "tp":
+                    self._transfer_tp(*job[1:])
                 else:
                     self._transfer_tree(*job[1:])
             except Exception:  # noqa: BLE001 - a bad push must not kill the thread
@@ -617,6 +680,55 @@ class InferenceEngine:
             run = self._stage_run(src.reshape(-1).view(torch.uint8), src.dtype, src.numel())
             staged[name] = run.view(src.shape)
         self._publish(unflatten_params(staged), version, t0, total, "double-buffer")
+
+    def _transfer_tp(self, body, version: int) -> None:
+        """Rank 0 of a tp engine: the body to every rank, then this rank's
+        slice staged; once every rank holds its slice, the version is
+        published for the next step's command to swap in."""
+        t0 = time.monotonic()
+        tp_ranks.send_push(self.tp_world, body, version)
+        staged = self._stage_tp_slice(body)
+        if not tp_ranks.all_staged(self.tp_world, staged is not None):
+            logger.error("weight push %d: a rank failed to stage its slice; dropped", version)
+            return
+        self._publish(staged, version, t0, len(body), "tp-tree")
+
+    def _stage_tp_slice(self, body) -> dict | None:
+        """This rank's slice of a PWT3 body on the device (a tower whole,
+        under ``vision_tower``, where the engine has one), or None when it
+        fails."""
+        try:
+            params, _ = deserialize_params(body)
+            vision = params.pop("vision_tower", None)
+            params.pop("value_head", None)
+            tree = self._local(params)
+            if vision is not None and self.vision_params is not None:
+                tree["vision_tower"] = vision
+            staged = {}
+            for name, src in flatten_params(tree):
+                src = src.contiguous()
+                staged[name] = self._stage_run(src.reshape(-1).view(torch.uint8), src.dtype, src.numel()).view(
+                    src.shape)
+            if self._copy_stream is not None:
+                self._copy_stream.synchronize()
+            return unflatten_params(staged)
+        except Exception:  # noqa: BLE001 - every rank must reach the all-reduce
+            logger.exception("staging a tp push slice failed")
+            return None
+
+    def _tp_receive_pushes(self) -> None:
+        """A worker's push receiver: each body rank 0 broadcasts, this rank's
+        slice staged and kept by version until a command swaps it in."""
+        while True:
+            got = tp_ranks.receive_push(self.tp_world)
+            if got is None:
+                return
+            body, version = got
+            staged = self._stage_tp_slice(body.numpy())
+            if staged is not None:
+                with self._params_lock:
+                    self._tp_staged[version] = staged
+            tp_ranks.all_staged(self.tp_world, staged is not None)
 
     def _plan_pieces(self, entries: list[tuple[str, tuple, int]], itemsize: int) -> list[tuple[int, int, list]]:
         """Cut one dtype run's tensors, ``(name, shape, elem_offset)`` in
@@ -791,10 +903,39 @@ class InferenceEngine:
         bucket = next((b for b in self.buckets if b >= n), None)
         if bucket is None:
             raise ValueError(f"sequence of {n} tokens exceeds the largest bucket {self.buckets[-1]}")
-        padded = torch.zeros((1, bucket), dtype=torch.int64)
-        padded[0, :n] = torch.tensor(list(input_ids), dtype=torch.int64)
-        lp = _score_fn(self.params, self.model_cfg, self.attn_impl, padded.to(self.device), temperature)
+        if self.tp is not None:  # every rank runs it, at the next step
+            return self._tp_job("score", (list(input_ids), float(temperature)))
+        return self._score(list(input_ids), temperature)
+
+    def _score(self, input_ids: list[int], temperature: float) -> list[float]:
+        n = len(input_ids)
+        padded = torch.zeros((1, self._bucket(n)), dtype=torch.int64)
+        padded[0, :n] = torch.tensor(input_ids, dtype=torch.int64)
+        lp = _score_fn(self.params, self.model_cfg, self.attn_impl, padded.to(self.device), temperature, self.tp)
         return lp[0, : n - 1].tolist()
+
+    def rank_checksums(self) -> list[dict]:
+        """Each rank's ``server.param_checksums`` of its live weights, in
+        rank order (one rank at tp 1)."""
+        if self.tp is None:
+            return [self._checksums()]
+        return self._tp_job("checksums", None)
+
+    def _checksums(self) -> dict:
+        from .server import param_checksums
+
+        with torch.no_grad():
+            return param_checksums(self.live_tree())
+
+    def _tp_job(self, kind: str, args):
+        """Rank 0: run a job on every rank at the next step; its result."""
+        future: Future = Future()
+        with self._queue_lock:
+            self._tp_jobs.append((kind, args, future))
+        self._work_event.set()
+        if self._thread is None:  # stepped by hand
+            self.step()
+        return future.result()
 
     def start(self) -> None:
         if self._thread is not None:
@@ -810,6 +951,9 @@ class InferenceEngine:
             self._thread.join(timeout=10)
         if self._transfer_thread is not None:
             self._transfer_thread.join(timeout=10)
+        if self.tp is not None and self.tp.rank == 0:  # the workers' loops and receivers end
+            tp_ranks.send_command(self.tp_world, None)
+            tp_ranks.send_push(self.tp_world, None, 0)
 
     @property
     def num_active(self) -> int:
@@ -874,16 +1018,106 @@ class InferenceEngine:
     @torch.no_grad()
     def step(self) -> bool:
         """One scheduling iteration: weight swap, aborts, early retirement,
-        admission, one decode window."""
+        admission, one decode window. A tp engine's rank 0 first broadcasts
+        the step's inputs (and skips a step with nothing to do)."""
         with self._dispatch_lock:
-            self._maybe_swap_params()
-            aborted = self._process_aborts()
-            self._retire_exhausted()
-            admitted = self._admit()
-            decoded = self._decode()
+            cmd = None
+            if self.tp is not None:
+                cmd = self._tp_lead()
+                if cmd is None:
+                    return False
+            did = self._step_body()
+            if cmd is not None:
+                self._tp_run_jobs(cmd)
+        return did or cmd is not None
+
+    def _step_body(self) -> bool:
+        self._maybe_swap_params()
+        aborted = self._process_aborts()
+        self._retire_exhausted()
+        admitted = self._admit()
+        decoded = self._decode()
         return aborted or admitted or decoded
 
+    def _tp_lead(self) -> dict | None:
+        """Rank 0: this step's command (the requests submitted since the last
+        step, the aborts, the version to swap in, the jobs), broadcast to the
+        other ranks and applied here; None (and nothing sent) when the step
+        would do nothing."""
+        with self._queue_lock:
+            reqs, self._inbox = self._inbox, []
+            jobs, self._tp_jobs = self._tp_jobs, []
+            aborts, self._tp_aborts = self._tp_aborts, set()
+            queued = bool(self._queue)
+        with self._params_lock:
+            pending, self._pending_params = self._pending_params, None
+            vision, self._pending_vision = self._pending_vision, None
+            swap = pending if pending is not None and pending[1] >= self.version else None
+        busy = queued or self._windows or any(s is not None for s in self._slots)
+        if not (reqs or jobs or aborts or swap or busy):
+            return None
+        cmd = {"reqs": [(r.prompt_ids, r.params, r.request_id, r.visual) for r, _ in reqs],
+               "aborts": sorted(aborts), "swap": None if swap is None else swap[1],
+               "jobs": [(kind, args) for kind, args, _ in jobs]}
+        tp_ranks.send_command(self.tp_world, cmd)
+        self._queue.extend(reqs)
+        self._abort_ids = aborts
+        self._tp_swap = None if swap is None else (swap, vision)
+        self._tp_futures = [f for _, _, f in jobs]
+        return cmd
+
+    def _tp_apply(self, cmd: dict) -> None:
+        """A worker: the command's requests queued (futures no one reads),
+        its aborts, and the staged push it swaps in."""
+        for prompt_ids, params, request_id, visual in cmd["reqs"]:
+            self._queue.append((GenRequest(prompt_ids, params, request_id, visual), tp_ranks.resolved_future()))
+        self._abort_ids = set(cmd["aborts"])
+        self._tp_swap = None
+        if cmd["swap"] is not None:
+            with self._params_lock:
+                tree = self._tp_staged.pop(cmd["swap"])
+                for v in [v for v in self._tp_staged if v < cmd["swap"]]:
+                    del self._tp_staged[v]
+            self._tp_swap = ((tree, cmd["swap"]), tree.pop("vision_tower", None))
+
+    def _tp_run_jobs(self, cmd: dict) -> None:
+        """After the step, on every rank: each job of the command; rank 0
+        resolves their futures."""
+        results = []
+        for kind, args in cmd["jobs"]:
+            if kind == "score":
+                results.append(self._score(*args))
+            else:
+                results.append(tp_ranks.gather_to_rank0(self.tp_world, self._checksums()))
+        if self.tp.rank == 0:
+            for future, result in zip(self._tp_futures, results):
+                future.set_result(result)
+
+    def serve_tp_worker(self) -> None:
+        """A tp engine's rank above 0: run rank 0's commands until it stops."""
+        while True:
+            cmd = tp_ranks.receive_command(self.tp_world)
+            if cmd is None:
+                # rank 0 stops the push receiver next: it must have left the
+                # push group before the process leaves the world
+                self._tp_receiver.join(timeout=60)
+                return
+            with torch.no_grad(), self._dispatch_lock:
+                self._tp_apply(cmd)
+                self._step_body()
+                self._tp_run_jobs(cmd)
+
     def _maybe_swap_params(self) -> None:
+        if self.tp is not None:  # the command's swap, on every rank
+            swap, self._tp_swap = self._tp_swap, None
+            if swap is not None:
+                (self.params, self.version), vision = swap
+                if vision is not None:
+                    self.vision_params = vision
+                if self._published_at is not None:
+                    self.last_push_timings["publish_to_swap_s"] = time.monotonic() - self._published_at
+                    self._published_at = None
+            return
         # a push that finished after a newer one was installed is dropped
         with self._params_lock:
             pending, self._pending_params = self._pending_params, None
@@ -1131,12 +1365,12 @@ class InferenceEngine:
             table_rows = torch.from_numpy(self.block_pool.table[slots]).to(dev)
             last_logits = _prefill_paged_fn(
                 self.params, self.model_cfg, self.attn_impl, self.k_pool, self.v_pool,
-                self.cache_lens, ids, lens, slots_t, table_rows,
+                self.cache_lens, ids, lens, slots_t, table_rows, tp=self.tp,
             )
         else:
             last_logits = _prefill_fn(
                 self.params, self.model_cfg, self.attn_impl, self.k_cache, self.v_cache,
-                self.cache_lens, ids, lens, slots_t,
+                self.cache_lens, ids, lens, slots_t, tp=self.tp,
             )
         self.prefill_batches += 1
         self._sample_first_tokens(last_logits, slots, [row[1] for row in group])
@@ -1178,12 +1412,12 @@ class InferenceEngine:
             last_logits = _prefill_vlm_paged_fn(
                 self.params, self.model_cfg, self.attn_impl, self.vision_params, vcfg, self.k_pool, self.v_pool,
                 self.cache_lens, input_ids, lengths, slots_t, torch.from_numpy(self.block_pool.table[[slot]]).to(dev),
-                **vlm,
+                tp=self.tp, **vlm,
             )
         else:
             last_logits = _prefill_vlm_fn(
                 self.params, self.model_cfg, self.attn_impl, self.vision_params, vcfg, self.k_cache, self.v_cache,
-                self.cache_lens, input_ids, lengths, slots_t, **vlm,
+                self.cache_lens, input_ids, lengths, slots_t, tp=self.tp, **vlm,
             )
         self.prefill_batches += 1
         self._sample_first_tokens(last_logits, [slot], [request])
@@ -1245,7 +1479,7 @@ class InferenceEngine:
         last_logits = _prefill_extend_fn(
             self.params, self.model_cfg, self.attn_impl, self.k_pool, self.v_pool, self.cache_lens,
             *self._tail_arrays(tail_bucket, group), torch.tensor(slots, dtype=torch.int64, device=dev),
-            torch.from_numpy(prefix_pages).to(dev), torch.from_numpy(self.block_pool.table[slots]).to(dev),
+            torch.from_numpy(prefix_pages).to(dev), torch.from_numpy(self.block_pool.table[slots]).to(dev), tp=self.tp,
         )
         self._start_extended(last_logits, group)
 
@@ -1258,7 +1492,7 @@ class InferenceEngine:
         slots = torch.tensor([entry[0] for entry, _ in group], dtype=torch.int64, device=self.device)
         last_logits = _prefill_extend_slab_fn(
             self.params, self.model_cfg, self.attn_impl, pfx_bucket, self.k_cache, self.v_cache,
-            self.cache_lens, *self._tail_arrays(tail_bucket, group), slots,
+            self.cache_lens, *self._tail_arrays(tail_bucket, group), slots, tp=self.tp,
         )
         self._start_extended(last_logits, group)
 
@@ -1482,12 +1716,12 @@ class InferenceEngine:
             capacity = torch.from_numpy(self._slot_capacity.astype(np.int32)).to(dev)
             packed, self._device_tokens = _decode_window_paged_fn(
                 self.params, self.model_cfg, self.decode_attn_impl, window,
-                self.k_pool, self.v_pool, table, capacity, *window_args,
+                self.k_pool, self.v_pool, table, capacity, *window_args, tp=self.tp,
             )
         else:
             packed, self._device_tokens = _decode_window_fn(
                 self.params, self.model_cfg, self.decode_attn_impl, window, self.cfg.max_len,
-                self.k_cache, self.v_cache, *window_args,
+                self.k_cache, self.v_cache, *window_args, tp=self.tp,
             )
         self.windows_dispatched += 1
         self.window_slots_dispatched += int(active.sum())
@@ -1500,6 +1734,7 @@ class InferenceEngine:
     def _process_window(self, w: _Window) -> None:
         packed = w.packed.cpu().numpy()  # the one device-to-host read per window
         self._window_times.append(time.monotonic())
+        self.window_digest = zlib.crc32(packed.tobytes(), self.window_digest)
         win_tokens = packed[0, 1:]  # [N, S]
         win_logprobs = packed[1, 1:].view(np.float32)
         first_tokens = packed[0, 0]
@@ -1600,14 +1835,17 @@ def _decode_steps(
     top_p: torch.Tensor | None,  # [S]; None: no top-p/top-k in this window
     top_k: torch.Tensor | None,
     pos_delta: torch.Tensor,  # [S] mrope decode offset (0 for text slots)
+    tp: TP | None = None,
 ):
     """``n_steps`` decode steps with no host read: each sampled token feeds
     the next step on the device, and new K/V go to a [L, W, S, K, Dh] band.
     A VLM slot's rope position is its cache index plus ``pos_delta`` (its
     three mrope rows are equal past the prompt, so the 1D rope serves).
+    Under ``tp`` the ranks' logits are gathered before the sampler, so every
+    rank samples the same tokens.
     Returns (k_staged, v_staged, tokens [N, S], logprobs [N, S], carry)."""
     L, S = cache_k.shape[0], tokens.shape[0]
-    K, Dh = model_cfg.num_kv_heads, model_cfg.head_dim_
+    K, Dh = cache_k.shape[-2:]
     k_staged = torch.zeros((L, n_steps, S, K, Dh), dtype=cache_k.dtype, device=cache_k.device)
     v_staged = torch.zeros_like(k_staged)
     win_tokens, win_logprobs = [], []
@@ -1615,8 +1853,9 @@ def _decode_steps(
         positions = (base_lens + step).clamp(max=max_position) + pos_delta
         logits, k_new, v_new = decode_step_staged(
             params, model_cfg, tokens, positions, cache_k, cache_v,
-            base_lens, k_staged, v_staged, step, attn_impl=attn_impl,
+            base_lens, k_staged, v_staged, step, attn_impl=attn_impl, tp=tp,
         )
+        logits = gather_vocab(logits, tp)
         k_staged[:, step] = k_new
         v_staged[:, step] = v_new
         if top_p is not None:
@@ -1656,6 +1895,7 @@ def _decode_window_fn(
     top_p: torch.Tensor | None,  # [S]; None: no top-p/top-k in this window
     top_k: torch.Tensor | None,
     pos_delta: torch.Tensor,  # [S]
+    tp: TP | None = None,
 ):
     """A slab decode window: ``_decode_steps`` over the frozen cache, then
     the band merges into the cache once. Returns the packed window output
@@ -1665,7 +1905,7 @@ def _decode_window_fn(
     base_lens = cache_lens.clone()  # frozen for the whole window
     k_staged, v_staged, win_tokens, win_logprobs, tokens = _decode_steps(
         params, model_cfg, attn_impl, n_steps, k_cache, v_cache, base_lens, T_alloc - 1,
-        tokens, active, generator, temperature, top_p, top_k, pos_delta,
+        tokens, active, generator, temperature, top_p, top_k, pos_delta, tp,
     )
     _merge_staged(k_cache, k_staged, base_lens)
     _merge_staged(v_cache, v_staged, base_lens)
@@ -1692,6 +1932,7 @@ def _decode_window_paged_fn(
     top_p: torch.Tensor | None,
     top_k: torch.Tensor | None,
     pos_delta: torch.Tensor,  # [S]
+    tp: TP | None = None,
 ):
     """A paged decode window. "ragged" runs kernel #5 through the table at
     every step; "xla" gathers each slot's pages once per window into a
@@ -1717,7 +1958,7 @@ def _decode_window_paged_fn(
         raise ValueError(f"unknown attention implementation {attn_impl!r}")
     k_staged, v_staged, win_tokens, win_logprobs, tokens = _decode_steps(
         params, model_cfg, attn, n_steps, cache_k, cache_v, base_lens, MAXB * BT - 1,
-        tokens, active, generator, temperature, top_p, top_k, pos_delta,
+        tokens, active, generator, temperature, top_p, top_k, pos_delta, tp,
     )
     count = torch.where(active, n_steps, 0)
     paged_append(k_pool, k_staged.transpose(1, 2), block_table, base_lens, count)
@@ -1727,7 +1968,7 @@ def _decode_window_paged_fn(
 
 
 def _prefill_forward(params, model_cfg, attn_impl, input_ids, lengths, positions=None, image_embeds=None,
-                     image_mask=None):
+                     image_mask=None, tp=None):
     """Forward over B padded prompts (``positions`` default to 0..P-1; a VLM
     row passes its ``[3, 1, P]`` mrope rows and spliced visual tokens).
     Returns (fp32 logits [B, V] of each row's last prompt token, k [L, B, P,
@@ -1739,14 +1980,16 @@ def _prefill_forward(params, model_cfg, attn_impl, input_ids, lengths, positions
     segments = torch.zeros((B, P), dtype=torch.int32, device=input_ids.device)
     normed, (k_new, v_new) = forward(
         params, model_cfg, input_ids, positions, segments, return_kv=True,
-        attn_impl=attn_impl, skip_unembed=True, image_embeds=image_embeds, image_mask=image_mask,
+        attn_impl=attn_impl, skip_unembed=True, image_embeds=image_embeds, image_mask=image_mask, tp=tp,
     )
-    return _last_logits(params, model_cfg, normed, lengths), k_new, v_new
+    return _last_logits(params, model_cfg, normed, lengths, tp), k_new, v_new
 
 
-def _last_logits(params, model_cfg, normed, lengths):
+def _last_logits(params, model_cfg, normed, lengths, tp=None):
+    """The whole vocabulary's fp32 logits [B, V] at each row's last token
+    (gathered over tp)."""
     last = normed[torch.arange(normed.shape[0], device=normed.device), lengths - 1]  # [B, D]
-    return lm_head_logits(params, model_cfg, last)
+    return gather_vocab(lm_head_logits(params, model_cfg, last, tp), tp)
 
 
 def _prefill_fn(
@@ -1759,11 +2002,12 @@ def _prefill_fn(
     input_ids: torch.Tensor,  # [B, P] padded bucket
     lengths: torch.Tensor,  # [B] true prompt lengths
     slots: torch.Tensor,  # [B]
+    tp: TP | None = None,
     **vlm,  # positions, image_embeds, image_mask of a VLM row
 ) -> torch.Tensor:
     """Prefill B padded prompts into their slots' cache prefixes. Returns the
     fp32 logits [B, V] of each row's last prompt token."""
-    last_logits, k_new, v_new = _prefill_forward(params, model_cfg, attn_impl, input_ids, lengths, **vlm)
+    last_logits, k_new, v_new = _prefill_forward(params, model_cfg, attn_impl, input_ids, lengths, tp=tp, **vlm)
     P = input_ids.shape[1]
     k_cache[:, slots, :P] = k_new.to(k_cache.dtype)
     v_cache[:, slots, :P] = v_new.to(v_cache.dtype)
@@ -1782,11 +2026,12 @@ def _prefill_paged_fn(
     lengths: torch.Tensor,  # [B]
     slots: torch.Tensor,  # [B]
     table_rows: torch.Tensor,  # [B, MAXB] — the rows' freshly allocated pages
+    tp: TP | None = None,
     **vlm,  # positions, image_embeds, image_mask of a VLM row
 ) -> torch.Tensor:
     """Paged prefill: the forward of ``_prefill_fn``, then each row's prompt
     K/V appended into its pages (pad rows dropped by ``count``)."""
-    last_logits, k_new, v_new = _prefill_forward(params, model_cfg, attn_impl, input_ids, lengths, **vlm)
+    last_logits, k_new, v_new = _prefill_forward(params, model_cfg, attn_impl, input_ids, lengths, tp=tp, **vlm)
     zero = torch.zeros_like(lengths)
     paged_append(k_pool, k_new, table_rows, zero, lengths)
     paged_append(v_pool, v_new, table_rows, zero, lengths)
@@ -1795,23 +2040,23 @@ def _prefill_paged_fn(
 
 
 def _prefill_vlm_fn(params, model_cfg, attn_impl, vision_params, vision_cfg, k_cache, v_cache, cache_lens,
-                    input_ids, lengths, slots, positions, image_mask, vin) -> torch.Tensor:
+                    input_ids, lengths, slots, positions, image_mask, vin, tp=None) -> torch.Tensor:
     """One-row VLM prefill into the slab (the JAX ``_prefill_vlm_fn``): the
     tower encodes the bucketed patches ``vin``, its merged tokens are
     spliced at ``image_mask`` ([1, P]), and the row runs with mrope
     ``positions`` ([3, 1, P]). Returns the last-token fp32 logits [1, V]."""
     embeds = vision_forward(vision_params, vision_cfg, **vin)
-    return _prefill_fn(params, model_cfg, attn_impl, k_cache, v_cache, cache_lens, input_ids, lengths, slots,
+    return _prefill_fn(params, model_cfg, attn_impl, k_cache, v_cache, cache_lens, input_ids, lengths, slots, tp,
                        positions=positions, image_embeds=embeds[None], image_mask=image_mask)
 
 
 def _prefill_vlm_paged_fn(params, model_cfg, attn_impl, vision_params, vision_cfg, k_pool, v_pool, cache_lens,
-                          input_ids, lengths, slots, table_rows, positions, image_mask, vin) -> torch.Tensor:
+                          input_ids, lengths, slots, table_rows, positions, image_mask, vin, tp=None) -> torch.Tensor:
     """``_prefill_vlm_fn`` into the paged pool (the JAX
     ``_prefill_vlm_paged_fn``)."""
     embeds = vision_forward(vision_params, vision_cfg, **vin)
     return _prefill_paged_fn(params, model_cfg, attn_impl, k_pool, v_pool, cache_lens, input_ids, lengths, slots,
-                             table_rows, positions=positions, image_embeds=embeds[None], image_mask=image_mask)
+                             table_rows, tp, positions=positions, image_embeds=embeds[None], image_mask=image_mask)
 
 
 def _prefill_extend_fn(
@@ -1827,6 +2072,7 @@ def _prefill_extend_fn(
     slots: torch.Tensor,  # [B]
     prefix_pages: torch.Tensor,  # [B, n_pages] physical page ids (pad = repeat)
     table_rows: torch.Tensor,  # [B, MAXB] — each slot's full table (for the append)
+    tp: TP | None = None,
 ) -> torch.Tensor:
     """Prefill of B tails against their cached prefix pages: gather the
     prefixes, run ``forward_extend`` over [prefix | tail], append the tail
@@ -1835,12 +2081,12 @@ def _prefill_extend_fn(
     positions = prefix_lens[:, None] + torch.arange(tail_ids.shape[1], device=tail_ids.device)[None, :]
     normed, (k_new, v_new) = forward_extend(
         params, model_cfg, tail_ids, positions, k_pre, v_pre, prefix_lens,
-        attn_impl=attn_impl, skip_unembed=True,
+        attn_impl=attn_impl, skip_unembed=True, tp=tp,
     )
     paged_append(k_pool, k_new, table_rows, prefix_lens, tail_lens)
     paged_append(v_pool, v_new, table_rows, prefix_lens, tail_lens)
     cache_lens[slots] = (prefix_lens + tail_lens).to(torch.int32)
-    return _last_logits(params, model_cfg, normed, tail_lens)
+    return _last_logits(params, model_cfg, normed, tail_lens, tp)
 
 
 def _prefill_extend_slab_fn(
@@ -1855,6 +2101,7 @@ def _prefill_extend_slab_fn(
     tail_lens: torch.Tensor,  # [B]
     prefix_lens: torch.Tensor,  # [B] — parked transcript lengths (<= pfx_bucket)
     slots: torch.Tensor,  # [B]
+    tp: TP | None = None,
 ) -> torch.Tensor:
     """Prefill of B tails against their parked slab slots (the JAX
     ``_prefill_extend_slab_fn``): gather each slot's first ``pfx_bucket``
@@ -1868,21 +2115,22 @@ def _prefill_extend_slab_fn(
     positions = prefix_lens[:, None] + torch.arange(Tb, device=tail_ids.device)[None, :]
     normed, (k_new, v_new) = forward_extend(
         params, model_cfg, tail_ids, positions, k_pre, v_pre, prefix_lens,
-        attn_impl=attn_impl, skip_unembed=True,
+        attn_impl=attn_impl, skip_unembed=True, tp=tp,
     )
     k_cache[:, slots[:, None], positions] = k_new.to(k_cache.dtype)
     v_cache[:, slots[:, None], positions] = v_new.to(v_cache.dtype)
     cache_lens[slots] = (prefix_lens + tail_lens).to(torch.int32)
-    return _last_logits(params, model_cfg, normed, tail_lens)
+    return _last_logits(params, model_cfg, normed, tail_lens, tp)
 
 
-def _score_fn(params: dict, model_cfg: ModelConfig, attn_impl: str, input_ids: torch.Tensor, temperature: float):
+def _score_fn(params: dict, model_cfg: ModelConfig, attn_impl: str, input_ids: torch.Tensor, temperature: float,
+              tp: TP | None = None):
     """fp32 logprobs [1, P - 1] of ``input_ids[:, 1:]`` from one packed
     forward over the padded row (the JAX ``_score_fn``)."""
     P = input_ids.shape[1]
     positions = torch.arange(P, device=input_ids.device)[None, :]
     segments = torch.zeros((1, P), dtype=torch.int32, device=input_ids.device)
-    logits = forward(params, model_cfg, input_ids, positions, segments, attn_impl=attn_impl)
+    logits = gather_vocab(forward(params, model_cfg, input_ids, positions, segments, attn_impl=attn_impl, tp=tp), tp)
     return token_logprobs_from_logits(logits, input_ids, temperature)
 
 

@@ -23,7 +23,8 @@ future or, for SSE, on a queue the engine thread's stream callback fills.
   ``push_counters`` and this process's kernel launch counts), ``GET /v1/models``, and ``GET /debug/param_checksums``,
   two integer sums of each weight's bits (the vision tower's under
   ``vision_tower/``), which a pusher compares with its own to show that a
-  push landed bit for bit. ``/health``'s ``last_push`` carries the push's
+  push landed bit for bit (a tp engine adds each rank's, of its slice,
+  under ``ranks``). ``/health``'s ``last_push`` carries the push's
   mode ("blob", "blob-chunked", "double-buffer", "streamed") and, while a chunked
   push is in flight, its ``bytes_done``.
 """
@@ -127,6 +128,11 @@ class InferenceServer:
         return {"object": "list", "data": [{"id": self.model_name, "object": "model"}]}
 
     def checksums(self) -> dict:
+        """The live weights' checksums; a tp engine's rank 0 adds every
+        rank's, of its slice, under ``ranks``."""
+        if getattr(self.engine, "tp", None) is not None:
+            ranks = self.engine.rank_checksums()
+            return {"version": self.engine.version, "checksums": ranks[0], "ranks": ranks}
         with torch.no_grad():
             return {"version": self.engine.version, "checksums": param_checksums(self.engine.live_tree())}
 

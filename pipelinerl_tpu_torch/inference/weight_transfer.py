@@ -19,7 +19,8 @@ own codec (``utils/msgpack_codec.py``), which writes what ``msgpack.packb``
 writes.
 
 ``gather_for_push`` gives a push the full tensors of a trainer world's
-shards: every rank joins the all-gather, and rank 0 serializes them. JAX's
+shards (dp and tp): every rank joins the all-gather, and rank 0 serializes
+them. JAX's
 ``parallel_device_put`` (TPU sub-streams splitting a host-to-device copy)
 has no port: the engine's transfer thread (``InferenceEngine``) copies a
 body to the card while decoding goes on, which is that function's job.
@@ -52,15 +53,15 @@ _DTYPES = {
 }
 
 
-def gather_for_push(params: dict, mesh) -> dict:
+def gather_for_push(params: dict, mesh, replicate_kv: bool = False) -> dict:
     """The full tensors a cross-process push serializes: with ``mesh`` None
-    the params as they are, else every leaf all-gathered over dp on every
-    rank (a collective: each rank calls it; rank 0 then serializes)."""
+    the params as they are, else every leaf all-gathered over dp and tp on
+    every rank (a collective: each rank calls it; rank 0 then serializes)."""
     if mesh is None:
         return params
     from ..parallel.sharding import unshard_params
 
-    return unshard_params(params, mesh)
+    return unshard_params(params, mesh, replicate_kv)
 
 
 def dtype_name(dtype: torch.dtype) -> str:

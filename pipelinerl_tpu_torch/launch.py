@@ -23,12 +23,14 @@ spans hosts, and the ``actor`` and ``preprocessor`` jobs
 as ``ssh <host> env <assignments> <command>`` (the experiment directory on
 a shared filesystem). VLM runs are inline only.
 
-A ``parallel`` product dp*cp above 1 (the ``tir`` preset's ``cp: 8``)
-trains as a world of dp*cp trainer ranks, one per device
-(``world.trainer_ranks``): ``main`` runs such a config in processes mode
-in the split layout, and logs that it switched. JAX drives a whole mesh
-from one process inline; the port's one rank per device cannot share the
-inline process, so the switch is deliberate.
+A ``parallel`` product dp*cp*tp above 1 (the ``tir`` preset's ``cp: 8``)
+trains as a world of dp*cp*tp trainer ranks, one per device
+(``world.trainer_ranks``), and ``engine.tp`` above 1 serves as that many
+engine rank processes (``inference/tp_ranks.py``; only rank 0 has an HTTP
+port): ``main`` runs such a config in processes mode in the split layout,
+and logs that it switched. JAX drives a whole mesh from one process
+inline; the port's one rank per device cannot share the inline process,
+so the switch is deliberate.
 
 Both modes interleave evals (``eval_every_n_versions``: the test problems
 through an eval ``ActorLoop`` onto ``actor_test`` and ``stats_test``), and
@@ -39,6 +41,7 @@ missing upstream streams from ``debug.streams_from``.
     python3 -m pipelinerl_tpu_torch.launch --config-name=test model_path=<hf dir> output_dir=/tmp/run
     python3 -m pipelinerl_tpu_torch.launch --config-name=bandit_tpu output_dir=/tmp/run launch_mode=processes [world.trainer_procs=1]
     python3 -m pipelinerl_tpu_torch.launch --config-name=test model_path=<hf dir> output_dir=/tmp/run launch_mode=processes world.trainer_procs=2 parallel.dp=2
+    python3 -m pipelinerl_tpu_torch.launch --config-name=test model_path=<hf dir> output_dir=/tmp/run engine.tp=2 parallel.tp=2
 
 prints the run's summary as one JSON line, last.
 """
@@ -79,7 +82,7 @@ from .streams_tcp import wait_for_hub
 from .train.rl_loss import RLLossConfig
 from .train.trainer import TrainerLoop, detached_copy, summary
 from .utils import setup_logging
-from .world import WorldMap, parallel_product, refuse_unported, trainer_ranks
+from .world import WorldMap, engine_tp, parallel_product, refuse_unported, trainer_ranks
 
 logger = logging.getLogger(__name__)
 
@@ -184,15 +187,20 @@ def engine_params(params: dict) -> dict:
 
 
 def build_engine(cfg: Config, params: dict, model_cfg: ModelConfig, tokenizer, device="cuda",
-                 vision_params: dict | None = None, vision_cfg=None) -> InferenceEngine:
+                 vision_params: dict | None = None, vision_cfg=None, tp_world=None) -> InferenceEngine:
     """The engine with the JAX package's defaults for keys the config leaves
     out (prefill attention "xla", decode attention "auto"), with the vision
-    tower of a VLM run."""
+    tower of a VLM run. At ``engine.tp`` above 1 this process is one rank
+    of the engine (``tp_world``, ``tp_ranks.join_engine_world``), which
+    keeps its slice of ``params``."""
     ecfg = cfg.get("engine", Config({}))
-    for key in ("tp", "pp"):
-        if int(ecfg.get(key, 1)) != 1:
-            raise NotImplementedError(f"engine.{key} > 1 is not ported yet: a multi-process engine waits for "
-                                      "ROADMAP Queue 1, item 15")
+    from .parallel.mesh import refuse_pp
+
+    refuse_pp(int(ecfg.get("pp", 1)), "engine")
+    tp = engine_tp(cfg)
+    if tp > 1 and (tp_world is None or tp_world.size != tp):
+        raise ValueError(f"engine.tp={tp} runs as {tp} engine rank processes (launch_mode=processes; "
+                         "entrypoints.run_engine joins them): pass their tp_world")
     return InferenceEngine(
         params,
         model_cfg,
@@ -217,6 +225,7 @@ def build_engine(cfg: Config, params: dict, model_cfg: ModelConfig, tokenizer, d
         device=device,
         vision_params=vision_params,
         vision_cfg=vision_cfg,
+        tp_world=tp_world,
     )
 
 
@@ -293,9 +302,10 @@ def validate_config(cfg: Config) -> None:
             and not cfg.select("debug.streams_from"):
         problems.append(f"debug.mode={debug_mode!r} drops the actor but debug.streams_from is unset — "
                         "nothing would feed the pipeline")
-    dp, cp = parallel_product(cfg)
-    if dp < 1 or cp < 1:
-        problems.append(f"parallel.dp ({dp}) and parallel.cp ({cp}) must be at least 1")
+    dp, cp, tp = parallel_product(cfg)
+    if min(dp, cp, tp, engine_tp(cfg)) < 1:
+        problems.append(f"parallel.dp ({dp}), parallel.cp ({cp}), parallel.tp ({tp}) and engine.tp "
+                        f"({engine_tp(cfg)}) must be at least 1")
     elif seq_length % cp:
         problems.append(f"finetune.seq_length ({seq_length}) must split over parallel.cp ({cp})")
     try:
@@ -461,6 +471,7 @@ def run_inline(cfg: Config, device="cuda") -> dict[str, Any]:
 ENTRYPOINTS = {
     "device": "pipelinerl_tpu_torch.entrypoints.run_device",
     "engine": "pipelinerl_tpu_torch.entrypoints.run_engine",
+    "engine_rank": "pipelinerl_tpu_torch.entrypoints.run_engine",
     "ref_engine": "pipelinerl_tpu_torch.entrypoints.run_engine",
     "trainer": "pipelinerl_tpu_torch.entrypoints.run_trainer",
     "stream_hub": "pipelinerl_tpu_torch.entrypoints.run_stream_hub",
@@ -468,7 +479,7 @@ ENTRYPOINTS = {
     "preprocessor": "pipelinerl_tpu_torch.entrypoints.run_preprocess",
     "environment": "pipelinerl_tpu_torch.entrypoints.run_environment",
 }
-CARD_JOBS = ("device", "engine", "ref_engine", "trainer")
+CARD_JOBS = ("device", "engine", "engine_rank", "ref_engine", "trainer")
 # jobs that end on their own once training is done; the servers are stopped
 SELF_ENDING = ("trainer", "actor", "preprocessor")
 # the environment a job on another host is started with over ssh
@@ -477,7 +488,8 @@ REMOTE_ENV = ("PYTHONPATH", "CUDA_VISIBLE_DEVICES", "CARD_SLOT", "LOCAL_RANK", "
 
 def card_slots(world_map: WorldMap) -> dict[str, int]:
     """Each card job's place among the card jobs of its host, the servers
-    (device, engine, ref_engine) first and the trainer ranks after them:
+    (device, engine, its tp ranks, ref_engine) first and the trainer ranks
+    after them:
     the job takes card ``slot % cards`` (``entrypoints.common.stage_device``),
     so a host with as many cards as slots gives every job its own."""
     slots: dict[str, int] = {}
@@ -558,6 +570,8 @@ def run_processes(cfg: Config) -> int:
         if job.kind == "trainer":  # its device among the trainer ranks of its host
             peers = [j for j in world_map.jobs_of("trainer") if j.hostname == job.hostname]
             env["LOCAL_RANK"], env["LOCAL_WORLD_SIZE"] = str(peers.index(job)), str(len(peers))
+        elif "tp_rank" in job.extra:  # one rank of a tp engine (NCCL when each has its card)
+            env["LOCAL_RANK"], env["LOCAL_WORLD_SIZE"] = str(job.extra["tp_rank"]), str(job.extra["tp_size"])
         (exp_path / job.kind).mkdir(exist_ok=True)
         script = " \\\n  ".join(cmd)
         (exp_path / job.kind / f"start_{name}.sh").write_text(f"#!/bin/sh\n{script}\n")
@@ -587,7 +601,7 @@ def run_processes(cfg: Config) -> int:
         if world_map.use_stream_hub and not dry_run:
             wait_for_hub(world_map.stream_hub_addr)
             set_streams_backend("tcp", hub=world_map.stream_hub_addr)  # the launcher follows the trainer too
-        for kind in ("environment", "device", "engine", "ref_engine", "trainer"):
+        for kind in ("environment", "device", "engine", "engine_rank", "ref_engine", "trainer"):
             for job in world_map.jobs_of(kind):
                 spawn(job)
         if not dry_run:
@@ -660,11 +674,12 @@ def main(argv: list[str] | None = None) -> dict[str, Any]:
         else:
             overrides.append(arg)
     cfg = compose(config_name, overrides)
-    dp, cp = parallel_product(cfg)
-    if dp * cp > 1 and str(cfg.get("launch_mode", "inline")) == "inline":
+    dp, cp, tp = parallel_product(cfg)
+    if (dp * cp * tp > 1 or engine_tp(cfg) > 1) and str(cfg.get("launch_mode", "inline")) == "inline":
         setup_logging()
-        logger.info("parallel dp*cp=%d: a trainer world of %d ranks, one per device; running in processes mode "
-                    "(split layout) instead of inline", dp * cp, dp * cp)
+        logger.info("parallel dp*cp*tp=%d, engine.tp=%d: a trainer world of %d ranks and engines of %d ranks, one "
+                    "per device; running in processes mode (split layout) instead of inline", dp * cp * tp,
+                    engine_tp(cfg), max(dp * cp * tp, 1), engine_tp(cfg))
         cfg["launch_mode"] = "processes"
     if str(cfg.get("launch_mode", "inline")) == "processes":
         rc = run_processes(cfg)

@@ -19,6 +19,19 @@ takes the place of ``lax.scan``.
   prefix K/V.
 - Actor-critic: ``init_value_head`` and ``value_predictions`` put a linear
   value head on ``forward``'s ``return_hidden`` output.
+- Tensor parallelism (``tp``, a ``parallel.collectives.TP``): ``forward``,
+  ``forward_extend`` and ``decode_step_staged`` run Megatron's splits on
+  this rank's slice of the weights (``parallel.sharding.tp_local``). Each
+  rank projects its ``H/tp`` query heads and the KV heads they read (its
+  ``K/tp`` when K splits; otherwise the heads its query heads read, from
+  ``wk``/``wv`` held whole), its ``F/tp`` FFN columns; ``wo`` and ``wdown``
+  are row-parallel, their partial sums all-reduced (g), and their inputs'
+  gradients all-reduced (f). The embedding table is whole; the head is
+  vocabulary-split at ``lm_head_logits``: each rank computes the logits of
+  its ``V/tp`` rows (the rows of the table when tied). The row-parallel
+  partial sums go over the group in fp32 and round once, as one rank's
+  product does. H must split over tp (JAX's GSPMD reshards the other case;
+  ROADMAP Queue 1, item 15).
 """
 
 from __future__ import annotations
@@ -32,6 +45,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import decode_attention_staged, mha_packed
+from ..parallel.collectives import TP, copy_to_tp, count_once, reduce_from_tp
 
 _NEG_INF = -1e30
 
@@ -222,8 +236,48 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return (xf * cos[..., None, :] + rotated * sin[..., None, :]).to(x.dtype)
 
 
-def _project_qkv(layer: dict, cfg: ModelConfig, x: torch.Tensor):
-    """x: [..., D] → q [..., H, Dh], k/v [..., K, Dh]."""
+def replicate_kv(cfg: ModelConfig, tp_size: int) -> bool:
+    """Whether ``wk``/``wv`` (and their biases) stay whole on every tp rank:
+    K does not split over tp, and each rank selects the KV heads its query
+    heads read (JAX's replicated cache spec, ``engine.py:336-340``)."""
+    return tp_size > 1 and cfg.num_kv_heads % tp_size != 0
+
+
+def tp_heads(cfg: ModelConfig, tp: TP | None) -> tuple[int, list[int] | None]:
+    """(this rank's query heads, and the global KV heads they read when K
+    does not split over tp, else None). Query head ``j`` of the rank reads
+    its ``j // (H_local / K_local)``-th KV head; where the heads' groups
+    straddle ranks unevenly, each query head gets its own copy."""
+    if tp is None or tp.size == 1:
+        return cfg.num_heads, None
+    H, K, n = cfg.num_heads, cfg.num_kv_heads, tp.size
+    if H % n:
+        raise ValueError(f"num_heads {H} does not split over tp={n}: the port cuts whole query heads "
+                         "(JAX's GSPMD reshards this case; ROADMAP Queue 1, item 15)")
+    Hl = H // n
+    if K % n == 0:
+        return Hl, None
+    heads = [(tp.rank * Hl + j) // (H // K) for j in range(Hl)]
+    distinct = sorted(set(heads))
+    g = Hl // len(distinct)
+    if Hl % len(distinct) == 0 and heads == [distinct[j // g] for j in range(Hl)]:
+        return Hl, distinct
+    return Hl, heads
+
+
+def tp_kv_heads(cfg: ModelConfig, tp: TP | None) -> int:
+    """The KV heads a rank holds (its cache's head dim)."""
+    kv = tp_heads(cfg, tp)[1]
+    if kv is not None:
+        return len(kv)
+    return cfg.num_kv_heads // (1 if tp is None else tp.size)
+
+
+def _project_qkv(layer: dict, cfg: ModelConfig, x: torch.Tensor, tp: TP | None = None):
+    """x: [..., D] → q [..., H, Dh], k/v [..., K, Dh]; under ``tp`` this
+    rank's heads."""
+    Hl, kv_heads = tp_heads(cfg, tp)
+    x = copy_to_tp(x, tp)
     q = x @ layer["wq"]
     k = x @ layer["wk"]
     v = x @ layer["wv"]
@@ -232,41 +286,76 @@ def _project_qkv(layer: dict, cfg: ModelConfig, x: torch.Tensor):
         k = k + layer["bk"]
         v = v + layer["bv"]
     Dh = cfg.head_dim_
-    q = q.reshape(*x.shape[:-1], cfg.num_heads, Dh)
-    k = k.reshape(*x.shape[:-1], cfg.num_kv_heads, Dh)
-    v = v.reshape(*x.shape[:-1], cfg.num_kv_heads, Dh)
+    q = q.reshape(*x.shape[:-1], Hl, Dh)
+    k = k.reshape(*x.shape[:-1], -1, Dh)
+    v = v.reshape(*x.shape[:-1], -1, Dh)
+    if kv_heads is not None:
+        k, v = k[..., kv_heads, :], v[..., kv_heads, :]
     if cfg.qk_norm:
         q = rms_norm(q, layer["q_norm"], cfg.rms_norm_eps)
         k = rms_norm(k, layer["k_norm"], cfg.rms_norm_eps)
     return q, k, v
 
 
-def _mlp(layer: dict, x: torch.Tensor) -> torch.Tensor:
-    return (F.silu(x @ layer["wgate"]) * (x @ layer["wup"])) @ layer["wdown"]
+def _row_parallel(x: torch.Tensor, w: torch.Tensor, tp: TP | None) -> torch.Tensor:
+    """``x @ w`` for a weight cut along its input rows over tp: each rank's
+    partial product in fp32, summed over the group (g), then rounded once
+    to ``x``'s dtype, so the result differs from one rank's product only by
+    the order of its fp32 sums (bf16 partials rounded apart would each move
+    by a bf16 step)."""
+    if tp is None or tp.size == 1:
+        return x @ w
+    return reduce_from_tp(x.float() @ w.float(), tp).to(x.dtype)
 
 
-def lm_head_logits(params: dict, cfg: ModelConfig, x_normed: torch.Tensor) -> torch.Tensor:
+def _mlp(layer: dict, x: torch.Tensor, tp: TP | None = None) -> torch.Tensor:
+    x = copy_to_tp(x, tp)
+    return _row_parallel(F.silu(x @ layer["wgate"]) * (x @ layer["wup"]), layer["wdown"], tp)
+
+
+def _attn_out(layer: dict, attn: torch.Tensor, tp: TP | None) -> torch.Tensor:
+    """The row-parallel output projection of ``attn`` [..., H_local, Dh]."""
+    return _row_parallel(attn.reshape(*attn.shape[:-2], -1), layer["wo"], tp)
+
+
+def vocab_range(cfg: ModelConfig, tp: TP | None) -> tuple[int, int]:
+    """[lo, hi) of the vocabulary rows whose logits this rank computes."""
+    if tp is None or tp.size == 1:
+        return 0, cfg.vocab_size
+    if cfg.vocab_size % tp.size:
+        raise ValueError(f"vocab_size {cfg.vocab_size} does not split over tp={tp.size}")
+    n = cfg.vocab_size // tp.size
+    return tp.rank * n, (tp.rank + 1) * n
+
+
+def lm_head_logits(params: dict, cfg: ModelConfig, x_normed: torch.Tensor, tp: TP | None = None) -> torch.Tensor:
     """FP32 lm_head over already-final-norm'd hidden states. Padded
     vocabulary rows (ids >= ``cfg.valid_vocab``) get -1e30 here, the single
     funnel every consumer shares, so sampler and trainer logprobs agree while
-    untrained padding ids can never be sampled."""
+    untrained padding ids can never be sampled. Under ``tp`` the logits of
+    this rank's ``V/tp`` rows (``vocab_range``): the head's local columns,
+    or the rows of the whole embedding table when tied; the mask compares
+    global ids."""
+    lo, hi = vocab_range(cfg, tp)
     if cfg.tie_word_embeddings:
-        w = params["embed"].float().T
+        table = params["embed"] if (lo, hi) == (0, cfg.vocab_size) else params["embed"][lo:hi]
+        w = table.float().T
     else:
         w = params["lm_head"].float()
-    logits = x_normed.float() @ w
-    if cfg.valid_vocab is not None and cfg.valid_vocab < cfg.vocab_size:
+    logits = copy_to_tp(x_normed, tp).float() @ w
+    if cfg.valid_vocab is not None and cfg.valid_vocab < hi:
         # in place, where the JAX package takes a ``where``: the product saves
         # its inputs, not its output, so autograd accepts the write (the
         # masked logits get zero gradient either way) and no second [.., V]
         # fp32 buffer is made
-        logits[..., cfg.valid_vocab :] = _NEG_INF
+        logits[..., max(cfg.valid_vocab - lo, 0) :] = _NEG_INF
     return logits
 
 
-def unembed(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """Final norm + FP32 lm_head. Returns fp32 logits."""
-    return lm_head_logits(params, cfg, rms_norm(x, params["final_norm"], cfg.rms_norm_eps))
+def unembed(params: dict, cfg: ModelConfig, x: torch.Tensor, tp: TP | None = None) -> torch.Tensor:
+    """Final norm + FP32 lm_head. Returns fp32 logits (this rank's
+    vocabulary rows under ``tp``)."""
+    return lm_head_logits(params, cfg, rms_norm(x, params["final_norm"], cfg.rms_norm_eps), tp)
 
 
 def _unbind_layers(params: dict) -> list[dict]:
@@ -297,6 +386,7 @@ def forward(
     image_embeds: torch.Tensor | None = None,  # [B, M, D] visual tokens
     image_mask: torch.Tensor | None = None,  # [B, L] bool placeholder positions
     gather_layer: Callable[[dict], dict] | None = None,  # a world's per-layer dp gather
+    tp: TP | None = None,  # this rank's tensor-parallel group (its heads, FFN columns, vocabulary rows)
 ):
     """Full forward over packed rows. Returns fp32 logits [B, L, V]; with
     ``return_kv`` also the per-layer keys/values, each [L, B, T, K, Dh]; with
@@ -315,7 +405,8 @@ def forward(
     ``attn_impl`` takes ``mha_packed``'s arguments (context-parallel
     attention, ``parallel/cp_attention.py``). ``gather_layer`` turns a
     layer's dp slices into its full weights inside the layer's (remat)
-    region (``parallel.sharding.layer_gather``)."""
+    region (``parallel.sharding.layer_gather``). Under ``tp`` the logits
+    are this rank's ``V/tp`` columns and the K/V its heads'."""
     if callable(attn_impl):
         attn_fn = attn_impl
     elif attn_impl in ("gqa", "blockwise"):
@@ -330,7 +421,8 @@ def forward(
         raise ValueError(f"unknown attn_impl {attn_impl!r}")
     if remat not in (False, True, "mlp"):
         raise ValueError(f"unknown remat {remat!r}")
-    x = params["embed"][input_ids]
+    # the whole table on every tp rank: its gather's backward sums over tp
+    x = count_once(params["embed"][input_ids], tp)
     if image_embeds is not None:
         x = splice_image_embeds(x, image_embeds, image_mask)
     cos, sin = positional_cos_sin(cfg, position_ids)
@@ -338,17 +430,17 @@ def forward(
         position_ids = position_ids[0]
 
     def mlp_block(h, layer):
-        return _mlp(layer, rms_norm(h, layer["ln2"], cfg.rms_norm_eps))
+        return _mlp(layer, rms_norm(h, layer["ln2"], cfg.rms_norm_eps), tp)
 
     def layer_fn(h, layer):
         if gather_layer is not None:
             layer = gather_layer(layer)
         normed = rms_norm(h, layer["ln1"], cfg.rms_norm_eps)
-        q, k, v = _project_qkv(layer, cfg, normed)
+        q, k, v = _project_qkv(layer, cfg, normed, tp)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         attn = attn_fn(q, k, v, segment_ids, position_ids)
-        h = h + attn.reshape(*h.shape[:-1], cfg.q_dim) @ layer["wo"]
+        h = h + _attn_out(layer, attn, tp)
         if remat == "mlp":
             return h + checkpoint(mlp_block, h, layer, use_reentrant=False), k, v
         return h + mlp_block(h, layer), k, v
@@ -365,7 +457,7 @@ def forward(
     if skip_unembed:
         out = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     else:
-        out = unembed(params, cfg, x)
+        out = unembed(params, cfg, x, tp)
     outs = [out]
     if return_kv:
         outs.append((torch.stack(ks), torch.stack(vs)))
@@ -400,6 +492,7 @@ def forward_extend(
     prefix_len: torch.Tensor,  # [B] — valid prefix tokens (the rest of Pfx is pad)
     attn_impl: str = "xla",  # "xla" (plain torch) | "gqa" (CUDA kernel)
     skip_unembed: bool = False,
+    tp: TP | None = None,
 ):
     """Prefill of a tail against a cached prefix: only the tail's layers run,
     attending over [prefix | tail]. Tail queries sit at global flat indices
@@ -424,20 +517,20 @@ def forward_extend(
     ks, vs = [], []
     for layer, k_pre, v_pre in zip(_unbind_layers(params), k_prefix, v_prefix):
         normed = rms_norm(x, layer["ln1"], cfg.rms_norm_eps)
-        q, k, v = _project_qkv(layer, cfg, normed)
+        q, k, v = _project_qkv(layer, cfg, normed, tp)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         k_all = torch.cat([k_pre.to(k.dtype), k], 1)
         v_all = torch.cat([v_pre.to(v.dtype), v], 1)
         attn = attn_fn(q, k_all, v_all, q_seg, kv_seg, Pfx)[0]
-        x = x + attn.reshape(B, Lt, cfg.q_dim) @ layer["wo"]
-        x = x + _mlp(layer, rms_norm(x, layer["ln2"], cfg.rms_norm_eps))
+        x = x + _attn_out(layer, attn, tp)
+        x = x + _mlp(layer, rms_norm(x, layer["ln2"], cfg.rms_norm_eps), tp)
         ks.append(k)
         vs.append(v)
     if skip_unembed:
         out = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     else:
-        out = unembed(params, cfg, x)
+        out = unembed(params, cfg, x, tp)
     return out, (torch.stack(ks), torch.stack(vs))
 
 
@@ -455,10 +548,12 @@ def decode_step_staged(
     attn_impl="xla",  # "xla" (plain torch) | "ragged" (CUDA kernel) | a callable
     # with the signature of ops/attention.decode_attention_staged (the
     # engine's paged layout closes a block table over it)
+    tp: TP | None = None,
 ):
     """One decode step attending over frozen cache + staged band + self.
     Returns (fp32 logits [S, V], k_new [L, S, K, Dh], v_new [L, S, K, Dh]);
-    the caller stages the new K/V and merges the band once per window."""
+    the caller stages the new K/V and merges the band once per window.
+    Under ``tp``: this rank's ``V/tp`` logits and its heads' K/V."""
     if callable(attn_impl):
         attn_fn = attn_impl
     elif attn_impl == "ragged":
@@ -472,17 +567,17 @@ def decode_step_staged(
     ks, vs = [], []
     for l, layer in enumerate(_unbind_layers(params)):
         normed = rms_norm(x, layer["ln1"], cfg.rms_norm_eps)
-        q, k, v = _project_qkv(layer, cfg, normed)
+        q, k, v = _project_qkv(layer, cfg, normed, tp)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         attn = attn_fn(
             q, k, v, k_cache[l], v_cache[l], base_lens, k_staged[l], v_staged[l], step
         )
-        x = x + attn.reshape(x.shape[0], cfg.q_dim) @ layer["wo"]
-        x = x + _mlp(layer, rms_norm(x, layer["ln2"], cfg.rms_norm_eps))
+        x = x + _attn_out(layer, attn, tp)
+        x = x + _mlp(layer, rms_norm(x, layer["ln2"], cfg.rms_norm_eps), tp)
         ks.append(k)
         vs.append(v)
-    return unembed(params, cfg, x), torch.stack(ks), torch.stack(vs)
+    return unembed(params, cfg, x, tp), torch.stack(ks), torch.stack(vs)
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""The sharded trainer's mesh, rules, collectives and step (dp x cp) on
+"""The sharded trainer's mesh, rules, collectives and step (dp, cp, tp) on
 ``torch.distributed``; port of the JAX package's ``parallel/``."""
 
 from .mesh import infer_mesh_shape, make_mesh  # noqa: F401

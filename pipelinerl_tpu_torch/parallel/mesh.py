@@ -8,13 +8,20 @@ Port of the JAX package's ``parallel/mesh.py``. Axes:
 - ``cp``: context parallelism; each rank holds a contiguous ``L/cp`` slice
   of the packed rows, and attention gathers K/V over the axis
   (``cp_attention.py``);
-- ``tp`` and ``pp``: kept in ``AXES`` and ``infer_mesh_shape`` as JAX has
-  them; a mesh with either above 1 raises (ROADMAP Queue 1, item 15).
+- ``tp``: tensor parallelism; each rank holds its slice of every layer's
+  heads and FFN columns (Megatron's column- and row-parallel splits,
+  ``models/transformer.py``) and computes the logits of its ``V/tp``
+  vocabulary rows;
+- ``pp``: kept in ``AXES`` and ``infer_mesh_shape`` as JAX has it; a mesh
+  with pp above 1 raises (ROADMAP Queue 1, item 15: the JAX trainer has no
+  pp axis, and the engine's stage-to-stage sends are not ported).
 
 JAX drives a whole mesh from one process; the port runs one rank process
-per device, so ``make_mesh(dp, cp)`` needs a process group of ``dp * cp``
-ranks (``multihost.maybe_initialize_distributed``). Global rank
-``dp_rank * cp + cp_rank`` sits at mesh coordinate ``(dp_rank, cp_rank)``.
+per device, so ``make_mesh(dp, cp, tp)`` needs a process group of
+``dp * cp * tp`` ranks (``multihost.maybe_initialize_distributed``). Global
+rank ``(dp_rank * cp + cp_rank) * tp + tp_rank`` sits at mesh coordinate
+``(dp_rank, cp_rank, tp_rank)``: tp innermost, so tp peers sit on
+neighbouring cards.
 """
 
 from __future__ import annotations
@@ -23,8 +30,10 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
+from .collectives import TP, reduce_
+
 AXES = ("dp", "cp", "tp", "pp")
-MESH_AXES = ("dp", "cp")
+MESH_AXES = ("dp", "cp", "tp")
 
 
 def infer_mesh_shape(
@@ -43,24 +52,23 @@ def infer_mesh_shape(
     return (n_devices // (tp * cp * pp), cp, tp, pp)
 
 
-def refuse_tp_pp(tp: int = 1, pp: int = 1) -> None:
-    for name, n in (("tp", tp), ("pp", pp)):
-        if int(n) > 1:
-            raise NotImplementedError(
-                f"parallel.{name} > 1 is not ported yet: tensor and pipeline parallelism wait for "
-                "ROADMAP Queue 1, item 15")
+def refuse_pp(pp: int = 1, node: str = "parallel") -> None:
+    if int(pp) > 1:
+        raise NotImplementedError(
+            f"{node}.pp > 1 is not ported yet: pipeline parallelism waits for ROADMAP Queue 1, item 15 "
+            "(the engine's stage-to-stage sends; the JAX trainer has no pp axis)")
 
 
 def make_mesh(dp: int, cp: int = 1, tp: int = 1, pp: int = 1) -> DeviceMesh:
-    """A ``(dp, cp)`` DeviceMesh over the default process group, whose world
-    size must be ``dp * cp``. Its device type is the backend's (gloo's
-    ranks may share a card; the mesh only names their groups)."""
-    refuse_tp_pp(tp, pp)
+    """A ``(dp, cp, tp)`` DeviceMesh over the default process group, whose
+    world size must be ``dp * cp * tp``. Its device type is the backend's
+    (gloo's ranks may share a card; the mesh only names their groups)."""
+    refuse_pp(pp)
     world = dist.get_world_size()
-    if dp * cp != world:
-        raise ValueError(f"a ({dp}, {cp}) mesh needs {dp * cp} ranks, the world has {world}")
+    if dp * cp * tp != world:
+        raise ValueError(f"a ({dp}, {cp}, {tp}) mesh needs {dp * cp * tp} ranks, the world has {world}")
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    return DeviceMesh(device_type, torch.arange(world).reshape(dp, cp), mesh_dim_names=MESH_AXES)
+    return DeviceMesh(device_type, torch.arange(world).reshape(dp, cp, tp), mesh_dim_names=MESH_AXES)
 
 
 def axis_size(mesh: DeviceMesh | None, name: str) -> int:
@@ -81,3 +89,17 @@ def axis_group(mesh: DeviceMesh | None, name: str):
 def world_group(mesh: DeviceMesh | None):
     """The default group when the mesh spans more than one rank, else None."""
     return None if mesh is None or mesh.size() == 1 else dist.group.WORLD
+
+
+def reduce_over(x: torch.Tensor, mesh: DeviceMesh | None, axes, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """All-reduce ``x`` in place over each of ``axes`` in turn (their
+    product group); returns it."""
+    for name in axes:
+        reduce_(x, axis_group(mesh, name), op)
+    return x
+
+
+def tp_context(mesh: DeviceMesh | None):
+    """The model's ``collectives.TP`` of this rank's tp axis, or None."""
+    n = axis_size(mesh, "tp")
+    return None if n == 1 else TP(axis_group(mesh, "tp"), axis_rank(mesh, "tp"), n)

@@ -91,14 +91,15 @@ def maybe_initialize_distributed(cfg=None, device: str = "cuda") -> tuple[bool, 
     return True, dev
 
 
-def make_multihost_mesh(dp: int, cp: int = 1):
-    """The (dp, cp) mesh with cp confined to each host's ranks and dp
-    spanning hosts, as JAX's check asks: cp must divide the ranks of a
-    host."""
+def make_multihost_mesh(dp: int, cp: int = 1, tp: int = 1):
+    """The (dp, cp, tp) mesh with cp x tp confined to each host's ranks and
+    dp spanning hosts, as JAX's check asks: cp * tp must divide the ranks of
+    a host."""
     local = int(os.environ.get("LOCAL_WORLD_SIZE", dist.get_world_size()))
-    if local % cp != 0:
-        raise ValueError(f"cp={cp} must divide the local rank count {local} (cp collectives stay within a host)")
-    return make_mesh(dp, cp)
+    if local % (cp * tp) != 0:
+        raise ValueError(f"cp*tp={cp * tp} must divide the local rank count {local} "
+                         "(cp and tp collectives stay within a host)")
+    return make_mesh(dp, cp, tp)
 
 
 # -- a gloo world of processes on one host (tests, CPU runs) ------------------

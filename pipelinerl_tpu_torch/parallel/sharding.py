@@ -1,11 +1,13 @@
-"""Sharding rules: params cut along their ``dp`` dim, batches by rows over
-dp and contiguous slices of the sequence over cp.
+"""Sharding rules: params cut along their ``dp`` and ``tp`` dims, batches
+by rows over dp and contiguous slices of the sequence over cp.
 
 Port of the JAX package's ``parallel/sharding.py``. The rule table is
-JAX's, ``tp`` and ``pp`` entries included (they name the dims a later
-tensor or pipeline split would cut, ROADMAP Queue 1 item 15); the port
-acts on the ``dp`` entry only. A spec is a tuple of axis names (or None)
-per dim, as ``jax.sharding.PartitionSpec`` is.
+JAX's; the port acts on its ``dp`` and ``tp`` entries (``pp`` names the
+stacked-layer dim a pipeline split would cut, ROADMAP Queue 1 item 15). A
+spec is a tuple of axis names (or None) per dim, as
+``jax.sharding.PartitionSpec`` is. Where K does not split over tp
+(``replicate_kv``), ``wk``/``wv``/``bk``/``bv`` drop their ``tp`` entry and
+stay whole on every tp rank, as JAX's engine replicates such a cache.
 
 The params are a dict of stacked ``[L, ...]`` tensors, not ``nn.Module``s,
 so FSDP2's ``fully_shard`` does not apply as is. The port uses explicit
@@ -26,6 +28,20 @@ autograd-aware collectives (``collectives.py``) instead of DTensor:
   hold the same slice and each saw its part of the sequence) and the whole
   leaves' gradients over every rank, once per optimizer step.
 
+Under tp the stacked layers keep their tp slice for the pass (a rank's
+heads and FFN columns, ``models/transformer.py``'s Megatron splits):
+``layer_gather`` gathers over dp only. ``gather_params`` gathers the
+embedding table whole over dp and tp (every rank looks up any id; the
+lookup's gradient is counted once, ``collectives.count_once``) and the
+head over dp only: its tp cut is the vocabulary split the head runs on.
+``sync_grads`` sums over tp only the gradients that tp peers hold in part:
+``q_norm``/``k_norm`` (each rank's own heads read them) and the whole
+``wk``/``wv`` under ``replicate_kv``; ``ln1``, ``ln2``, ``final_norm`` and
+the value head see replicated inputs, so their gradients are equal on tp
+peers and stay as they are. ``grad_norm`` counts each leaf's shards once.
+``tp_local`` cuts a full tree to one tp rank's pass layout, the layout of
+a tp engine's rank.
+
 ``shard_batch`` takes this rank's rows and cp slice of a global batch;
 ``cp_slice`` takes the cp slice of rows the rank already holds. A cp slice
 carries one more column than its ``L/cp`` positions, the first column of
@@ -42,7 +58,7 @@ import numpy as np
 import torch
 
 from . import collectives
-from .mesh import axis_group, axis_rank, axis_size, world_group
+from .mesh import axis_group, axis_rank, axis_size
 
 # the spec of each param leaf, per dim; layer leaves carry the stacked-layer
 # dim first
@@ -71,12 +87,26 @@ _TOP_SPECS = {
 
 _VALUE_HEAD_SPECS = {"w": ("dp", None), "b": (None,)}
 
-def param_partition_specs(params: dict) -> dict:
-    """The spec of every leaf, in the params' structure."""
+# the leaves whole on every tp rank when K does not split over tp
+_KV_LEAVES = ("wk", "wv", "bk", "bv")
+# whole leaves that each tp rank applies to its own heads: partial gradients
+_TP_PARTIAL = ("q_norm", "k_norm")
+
+
+def _layer_spec(name: str, replicate_kv: bool) -> tuple:
+    spec = _LAYER_SPECS[name]
+    if replicate_kv and name in _KV_LEAVES:
+        return tuple(None if a == "tp" else a for a in spec)
+    return spec
+
+
+def param_partition_specs(params: dict, replicate_kv: bool = False) -> dict:
+    """The spec of every leaf, in the params' structure (the rule table's;
+    with ``replicate_kv`` the KV leaves have no tp dim)."""
     specs: dict = {}
     for name, value in params.items():
         if name == "layers":
-            specs["layers"] = {k: _LAYER_SPECS[k] for k in value}
+            specs["layers"] = {k: _layer_spec(k, replicate_kv) for k in value}
         elif name == "value_head":
             specs["value_head"] = dict(_VALUE_HEAD_SPECS)
         else:
@@ -92,36 +122,83 @@ def dp_dim(spec: tuple) -> int | None:
     return spec.index("dp") if "dp" in spec else None
 
 
-def shard_params(params: dict, mesh) -> dict:
-    """This rank's slice of every leaf along its dp dim (whole leaves where
-    the spec has no dp), as new leaf tensors that share no storage."""
-    n, r = axis_size(mesh, "dp"), axis_rank(mesh, "dp")
+def tp_dim(spec: tuple) -> int | None:
+    return spec.index("tp") if "tp" in spec else None
+
+
+def _cut(p: torch.Tensor, d: int | None, n: int, r: int) -> torch.Tensor:
+    if d is None or n == 1:
+        return p
+    if p.shape[d] % n:
+        raise ValueError(f"a leaf of shape {tuple(p.shape)} does not split {n} ways along dim {d}")
+    return p.chunk(n, dim=d)[r]
+
+
+def shard_params(params: dict, mesh, replicate_kv: bool = False) -> dict:
+    """This rank's slice of every leaf along its dp and tp dims (whole
+    along an axis the spec lacks), as new leaf tensors that share no
+    storage."""
 
     def cut(p: torch.Tensor, spec: tuple) -> torch.Tensor:
-        d = dp_dim(spec)
-        if d is None or n == 1:
-            return p.detach().clone()
-        if p.shape[d] % n:
-            raise ValueError(f"a leaf of shape {tuple(p.shape)} does not split {n} ways along dim {d}")
-        return p.detach().chunk(n, dim=d)[r].clone()
+        for axis, d in (("dp", dp_dim(spec)), ("tp", tp_dim(spec))):
+            p = _cut(p.detach(), d, axis_size(mesh, axis), axis_rank(mesh, axis))
+        return p.clone()
 
-    return _map(cut, params, param_partition_specs(params))
+    return _map(cut, params, param_partition_specs(params, replicate_kv))
 
 
-def gather_params(shards: dict, mesh) -> dict:
-    """The weights of a pass: the sliced top leaves all-gathered over dp
-    (differentiable: the backward reduce-scatters over dp), the stacked
-    layers still sliced, for ``forward``'s ``gather_layer``
-    (``layer_gather``)."""
-    group = axis_group(mesh, "dp")
+def tp_local(params: dict, rank: int, size: int, replicate_kv: bool = False) -> dict:
+    """One tp rank's weights of a full tree, in the layout a pass runs on:
+    each layer leaf and the head cut along their tp dim, the embedding
+    table and the whole leaves as they are (copies that share no storage
+    with ``params`` where cut, the same tensors elsewhere)."""
+
+    def cut(p: torch.Tensor, spec: tuple) -> torch.Tensor:
+        d = tp_dim(spec)
+        return p if d is None or size == 1 else _cut(p, d, size, rank).clone()
+
+    specs = param_partition_specs(params, replicate_kv)
+    specs = {**specs, "embed": (None, None)} if "embed" in specs else specs
+    return _map(cut, params, specs)
+
+
+@torch.no_grad()
+def untp_local(params: dict, group, replicate_kv: bool = False) -> dict:
+    """The inverse of ``tp_local`` on every rank of ``group`` (the tp
+    group): each cut leaf all-gathered along its tp dim."""
+    specs = param_partition_specs(params, replicate_kv)
+    specs = {**specs, "embed": (None, None)} if "embed" in specs else specs
 
     def full(p, spec):
-        d = dp_dim(spec)
-        return p if d is None else collectives.all_gather(p, d, group)
+        d = tp_dim(spec)
+        return p.detach() if d is None else collectives.gather(p.detach(), d, group)
 
-    specs = param_partition_specs(shards)
-    top = {k: v for k, v in shards.items() if k != "layers"}
-    return {**_map(full, top, specs), "layers": shards["layers"]}
+    return _map(full, params, specs)
+
+
+def gather_params(shards: dict, mesh, replicate_kv: bool = False) -> dict:
+    """The weights of a pass: the sliced top leaves all-gathered over dp,
+    the embedding table over tp as well (differentiable: the backward
+    reduce-scatters), the head keeping its tp columns, the stacked layers
+    still sliced, for ``forward``'s ``gather_layer`` (``layer_gather``)."""
+
+    def full(p, spec, axes):
+        for axis in axes:
+            d = spec.index(axis) if axis in spec else None
+            if d is not None:
+                p = collectives.all_gather(p, d, axis_group(mesh, axis))
+        return p
+
+    specs = param_partition_specs(shards, replicate_kv)
+    out = {}
+    for k, v in shards.items():
+        if k == "layers":
+            out[k] = v
+        elif k == "value_head":
+            out[k] = _map(lambda p, s: full(p, s, ("dp",)), v, specs[k])
+        else:
+            out[k] = full(v, specs[k], ("dp", "tp") if k == "embed" else ("dp",))
+    return out
 
 
 def layer_gather(mesh) -> Callable[[dict], dict] | None:
@@ -149,47 +226,77 @@ def layer_gather(mesh) -> Callable[[dict], dict] | None:
 
 
 @torch.no_grad()
-def unshard_params(shards: dict, mesh) -> dict:
-    """The inverse of ``shard_params``: the full leaves, on every rank."""
-    group = axis_group(mesh, "dp")
+def unshard_params(shards: dict, mesh, replicate_kv: bool = False, axes: tuple = ("dp", "tp")) -> dict:
+    """The inverse of ``shard_params``: the full leaves, on every rank
+    (gathered over ``axes`` only: ``("dp",)`` keeps the tp slices)."""
 
     def full(p, spec):
-        d = dp_dim(spec)
-        return p.detach() if d is None or group is None else collectives.gather(p.detach(), d, group)
+        p = p.detach()
+        for axis in axes:
+            d = spec.index(axis) if axis in spec else None
+            if d is not None:
+                p = collectives.gather(p, d, axis_group(mesh, axis))
+        return p
 
-    return _map(full, shards, param_partition_specs(shards))
+    return _map(full, shards, param_partition_specs(shards, replicate_kv))
 
 
-def leaf_specs(shards: dict) -> list[tuple]:
-    """The specs in ``trainer.param_leaves`` order."""
+def _walk_leaves(tree: dict, fn) -> list:
     out = []
 
-    def walk(tree, specs):
-        for k, v in tree.items():
+    def walk(node, path):
+        for k, v in node.items():
             if isinstance(v, dict):
-                walk(v, specs[k])
+                walk(v, path + (k,))
             else:
-                out.append(specs[k])
+                out.append(fn(path + (k,)))
 
-    walk(shards, param_partition_specs(shards))
+    walk(tree, ())
     return out
 
 
+def leaf_specs(shards: dict, replicate_kv: bool = False) -> list[tuple]:
+    """The specs in ``trainer.param_leaves`` order."""
+    specs = param_partition_specs(shards, replicate_kv)
+
+    def spec(path):
+        node = specs
+        for k in path:
+            node = node[k]
+        return node
+
+    return _walk_leaves(shards, spec)
+
+
+def tp_partial_leaves(shards: dict, replicate_kv: bool = False) -> list[bool]:
+    """Per leaf in ``trainer.param_leaves`` order: whether tp peers each
+    hold part of its gradient (whole leaves read by each rank's own heads)."""
+    partial = _TP_PARTIAL + (_KV_LEAVES if replicate_kv else ())
+    return _walk_leaves(shards, lambda path: path[0] == "layers" and path[-1] in partial)
+
+
 @torch.no_grad()
-def sync_grads(leaves: list[torch.Tensor], specs: list[tuple], mesh) -> None:
-    """Once per step, after the passes: the sliced leaves' gradients summed
-    over cp, the whole leaves' over every rank. Leaves the same on every
-    rank are bucketed into one flat all-reduce per group."""
-    for group, pick in ((axis_group(mesh, "cp"), lambda s: dp_dim(s) is not None),
-                        (world_group(mesh), lambda s: dp_dim(s) is None)):
-        grads = [p.grad for p, s in zip(leaves, specs) if pick(s) and p.grad is not None]
-        if group is None or not grads:
+def sync_grads(leaves: list[torch.Tensor], specs: list[tuple], mesh, tp_partial: list[bool] | None = None) -> None:
+    """Once per step, after the passes: every gradient summed over cp, the
+    leaves with no dp dim over dp as well (the others were reduce-scattered
+    over dp in the backward), and the ``tp_partial`` ones over tp. Leaves
+    summed over the same axes are bucketed into one flat all-reduce per
+    axis and dtype."""
+    tp_partial = tp_partial or [False] * len(leaves)
+    buckets: dict[tuple, list[torch.Tensor]] = {}
+    for p, spec, part in zip(leaves, specs, tp_partial):
+        if p.grad is None:
             continue
-        for dtype in sorted({g.dtype for g in grads}, key=str):
-            same = [g for g in grads if g.dtype == dtype]
-            flat = collectives.reduce_(torch.cat([g.reshape(-1) for g in same]), group)
-            for g, piece in zip(same, flat.split([g.numel() for g in same])):
-                g.copy_(piece.view_as(g))
+        axes = ("cp",) + (("dp",) if dp_dim(spec) is None else ()) + (("tp",) if part else ())
+        axes = tuple(a for a in axes if axis_size(mesh, a) > 1)
+        if axes:
+            buckets.setdefault((axes, str(p.grad.dtype)), []).append(p.grad)
+    for (axes, _), grads in buckets.items():
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        for axis in axes:
+            collectives.reduce_(flat, axis_group(mesh, axis))
+        for g, piece in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(piece.view_as(g))
 
 
 def _rows(arr: np.ndarray, mesh) -> np.ndarray:
@@ -225,16 +332,17 @@ def shard_batch(batch: dict[str, np.ndarray], mesh) -> dict[str, np.ndarray]:
 
 
 def grad_norm(leaves: list[torch.Tensor], specs: list[tuple], mesh) -> torch.Tensor:
-    """The global gradient norm after ``sync_grads``, in fp32: the sliced
-    leaves' sums of squares summed over dp (a cp replica counts once), plus
-    the whole leaves' once."""
-    sliced = [p.grad for p, s in zip(leaves, specs) if p.grad is not None and dp_dim(s) is not None]
-    whole = [p.grad for p, s in zip(leaves, specs) if p.grad is not None and dp_dim(s) is None]
+    """The global gradient norm after ``sync_grads``, in fp32: each leaf's
+    sum of squares summed over the axes that cut it (dp, tp), so a shard
+    counts once and a replica (cp; tp for a whole leaf) once."""
     dev = leaves[0].device
-    sq = torch.zeros((), dtype=torch.float32, device=dev)
-    for g in sliced:
-        sq = sq + torch.sum(g.float() * g.float())
-    collectives.reduce_(sq, axis_group(mesh, "dp"))
-    for g in whole:
-        sq = sq + torch.sum(g.float() * g.float())
-    return torch.sqrt(sq)
+    sq = {cut: torch.zeros((), dtype=torch.float32, device=dev)
+          for cut in ((True, True), (True, False), (False, True), (False, False))}
+    for p, s in zip(leaves, specs):
+        if p.grad is not None:
+            cut = (dp_dim(s) is not None, tp_dim(s) is not None)
+            sq[cut] = sq[cut] + torch.sum(p.grad.float() * p.grad.float())
+    dp_group, tp_group = axis_group(mesh, "dp"), axis_group(mesh, "tp")
+    both = collectives.reduce_(sq[True, True], tp_group) + sq[True, False]
+    total = collectives.reduce_(both, dp_group) + collectives.reduce_(sq[False, True], tp_group)
+    return torch.sqrt(total + sq[False, False])

@@ -1,5 +1,5 @@
 """The sharded train step: loss, gradient and optimizer update over the
-(dp, cp) mesh.
+(dp, cp, tp) mesh.
 
 Port of the JAX package's ``parallel/train_step.py``. JAX compiles one
 program over the mesh; the port runs it on every rank over the rank's
@@ -7,9 +7,11 @@ shards, in two pieces that ``TrainerLoop`` shares (it runs several passes
 a step): ``pass_backward`` runs the loss on the rank's rows and cp slice
 (the top leaves gathered over dp, the layers one at a time in the
 forward, context-parallel attention over cp) and its backward, which
-reduce-scatters over dp; ``step_grads`` sums over cp
-(``sharding.sync_grads``) and takes the global norm; the optimizer then
-updates the rank's shards in place. Under a mesh the results match the
+reduce-scatters over dp; under tp the forward runs Megatron's splits on
+the rank's heads, FFN columns and vocabulary rows, and every tp rank
+computes the same loss; ``step_grads`` sums over cp (and over tp the
+gradients tp peers hold in part, ``sharding.sync_grads``) and takes the
+global norm; the optimizer then updates the rank's shards in place. Under a mesh the results match the
 single-device step up to the order of the sums (fp32: within 1e-5
 relative on the tests' tiny model; not bit for bit).
 """
@@ -21,10 +23,9 @@ from typing import Callable
 import numpy as np
 import torch
 
-from . import collectives
 from .cp_attention import make_cp_attention
-from .mesh import axis_group, axis_size, world_group
-from .sharding import gather_params, grad_norm, layer_gather, leaf_specs, sync_grads
+from .mesh import axis_group, axis_size, reduce_over, tp_context
+from .sharding import gather_params, grad_norm, layer_gather, leaf_specs, sync_grads, tp_partial_leaves
 
 # rl_loss metrics that are not sums over tokens or rows
 MAX_METRICS = ("max_reward", "max_advantage", "max_kl")
@@ -33,11 +34,11 @@ CONST_METRICS = ("kl_coef", "entropy_bonus_coef")
 
 
 def reduce_metrics(metrics: dict[str, torch.Tensor], mesh) -> dict[str, torch.Tensor]:
-    """The global batch's metrics from every rank's: sums summed over the
-    world (rows over dp, slices over cp), maxima and minima reduced as such,
-    the coefficients kept. Three all-reduces; identity without a world."""
-    group = world_group(mesh)
-    if group is None:
+    """The global batch's metrics from every rank's: sums summed over dp
+    (rows) and cp (slices), maxima and minima reduced as such, the
+    coefficients kept; tp peers hold the same metrics. Three all-reduces an
+    axis; identity without a world."""
+    if mesh is None or axis_size(mesh, "dp") * axis_size(mesh, "cp") == 1:
         return metrics
     out = dict(metrics)
     for keys, op in ((MAX_METRICS, torch.distributed.ReduceOp.MAX), (MIN_METRICS, torch.distributed.ReduceOp.MIN),
@@ -47,7 +48,7 @@ def reduce_metrics(metrics: dict[str, torch.Tensor], mesh) -> dict[str, torch.Te
         if not keys:
             continue
         flat = torch.stack([metrics[k].detach().float().reshape(()) for k in keys])
-        collectives.reduce_(flat, group, op)
+        reduce_over(flat, mesh, ("dp", "cp"), op)
         out.update(zip(keys, flat.unbind(0)))
     return out
 
@@ -74,16 +75,19 @@ def pass_backward(weights: dict, model_cfg, loss_cfg, arrays: dict, step: float,
     from ..train.rl_loss import rl_loss
 
     loss, metrics = rl_loss(weights, model_cfg, loss_cfg, arrays, step, max_step, sentinel,
-                            cp_group=axis_group(mesh, "cp"), gather_layer=gather_layer, **loss_kwargs)
+                            cp_group=axis_group(mesh, "cp"), gather_layer=gather_layer, tp=tp_context(mesh),
+                            **loss_kwargs)
     loss.backward()
     metrics.update(extra or {})
     return reduce_metrics({k: v.to(loss.device) for k, v in metrics.items()}, mesh)
 
 
-def step_grads(leaves: list[torch.Tensor], specs: list[tuple], mesh) -> torch.Tensor:
-    """After a step's passes: the gradients summed over cp (and the whole
-    leaves over the world), and the global norm in fp32."""
-    sync_grads(leaves, specs, mesh)
+def step_grads(leaves: list[torch.Tensor], specs: list[tuple], mesh,
+               tp_partial: list[bool] | None = None) -> torch.Tensor:
+    """After a step's passes: the gradients summed over cp (the whole
+    leaves over dp, the ``tp_partial`` ones over tp), and the global norm in
+    fp32."""
+    sync_grads(leaves, specs, mesh, tp_partial)
     return grad_norm(leaves, specs, mesh)
 
 
@@ -103,17 +107,19 @@ def make_sharded_train_step(
     and cp slice (``sharding.shard_batch``). The returned loss and metrics
     are the global batch's, ``grad_norm`` the global norm, on every rank;
     the shards are updated in place."""
+    from ..models.transformer import replicate_kv
     from ..train.trainer import param_leaves
 
     attn = make_cp_attention(mesh, num_kv_heads=model_cfg.num_kv_heads) if axis_size(mesh, "cp") > 1 else "xla"
+    kv = replicate_kv(model_cfg, axis_size(mesh, "tp"))
 
     def step_fn(params, opt_state, batch, step, sentinel):
         leaves = [p for _, p in param_leaves(params)]
         opt_state = opt_state if opt_state is not None else optimizer(leaves)
-        metrics = pass_backward(gather_params(params, mesh), model_cfg, loss_cfg,
+        metrics = pass_backward(gather_params(params, mesh, kv), model_cfg, loss_cfg,
                                 batch_tensors(batch, leaves[0].device), float(step), max_step, float(sentinel),
                                 mesh, layer_gather(mesh), remat=remat, attn_impl=attn)
-        metrics["grad_norm"] = step_grads(leaves, leaf_specs(params), mesh)
+        metrics["grad_norm"] = step_grads(leaves, leaf_specs(params, kv), mesh, tp_partial_leaves(params, kv))
         opt_state.step()
         opt_state.zero_grad(set_to_none=True)
         return params, opt_state, metrics["loss"], metrics

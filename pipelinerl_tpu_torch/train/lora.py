@@ -59,14 +59,19 @@ def init_lora_params(generator: torch.Generator, params: dict, lora_cfg: LoRACon
     return out
 
 
-def merge_lora(params: dict, lora_params: dict, lora_cfg: LoRAConfig) -> dict:
+def merge_lora(params: dict, lora_params: dict, lora_cfg: LoRAConfig, local=None) -> dict:
     """``params`` with W + scaling · A @ B for each target: the product and
     the sum in fp32, the result in W's dtype. Differentiable in the
-    adapters; the other entries are ``params``' own tensors."""
+    adapters; the other entries are ``params``' own tensors. Where
+    ``params`` hold one tp rank's slices, ``local(name, delta)`` cuts the
+    whole product to the rank's slice of ``name``."""
     merged_layers = dict(params["layers"])
     for name in lora_cfg.target_modules:
         a = lora_params["layers"][f"{name}_A"].float()
         b = lora_params["layers"][f"{name}_B"].float()
         w = params["layers"][name]
-        merged_layers[name] = (w.float() + torch.bmm(a, b) * lora_cfg.scaling).to(w.dtype)
+        delta = torch.bmm(a, b) * lora_cfg.scaling
+        if local is not None:
+            delta = local(name, delta)
+        merged_layers[name] = (w.float() + delta).to(w.dtype)
     return {**params, "layers": merged_layers}

@@ -26,6 +26,15 @@ they are summed over the cp group before any nonlinearity
 (``collectives.all_reduce_sum``, whose backward sums the gradient), and the
 sequence-level term is divided by the group size, so the cp ranks' local
 losses sum to the row's loss, as every other (token-additive) term does.
+
+Under tensor parallelism (``tp``) each rank holds the logits of its
+``V/tp`` vocabulary rows, and ``_stats`` is vocabulary-parallel, after the
+temperature: log Z from the group's maximum and its sum of exponentials,
+the target's logit from the rank that owns it, and the entropy as log Z
+minus the group's sum of p · logit. Every rank then holds the same
+statistics and the same loss; the sums are Megatron's g (identity
+backward) and log Z enters each rank's own entropy terms through f, so
+the gradients are the single-device ones.
 """
 
 from __future__ import annotations
@@ -36,7 +45,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..models.transformer import ModelConfig, forward, lm_head_logits, value_predictions
-from ..parallel.collectives import all_reduce_sum
+from ..parallel.collectives import TP, all_reduce_sum, copy_to_tp, max_over_tp, reduce_from_tp
 
 
 @dataclass(frozen=True)
@@ -81,8 +90,11 @@ def token_logprobs_from_logits(logits: torch.Tensor, input_ids: torch.Tensor, te
     return selected - torch.logsumexp(logits, dim=-1)
 
 
-def _stats(logits_t: torch.Tensor, targets: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """(logprob of targets, entropy) of temperature-scaled logits."""
+def _stats(logits_t: torch.Tensor, targets: torch.Tensor, tp: TP | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(logprob of targets, entropy) of temperature-scaled logits; under
+    ``tp`` of this rank's vocabulary columns, the group's statistics."""
+    if tp is not None and tp.size > 1:
+        return _stats_vocab_parallel(logits_t, targets, tp)
     log_norm = torch.logsumexp(logits_t, dim=-1)
     selected = logits_t.gather(-1, targets[..., None].long())[..., 0]
     logprobs_full = logits_t - log_norm[..., None]
@@ -90,12 +102,27 @@ def _stats(logits_t: torch.Tensor, targets: torch.Tensor) -> tuple[torch.Tensor,
     return selected - log_norm, entropy
 
 
+def _stats_vocab_parallel(logits_t: torch.Tensor, targets: torch.Tensor, tp: TP) -> tuple[torch.Tensor, torch.Tensor]:
+    """``_stats`` over the tp group's vocabulary: this rank holds the
+    columns ``[rank * V_local, (rank + 1) * V_local)``."""
+    n_local = logits_t.shape[-1]
+    shift = max_over_tp(logits_t.detach().amax(dim=-1), tp)
+    log_norm = shift + torch.log(reduce_from_tp(torch.exp(logits_t - shift[..., None]).sum(-1), tp))
+    local = targets.long() - tp.rank * n_local
+    own = (local >= 0) & (local < n_local)
+    picked = logits_t.gather(-1, local.clamp(0, n_local - 1)[..., None])[..., 0]
+    selected = reduce_from_tp(torch.where(own, picked, torch.zeros_like(picked)), tp)
+    probs = torch.exp(logits_t - copy_to_tp(log_norm, tp)[..., None])
+    entropy = log_norm - reduce_from_tp((probs * logits_t).sum(-1), tp)
+    return selected - log_norm, entropy
+
+
 def _token_stats_from_logits(
-    logits: torch.Tensor, input_ids: torch.Tensor, temperature: float
+    logits: torch.Tensor, input_ids: torch.Tensor, temperature: float, tp: TP | None = None
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(new_logprobs, entropy), both [B, L-1] fp32, at the positions that
     predict input_ids[:, 1:]."""
-    return _stats(logits[:, :-1, :].float() / temperature, input_ids[:, 1:])
+    return _stats(logits[:, :-1, :].float() / temperature, input_ids[:, 1:], tp)
 
 
 def _token_stats_chunked(
@@ -106,6 +133,7 @@ def _token_stats_chunked(
     temperature: float,
     chunk: int,
     halo: bool = False,
+    tp: TP | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``_token_stats_from_logits`` with the [*, V] fp32 logits alive one
     sequence chunk at a time: each chunk's unembed runs under
@@ -118,7 +146,7 @@ def _token_stats_chunked(
     targets = input_ids[:, 1:] if halo else torch.cat([input_ids[:, 1:], input_ids[:, :1]], dim=1)
 
     def body(h_c, t_c):
-        return _stats(lm_head_logits(model_params, model_cfg, h_c) / temperature, t_c)
+        return _stats(lm_head_logits(model_params, model_cfg, h_c, tp) / temperature, t_c, tp)
 
     lps, ents = [], []
     for c in range(0, L, chunk):
@@ -315,6 +343,7 @@ def rl_loss(
     image_mask: torch.Tensor | None = None,  # [B, L] placeholder positions
     cp_group=None,  # the cp axis's group: ``batch`` is this rank's slice plus its halo
     gather_layer=None,  # a world's per-layer dp gather (``parallel.sharding.layer_gather``)
+    tp: TP | None = None,  # the tp axis: this rank's heads, FFN columns and vocabulary rows
 ) -> tuple[torch.Tensor, dict]:
     """Forward and loss for one packed micro-batch. With ``logits_chunk``
     (long rows) the [L, V] fp32 logits are never whole: the unembed and
@@ -322,7 +351,8 @@ def rl_loss(
     entry of ``params`` adds the actor-critic value path. A VLM row passes
     mrope rows as ``batch["position_ids"]`` ([3, B, L]) and the visual
     tokens to splice. Under ``cp_group`` the returned loss is this rank's
-    share (the group's shares sum to the row's loss)."""
+    share (the group's shares sum to the row's loss). Under ``tp`` every tp
+    rank returns the same loss."""
     model_params = {k: v for k, v in params.items() if k not in ("value_head", "vision_tower")}
     ids, pos, seg = batch["input_ids"], batch["position_ids"], batch["segment_ids"]
     if cp_group is not None:  # drop the halo column: it is the next slice's
@@ -332,7 +362,7 @@ def rl_loss(
     out = forward(
         model_params, model_cfg, ids, pos, seg,
         remat=remat, attn_impl=attn_impl, skip_unembed=chunked, return_hidden="value_head" in params,
-        image_embeds=image_embeds, image_mask=image_mask, gather_layer=gather_layer,
+        image_embeds=image_embeds, image_mask=image_mask, gather_layer=gather_layer, tp=tp,
     )
     values = None
     if "value_head" in params:
@@ -341,12 +371,12 @@ def rl_loss(
     if chunked:  # ``out`` is the final-norm'd hidden
         new_logprobs, entropy = _token_stats_chunked(
             model_params, model_cfg, out, batch["input_ids"], loss_cfg.temperature, logits_chunk,
-            halo=cp_group is not None,
+            halo=cp_group is not None, tp=tp,
         )
     elif cp_group is not None:
-        new_logprobs, entropy = _stats(out.float() / loss_cfg.temperature, batch["input_ids"][:, 1:])
+        new_logprobs, entropy = _stats(out.float() / loss_cfg.temperature, batch["input_ids"][:, 1:], tp)
     else:
-        new_logprobs, entropy = _token_stats_from_logits(out, batch["input_ids"], loss_cfg.temperature)
+        new_logprobs, entropy = _token_stats_from_logits(out, batch["input_ids"], loss_cfg.temperature, tp)
     loss, metrics = _rl_loss_from_stats(new_logprobs, entropy, batch, step, max_step, loss_cfg, values, cp_group)
     loss = loss * (1.0 - sentinel)
     metrics["loss"] = loss

@@ -4,24 +4,29 @@ and in-flight weight pushes, on one device or as one rank of a trainer
 world.
 
 Port of the JAX package's ``train/trainer.py`` ``TrainerLoop``. Left out:
-``tp``/``pp`` above 1, which raise (ROADMAP Queue 1, item 15), and the
-memory debugger and step profiler, which ``launch.validate_config`` refuses
-(``finetune.memory_debug.enabled``, ``finetune.profile.enabled``).
+``pp`` above 1, which raises (ROADMAP Queue 1, item 15; the JAX trainer
+has no pp axis either), and the memory debugger and step profiler, which
+``launch.validate_config`` refuses (``finetune.memory_debug.enabled``,
+``finetune.profile.enabled``).
 
 A trainer world (``torch.distributed`` joined, ``parallel/multihost.py``)
-runs a ``(world / cp, cp)`` mesh, one rank per device:
+runs a ``(world / (cp * tp), cp, tp)`` mesh, one rank per device:
 
 - the params (the frozen base under LoRA, whose adapters are replicated)
-  are cut along their dp dims (``parallel/sharding.py``); a pass gathers
-  the top leaves over dp and the layers one at a time inside the forward
-  (again in the backward under remat), whose backward reduce-scatters the
-  gradients; under LoRA the frozen base is gathered whole for a pass.
-  AdamW and Lion update the rank's slices, Adafactor gathers a leaf to
-  compute its factored moments over the whole of it;
-- each rank reads the ``training_data`` partition of its dp rank, buffers
-  ``parallel.dp / dp_ranks`` rows a pass (``dp_local``) and takes its cp
-  slice of them; attention under a cp axis is ``parallel/cp_attention.py``
-  whatever ``attn_impl`` says (a slice needs the other slices' keys);
+  are cut along their dp and tp dims (``parallel/sharding.py``); a pass
+  gathers the top leaves over dp (the embedding table over tp as well) and
+  the layers one at a time over dp inside the forward (again in the
+  backward under remat), whose backward reduce-scatters the gradients;
+  under tp each rank keeps its heads, FFN columns and vocabulary rows
+  (Megatron's splits, ``models/transformer.py``); under LoRA the frozen
+  base is gathered over dp for a pass and the adapters' product cut to the
+  rank's tp slice. AdamW and Lion update the rank's slices, Adafactor
+  gathers a leaf to compute its factored moments over the whole of it;
+- each rank reads the ``training_data`` partition of its dp rank (cp and
+  tp peers read the same one), buffers ``parallel.dp / dp_ranks`` rows a
+  pass (``dp_local``) and takes its cp slice of them; attention under a cp
+  axis is ``parallel/cp_attention.py`` whatever ``attn_impl`` says (a
+  slice needs the other slices' keys), on the rank's tp heads;
 - the pass's metrics and its (samples, tokens) counts are summed over the
   world, so every rank steps, publishes the same version and saves at the
   same time; only rank 0 writes the control streams and the checkpoint,
@@ -77,9 +82,20 @@ from ..models.vision import prepare_vision_inputs, vision_forward, vision_inputs
 from ..inference.weight_transfer import gather_for_push
 from ..parallel import collectives
 from ..parallel.cp_attention import make_cp_attention
-from ..parallel.mesh import axis_group, axis_rank, axis_size, refuse_tp_pp
+from ..models.transformer import replicate_kv
+from ..parallel.mesh import axis_group, axis_rank, axis_size, refuse_pp
 from ..parallel.multihost import make_multihost_mesh
-from ..parallel.sharding import cp_slice, dp_dim, gather_params, layer_gather, leaf_specs, shard_params, unshard_params
+from ..parallel.sharding import (
+    cp_slice,
+    gather_params,
+    layer_gather,
+    leaf_specs,
+    shard_params,
+    tp_dim,
+    tp_partial_leaves,
+    unshard_params,
+    untp_local,
+)
 from ..parallel.train_step import batch_tensors, pass_backward, step_grads
 from ..state import SamplesProcessed, TrainingDone, WeightUpdateSuccess
 from ..streams import SingleStreamSpec, StreamReader, StreamWriter
@@ -217,23 +233,23 @@ def resolve_attn_impl(name: str, seq_length: int, device: torch.device, mesh=Non
     return name
 
 
-def parallel_shape(cfg: Config, world: int) -> tuple[int, int]:
-    """(dp, cp) of the trainer from ``parallel`` and the world size, with the
-    JAX trainer's checks: ``tp``/``pp`` above 1 raise (item 15), cp needs
-    cp ranks of the world, and dp must be a multiple of the world's dp
-    ranks. A world with no ``parallel`` product is all dp."""
+def parallel_shape(cfg: Config, world: int) -> tuple[int, int, int]:
+    """(dp, cp, tp) of the trainer from ``parallel`` and the world size,
+    with the JAX trainer's checks: ``pp`` above 1 raises (item 15), cp * tp
+    needs as many ranks of the world, and dp must be a multiple of the
+    world's dp ranks. A world with no ``parallel`` product is all dp."""
     par = cfg.get("parallel") or Config({})
-    refuse_tp_pp(int(par.get("tp", 1)), int(par.get("pp", 1)))
-    dp, cp = int(par.get("dp", 1)), int(par.get("cp", 1))
-    if dp * cp == 1 and world > 1:
+    refuse_pp(int(par.get("pp", 1)))
+    dp, cp, tp = int(par.get("dp", 1)), int(par.get("cp", 1)), int(par.get("tp", 1))
+    if dp * cp * tp == 1 and world > 1:
         dp = world
-    if world % cp:
-        raise ValueError(f"parallel.cp={cp} needs a trainer world of a multiple of {cp} ranks, it has {world} "
-                         "(launch starts dp*cp ranks)")
-    if dp % (world // cp):
-        raise ValueError(f"parallel.dp={dp} must be a multiple of the world's dp ranks {world // cp} "
+    if world % (cp * tp):
+        raise ValueError(f"parallel cp*tp={cp * tp} needs a trainer world of a multiple of {cp * tp} ranks, it has "
+                         f"{world} (launch starts dp*cp*tp ranks)")
+    if dp % (world // (cp * tp)):
+        raise ValueError(f"parallel.dp={dp} must be a multiple of the world's dp ranks {world // (cp * tp)} "
                          "(each dp rank contributes dp / dp_ranks rows a pass)")
-    return dp, cp
+    return dp, cp, tp
 
 
 class TrainerLoop:
@@ -250,7 +266,7 @@ class TrainerLoop:
         ft = cfg.finetune
         self.world = dist.get_world_size() if dist.is_initialized() else 1
         self.rank = dist.get_rank() if dist.is_initialized() else 0
-        self.dp, self.cp = parallel_shape(cfg, self.world)
+        self.dp, self.cp, self.tp = parallel_shape(cfg, self.world)
         self.cfg = cfg
         self.model_cfg = model_cfg
         self.exp_path = exp_path
@@ -261,13 +277,15 @@ class TrainerLoop:
         self.vision_cfg = vision_cfg
         self.vision_params = vision_params
         self.train_vision = bool(ft.get("train_vision_tower", False)) and vision_params is not None
-        if self.train_vision and self.dp * self.cp > 1:
+        if self.train_vision and self.dp * self.cp * self.tp > 1:
             raise ValueError("train_vision_tower requires an unsharded trainer "
                              "(VLM rows train at batch 1, one row a pass)")
-        # the mesh: (dp ranks, cp); each dp rank runs dp_local rows a pass
-        n_dp = self.world // self.cp
+        # the mesh: (dp ranks, cp, tp); each dp rank runs dp_local rows a pass
+        n_dp = self.world // (self.cp * self.tp)
         self.dp_local = self.dp // n_dp
-        self.mesh = make_multihost_mesh(n_dp, self.cp) if self.world > 1 else None
+        self.mesh = make_multihost_mesh(n_dp, self.cp, self.tp) if self.world > 1 else None
+        # K that does not split over tp: wk/wv stay whole on every tp rank
+        self.replicate_kv = replicate_kv(model_cfg, self.tp) if model_cfg is not None else False
         if vision_params is not None:
             for _, p in param_leaves(vision_params):
                 p.requires_grad_(False)
@@ -288,11 +306,16 @@ class TrainerLoop:
             generator = torch.Generator(device=device).manual_seed(int(cfg.get("seed", 0)) + 7)
             params = init_lora_params(generator, params, self.lora_cfg)
             # the adapters are small: replicated; the frozen base is sharded
-            self.frozen_params = shard_params(self.frozen_params, self.mesh) if self.mesh else self.frozen_params
+            self.frozen_params = (shard_params(self.frozen_params, self.mesh, self.replicate_kv) if self.mesh
+                                  else self.frozen_params)
         elif self.mesh is not None:
-            params = shard_params(params, self.mesh)
-        # the rule table's spec of each trainable leaf; replicated adapters
-        self._specs = leaf_specs(params) if self._sharded_params() else [(None,)] * len(param_leaves(params))
+            params = shard_params(params, self.mesh, self.replicate_kv)
+        # the rule table's spec of each trainable leaf; replicated adapters,
+        # whose gradients tp peers hold in part (each sees its slice)
+        n_leaves = len(param_leaves(params))
+        self._specs = leaf_specs(params, self.replicate_kv) if self._sharded_params() else [(None,)] * n_leaves
+        self._tp_partial = (tp_partial_leaves(params, self.replicate_kv) if self._sharded_params()
+                            else [self.tp > 1] * n_leaves)
         self.params = params
         self._leaves = [p for _, p in param_leaves(params)]
         for p in self._leaves:
@@ -308,13 +331,13 @@ class TrainerLoop:
         rl["batch_size"] = int(rl.get("batch_size", self.samples_per_step)) or self.samples_per_step
         self.loss_cfg = RLLossConfig(**rl)
 
-        self.optimizer, self.scheduler = make_optimizer(cfg, params, self._dp_views())
+        self.optimizer, self.scheduler = make_optimizer(cfg, params, self._shard_views())
         # AdamW's and Lion's state is per element: sliced as its leaf is
         self._sharded_state = self.mesh is not None and not isinstance(self.optimizer, Adafactor)
         self.clip = ft.get("gradient_clipping_threshold")
         self._has_grads = False
         self.last_pass_samples = 0
-        # one partition per dp rank; cp peers read the same one
+        # one partition per dp rank; cp and tp peers read the same one
         self.input_spec = SingleStreamSpec(exp_path=exp_path, topic="training_data",
                                            partition=axis_rank(self.mesh, "dp"))
         self.save_checkpoint_steps = int(ft.get("save_checkpoint_steps", 0) or 0)
@@ -339,35 +362,66 @@ class TrainerLoop:
             self.remat = False
 
     # ------------------------------------------------------------------
-    def _dp_views(self) -> list:
-        """Per leaf, ``(to_full, to_local)`` of a dp-sliced leaf, else None."""
+    def _shard_views(self) -> list:
+        """Per leaf, ``(to_full, to_local)`` of a leaf cut over dp or tp,
+        else None."""
         if self.mesh is None:
             return [None] * len(self._leaves)
-        group, n, r = axis_group(self.mesh, "dp"), axis_size(self.mesh, "dp"), axis_rank(self.mesh, "dp")
+        axes = [(axis_group(self.mesh, a), axis_size(self.mesh, a), axis_rank(self.mesh, a), a) for a in ("dp", "tp")]
 
-        def view(d):
-            return (lambda x: collectives.gather(x, d, group), lambda x: x.chunk(n, dim=d)[r].contiguous())
+        def view(spec):
+            cuts = [(g, n, r, spec.index(a)) for g, n, r, a in axes if a in spec and n > 1]
+            if not cuts:
+                return None
 
-        return [None if dp_dim(s) is None or n == 1 else view(dp_dim(s)) for s in self._specs]
+            def to_full(x):
+                for g, _, _, d in cuts:
+                    x = collectives.gather(x, d, g)
+                return x
+
+            def to_local(x):
+                for _, n, r, d in cuts:
+                    x = x.chunk(n, dim=d)[r]
+                return x.contiguous()
+
+            return to_full, to_local
+
+        return [view(s) for s in self._specs]
+
+    def _tp_cut(self, name: str, full: torch.Tensor) -> torch.Tensor:
+        """This tp rank's slice of a whole layer leaf ``name``."""
+        d = tp_dim(leaf_specs({"layers": {name: full}}, self.replicate_kv)[0])
+        return full if d is None else full.chunk(self.tp, dim=d)[axis_rank(self.mesh, "tp")]
 
     def model_params(self) -> dict:
         """The weights the model runs on: the trainable params, or under LoRA
         the frozen base merged with the adapters (differentiable in them). In
-        a world the top leaves are gathered over dp (differentiably) and the
-        layers stay sliced for ``forward``'s ``gather_layer``
-        (``self.gather_layer``); under LoRA the frozen base is gathered whole
-        (it takes no gradient)."""
+        a world the top leaves are gathered over dp (the embedding table over
+        tp too, differentiably) and the layers stay sliced for ``forward``'s
+        ``gather_layer`` (``self.gather_layer``); under LoRA the frozen base
+        is gathered over dp (it takes no gradient), the embedding over tp,
+        and the adapters' product is cut to the rank's tp slice."""
         if self.lora_cfg.enabled:
-            frozen = unshard_params(self.frozen_params, self.mesh) if self.mesh else self.frozen_params
+            if self.mesh is None:
+                return merge_lora(self.frozen_params, self.params, self.lora_cfg)
+            frozen = unshard_params(self.frozen_params, self.mesh, self.replicate_kv, axes=("dp",))
+            if self.tp > 1:
+                frozen["embed"] = collectives.gather(frozen["embed"], 1, axis_group(self.mesh, "tp"))
+                return merge_lora(frozen, self.params, self.lora_cfg, local=self._tp_cut)
             return merge_lora(frozen, self.params, self.lora_cfg)
-        return gather_params(self.params, self.mesh) if self.mesh else self.params
+        return gather_params(self.params, self.mesh, self.replicate_kv) if self.mesh else self.params
 
     @torch.no_grad()
     def served_params(self) -> dict:
         """What pushes and exports carry: the full weights the model runs on
-        (every rank of a world joins the gather) without the value head,
+        (every rank of a world joins the gathers) without the value head,
         which is the trainer's alone."""
-        params = self.model_params() if self.lora_cfg.enabled else gather_for_push(self.params, self.mesh)
+        if not self.lora_cfg.enabled:
+            params = gather_for_push(self.params, self.mesh, self.replicate_kv)
+        elif self.tp > 1:
+            params = untp_local(self.model_params(), axis_group(self.mesh, "tp"), self.replicate_kv)
+        else:
+            params = self.model_params()
         return {k: v for k, v in params.items() if k != "value_head"}
 
     # -- checkpoint / resume ------------------------------------------------
@@ -380,7 +434,7 @@ class TrainerLoop:
         """A state-dict transform: ``to`` 0 gathers the sliced leaves'
         per-element state to the full leaves, 1 takes this rank's slice of
         full state. Identity without per-element sharded state."""
-        views, order = self._dp_views(), self._optimizer_leaf()
+        views, order = self._shard_views(), self._optimizer_leaf()
 
         def transform(state: dict) -> dict:
             if not self._sharded_state:
@@ -397,7 +451,8 @@ class TrainerLoop:
     def gathered_state(self) -> tuple[list[tuple[str, torch.Tensor]], dict]:
         """The full trainable leaves by name and the optimizer's state dict
         over them (a world's slices gathered; every rank joins)."""
-        named = param_leaves(unshard_params(self.params, self.mesh) if self._sharded_params() else self.params)
+        named = param_leaves(unshard_params(self.params, self.mesh, self.replicate_kv) if self._sharded_params()
+                             else self.params)
         return named, self._optimizer_state(0)(self.optimizer.state_dict())
 
     def leaf_state(self, optimizer_state: dict) -> dict[str, dict]:
@@ -425,7 +480,7 @@ class TrainerLoop:
         """Restore the saved training state, if any: the trainable tensors
         in place, the optimizer, the scheduler and the metrics. In a world
         each rank reads the full state and keeps its slices."""
-        views = self._dp_views() if self._sharded_params() else [None] * len(self._leaves)
+        views = self._shard_views() if self._sharded_params() else [None] * len(self._leaves)
         metrics = load_training_state(self.checkpoint_dir, param_leaves(self.params), self.optimizer, self.scheduler,
                                       piece=lambda i, t: views[i][1](t) if views[i] else t,
                                       optimizer_state=self._optimizer_state(1))
@@ -455,7 +510,8 @@ class TrainerLoop:
         else:
             stacked = {name: np.concatenate([r.arrays()[name] for r in rows]) for name in batch.arrays()}
         # (samples, tokens) of the rows, counted once per dp rank: cp peers
-        # hold the same rows
+        # hold the same rows (the sums run over dp and cp, tp peers each
+        # take their own)
         own = axis_rank(self.mesh, "cp") == 0
         counts = {"global_samples": torch.tensor(float(sum(r.num_sequences for r in rows if not r.sentinel) * own)),
                   "global_tokens": torch.tensor(float(sum(r.length - r.padding for r in rows if not r.sentinel) * own))}
@@ -516,7 +572,7 @@ class TrainerLoop:
 
     def optimizer_step(self) -> None:
         assert self._has_grads, "optimizer_step before any train_pass"
-        norm = step_grads(self._leaves, self._specs, self.mesh) if self.mesh is not None else None
+        norm = step_grads(self._leaves, self._specs, self.mesh, self._tp_partial) if self.mesh is not None else None
         grads = [p.grad for p in self._leaves if p.grad is not None]
         norm = clip_by_global_norm(grads, None if self.clip is None else float(self.clip), norm)
         self.optimizer.step()

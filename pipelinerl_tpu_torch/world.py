@@ -16,10 +16,16 @@ Port of the JAX package's ``world.py``. ``world.hosts`` lists the hosts
   (``parallel/multihost.py``): each carries ``process_id``,
   ``num_processes`` and ``coordinator`` (the head host's
   ``world.coordinator_port``). The port runs one rank per device, so a
-  ``parallel`` product dp*cp above 1 is a world of dp*cp trainer jobs
+  ``parallel`` product dp*cp*tp above 1 is a world of dp*cp*tp trainer jobs
   whatever ``trainer_procs`` says (``trainer_ranks``), and the trainer
-  partitions are one per dp rank (``num_trainers``): cp peers read the same
-  one.
+  partitions are one per dp rank (``num_trainers``): cp and tp peers read
+  the same one.
+- ``engine.tp`` above 1: each engine (and the reference engine) is
+  ``engine.tp`` rank jobs on its host: rank 0 is the ``engine`` job with its
+  port (the only HTTP URL), ranks above 0 are ``engine_rank`` jobs with no
+  port; each carries ``tp_rank``, ``tp_size`` and ``tp_coordinator`` (the
+  host's ``world.engine_tp_port`` plus the engine's index). Such a config
+  runs the split layout (one trainer job at least).
 
 Beside them: a ``stream_hub`` on the head host when ``world.stream_hub``
 says so (``"auto"``: more than one host), through which every topic then
@@ -30,8 +36,8 @@ rides; a ``ref_engine`` (frozen weights, the KL reference policy) when
 ``preprocessor`` jobs, spread round-robin over the hosts. ``to_config()``
 lists the jobs as the JAX package lists them.
 
-Refused, naming its ROADMAP Queue 1 item: ``parallel.tp``/``pp`` and
-``engine.tp``/``pp`` above 1 (item 15).
+Refused, naming its ROADMAP Queue 1 item: ``parallel.pp`` and
+``engine.pp`` above 1 (item 15).
 """
 
 from __future__ import annotations
@@ -45,7 +51,7 @@ LOCAL_HOSTS = ("127.0.0.1", "localhost")
 
 @dataclass
 class Job:
-    kind: str  # "device" | "engine" | "ref_engine" | "trainer" | "stream_hub" | "actor" | "preprocessor" | "environment"
+    kind: str  # "device" | "engine" | "engine_rank" | "ref_engine" | "trainer" | "stream_hub" | "actor" | ...
     replica_idx: int = 0
     hostname: str = "127.0.0.1"
     port: int | None = None
@@ -62,32 +68,36 @@ class Job:
 
 
 def refuse_unported(cfg: Config) -> None:
-    """Raise for the deployments the port does not run yet: tensor and
-    pipeline parallelism, in the trainer or the engine."""
+    """Raise for the deployments the port does not run yet: pipeline
+    parallelism, in the trainer or the engine."""
+    from .parallel.mesh import refuse_pp
+
     for node in ("parallel", "engine"):
-        for key in ("tp", "pp"):
-            if int(cfg.select(f"{node}.{key}", 1) or 1) > 1:
-                raise NotImplementedError(f"{node}.{key} > 1 is not ported yet: tensor and pipeline parallelism "
-                                          "wait for ROADMAP Queue 1, item 15")
+        refuse_pp(int(cfg.select(f"{node}.pp", 1) or 1), node)
 
 
-def parallel_product(cfg: Config) -> tuple[int, int]:
-    """(dp, cp) of the ``parallel`` node (1, 1 when absent)."""
+def parallel_product(cfg: Config) -> tuple[int, int, int]:
+    """(dp, cp, tp) of the ``parallel`` node (1, 1, 1 when absent)."""
     par = cfg.get("parallel") or Config({})
-    return int(par.get("dp", 1)), int(par.get("cp", 1))
+    return int(par.get("dp", 1)), int(par.get("cp", 1)), int(par.get("tp", 1))
+
+
+def engine_tp(cfg: Config) -> int:
+    return int(cfg.select("engine.tp", 1) or 1)
 
 
 def trainer_ranks(cfg: Config) -> int:
-    """The trainer jobs: dp*cp when that product is above 1 (one rank per
-    device), else ``world.trainer_procs``."""
+    """The trainer jobs: dp*cp*tp when that product is above 1 (one rank per
+    device), else ``world.trainer_procs`` (at least one beside a tp
+    engine)."""
     procs = int(cfg.select("world.trainer_procs", 0) or 0)
-    dp, cp = parallel_product(cfg)
-    if dp * cp > 1:
-        if procs > 1 and procs != dp * cp:
-            raise ValueError(f"world.trainer_procs={procs} but parallel dp*cp={dp * cp}: "
+    dp, cp, tp = parallel_product(cfg)
+    if dp * cp * tp > 1:
+        if procs > 1 and procs != dp * cp * tp:
+            raise ValueError(f"world.trainer_procs={procs} but parallel dp*cp*tp={dp * cp * tp}: "
                              "the port runs one trainer rank per device")
-        return dp * cp
-    return procs
+        return dp * cp * tp
+    return max(procs, 1) if engine_tp(cfg) > 1 else procs
 
 
 def _fraction_split(n_hosts: int, actor_fraction: float, finetune_fraction: float) -> int:
@@ -106,7 +116,9 @@ class WorldMap:
         self.hosts: list[str] = list(world.get("hosts", ["127.0.0.1"]))
         self.replicas = int(world.get("replicas", 1))
         self.trainer_procs = trainer_ranks(cfg)
-        self.cp = parallel_product(cfg)[1]
+        _, cp, tp = parallel_product(cfg)
+        self.trainer_group = cp * tp  # trainer ranks that read one partition
+        self.engine_tp = engine_tp(cfg)
         self.actor_fraction = float(world.get("actor_fraction", 0) or 0)
         self.finetune_fraction = float(world.get("finetune_fraction", 0) or 0)
         self.env_replicas = int(world.get("env_replicas", 1))
@@ -114,6 +126,7 @@ class WorldMap:
         env_port = int(world.get("environment_start_port", 7777))
         self.stream_hub_port = int(world.get("stream_hub_port", 7099))
         self.coordinator_port = int(world.get("coordinator_port", 7199))
+        engine_tp_port = int(world.get("engine_tp_port", 7299))
         hub_setting = world.get("stream_hub", "auto")
         self.use_stream_hub = len(self.hosts) > 1 if hub_setting == "auto" else bool(hub_setting)
 
@@ -137,7 +150,7 @@ class WorldMap:
                 engine_host = host
                 trainer_host = lambda i: self.hosts[n - 1 - (i % n)]  # noqa: E731
             for i in range(self.replicas):
-                self.jobs.append(Job(kind="engine", replica_idx=i, hostname=engine_host(i), port=engine_port + i))
+                self._add_engine("engine", i, engine_host(i), engine_port + i, engine_tp_port + i)
             coordinator = f"{self.hosts[0]}:{self.coordinator_port}"
             for i in range(self.trainer_procs):
                 self.jobs.append(Job(kind="trainer", replica_idx=i, hostname=trainer_host(i), extra={
@@ -148,8 +161,8 @@ class WorldMap:
             for i in range(self.replicas):
                 self.jobs.append(Job(kind="device", replica_idx=i, hostname=host(i), port=engine_port + i))
         if self.needs_ref_engine:
-            self.jobs.append(Job(kind="ref_engine", replica_idx=0, hostname=host(self.replicas),
-                                 port=self.ref_engine_port, extra={"frozen": True}))
+            self._add_engine("ref_engine", 0, host(self.replicas), self.ref_engine_port,
+                             engine_tp_port + self.replicas, frozen=True)
         if cfg.get("environment") or cfg.get("environment_class"):
             for i in range(self.env_replicas):
                 self.jobs.append(Job(kind="environment", replica_idx=i, hostname=host(i), port=env_port + i))
@@ -157,6 +170,21 @@ class WorldMap:
         for i in range(n_actors):
             self.jobs.append(Job(kind="actor", replica_idx=i, hostname=host(i)))
         self.jobs.append(Job(kind="preprocessor", replica_idx=0, hostname=self.hosts[0]))
+
+    def _add_engine(self, kind: str, replica: int, hostname: str, port: int, tp_port: int, **extra) -> None:
+        """An engine job, and at ``engine.tp`` above 1 its rank jobs on the
+        same host (``engine_rank``, no port)."""
+        n = self.engine_tp
+        if n == 1:
+            self.jobs.append(Job(kind=kind, replica_idx=replica, hostname=hostname, port=port, extra=extra))
+            return
+        ranks = {"tp_size": n, "tp_coordinator": f"{hostname}:{tp_port}"}
+        self.jobs.append(Job(kind=kind, replica_idx=replica, hostname=hostname, port=port,
+                             extra={**extra, **ranks, "tp_rank": 0}))
+        base = sum(1 for j in self.jobs if j.kind == "engine_rank")
+        for r in range(1, n):
+            self.jobs.append(Job(kind="engine_rank", replica_idx=base + r - 1, hostname=hostname,
+                                 extra={**extra, **ranks, "tp_rank": r, "engine": f"{kind}_{replica}"}))
 
     @property
     def llm_urls(self) -> list[str]:
@@ -173,8 +201,8 @@ class WorldMap:
     @property
     def num_trainers(self) -> int:
         """Trainer stream partitions: one per dp rank of the trainer world
-        (its processes over cp), or per device job."""
-        return self.trainer_procs // self.cp if self.trainer_procs > 0 else self.replicas
+        (its processes over cp and tp), or per device job."""
+        return self.trainer_procs // self.trainer_group if self.trainer_procs > 0 else self.replicas
 
     @property
     def environment_servers(self) -> list[dict]:

@@ -4,7 +4,8 @@
 a world's checkpoint saved and resumed (by a world and by one process);
 ``gather_for_push`` against the unsharded params; the WorldMap's trainer
 jobs and the split layout's start scripts against JAX's; the preprocessor's
-partitions per dp rank; and the refusals of tp/pp, which name item 15."""
+partitions per dp rank; and the refusals of pp, which name item 15, beside
+the tp layouts that replaced the tp refusals."""
 
 import json
 from pathlib import Path
@@ -231,22 +232,44 @@ def test_preprocessor_writes_one_partition_per_dp_rank(tmp_path):
 
 @pytest.mark.parametrize("where", ["trainer_tp", "trainer_pp", "engine_tp", "engine_pp", "worldmap"])
 def test_tp_and_pp_refusals_name_item_15(tmp_path, where):
+    """pp above 1 still raises, naming item 15, in the trainer, the engine
+    and the WorldMap; tp is ported: a trainer world of dp*cp*tp ranks, an
+    engine of tp rank jobs (rank 0 alone an HTTP URL; one process without
+    its rank world is refused, naming the rank processes)."""
     from pipelinerl_tpu_torch.launch import build_engine, validate_config
+    from pipelinerl_tpu_torch.train.trainer import parallel_shape
 
-    if where.startswith("trainer"):
-        cfg = compose("bandit_cpu", [f"output_dir={tmp_path}", f"+parallel.{where[-2:]}=2"])
+    if where == "trainer_pp":
+        cfg = compose("bandit_cpu", [f"output_dir={tmp_path}", "+parallel.pp=2"])
         with pytest.raises(NotImplementedError, match="item 15"):
             TrainerLoop(cfg, {"embed": torch.zeros(2, 2)}, None, str(tmp_path))
         with pytest.raises(NotImplementedError, match="item 15"):
             validate_config(cfg)
-    elif where.startswith("engine"):
-        cfg = compose("bandit_cpu", [f"output_dir={tmp_path}", f"+engine.{where[-2:]}=2"])
+    elif where == "trainer_tp":
+        cfg = compose("bandit_cpu", [f"output_dir={tmp_path}", "+parallel.tp=2"])
+        validate_config(cfg)
+        assert parallel_shape(cfg, 2) == (1, 1, 2)
+        with pytest.raises(ValueError, match="needs a trainer world of a multiple of 2 ranks"):
+            parallel_shape(cfg, 1)
+    elif where == "engine_pp":
+        cfg = compose("bandit_cpu", [f"output_dir={tmp_path}", "+engine.pp=2"])
         with pytest.raises(NotImplementedError, match="item 15"):
+            build_engine(cfg, {}, None, None, "cpu")
+    elif where == "engine_tp":
+        cfg = compose("bandit_cpu", [f"output_dir={tmp_path}", "+engine.tp=2"])
+        validate_config(cfg)
+        wm = WorldMap(Config(dict(cfg.to_dict(), launch_mode="processes")))
+        assert [(j.kind, j.extra.get("tp_rank")) for j in wm.jobs if "engine" in j.kind] == [("engine", 0),
+                                                                                            ("engine_rank", 1)]
+        assert wm.llm_urls == ["http://127.0.0.1:8080"] and wm.trainer_procs == 1
+        with pytest.raises(ValueError, match="engine.tp=2 runs as 2 engine rank processes"):
             build_engine(cfg, {}, None, None, "cpu")
     else:
         cfg = compose("bandit_cpu", [f"output_dir={tmp_path}", "launch_mode=processes", "+parallel.tp=2"])
+        wm = WorldMap(cfg)
+        assert [j.extra["num_processes"] for j in wm.jobs_of("trainer")] == [2, 2] and wm.num_trainers == 1
         with pytest.raises(NotImplementedError, match="item 15"):
-            WorldMap(cfg)
+            WorldMap(compose("bandit_cpu", [f"output_dir={tmp_path}", "launch_mode=processes", "+parallel.pp=2"]))
 
 
 def test_tir_preset_validates_and_dry_runs_eight_ranks(tmp_path, monkeypatch):

@@ -3,7 +3,7 @@
 partitions for the same world settings, on one host and over host lists
 (round-robin placement, the stream hub, environment replicas, the
 actor/finetune host split, a trainer world of two processes);
-``parallel.tp`` > 1 raises with its ROADMAP item."""
+``parallel.pp`` > 1 raises with its ROADMAP item."""
 
 import pytest
 
@@ -67,7 +67,7 @@ def test_worldmap_equals_jax(name):
 
 
 @pytest.mark.parametrize("overrides,item", [
-    (["+parallel.tp=2"], "item 15"),
+    (["+parallel.pp=2"], "item 15"),
 ])
 def test_unported_layouts_raise(overrides, item):
     cfg = compose("bandit_cpu", [*overrides, "output_dir=/tmp/unused", "launch_mode=processes"])
