@@ -125,8 +125,17 @@ Phases, each of which stops the script on failure:
    against their plain versions and timed beside SDPA and their bounds;
 19. the ``multi_domain`` preset the same way on math's synthetic sets,
    guessing and counting under the preset's domain mix with adaptive
-   sampling: every domain drawn, reported per domain in the stats stream,
-   and each sample carrying its domain's prompt;
+   sampling: every domain drawn and dispatched among the groups started
+   before any finishes, each finished sample carrying its domain's prompt,
+   and the stats stream reporting the finished groups' domains; with the
+   memory debugger on and step 2 profiled (``finetune.memory_debug``,
+   ``finetune.profile``):
+   the memory records in the JAX trainer's order, each with the card's
+   ``device_<i>`` (in use after each pass, its peak within the card's
+   limit), the trace holding #1 (the engine decodes through the step) and
+   #2-#4; the step's device ms by family (#1/#5, #2-#4, fp32 and other
+   GEMMs, the rest), the device's busy share over the window, the trace's
+   size and export seconds are logged;
 20. the ``logic``, ``ifeval`` and ``fn_calling`` presets, one step each on
    their synthetic sets: finite rewards from each domain's reward set, and
    the fn_calling prompts carrying the tool's schema through a chat
@@ -169,8 +178,13 @@ Phases, each of which stops the script on failure:
    route (``launch._is_vlm_checkpoint``, ``build_model``, ``build_vision``,
    ``build_processor``) with ``finetune.train_vision_tower``, at the
    chartqa preset's serving and training shapes with the cuts in
-   ``VLM_CUTS``: (a) chartqa prompts with feature images of 609, 1,024 and
-   1,008 merged tokens all finish, the VLM prefill on #2 at Dh 128; (b) the
+   ``VLM_CUTS`` and Qwen2.5-VL-3B's published ``preprocessor_config.json``:
+   (a) chartqa prompts with raw 600x800, 900x900 and 780x1,000 RGB images,
+   each sent as a PNG data URL (``multimodal_message``) and decoded,
+   resized and patchified by the port's image pipeline into 609, 1,024 and
+   1,008 merged tokens (a data URL's features equal its array's bit for
+   bit; each prompt carries t*h*w/4 image pads; host seconds per size
+   logged), all finish, the VLM prefill on #2 at Dh 128; (b) the
    engine's logprobs of 4 completions against the trainer's forward of the
    same spliced [1, 8,192] rows; (c) a step on those rows (vlm_bandit's
    reward), #2-#4 launched, the tower's gradients nonzero; (d) the
@@ -267,6 +281,7 @@ import torch.nn.functional as F
 
 from pipelinerl_tpu_torch import launch
 from pipelinerl_tpu_torch.config import compose
+from pipelinerl_tpu_torch.domains import registry
 from pipelinerl_tpu_torch.domains.math.rollouts import RewardTable, get_reward, length_penalty
 from pipelinerl_tpu_torch.domains.tir.rollouts import compute_shaping
 from pipelinerl_tpu_torch.domains.tir.tool_parser import parse_tool_calls
@@ -2434,8 +2449,16 @@ MATH_CUTS = {"llm.parameters.max_tokens": 512, "finetune.samples_per_step": 64, 
              "finetune.rl.entropy_bonus": 0.001, "finetune.save_checkpoint_steps": 0}
 MATH_SETS = "[synthetic_arithmetic,countdown]"
 MULTI_SETS = "[math::synthetic_arithmetic,math::countdown,guessing::train,counting::train]"
-MULTI_CUTS = {"llm.parameters.max_tokens": 128, "finetune.samples_per_step": 64, "finetune.max_train_steps": 2,
-              "total_groups": 16, "finetune.rl.entropy_bonus": 0.001, "finetune.save_checkpoint_steps": 0}
+# phase 19 also runs the memory debugger and profiles step 2. Steps of 16
+# samples take their data from the engine's first 64 slots (8 groups, which
+# finish together), so step 2 waits for none and its window is the step;
+# the groups past those keep the engine decoding through it, and the run's
+# end cancels them. (At 32 or 64 samples a step, step 2 waited on the
+# engine, which the profiler slows, for 19 s of trace, 306 MB.)
+MULTI_CUTS = {"llm.parameters.max_tokens": 128, "finetune.samples_per_step": 16, "finetune.max_train_steps": 2,
+              "total_groups": 24, "finetune.rl.entropy_bonus": 0.001, "finetune.save_checkpoint_steps": 0,
+              "finetune.memory_debug.enabled": "true", "finetune.profile.enabled": "true",
+              "finetune.profile.start_step": 1, "finetune.profile.num_steps": 1}
 SHORT_CUTS = {"llm.parameters.max_tokens": 128, "finetune.samples_per_step": 32, "finetune.max_train_steps": 1,
               "total_groups": 8, "finetune.rl.entropy_bonus": 0.001, "finetune.save_checkpoint_steps": 0}
 # each domain's prompt carries this text (phase 19's dispatch gate)
@@ -2453,13 +2476,19 @@ def cut_args(name: str, cuts: dict, hf_dir, out: str) -> list[str]:
             *(f"{k}={v}" for k, v in cuts.items())]
 
 
-def run_rows_recorded(argv: list[str]) -> tuple[dict, list[dict], tuple, float, dict]:
+def run_rows_recorded(argv: list[str], made: list | None = None) -> tuple[dict, list[dict], tuple, float, dict]:
     """``launch.main(argv)`` with each train pass timed (synchronized) and
-    its peak device memory read, and the engine's (slots, window, T_alloc).
-    Returns (stats, passes, engine shape, wall seconds, kernel launches)."""
+    its peak device memory read, and the engine's (slots, window, T_alloc);
+    the trainer goes to ``made`` where given. Returns (stats, passes, engine
+    shape, wall seconds, kernel launches)."""
     passes, shapes = [], []
 
     class RowRecording(TrainerLoop):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            if made is not None:
+                made.append(self)
+
         def train_pass(self, batch):
             torch.cuda.synchronize()
             before = torch.cuda.memory_allocated()
@@ -2670,33 +2699,160 @@ def time_math_shapes(dev, kernels: list[dict], math_shapes: dict) -> None:
     time_train_row(dev, kernels, "math_row_shape", math_shapes["segment_ids"], math_shapes["padding"], 18)
 
 
+# the device families of phase 19's profiled step, the first match naming
+# a kernel's family; cuBLAS names its fp32 GEMMs (the fp32 lm_head, the only
+# fp32 matmul of a bf16 step) sgemm or f32f32_f32f32
+PROFILE_FAMILIES = (("#1/#5 decode attention", r"decode_attention_kernel|merge_splits_kernel"),
+                    ("#2-#4 GQA attention", r"gqa_fwd_kernel|gqa_bwd_dq_kernel|gqa_bwd_dkv_kernel"),
+                    ("fp32 GEMMs (lm_head)", r"(?i)sgemm|f32f32_f32f32|gemm_f32|nvjet_sss"),
+                    ("other GEMMs", r"(?i)gemm|nvjet|xmma|cutlass"),
+                    ("other", r""))
+
+
+def memory_phases_in_order(recs: list[dict], steps: int) -> bool:
+    """Whether the records run as the JAX trainer writes them: each step's
+    passes as (before, after) pairs at the step count so far, then
+    after_optimizer_step and after_weight_push at the new count (no saves:
+    the phase's cuts turn them off)."""
+    seq = [(r["phase"], r["step"]) for r in recs]
+    i = 0
+    for step in range(steps):
+        n = 0
+        while seq[i : i + 2] == [("before_train_pass", step), ("after_train_pass", step)]:
+            i, n = i + 2, n + 1
+        if not n or seq[i : i + 2] != [("after_optimizer_step", step + 1), ("after_weight_push", step + 1)]:
+            return False
+        i += 2
+    return i == len(seq)
+
+
+def read_step_profile(trace: Path) -> dict:
+    """Phase 19's trace: kernel ms and launches by family (and the top
+    kernels of each), the device's busy share over the window (the union
+    of kernel, copy and set intervals over the span of every event), the
+    file's size."""
+    events = json.loads(trace.read_text())["traceEvents"]
+    timed = [e for e in events if "ts" in e and e.get("ph") == "X"]
+    window_us = max(e["ts"] + e.get("dur", 0) for e in timed) - min(e["ts"] for e in timed)
+    device = sorted((e for e in timed if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")),
+                    key=lambda e: e["ts"])
+    busy_us, end = 0.0, -math.inf
+    for e in device:  # the union of the device intervals, over every stream
+        start, stop = max(e["ts"], end), e["ts"] + e["dur"]
+        if stop > start:
+            busy_us += stop - start
+        end = max(end, stop)
+    families = {name: {"ms": 0.0, "launches": 0, "top": {}} for name, _ in PROFILE_FAMILIES}
+    for e in device:
+        if e["cat"] != "kernel":
+            continue
+        name = next(n for n, pattern in PROFILE_FAMILIES if re.search(pattern, e["name"]))
+        fam = families[name]
+        fam["ms"] += e["dur"] / 1e3
+        fam["launches"] += 1
+        fam["top"][e["name"]] = fam["top"].get(e["name"], 0.0) + e["dur"] / 1e3
+    kernels = {k: sum(1 for e in device if e["cat"] == "kernel" and re.search(pattern, e["name"]))
+               for k, pattern in (("decode", r"decode_attention_kernel"), ("gqa_fwd", r"gqa_fwd_kernel"),
+                                  ("gqa_dq", r"gqa_bwd_dq_kernel"), ("gqa_dkv", r"gqa_bwd_dkv_kernel"))}
+    return {"window_ms": window_us / 1e3, "busy_ms": busy_us / 1e3, "families": families, "kernels": kernels,
+            "events": len(events), "mb": trace.stat().st_size / 1e6}
+
+
 def phase_multi_domain(hf_dir: Path, smi: str, tmp: str) -> dict:
     """Phase 19: the ``multi_domain`` preset through ``launch.main`` at its
     widths from the HF directory, on math's synthetic sets, guessing and
     counting under the preset's domain mix with adaptive sampling: every
-    domain is drawn, reported per domain in the stats stream, and its
-    rollout reached (each sample carries its domain's prompt)."""
+    domain is drawn and its rollout dispatched (the rollout policy's calls,
+    recorded as they start: the attempts of the first
+    ``actor.max_parallel_groups`` draws are dispatched before any group
+    finishes, so this does not depend on the order in which groups
+    finish); each sample of a finished group
+    carries its domain's prompt, and the stats stream reports per domain
+    the domains of the finished groups. The run has
+    ``finetune.memory_debug`` on and ``finetune.profile`` over step 2: the
+    memory records run in the JAX trainer's order with the card's readings,
+    and the trace holds #1 (the engine decodes through the step) and #2-#4;
+    the step's device ms by family are logged."""
     out = f"{tmp}/multi_domain"
     argv = cut_args("multi_domain", MULTI_CUTS, hf_dir, out) + [f"train_dataset_names={MULTI_SETS}"]
-    stats, passes, shape, wall, launches = run_rows_recorded(argv)
+    cfg = compose("multi_domain", argv[1:])
+    made: list = []
+    dispatched: list[str] = []
+    dispatch = registry.generate_dispatched_rollout
+
+    async def recorded_dispatch(run_cfg, llm, problem, session):
+        dispatched.append(problem["domain"])
+        return await dispatch(run_cfg, llm, problem, session)
+
+    registry.generate_dispatched_rollout = recorded_dispatch
+    try:
+        stats, passes, shape, wall, launches = run_rows_recorded(argv, made)
+    finally:
+        registry.generate_dispatched_rollout = dispatch
+    profiler = made[0].profiler
+    trace, export_s = profiler.trace_path, profiler.export_s
+    made.clear()
     tok = HFTokenizer(hf_dir)
-    drawn: dict[str, int] = {}
+    finished: dict[str, int] = {}
     for s in actor_samples(out):
         prompt = tok.decode([i for i, label in zip(s["input_ids"], s["labels"]) if label == -100])
         check(any(text in prompt for text in DOMAIN_PROMPTS[s["domain"]]),
               f"a {s['domain']} sample does not carry its domain's prompt: {prompt[:200]!r}")
-        drawn[s["domain"]] = drawn.get(s["domain"], 0) + 1
+        finished[s["domain"]] = finished.get(s["domain"], 0) + 1
     snaps = list(StreamReader(SingleStreamSpec(out, "stats")).read_available()) + [stats["actor"]]
     reported = {k.split("/")[1] for snap in snaps for k in snap if k.startswith("domain/")}
     per_domain = stats_means(out, "/reward")
     losses = train_losses(out)
-    log(f"multi_domain preset through launch.main: {wall:.1f} s wall, samples by domain {drawn}, domains in the "
-        f"stats stream {sorted(reported)}, reward means there {per_domain}, "
+    steps = int(cfg.finetune.max_train_steps)
+    # one call per attempt: the first groups' attempts all start before any
+    # group finishes
+    first = dispatched[: int(cfg.actor.max_parallel_groups) * int(cfg.attempts)]
+    log(f"multi_domain preset through launch.main: {wall:.1f} s wall, rollouts dispatched by domain "
+        f"{ {d: dispatched.count(d) for d in sorted(set(dispatched))} } (the first {len(first)}: "
+        f"{ {d: first.count(d) for d in sorted(set(first))} }), finished samples by domain {finished}, domains in "
+        f"the stats stream {sorted(reported)}, reward means there {per_domain}, "
         f"{stats['actor']['output_tokens'] / wall:.1f} useful tokens/s, {stats['trainer']['completed_steps']} steps, "
         f"losses {losses}, launches {launches}; on {smi}")
-    check(set(drawn) == reported == set(DOMAIN_PROMPTS), f"domains drawn {drawn}, reported {reported}")
-    check(stats["trainer"]["completed_steps"] == 2 and all(map(math.isfinite, losses)), f"losses {losses}")
+    check(set(first) == set(DOMAIN_PROMPTS), f"domains dispatched first {sorted(set(first))}")
+    check(reported == set(finished) and finished, f"domains finished {finished}, reported {reported}")
+    check(stats["trainer"]["completed_steps"] == steps and all(map(math.isfinite, losses)), f"losses {losses}")
     check(all(launches[k] for k in ("decode", "gqa_fwd", "gqa_dq", "gqa_dkv")), f"multi_domain launches {launches}")
+
+    # the memory debugger's records
+    with open(f"{out}/metrics/memory_debug_0.jsonl") as f:
+        recs = [json.loads(line) for line in f]
+    card = f"device_{torch.cuda.current_device()}"
+    after = [r[card] for r in recs if r["phase"] == "after_train_pass" and card in r]
+    log(f"multi_domain memory records: {len(recs)} ({[r['phase'] for r in recs].count('after_train_pass')} passes), "
+        f"{card} in use after the passes {min(a['bytes_in_use'] for a in after) / 2**30:.2f}-"
+        f"{max(a['bytes_in_use'] for a in after) / 2**30:.2f} GiB, peak "
+        f"{max(r[card]['peak_bytes_in_use'] for r in recs) / 2**30:.2f} of {recs[0][card]['bytes_limit'] / 2**30:.2f} "
+        f"GiB, host RSS up to {max(r['vmrss'] for r in recs) / 2**30:.2f} GiB, live blocks up to "
+        f"{max(r['live_arrays'] for r in recs)}")
+    check(memory_phases_in_order(recs, steps), f"memory records out of the JAX trainer's order: "
+          f"{[(r['phase'], r['step']) for r in recs]}")
+    check(all(card in r for r in recs), f"a memory record lacks {card}")
+    check(all(a["bytes_in_use"] > 0 for a in after), "no device memory in use after a pass")
+    check(all(r[card]["peak_bytes_in_use"] <= r[card]["bytes_limit"] for r in recs), "a peak above the card's limit")
+
+    # the profiled step
+    check(trace is not None and trace.exists(), f"no trace under {out}/profile")
+    prof = read_step_profile(trace)
+    fams = prof["families"]
+    with open(f"{out}/metrics/trainer_0.jsonl") as f:
+        step2 = [json.loads(line) for line in f][1]
+    rows = [p for p in passes if p["step"] == 1]
+    log(f"multi_domain step 2: {step2['throughput/tokens_per_step']} samples in {len(rows)} passes of "
+        f"{[(p['length'], p['length'] - p['padding']) for p in rows]} (row, unpadded) tokens")
+    log(f"multi_domain step 2 profile: window {prof['window_ms']:.1f} ms, device busy {prof['busy_ms']:.1f} ms "
+        f"(share {prof['busy_ms'] / prof['window_ms']:.3f}), trace {prof['mb']:.1f} MB of {prof['events']} events "
+        f"exported in {export_s:.2f} s; device ms by family: "
+        + ", ".join(f"{n} {f['ms']:.2f} ({f['launches']} launches)" for n, f in fams.items())
+        + f"; kernels in the trace {prof['kernels']}; on {smi}")
+    for name, fam in fams.items():
+        top = sorted(fam["top"].items(), key=lambda kv: -kv[1])[:4]
+        log(f"  {name}: " + "; ".join(f"{ms:.2f} ms {k[:80]}" for k, ms in top))
+    check(all(prof["kernels"].values()), f"the profiled step's trace misses a kernel: {prof['kernels']}")
     return launches
 
 
@@ -3124,13 +3280,20 @@ QWEN25VL3B_CONFIG = {
     "rope_scaling": {"type": "mrope", "mrope_section": [16, 24, 24]},
     "vocab_size": 151936,
 }
-# phase 26's images, as Qwen2.5-VL's image processor would give them: patch
-# grids of 609, 1,024 and 1,008 merged tokens, one GRPO group each (their
-# prompts land in the 1,024 and 2,048 buckets). Each fits the tower's
-# default bucket of 1,024 merged tokens: 4,096 patches, whose dense
-# [16, N, N] fp32 scores are 1.07 GB a layer (the next bucket, 4,096
-# tokens, would hold 17.2 GB)
+# phase 26's images: raw RGB of these sizes (height, width), which
+# Qwen2.5-VL's smart_resize (factor 28) maps onto patch grids of 609, 1,024
+# and 1,008 merged tokens, one GRPO group each (their prompts land in the
+# 1,024 and 2,048 buckets). Each fits the tower's default bucket of 1,024
+# merged tokens: 4,096 patches, whose dense [16, N, N] fp32 scores are 1.07
+# GB a layer (the next bucket, 4,096 tokens, would hold 17.2 GB)
+VLM_SIZES = [(600, 800), (900, 900), (780, 1000)]
 VLM_GRIDS = [(1, 42, 58), (1, 64, 64), (1, 56, 72)]
+# Qwen2.5-VL-3B-Instruct's published preprocessor_config.json
+QWEN25VL3B_PREPROCESSOR = {
+    "min_pixels": 3136, "max_pixels": 12845056, "patch_size": 14, "temporal_patch_size": 2, "merge_size": 2,
+    "image_mean": [0.48145466, 0.4578275, 0.40821073], "image_std": [0.26862954, 0.26130258, 0.27577711],
+    "image_processor_type": "Qwen2VLImageProcessor", "processor_class": "Qwen2_5_VLProcessor",
+}
 # the chartqa preset's cuts for phase 26, each logged beside the preset's
 # value
 VLM_CUTS = {"llm.parameters.max_tokens": 128, "finetune.samples_per_step": 8, "finetune.max_train_steps": 1,
@@ -3260,18 +3423,56 @@ def vlm_first_token_reward(problem: dict, token_ids: list[int], vocab: int) -> t
     return float(success) + 0.25 * (1.0 - abs(first - centre) / vocab), success
 
 
-def vlm_problems(vc, n_groups: int) -> list[dict]:
-    """chartqa problems over feature images: one of ``VLM_GRIDS`` each, its
-    pixels N(0, 1) / 2 plus half a sign that vlm_bandit's reward reads."""
+def vlm_problems(n_groups: int) -> list[dict]:
+    """chartqa problems over raw uint8 RGB images, one of ``VLM_SIZES``
+    each: noise N(0, 40) about a grey of 128 plus 48 times a sign that
+    vlm_bandit's reward reads."""
     rng = np.random.default_rng(0)
     problems = []
     for g in range(n_groups):
-        grid = VLM_GRIDS[g % len(VLM_GRIDS)]
+        h, w = VLM_SIZES[g % len(VLM_SIZES)]
         sign = 1 if g % 2 == 0 else -1
-        pixels = (rng.standard_normal((int(np.prod(grid)), vc.patch_dim), dtype=np.float32) * 0.5 + 0.5 * sign)
+        pixels = np.clip(rng.normal(128 + 48 * sign, 40, (h, w, 3)), 0, 255).astype(np.uint8)
         problems.append({"question": f"What is the value of bar {g}?", "answer": str(g), "sign": sign,
-                         "image": {"pixel_values": pixels, "image_grid_thw": list(grid)}})
+                         "image": pixels})
     return problems
+
+
+def check_image_route(hf_dir: Path, problems: list[dict], tok, smi: str) -> dict[tuple[int, int], tuple]:
+    """Phase 26's image gates: each size goes through ``multimodal_message``
+    as a PNG data URL and through ``HFVisualProcessor``; its features equal
+    those of the same array bit for bit, and its grid is the one
+    ``smart_resize`` gives. Logs each size's host seconds (encode, decode,
+    preprocess). Returns {size: grid}."""
+    from pipelinerl_tpu_torch.domains.chartqa.chartqa import multimodal_message
+    from pipelinerl_tpu_torch.inference.image_pipeline import ImageProcessor, decode_png
+    from pipelinerl_tpu_torch.inference.processor import HFVisualProcessor, image_source
+
+    image_proc = ImageProcessor.from_pretrained(hf_dir)
+    grids = {}
+    for size, grid in zip(VLM_SIZES, VLM_GRIDS):
+        image = next(p["image"] for p in problems if p["image"].shape[:2] == size)
+        t0 = time.monotonic()
+        url_msg = multimodal_message(image, "q")
+        t1 = time.monotonic()
+        rgb = decode_png(image_source(url_msg["content"][0]))
+        t2 = time.monotonic()
+        pixels, got_grid = image_proc(rgb)
+        t3 = time.monotonic()
+        _, from_url = HFVisualProcessor(hf_dir, tok)([url_msg])
+        _, from_array = HFVisualProcessor(hf_dir, tok)([{"role": "user", "content": [
+            {"type": "image", "image": image}, {"type": "text", "text": "q"}]}])
+        log(f"image {size[0]}x{size[1]}: PNG data URL {len(url_msg['content'][0]['image_url']['url']) / 1e6:.2f} MB "
+            f"encoded in {t1 - t0:.3f} s, decoded in {t2 - t1:.3f} s, resized, normalized and patchified in "
+            f"{t3 - t2:.3f} s (host seconds) to grid {got_grid}, {pixels.shape[0]} patches; on {smi}")
+        check(np.array_equal(rgb, image), f"the {size} PNG does not decode to its array")
+        check(tuple(got_grid) == grid and np.array_equal(from_url["image_grid_thw"], [grid]),
+              f"the {size} image maps to grid {got_grid}, not {grid}")
+        check(np.array_equal(from_url["pixel_values"], from_array["pixel_values"])
+              and np.array_equal(from_url["pixel_values"], pixels),
+              f"the {size} data URL's features differ from the array's")
+        grids[size] = grid
+    return grids
 
 
 QWEN25VL3B = ModelConfig(
@@ -3288,9 +3489,11 @@ def phase_vlm_3b(dev, smi: str, tmp: str) -> tuple[dict, dict]:
     directory from the port's ``export_hf`` (random bf16 weights, the
     published config.json, the fixture tokenizer with the vision tokens),
     loaded by ``launch._is_vlm_checkpoint``, ``build_model``,
-    ``build_vision`` and ``build_processor``; the preset's engine (S 16,
-    max_len 8,192, buckets 1,024-8,192, flash) serves chartqa prompts with
-    feature images; a step trains on unpacked [1, 8,192] rows; then the
+    ``build_vision`` and ``build_processor`` (with the published
+    ``preprocessor_config.json``); the preset's engine (S 16, max_len 8,192,
+    buckets 1,024-8,192, flash) serves chartqa prompts whose raw RGB images
+    travel as PNG data URLs through the port's image pipeline; a step trains
+    on unpacked [1, 8,192] rows; then the
     trainer's tree goes to the engine as one PWT3 body while 8 requests
     decode. Gates (a)-(e) are checked in turn. Returns (launches, the shapes
     the kernels ran at)."""
@@ -3324,6 +3527,7 @@ def phase_vlm_3b(dev, smi: str, tmp: str) -> tuple[dict, dict]:
     hf_dir = hf / CURRENT_DIR
     (hf_dir / "config.json").write_text(json.dumps(QWEN25VL3B_CONFIG, indent=2))
     vl_tokenizer_dir(hf_dir)
+    (hf_dir / "preprocessor_config.json").write_text(json.dumps(QWEN25VL3B_PREPROCESSOR, indent=2))
     size = (hf_dir / "model.safetensors").stat().st_size
     log(f"Qwen2.5-VL-3B directory: {n_text:,} language and {n_tower:,} tower parameters, {size / 1e9:.3f} GB "
         f"written by export_hf in {write_s:.1f} s")
@@ -3351,10 +3555,12 @@ def phase_vlm_3b(dev, smi: str, tmp: str) -> tuple[dict, dict]:
         f"{engine.cfg.max_len} buckets {engine.buckets} attn {engine.attn_impl}/{engine.decode_attn_impl}, tower "
         f"buckets {engine.cfg.vision_unit_buckets}; device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
 
-    # (a) rollouts: chartqa prompts with feature images, GRPO groups of 8
+    # (a) rollouts: chartqa prompts with raw images as PNG data URLs, GRPO
+    # groups of 8
     attempts = int(cfg.attempts)
     n_train = int(cfg.finetune.max_train_steps) * int(cfg.finetune.samples_per_step)
-    problems = vlm_problems(vcfg, max(len(VLM_GRIDS), -(-n_train // attempts)))
+    problems = vlm_problems(max(len(VLM_SIZES), -(-n_train // attempts)))
+    grids = check_image_route(hf_dir, problems, tok, smi)
     llm = InProcessLLM(engine, tok, dict(cfg.llm.parameters.items()), processor=processor)
     engine.start()
     reset_counts()
@@ -3379,6 +3585,9 @@ def phase_vlm_3b(dev, smi: str, tmp: str) -> tuple[dict, dict]:
           "a VLM rollout did not finish")
     check(launches["gqa_fwd"] > 0 and launches["decode"] > 0, f"the VLM prefill or decode missed its kernel: {launches}")
     check({engine._bucket(n) for n in prompt_lens} == {1024, 2048}, f"prompts in buckets {prompt_lens}")
+    pads = [t.input_ids[: t.prompt_tokens].count(model_cfg.image_token_id) for t in texts]
+    want_pads = [int(np.prod(grids[p["image"].shape[:2]])) // 4 for p in problems for _ in range(attempts)]
+    check(pads == want_pads, f"image pads per prompt {sorted(set(pads))}, want {sorted(set(want_pads))}")
 
     # (b) the engine's logprobs against the trainer's forward of the same row
     L = int(cfg.finetune.seq_length)

@@ -235,11 +235,6 @@ def validate_config(cfg: Config) -> None:
     mode = str(cfg.get("launch_mode", "inline"))
     if mode not in ("inline", "processes"):
         problems.append(f"unknown launch_mode {mode!r}: the port runs inline and processes")
-    for key in ("memory_debug", "profile"):
-        node = cfg.select(f"finetune.{key}")
-        if node and node.get("enabled", False):
-            problems.append(f"finetune.{key}.enabled: the memory debugger and step profiler are not ported yet "
-                            "(ROADMAP Queue 1, item 11)")
     seq_length = int(cfg.finetune.seq_length)
     engine_max = int(cfg.select("engine.max_len", 0) or 0)
     if engine_max > seq_length:

@@ -3,11 +3,10 @@ AdamW, Lion or Adafactor with optax's semantics, weight-version publishing
 and in-flight weight pushes, on one device or as one rank of a trainer
 world.
 
-Port of the JAX package's ``train/trainer.py`` ``TrainerLoop``. Left out:
-``pp`` above 1, which raises (ROADMAP Queue 1, item 15; the JAX trainer
-has no pp axis either), and the memory debugger and step profiler, which
-``launch.validate_config`` refuses (``finetune.memory_debug.enabled``,
-``finetune.profile.enabled``).
+Port of the JAX package's ``train/trainer.py`` ``TrainerLoop``, with its
+memory snapshots and step profile (``utils/memory_debug.py``, per rank).
+Left out: ``pp`` above 1, which raises (ROADMAP Queue 1, item 15; the JAX
+trainer has no pp axis either).
 
 A trainer world (``torch.distributed`` joined, ``parallel/multihost.py``)
 runs a ``(world / (cp * tp), cp, tp)`` mesh, one rank per device:
@@ -100,6 +99,7 @@ from ..parallel.train_step import batch_tensors, pass_backward, step_grads
 from ..state import SamplesProcessed, TrainingDone, WeightUpdateSuccess
 from ..streams import SingleStreamSpec, StreamReader, StreamWriter
 from ..types import TrainerBatch
+from ..utils.memory_debug import create_memory_debugger, create_step_profiler
 from ..utils.metrics_logger import MetricsLogger
 from .checkpoints import export_hf, load_training_state, save_training_state
 from .lora import init_lora_params, lora_config_from, merge_lora
@@ -605,6 +605,8 @@ class TrainerLoop:
         steps (or ``finetune.max_train_steps``)."""
         target_steps = min(self.max_train_steps, max_steps if max_steps is not None else self.max_train_steps)
         mlog = MetricsLogger(self.exp_path, f"trainer_{self.rank}")
+        memdbg = create_memory_debugger(self.cfg, self.exp_path, self.rank, self.device)
+        self.profiler = create_step_profiler(self.cfg, self.exp_path, self.rank, self.device)
         reader = StreamReader(self.input_spec, poll_interval=0.01)
         writer = StreamWriter(SingleStreamSpec(exp_path=self.exp_path, topic="weight_update_request"))
         # a loader thread tails the stream and decodes messages off the step
@@ -654,13 +656,18 @@ class TrainerLoop:
                     lag_min, lag_max = min(lag_min, lag), max(lag_max, lag)
                     if self.max_lag is not None and lag > int(self.max_lag):
                         self.metrics.samples_too_old_to_train += batch.num_sequences
-                for key, value in self.train_pass(batch).items():
+                memdbg.snapshot("before_train_pass", step=self.metrics.completed_steps)
+                pass_metrics = self.train_pass(batch)
+                memdbg.snapshot("after_train_pass", step=self.metrics.completed_steps)
+                for key, value in pass_metrics.items():
                     sums[key] = sums.get(key, 0.0) + value
                 samples_this_step += self.last_pass_samples
                 self.publish(writer, SamplesProcessed(samples=self.metrics.samples))
                 if samples_this_step < self.samples_per_step:
                     continue
                 self.optimizer_step()
+                memdbg.snapshot("after_optimizer_step", step=self.metrics.completed_steps)
+                self.profiler.on_step(self.metrics.completed_steps)
                 ratio_sum = sums.get("ratio_new_old_sum", 0.0)
                 ratio_sq = sums.get("ratio_new_old_squared_sum", 0.0)
                 n_tok = sums.get("num_output_tokens_sum", 0.0)
@@ -689,8 +696,10 @@ class TrainerLoop:
                 lag_min, lag_max = float("inf"), -1
                 samples_this_step = 0
                 self.maybe_push_weights(writer)
+                memdbg.snapshot("after_weight_push", step=self.metrics.completed_steps)
                 if self.save_checkpoint_steps and self.metrics.completed_steps % self.save_checkpoint_steps == 0:
                     self.save_checkpoint()
+                    memdbg.snapshot("after_save", step=self.metrics.completed_steps)
             elapsed = time.monotonic() - t_start
             logger.info(
                 "Trainer done: %d steps, %d samples, %d tokens in %.1fs (%.0f tok/s)",
@@ -701,12 +710,16 @@ class TrainerLoop:
             if self.save_checkpoint_steps:
                 self.save_checkpoint()
             self.publish(writer, TrainingDone())
+            self.profiler.stop()
         finally:
             stop.set()
             loader_thread.join(timeout=5)
+            memdbg.close()
             reader.stop()
             writer.close()
             mlog.close()
+            # after an error: write what was traced without raising over it
+            self.profiler.stop(check=False)
         return self.metrics
 
 

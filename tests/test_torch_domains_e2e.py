@@ -56,12 +56,19 @@ def test_math_preset_runs_with_the_difficulty_aware_penalty(hf_dir, tmp_path):
 
 
 def test_multi_domain_preset_draws_and_dispatches_every_domain(hf_dir, tmp_path):
+    """Sixteen groups drawn under the preset's mix (the draws are seeded and
+    equal JAX's; the 5th and 16th are counting groups). The run ends once
+    the trainer's step is done and cancels the groups still in flight, so
+    the step takes all 16 groups' 64 samples: the ``actor`` stream then
+    holds every group drawn, whatever order they finish in."""
     out = tmp_path / "multi"
     stats = launch.main(["--config-name=multi_domain", f"model_path={hf_dir}", f"output_dir={out}", *CUTS,
-                         "total_groups=16", "actor.max_parallel_groups=16", "actor.publish_stats_every_n_groups=2",
+                         "finetune.samples_per_step=64", "total_groups=16", "actor.max_parallel_groups=16",
+                         "actor.publish_stats_every_n_groups=2",
                          "train_dataset_names=[math::synthetic_arithmetic,math::countdown,guessing::train,"
                          "counting::train]"])
-    assert stats["trainer"]["completed_steps"] == 1
+    assert stats["trainer"]["completed_steps"] == 1 and stats["trainer"]["samples"] == 64
+    assert stats["actor"]["groups_completed"] == 16 and len(samples(out)) == 64
     domains = {s["domain"] for s in samples(out)}
     snapshots = list(StreamReader(SingleStreamSpec(str(out), "stats")).read_available()) + [stats["actor"]]
     reported = {k.split("/")[1] for snap in snapshots for k in snap if k.startswith("domain/")}

@@ -7,8 +7,9 @@ that refuses all of them, and the port's tokenizer reads the committed
 fixture there; every stage entrypoint, started as
 ``python -m pipelinerl_tpu_torch.entrypoints.<stage>``, imports its stage
 without them, and the host-only stages (the actor, the preprocessor, the
-environment servers and the stream hub) import no kernel; ``chip_smoke.main``
-raises where there is no CUDA card."""
+environment servers and the stream hub) import no kernel; the image
+pipeline, the visual processors and chartqa import no torch;
+``chip_smoke.main`` raises where there is no CUDA card."""
 
 import subprocess
 import sys
@@ -65,8 +66,9 @@ def test_port_imports_without_jax_and_chip_smoke_needs_a_card():
     # every module of the package (serving, paged KV, training, processes
     # mode, the task domains and domain sampling, the environment servers,
     # the binary and TCP streams; the vision tower, mrope, the visual
-    # processors, vlm_bandit and chartqa), and chip_smoke
-    assert n >= 107
+    # processors and the image pipeline, vlm_bandit and chartqa; the memory
+    # debugger, browse and gather_jsons), and chip_smoke
+    assert n >= 111
     if not torch.cuda.is_available():
         assert "RAISED no CUDA device" in proc.stdout, proc.stdout
         assert '"ok"' not in proc.stdout
@@ -181,3 +183,38 @@ def test_domain_modules_import_no_model_or_kernel():
                  "logic.verifier_api", "servers"):
         assert f"pipelinerl_tpu_torch.domains.{name}" in proc.stdout, name
     assert "HEAVY []" in proc.stdout, proc.stdout
+
+
+IMAGES_CHILD = textwrap.dedent(
+    """
+    import sys
+
+    REFUSED = ("torch", "jax", "jaxlib", "pipelinerl_tpu", "PIL", "transformers")
+
+    class Refuse:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in REFUSED:
+                raise ImportError(f"the image pipeline must not import {name}")
+            return None
+
+    sys.meta_path.insert(0, Refuse())
+    import numpy as np
+    from pipelinerl_tpu_torch.domains.chartqa.chartqa import multimodal_message
+    from pipelinerl_tpu_torch.inference.image_pipeline import ImageProcessor
+    from pipelinerl_tpu_torch.inference.processor import extract_images
+
+    image = (np.arange(60 * 90 * 3) % 251).astype(np.uint8).reshape(60, 90, 3)
+    (feats,) = extract_images([multimodal_message(image, "q")], ImageProcessor())
+    print("FEATURES", list(feats["pixel_values"].shape), feats["image_grid_thw"])
+    """
+)
+
+
+def test_image_pipeline_imports_no_torch():
+    """The host-only actor decodes and preprocesses images: the image
+    pipeline, the visual processors and chartqa run with torch, PIL and
+    transformers refused."""
+    proc = subprocess.run([sys.executable, "-c", IMAGES_CHILD], cwd=ROOT, capture_output=True, text=True, timeout=120,
+                          env={"PATH": "/usr/bin:/bin", "OMP_NUM_THREADS": "1"})
+    assert proc.returncode == 0, proc.stderr
+    assert "FEATURES [24, 1176] [1, 4, 6]" in proc.stdout, proc.stdout

@@ -1,21 +1,29 @@
 """The port's ``HFVisualProcessor`` against the JAX package's, on a
 Qwen2.5-VL directory this test writes (the fixture tokenizer with the
-vision tokens added, Qwen2.5-VL's chat template, an image processor
-config): for a raw image the JAX processor (transformers'
-``Qwen2_5_VLProcessor``) gives ids and features; the port, given those
-features, gives the same ids. A raw image refuses in the port and names
-the image pipeline's ROADMAP item. The toy processors agree too."""
+vision tokens added, Qwen2.5-VL's chat template, Qwen2.5-VL-3B's
+``preprocessor_config.json``): for a raw image the JAX processor
+(transformers' ``Qwen2_5_VLProcessor``) gives ids and features; the port
+gives the same ids and the same features bit for bit, for a PIL image, PNG
+bytes, a data URL PIL wrote and uint8 arrays, and the same ids for the
+features themselves. A truncated PNG and a JPEG raise; chartqa's message
+of an array reads alike in both processors. The toy processors agree
+too."""
 
+import base64
+import io
 import json
+import shutil
 
 import numpy as np
 import pytest
 from PIL import Image
 
 from chip_smoke import vl_tokenizer_dir
+from pipelinerl_tpu.domains.chartqa import chartqa as j_chartqa
 from pipelinerl_tpu.inference.processor import HFVisualProcessor as JHFVisualProcessor
 from pipelinerl_tpu.models.toy_tokenizer import ToyTokenizer as JToyTokenizer
 from pipelinerl_tpu.models.toy_tokenizer import ToyVisualProcessor as JToyVisualProcessor
+from pipelinerl_tpu_torch.domains.chartqa import chartqa as t_chartqa
 from pipelinerl_tpu_torch.inference.processor import HFVisualProcessor, extract_images
 from pipelinerl_tpu_torch.models.toy_tokenizer import ToyTokenizer, ToyVisualProcessor
 
@@ -34,6 +42,7 @@ def vl_dir(tmp_path_factory):
     out = vl_tokenizer_dir(tmp_path_factory.mktemp("vl"), TOKENS)
     (out / "config.json").write_text(json.dumps({"architectures": ["Qwen2_5_VLForConditionalGeneration"],
                                                  "vision_config": {"spatial_merge_size": 2}}))
+    (out / "preprocessor_config.json").write_text(json.dumps(IMAGE_PROCESSOR))
     return out
 
 
@@ -96,16 +105,115 @@ def test_text_only_prompt_has_no_features(vl_dir, jax_processor):
     assert ids == want and visual is None
 
 
-@pytest.mark.parametrize("part", [
-    {"type": "image", "image": b"\x89PNG\r\n"},
-    {"type": "image_url", "image_url": {"url": "data:image/png;base64,AAAA"}},
-    {"type": "image", "image": np.zeros((4, 4, 3), np.uint8)},
-])
-def test_raw_images_refuse_naming_the_image_pipeline(vl_dir, part):
-    with pytest.raises(ValueError, match="item 13"):
+def png_bytes(img) -> bytes:
+    buf = io.BytesIO()
+    img.save(buf, format="PNG")
+    return buf.getvalue()
+
+
+def jpeg_url(img) -> str:
+    buf = io.BytesIO()
+    img.save(buf, format="JPEG")
+    return "data:image/jpeg;base64," + base64.b64encode(buf.getvalue()).decode()
+
+
+@pytest.mark.parametrize("case", ["truncated", "jpeg", "zeros"])
+def test_raw_images_refuse_naming_the_image_pipeline(vl_dir, jax_processor, case):
+    """Truncated PNG bytes raise naming the fault, a JPEG data URL raises
+    naming ROADMAP item 16 (other image formats), and a zeros array gives
+    JAX's ids and features."""
+    if case == "zeros":
+        part = {"type": "image", "image": np.zeros((4, 4, 3), np.uint8)}
+        want_ids, want = jax_processor([{"role": "user", "content": [part]}])
+        ids, got = HFVisualProcessor(vl_dir)([{"role": "user", "content": [part]}])
+        assert ids == want_ids
+        np.testing.assert_array_equal(got["pixel_values"], want["pixel_values"])
+        np.testing.assert_array_equal(got["image_grid_thw"], want["image_grid_thw"])
+        return
+    if case == "truncated":
+        part, match = {"type": "image", "image": png_bytes(image((40, 30), 0))[:300]}, "truncated PNG"
+    else:
+        part, match = {"type": "image_url", "image_url": {"url": jpeg_url(image((40, 30), 0))}}, "JPEG.*item 16"
+    with pytest.raises(ValueError, match=match):
         HFVisualProcessor(vl_dir)([{"role": "user", "content": [part]}])
-    with pytest.raises(ValueError, match="item 13"):
+    with pytest.raises(ValueError, match=match):
         extract_images([{"role": "user", "content": [part]}])
+
+
+def raw_parts(img):
+    """One image in each form the JAX processor takes."""
+    data = png_bytes(img)
+    return {"pil": img, "png": data, "url": "data:image/png;base64," + base64.b64encode(data).decode()}
+
+
+@pytest.mark.parametrize("form", ["pil", "png", "url"])
+@pytest.mark.parametrize("sizes,system", [([(100, 140)], True), ([(300, 200)], False), ([(56, 56), (90, 180)], True)])
+def test_raw_images_give_jax_ids_and_features(vl_dir, jax_processor, form, sizes, system):
+    """PIL images, PNG bytes and PIL-written data URLs: ids and
+    ``pixel_values`` equal to JAX's bit for bit (the same integer resize
+    and the same float32 arithmetic in the same order)."""
+    imgs = [raw_parts(image(s, i))[form] for i, s in enumerate(sizes)]
+    if form == "url":
+        user = [{"type": "image_url", "image_url": {"url": u}} for u in imgs]
+        msgs = ([{"role": "system", "content": "Answer in a box."}] if system else []) + [
+            {"role": "user", "content": user + [{"type": "text", "text": "What is shown here?"}]}]
+    else:
+        msgs = messages(imgs, system)
+    want_ids, want = jax_processor(msgs)
+    ids, got = HFVisualProcessor(vl_dir)(msgs)
+    assert ids == want_ids
+    np.testing.assert_array_equal(got["pixel_values"], want["pixel_values"])
+    np.testing.assert_array_equal(got["image_grid_thw"], want["image_grid_thw"])
+
+
+@pytest.mark.parametrize("shape", [(64, 90), (64, 90, 3), (77, 50, 4)])
+def test_uint8_arrays_give_jax_ids_and_features(vl_dir, jax_processor, shape):
+    """[H, W] as L, [H, W, 3] as RGB, [H, W, 4] as RGBA (alpha dropped),
+    as ``Image.fromarray`` reads them."""
+    arr = np.random.default_rng(5).integers(0, 256, shape).astype(np.uint8)
+    msgs = messages([arr])
+    want_ids, want = jax_processor(msgs)
+    ids, got = HFVisualProcessor(vl_dir)(msgs)
+    assert ids == want_ids
+    np.testing.assert_array_equal(got["pixel_values"], want["pixel_values"])
+
+
+@pytest.mark.parametrize("mode", ["L", "LA", "RGBA", "1", "P"])
+def test_pil_images_of_other_modes_give_jax_features(vl_dir, jax_processor, mode):
+    """A PIL image reaches the port through ``__array_interface__`` (a "P"
+    image with its ``getpalette()``), converted as ``convert("RGB")``
+    converts it, as transformers does for the JAX package."""
+    rgb = np.random.default_rng(6).integers(0, 256, (70, 95, 3)).astype(np.uint8)
+    img = Image.fromarray(rgb)
+    img = img.quantize(colors=23) if mode == "P" else img.convert(mode)
+    msgs = messages([img])
+    want_ids, want = jax_processor(msgs)
+    ids, got = HFVisualProcessor(vl_dir)(msgs)
+    assert ids == want_ids
+    np.testing.assert_array_equal(got["pixel_values"], want["pixel_values"])
+
+
+def test_a_raw_image_needs_the_preprocessor_config(vl_dir, tmp_path):
+    bare = tmp_path / "bare"
+    shutil.copytree(vl_dir, bare)
+    (bare / "preprocessor_config.json").unlink()
+    with pytest.raises(ValueError, match="preprocessor_config.json"):
+        HFVisualProcessor(bare)(messages([np.zeros((28, 28, 3), np.uint8)]))
+
+
+def test_chartqa_message_of_an_array_reads_alike_in_both_processors(vl_dir, jax_processor):
+    """The port's ``multimodal_message`` (its own PNG encoder in a data
+    URL) gives, through either processor, the features JAX's message of
+    the same array gives through JAX's."""
+    arr = np.random.default_rng(9).integers(0, 256, (120, 170, 3)).astype(np.uint8)
+    port_msg = [t_chartqa.multimodal_message(arr, "How tall is the bar?")]
+    jax_msg = [j_chartqa.multimodal_message(Image.fromarray(arr), "How tall is the bar?")]
+    assert port_msg[0]["content"][0]["image_url"]["url"].startswith("data:image/png;base64,")
+    want_ids, want = jax_processor(jax_msg)
+    for ids, got in (jax_processor(port_msg), HFVisualProcessor(vl_dir)(port_msg)):
+        assert ids == want_ids
+        np.testing.assert_array_equal(got["pixel_values"], want["pixel_values"])
+        np.testing.assert_array_equal(got["image_grid_thw"], want["image_grid_thw"])
 
 
 def test_toy_processors_equal_jax():

@@ -1,7 +1,7 @@
 """Faults of the port against the reference, repaired: the attention
 names ``blockwise`` and ``cp`` that the JAX trainer and engine accept;
 ``finetune.memory_debug`` / ``finetune.profile``, which the JAX trainer
-reads and the port now refuses, naming the item that ports them; and the
+reads and the port, once refusing them, now runs; and the
 session fault shared with JAX: JAX's ``ActorLoop`` hands every rollout
 ``session=None``, so its domains never reach the environment servers its
 launcher starts (and deep_research with servers listed fails), while the
@@ -125,14 +125,29 @@ def test_trainer_and_engine_accept_blockwise_and_cp():
 
 
 @pytest.mark.parametrize("key", ["memory_debug", "profile"])
-def test_memory_debug_and_profile_are_refused_naming_item_11(key):
+def test_memory_debug_and_profile_run_as_in_jax(key, tmp_path):
     """JAX's trainer builds a memory debugger and a step profiler from these
-    keys; the port refuses ``enabled: true`` where it used to ignore it."""
-    cfg = compose("bandit_cpu", ["output_dir=/tmp/unused", f"+finetune.{key}.enabled=false"])
-    validate_config(cfg)
-    cfg = compose("bandit_cpu", ["output_dir=/tmp/unused", f"+finetune.{key}.enabled=true"])
-    with pytest.raises(ValueError, match=f"finetune.{key}.enabled.*item 11"):
+    keys; the port's ``validate_config`` takes ``enabled: true`` and
+    ``false`` as JAX's does, and builds the same (``utils/memory_debug.py``;
+    ``tests/test_torch_memory_debug.py`` runs them)."""
+    from pipelinerl_tpu import launch as j_launch
+    from pipelinerl_tpu.utils import memory_debug as j_md
+    from pipelinerl_tpu_torch.utils import memory_debug as t_md
+
+    make = {"memory_debug": ("create_memory_debugger", "MemoryDebugger", "NullDebugger"),
+            "profile": ("create_step_profiler", "StepProfiler", "NullProfiler")}[key]
+    for flag in ("true", "false"):
+        ov = [f"output_dir={tmp_path}", f"+finetune.{key}.enabled={flag}"]
+        cfg, jcfg = compose("bandit_cpu", ov), j_compose("conf", "bandit_cpu", ov)
         validate_config(cfg)
+        j_launch.validate_config(jcfg)
+        built = getattr(t_md, make[0])(cfg, str(tmp_path))
+        jbuilt = getattr(j_md, make[0])(jcfg, str(tmp_path / "jax"))
+        want = make[1] if flag == "true" else make[2]
+        assert type(built).__name__ == type(jbuilt).__name__ == want
+        for obj in (built, jbuilt):
+            if hasattr(obj, "close"):
+                obj.close()
 
 
 # -- the session fault (shared with JAX) ---------------------------------------
