@@ -49,8 +49,8 @@ Phases, each of which stops the script on failure:
    padded-vocabulary guard, kernel launch counts, and against teacher
    forcing through the plain attention;
 8. the in-process client on a toy-width model;
-9. the paged engine at Qwen2.5-0.5B width with the JAX package's paged
-   configuration (96 slots, max_len 4096, BT 128, a pool of half the slab's
+9. the paged engine at Qwen2.5-0.5B width (12 of its 24 layers) with the
+   JAX package's paged configuration (96 slots, max_len 4096, BT 128, a pool of half the slab's
    pages): long-tail requests, two GRPO groups sharing prompt pages, an
    abort; the peak of active slots, pages returned, kernel #5 launch counts,
    teacher forcing and a decode profile; then kernel #5 against its plain
@@ -201,7 +201,8 @@ Phases, each of which stops the script on failure:
    card (gloo: NCCL refuses two ranks on one GPU): (a) which of
    all_gather_into_tensor, reduce_scatter_tensor, all_reduce and broadcast
    gloo takes on CUDA tensors (the phase fails if one the port calls is
-   refused); (b) cp 2 at the tir preset's width on one packed L 32,768 row
+   refused); (b)-(c) at 12 of the 24 layers: (b) cp 2 at the tir preset's
+   width on one packed L 32,768 row
    over phase 21's segment ids, each rank's #2-#4 at its q_offset (0,
    16,384), the loss, grad norm, each leaf's Adam first moment and the
    updated params after one step at lr 1e-3 (no warmup) held against one
@@ -219,12 +220,13 @@ Phases, each of which stops the script on failure:
    beside SDPA and their bounds;
 28. tensor parallelism as two gloo rank processes on this card, from phase
    14's directory at Qwen2.5-0.5B width (7 query heads, 1 KV head, 2,432
-   FFN columns and 75,968 vocabulary rows a rank): (a) the tp engine on the
+   FFN columns and 75,968 vocabulary rows a rank; (a)-(c) at 12 of its 24
+   layers): (a) the tp engine on the
    slab layout (S 64, max_len 2,048, W 16, the kernels): 32 greedy requests
    (a GRPO group of 8 among them) against one rank's engine on the same
    prompts (equal tokens, or a divergence at a near-tie of the one-rank
    model; the shared tokens' logprobs within phase 7's teacher-forcing
-   limits), a sampled batch, and a 988 MB PWT3 push into rank 0 while 16
+   limits), a sampled batch, and a PWT3 push into rank 0 while 16
    requests decode: the version lands on both ranks, each rank's checksums
    equal its slice of the pushed tree, and the window gaps are logged; the
    ranks read back the same windows; (b) the same on the paged layout; (c)
@@ -238,7 +240,22 @@ Phases, each of which stops the script on failure:
    trainer's version with one window digest; (e) #1 at the tp slab (S 64, K
    1, G 7), #5 on the tp paged engine's own tables, #2-#4 on (c)'s row at K
    1, G 7, against their plain versions and timed beside SDPA and their
-   bounds.
+   bounds;
+29. pipeline parallelism and heads that do not split, as gloo rank
+   processes on this card from phase 14's directory: (a) a pp 2 engine at
+   full width and depth (12 layers a stage; the embedding table on stage
+   0, the final norm and the tied head on stage 1), slab then paged, on
+   phase 28's greedy prompts: tokens and logprobs equal one rank's bit for
+   bit, each stage launches #1 or #5 once a layer a dispatched step and #2
+   once a layer a prefill batch, a decode step's ms beside one rank's, and
+   a 988 MB push while 8 requests decode: windows read back during it, the
+   version lands on both stages, each stage's checksums equal its slice;
+   (b) tp 2 x pp 2 (four ranks) and (c) tp 4 over the 14 query heads (4,
+   4, 3, 3 a rank at G 4, 1, 3, 3), both at 8 layers: greedy tokens
+   against one rank under phase 28's near-tie rule with at least 19 of 24
+   equal, launches on every rank; (c) also one pass of an L 4,096 row and
+   one AdamW step at ``parallel.tp=4`` held against one rank as phase 28's
+   (c).
 Then one JSON line of kernel numbers, and last the result line.
 
 ``python3 chip_smoke.py --http-load URL N TOKENS OUT`` and
@@ -248,7 +265,10 @@ WORLD HOST:PORT DIR HF_DIR`` is a rank of phase 27, and ``python3
 chip_smoke.py --trainer-world N`` runs phase 27's (b) and (c) alone as N
 ranks (N=4 on a host with four cards, over NCCL); ``python3 chip_smoke.py
 --tp-rank RANK WORLD HOST:PORT DIR HF_DIR`` is a rank of phase 28, and
-``python3 chip_smoke.py --tp-world`` runs phase 28 alone after phases 1-2.
+``python3 chip_smoke.py --tp-world`` runs phase 28 alone after phases 1-2;
+``python3 chip_smoke.py --pp-rank PART RANK WORLD HOST:PORT DIR HF_DIR`` is
+a rank of phase 29, and ``python3 chip_smoke.py --pp-world`` runs phase 29
+alone after phases 1-2.
 
 It needs a CUDA device and raises without one; it never falls back to the CPU.
 """
@@ -390,8 +410,12 @@ TF_MEAN_ATOL = 0.03
 TF_MAX_ATOL = 0.3
 # the JAX package's paged engine configuration (bench.py:577-621): 96 slots
 # at max_len 4096 in BT 128 pages, a pool of half the pages a 32-slot slab
-# engine would hold (32 * ceil(4128 / 128) / 2 = 528, 0.83 GB of bf16 K+V)
+# engine would hold (32 * ceil(4128 / 128) / 2 = 528, 0.42 GB of bf16 K+V
+# at P_LAYERS)
 P_SLOTS, P_MAX_LEN, P_BT, P_WINDOW, P_BUCKETS = 96, 4096, 128, 32, (256, 512)
+# phase 9's depth, cut from Qwen2.5-0.5B's 24 (bench.py's paged engine) to
+# pay for phase 29's time: its host-bound decode steps scale with the layers
+P_LAYERS = 12
 P_MAXB = -(-(P_MAX_LEN + P_WINDOW) // P_BT)  # 33 pages per slot
 P_POOL = 32 * P_MAXB // 2
 P_REQUESTS = 96  # long-tail requests: prompts 128-400 tokens, budgets 128-1024
@@ -1884,10 +1908,11 @@ def check_results(results, budgets, cfg: ModelConfig) -> None:
 
 
 def phase_paged_engine(dev, smi: str) -> dict:
-    """The paged engine at Qwen2.5-0.5B width with the JAX package's paged
-    configuration (bench.py:577-621): long-tail requests, two GRPO groups of
-    8 whose 300-token prompts share two full pages, and one abort."""
-    cfg = QWEN05B
+    """The paged engine at Qwen2.5-0.5B width (P_LAYERS deep) with the JAX
+    package's paged configuration (bench.py:577-621): long-tail requests,
+    two GRPO groups of 8 whose 300-token prompts share two full pages, and
+    one abort."""
+    cfg = dataclasses.replace(QWEN05B, num_layers=P_LAYERS)
     params = init_params(torch.Generator(device=dev).manual_seed(0), cfg, dev)
     engine = InferenceEngine(
         params, cfg,
@@ -2771,8 +2796,10 @@ def phase_multi_domain(hf_dir: Path, smi: str, tmp: str) -> dict:
     the domains of the finished groups. The run has
     ``finetune.memory_debug`` on and ``finetune.profile`` over step 2: the
     memory records run in the JAX trainer's order with the card's readings,
-    and the trace holds #1 (the engine decodes through the step) and #2-#4;
-    the step's device ms by family are logged."""
+    and the trace holds #2-#4 and, where the engine thread launched #1 while
+    the profiler ran (its launch counter read as the profiler starts and
+    stops), #1 too: in inline mode the trainer's thread can hold the engine
+    off the whole step; the step's device ms by family are logged."""
     out = f"{tmp}/multi_domain"
     argv = cut_args("multi_domain", MULTI_CUTS, hf_dir, out) + [f"train_dataset_names={MULTI_SETS}"]
     cfg = compose("multi_domain", argv[1:])
@@ -2784,11 +2811,27 @@ def phase_multi_domain(hf_dir: Path, smi: str, tmp: str) -> dict:
         dispatched.append(problem["domain"])
         return await dispatch(run_cfg, llm, problem, session)
 
+    # #1's launch counter as the profiler starts, and as it stops
+    from pipelinerl_tpu_torch.utils.memory_debug import StepProfiler
+
+    spans: list[int] = []
+    on_step = StepProfiler.on_step
+
+    def counted_on_step(self, step):
+        if self.active and step >= self.stop_step:
+            spans.append(dattn.launches)
+        was = self.active
+        on_step(self, step)
+        if self.active and not was:
+            spans.append(dattn.launches)
+
     registry.generate_dispatched_rollout = recorded_dispatch
+    StepProfiler.on_step = counted_on_step
     try:
         stats, passes, shape, wall, launches = run_rows_recorded(argv, made)
     finally:
         registry.generate_dispatched_rollout = dispatch
+        StepProfiler.on_step = on_step
     profiler = made[0].profiler
     trace, export_s = profiler.trace_path, profiler.export_s
     made.clear()
@@ -2839,6 +2882,8 @@ def phase_multi_domain(hf_dir: Path, smi: str, tmp: str) -> dict:
     check(trace is not None and trace.exists(), f"no trace under {out}/profile")
     prof = read_step_profile(trace)
     fams = prof["families"]
+    check(len(spans) == 2, f"the profiler's start and stop were not both seen: {spans}")
+    during = spans[1] - spans[0]
     with open(f"{out}/metrics/trainer_0.jsonl") as f:
         step2 = [json.loads(line) for line in f][1]
     rows = [p for p in passes if p["step"] == 1]
@@ -2848,11 +2893,14 @@ def phase_multi_domain(hf_dir: Path, smi: str, tmp: str) -> dict:
         f"(share {prof['busy_ms'] / prof['window_ms']:.3f}), trace {prof['mb']:.1f} MB of {prof['events']} events "
         f"exported in {export_s:.2f} s; device ms by family: "
         + ", ".join(f"{n} {f['ms']:.2f} ({f['launches']} launches)" for n, f in fams.items())
-        + f"; kernels in the trace {prof['kernels']}; on {smi}")
+        + f"; kernels in the trace {prof['kernels']}; the engine launched #1 {during} times while the profiler "
+        f"ran; on {smi}")
     for name, fam in fams.items():
         top = sorted(fam["top"].items(), key=lambda kv: -kv[1])[:4]
         log(f"  {name}: " + "; ".join(f"{ms:.2f} ms {k[:80]}" for k, ms in top))
-    check(all(prof["kernels"].values()), f"the profiled step's trace misses a kernel: {prof['kernels']}")
+    check(all(prof["kernels"][k] for k in ("gqa_fwd", "gqa_dq", "gqa_dkv"))
+          and (during == 0 or prof["kernels"]["decode"]),
+          f"the profiled step's trace misses a kernel: {prof['kernels']} ({during} #1 launches while it ran)")
     return launches
 
 
@@ -3782,6 +3830,10 @@ WORLD_FLIP_FRAC = 2e-2
 WORLD_MOVED_FRAC = 0.5
 DP_ROW_L = 2048  # (c)'s two rows: phase 6's training length halved
 WORLD_TIMEOUT = 420.0
+# (b)-(c)'s depth, cut from Qwen2.5-0.5B's 24 to pay for phase 29's time (a
+# pass's gloo traffic and work scale with the layers); (d) runs the whole
+# directory
+WORLD_LAYERS = 12
 
 
 def world_row(seg: np.ndarray, seed: int, signed: bool = True) -> TrainerBatch:
@@ -3928,6 +3980,7 @@ def world_rank_main(rank: int, world: int, coordinator: str, work: str, hf_dir: 
     wait_for(Path(work) / "refs.timed", "the one-rank references' passes")
     marks["refs_timed"] = time.monotonic() - t0
     params, model_cfg, _ = launch.build_model(compose("tir", world_args(hf_dir, work, "cp", world)), dev)
+    params, model_cfg = cut_depth(params, model_cfg, WORLD_LAYERS)
     offsets = spy_q_offsets()
     marks["built"] = time.monotonic() - t0
     for part in ("cp", "dp"):
@@ -3955,6 +4008,16 @@ def world_rank_main(rank: int, world: int, coordinator: str, work: str, hf_dir: 
     leave_world()
     out["marks"] = {k: round(v, 2) for k, v in marks.items()}
     Path(f"{work}/rank{rank}.json").write_text(json.dumps(out))
+    exit_now()
+
+
+def exit_now() -> None:
+    """A rank process's end once its results are written and it has left
+    its world, without the interpreter's teardown (the card's memory, the
+    process groups), which the parent would wait for."""
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
 
 
 def wait_for(path: Path, what: str) -> None:
@@ -3964,23 +4027,31 @@ def wait_for(path: Path, what: str) -> None:
         time.sleep(0.1)
 
 
-def start_world_ranks(work: Path, hf_dir: Path, world: int = 2) -> list[subprocess.Popen]:
-    """``world`` rank processes of ``world_rank_main`` on this card."""
+def start_ranks(flag: list[str], work: Path, hf_dir: Path, world: int, prefix: str = "") -> list[subprocess.Popen]:
+    """``world`` rank processes of ``chip_smoke.py <flag> RANK WORLD
+    HOST:PORT DIR HF_DIR`` on this card, each logging to
+    ``<work>/<prefix>rank<r>.log``."""
     coordinator = f"127.0.0.1:{free_port()}"
     root = Path(__file__).resolve().parent
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in (str(root), os.environ.get("PYTHONPATH")) if p))
     procs = []
     for r in range(world):
-        with open(work / f"rank{r}.log", "w") as f:
-            procs.append(subprocess.Popen([sys.executable, str(root / "chip_smoke.py"), "--world-rank", str(r),
-                                           str(world), coordinator, str(work), str(hf_dir)],
+        with open(work / f"{prefix}rank{r}.log", "w") as f:
+            procs.append(subprocess.Popen([sys.executable, str(root / "chip_smoke.py"), *flag, str(r), str(world),
+                                           coordinator, str(work), str(hf_dir)],
                                           stdout=f, stderr=subprocess.STDOUT, env=env, cwd=root,
                                           start_new_session=True))
     return procs
 
 
-def wait_world_ranks(procs: list[subprocess.Popen], work: Path, deadline: float) -> list[dict]:
-    """The ranks' results, or a failure with their logs."""
+def start_world_ranks(work: Path, hf_dir: Path, world: int = 2) -> list[subprocess.Popen]:
+    """``world`` rank processes of ``world_rank_main`` on this card."""
+    return start_ranks(["--world-rank"], work, hf_dir, world)
+
+
+def wait_world_ranks(procs: list[subprocess.Popen], work: Path, deadline: float, prefix: str = "") -> list[dict]:
+    """The ranks' results (``<work>/<prefix>rank<r>.json``), or a failure
+    with their logs."""
     try:
         while any(p.poll() is None for p in procs) and time.monotonic() < deadline:
             if any(p.returncode for p in procs):
@@ -3991,9 +4062,9 @@ def wait_world_ranks(procs: list[subprocess.Popen], work: Path, deadline: float)
             if p.poll() is None:
                 stop_group(p, 10)
     failed = [r for r, p in enumerate(procs) if p.returncode != 0]
-    logs = {r: (work / f"rank{r}.log").read_text()[-3000:] for r in failed}
-    check(not failed, f"trainer world rank(s) {failed} failed: {logs}")
-    return [json.loads((work / f"rank{r}.json").read_text()) for r in range(len(procs))]
+    logs = {r: (work / f"{prefix}rank{r}.log").read_text()[-3000:] for r in failed}
+    check(not failed, f"{prefix}rank(s) {failed} failed: {logs}")
+    return [json.loads((work / f"{prefix}rank{r}.json").read_text()) for r in range(len(procs))]
 
 
 def phase_trainer_world(hf_dir: Path, smi: str, tmp: str, tir_seg: np.ndarray, world: int = 2) -> dict:
@@ -4025,6 +4096,7 @@ def phase_trainer_world(hf_dir: Path, smi: str, tmp: str, tir_seg: np.ndarray, w
     procs = start_world_ranks(work, hf_dir, world)
     try:
         params, model_cfg, _ = launch.build_model(compose("tir", world_args(hf_dir, tmp, "cp", 1)), dev)
+        params, model_cfg = cut_depth(params, model_cfg, WORLD_LAYERS)
         refs, moved, states = {}, {}, {}
         for part in ("cp", "dp"):
             exp = f"{work}/ref_{part}"
@@ -4061,7 +4133,7 @@ def phase_trainer_world(hf_dir: Path, smi: str, tmp: str, tir_seg: np.ndarray, w
     check(r0["backend"] != "gloo" or all(r0["gloo_cuda"].values()),
           f"gloo refuses a collective the port calls on CUDA tensors: {r0['gloo_cuda']}")
     launches = {k: 0 for k in KERNEL_KEYS + ("paged",)}
-    n_layers = QWEN05B.num_layers
+    n_layers = WORLD_LAYERS
     for part, label in (("cp", f"(b) cp {world}, the tir row L {tir_seg.shape[0]}"),
                         ("dp", f"(c) dp {world}, {world} rows of L {DP_ROW_L}")):
         ref, res = refs[part], [r[part] for r in ranks]
@@ -4230,6 +4302,10 @@ TP_NEW = 16  # new tokens of each request: one window
 # nearly flat
 TP_TIE_NATS = 0.1
 TP_ROW_L = 12288  # (c)'s row: the math preset's seq_length, so the logits go by chunks
+# (a)-(c)'s depth, cut from Qwen2.5-0.5B's 24 to pay for phase 29's time (a
+# tp 2 decode step carries two all-reduces a layer); (d) runs the whole
+# directory
+TP_LAYERS = 12
 # (c)'s limits where phase 27's are too tight for tp: cp and dp change no
 # product, tp changes the widths of every GEMM (above), so every activation
 # can move by a bf16 step. About three times the readings on an H100 (loss
@@ -4280,17 +4356,23 @@ def tp_serve(engine: InferenceEngine, w: dict) -> dict:
     return out
 
 
-def tp_push(engine: InferenceEngine, params: dict, w: dict, model_cfg) -> dict:
-    """A 988 MB PWT3 body of TP_PUSH_SCALE times the weights pushed into
-    rank 0 while 8 sampled requests decode: the seconds to the swap, the
-    window gaps, the versions the requests saw, and each rank's checksums
-    against its slice of the pushed tree."""
-    from pipelinerl_tpu_torch.models.transformer import replicate_kv
-    from pipelinerl_tpu_torch.parallel.sharding import tp_local
+def tp_push(engine: InferenceEngine, params: dict, w: dict, model_cfg,
+            slices: Callable[[dict], list[dict]] | None = None, live_tokens: int = 2 * TP_NEW) -> dict:
+    """A PWT3 body of TP_PUSH_SCALE times the weights pushed into
+    rank 0 while 8 sampled requests decode ``live_tokens`` each: the
+    seconds to the swap, the window gaps, the versions the requests saw,
+    and each rank's checksums against its slice of the pushed tree
+    (``slices``: the ranks' slices of a full tree; phase 28's tp 2 cut by
+    default)."""
+    from pipelinerl_tpu_torch.parallel.sharding import tp_cut, tp_local
+
+    if slices is None:
+        def slices(tree):
+            return [tp_local(tree, r, TP_RANKS, tp_cut(model_cfg, TP_RANKS)) for r in range(TP_RANKS)]
 
     pushed = scaled({k: v for k, v in params.items() if k != "value_head"}, TP_PUSH_SCALE)
     body = bytes(serialize_params(pushed, 1))
-    live = [engine.submit(GenRequest(list(p), SamplingParams(temperature=1.0, max_tokens=2 * TP_NEW)))
+    live = [engine.submit(GenRequest(list(p), SamplingParams(temperature=1.0, max_tokens=live_tokens)))
             for p in w["sampled"]]
     time.sleep(0.5)  # the requests are decoding
     t0 = time.monotonic()
@@ -4302,8 +4384,7 @@ def tp_push(engine: InferenceEngine, params: dict, w: dict, model_cfg) -> dict:
     timings = dict(engine.last_push_timings)
     done = [f.result(timeout=300) for f in live]
     sums = engine.rank_checksums()
-    kv = replicate_kv(model_cfg, TP_RANKS)
-    want = [param_checksums(tp_local(pushed, r, TP_RANKS, kv)) for r in range(TP_RANKS)]
+    want = [param_checksums(t) for t in slices(pushed)]
     return {"version": engine.version, "swap_s": swap_s, "bytes": len(body), "timings": timings,
             "checksums_equal": [s == x for s, x in zip(sums, want)], "live_tokens": sum(len(r.token_ids) for r in done),
             "live_versions": sorted({(r.model_version_start, r.model_version_end) for r in done})}
@@ -4352,6 +4433,7 @@ def tp_rank_main(rank: int, world: int, coordinator: str, work: str, hf_dir: str
     marks["refs_timed"] = time.monotonic() - t0
     out["collectives_ms"] = tp_collective_ms(dev)
     params, model_cfg, tok = launch.build_model(compose("math", tp_args(hf_dir, work, 1)), dev)
+    params, model_cfg = cut_depth(params, model_cfg, TP_LAYERS)
     for layout in ("slab", "paged"):
         ew = join_engine_world(rank, world, "", dev)
         snapshots, window_fn = [], engine_mod._decode_window_paged_fn
@@ -4407,21 +4489,12 @@ def tp_rank_main(rank: int, world: int, coordinator: str, work: str, hf_dir: str
     leave_world()
     out["marks"] = {k: round(v, 2) for k, v in marks.items()}
     Path(f"{work}/rank{rank}.json").write_text(json.dumps(out))
+    exit_now()
 
 
 def start_tp_ranks(work: Path, hf_dir: Path, world: int = TP_RANKS) -> list[subprocess.Popen]:
     """``world`` rank processes of ``tp_rank_main`` on this card."""
-    coordinator = f"127.0.0.1:{free_port()}"
-    root = Path(__file__).resolve().parent
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in (str(root), os.environ.get("PYTHONPATH")) if p))
-    procs = []
-    for r in range(world):
-        with open(work / f"rank{r}.log", "w") as f:
-            procs.append(subprocess.Popen([sys.executable, str(root / "chip_smoke.py"), "--tp-rank", str(r), str(world),
-                                           coordinator, str(work), str(hf_dir)],
-                                          stdout=f, stderr=subprocess.STDOUT, env=env, cwd=root,
-                                          start_new_session=True))
-    return procs
+    return start_ranks(["--tp-rank"], work, hf_dir, world)
 
 
 def tp_compare(label: str, got: list[dict], ref: list[dict], prompts: list, ref_engine: InferenceEngine) -> dict:
@@ -4469,6 +4542,7 @@ def phase_tp(hf_dir: Path, smi: str, tmp: str, seg: np.ndarray, padding: int) ->
     procs = start_tp_ranks(work, hf_dir)
     try:
         params, model_cfg, tok = launch.build_model(compose("math", tp_args(hf_dir, tmp, 1)), dev)
+        params, model_cfg = cut_depth(params, model_cfg, TP_LAYERS)
         refs, engines = {}, {}
         for layout in ("slab", "paged"):
             engine = InferenceEngine(launch.engine_params(params), model_cfg, tp_engine_cfg(layout), tok.eos_token_id,
@@ -4554,8 +4628,7 @@ def phase_tp(hf_dir: Path, smi: str, tmp: str, seg: np.ndarray, padding: int) ->
     check(res[0]["moment_rel"] <= TP_MOMENT_RTOL, f"tp (c) first moment of {res[0]['moment_leaf']} off")
     check(moved >= WORLD_MOVED_FRAC, f"tp (c): the reference step moved {moved} of the params")
     check(res[0]["flip_frac"] <= TP_FLIP_FRAC, f"tp (c): {res[0]['flip_frac']} of the updated params off")
-    n_layers = QWEN05B.num_layers
-    want = {"gqa_fwd": 2 * n_layers, "gqa_dq": n_layers, "gqa_dkv": n_layers}
+    want = {"gqa_fwd": 2 * TP_LAYERS, "gqa_dq": TP_LAYERS, "gqa_dkv": TP_LAYERS}
     check(all(r["launches"][k] == n for r in res for k, n in want.items()), f"tp (c) launches {res}")
     launches = {k: sum(r[part]["launches"][k] for r in ranks for part in ("slab", "paged", "train"))
                 for k in KERNEL_KEYS + ("paged",)}
@@ -4675,6 +4748,335 @@ def tp_main() -> None:
         time_tp_shapes(dev, kernels, shapes)
         log(f"phase wall: tp (e) {time.monotonic() - t2:.1f} s; launches {launches}, (d) {launches_d}")
     log(json.dumps({"kernels": kernels}))
+
+
+# -- phase 29: pipeline parallelism and heads that do not split, on one card ---
+#
+# Gloo rank processes on the one card, as phase 28's, beside the one-rank
+# references in this process. Gloo's send of a CUDA tensor aborts its
+# process (gloo::IoException, writev: Bad address, on an H100 host), so
+# the stage hand-offs are broadcasts in two-rank groups, which gloo takes on
+# CUDA tensors. (a) pp 2 at full width and depth (12 layers a
+# stage): each stage runs one rank's layers at one rank's shapes and the
+# last stage samples with the one-rank engine's generator seed, so tokens
+# and logprobs must equal the one-rank engine's bit for bit. (b) tp 2 x pp 2
+# and (c) tp 4 at H 14 (4, 4, 3, 3 query heads a rank, at G 4, 1, 3, 3) run
+# a model cut to PP_DEPTH layers; their tp sums run in another order, so
+# their greedy tokens are held to phase 28's near-tie rule and at least
+# PP_EQUAL of phase 28's 24 requests equal, and (c)'s step to phase 28's
+# limits.
+PP_DEPTH = 8  # (b), (c): layers of the cut model (Qwen2.5-0.5B: 24)
+PP_ROW_L = 4096  # (c)'s row (phase 28: the math preset's 12,288)
+PP_EQUAL = 19  # of 24 greedy requests, phase 28's reading at tp 2
+PP_DECODE_NEW = 48  # the timed decode: 64 requests, 3 windows of 16 steps
+PP_LIVE_TOKENS = 128  # the live requests during (a)'s push: 8 windows
+# (c)'s loss limit: about three times the reading at tp 4 (9.49e-5 relative
+# on an NVIDIA H100 80GB HBM3 at 700 W; phase 28 read 2.4e-5 to 4.0e-5 at tp
+# 2), since four ranks' GEMMs at a quarter of the widths round more of
+# the activations apart; a wrong tp gradient reads O(1)
+PP_LOSS_RTOL = 3e-4
+PP_TIMEOUT = 900.0
+
+
+def cut_depth(params: dict, cfg: ModelConfig, n: int) -> tuple[dict, ModelConfig]:
+    """The first ``n`` layers of a model (copies), and its config."""
+    cut = {**params, "layers": {k: v[:n].clone() for k, v in params["layers"].items()}}
+    return cut, dataclasses.replace(cfg, num_layers=n)
+
+
+def pp_greedy(engine: InferenceEngine, w: dict) -> dict:
+    """The greedy batch through a started engine, timed → its tokens and
+    logprobs."""
+    t0 = time.monotonic()
+    params = SamplingParams(temperature=0.0, max_tokens=TP_NEW)
+    res = [f.result(timeout=300) for f in [engine.submit(GenRequest(list(p), params)) for p in w["greedy"]]]
+    return {"greedy": [{"tokens": r.token_ids, "logprobs": r.logprobs, "finish": r.finish_reason} for r in res],
+            "greedy_s": time.monotonic() - t0}
+
+
+def pp_step_ms(engine: InferenceEngine, seed: int) -> float:
+    """Wall ms of a decode step of a started engine with its 64 slots busy:
+    64 prompts of 64 tokens decode PP_DECODE_NEW tokens, and the gaps
+    between the windows read back after the first, over their steps."""
+    rng = np.random.default_rng(seed)
+    before = len(engine._window_times)
+    params = SamplingParams(temperature=0.0, max_tokens=PP_DECODE_NEW)
+    for f in [engine.submit(GenRequest(rng.integers(1, 540, 64).tolist(), params)) for _ in range(TP_SLOTS)]:
+        f.result(timeout=300)
+    times = list(engine._window_times)[before:]
+    check(len(times) >= 3, f"the timed decode read back {len(times)} windows")
+    return (times[-1] - times[0]) / ((len(times) - 1) * TP_WINDOW) * 1e3
+
+
+def pp_engine_run(rank: int, world, params: dict, model_cfg, tok, layout: str, w: dict, dev,
+                  push: bool = False, timed: bool = False) -> dict:
+    """One engine of phase 29 on this rank: rank 0 drives it (the greedy
+    batch, the timed decode, a push while decoding), the others follow.
+    → what this rank ran: its layers, top leaves and cache heads, launches,
+    dispatched steps and prefill batches, window digest and version."""
+    from pipelinerl_tpu_torch.parallel.sharding import pp_local, tp_cut, tp_local
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    engine = InferenceEngine(launch.engine_params(params), model_cfg, tp_engine_cfg(layout), tok.eos_token_id,
+                             device=dev, tp_world=world)
+    res = {"layers": int(engine.params["layers"]["wq"].shape[0]), "top": sorted(k for k in engine.params
+                                                                               if k != "layers"),
+           "cache_heads": int((engine.k_pool if engine.paged else engine.k_cache).shape[-2])}
+    if rank == 0:
+        engine.start()
+        try:
+            res.update(pp_greedy(engine, w))
+            if timed:
+                res["step_ms"] = pp_step_ms(engine, 29)
+            if push:
+                tp, pp = world.tp_size, world.pp
+
+                def slices(tree):
+                    return [tp_local(pp_local(tree, r // tp, pp), r % tp, tp, tp_cut(model_cfg, tp))
+                            for r in range(world.size)]
+
+                res["push"] = tp_push(engine, params, w, model_cfg, slices, PP_LIVE_TOKENS)
+        finally:
+            engine.stop()
+    else:
+        engine.serve_tp_worker()
+    torch.cuda.synchronize()
+    res.update(launches=counts(), steps=sum(k * v for k, v in engine.window_size_counts.items()),
+               prefills=engine.prefill_batches, digest=engine.window_digest, version=engine.version,
+               peak=torch.cuda.max_memory_allocated())
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def pp_rank_main(part: str, rank: int, world: int, coordinator: str, work: str, hf_dir: str) -> None:
+    """One rank of phase 29: part "a" of two ranks ((a): pp 2 at full depth,
+    slab with a push, then paged), part "bc" of four ((b): tp 2 x pp 2,
+    then (c): tp 4 and one trainer step, at PP_DEPTH layers). Each joins its
+    gloo world while the parent runs the one-rank references, and starts
+    its engines once the parent says so (part "bc" once part "a" has
+    ended). Writes ``<work>/<part>_rank<rank>.json``."""
+    from pipelinerl_tpu_torch.inference.tp_ranks import join_engine_world
+    from pipelinerl_tpu_torch.parallel.multihost import leave_world, maybe_initialize_distributed
+
+    t0, marks = time.monotonic(), {}
+    host, port = coordinator.rsplit(":", 1)
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), MASTER_ADDR=host, MASTER_PORT=port)
+    _, dev = maybe_initialize_distributed(None, "cuda")
+    out = {"rank": rank, "backend": torch.distributed.get_backend()}
+    w = torch.load(f"{work}/pp_work.pt", weights_only=False)
+    params, model_cfg, tok = launch.build_model(compose("math", tp_args(hf_dir, work, 1)), dev)
+    if part == "a":
+        wait_for(Path(work) / "refs.timed", "the one-rank references' runs")
+        marks["start"] = time.monotonic() - t0
+        for layout in ("slab", "paged"):
+            ew = join_engine_world(rank, world, "", dev, pp=2)
+            out[layout] = pp_engine_run(rank, ew, params, model_cfg, tok, layout, w, dev, push=layout == "slab",
+                                        timed=layout == "slab")
+            marks[layout] = time.monotonic() - t0
+    else:
+        params, model_cfg = cut_depth(params, model_cfg, PP_DEPTH)
+        wait_for(Path(work) / "a.done", "part (a)'s end")
+        marks["start"] = time.monotonic() - t0
+        ew = join_engine_world(rank, world, "", dev, pp=2)
+        out["b"] = pp_engine_run(rank, ew, params, model_cfg, tok, "slab", w, dev, timed=True)
+        marks["b"] = time.monotonic() - t0
+        ew = join_engine_world(rank, world, "", dev)
+        out["c"] = pp_engine_run(rank, ew, params, model_cfg, tok, "slab", w, dev)
+        marks["c_engine"] = time.monotonic() - t0
+        exp = f"{work}/train_{rank}"
+        trainer = TrainerLoop(compose("math", tp_args(hf_dir, exp, world)), params, model_cfg, exp)
+        del params
+        reset_counts()
+        res = world_step(trainer, [w["row"]])
+        res.update(launches=counts(), shard=list(trainer.params["layers"]["wq"].shape), mesh=list(trainer.mesh.shape))
+        full, moments = step_state(trainer)
+        if rank == 0:
+            ref = torch.load(f"{work}/ref_pp.pt", map_location=dev, weights_only=False)
+            res.update(world_vs_ref(full, moments, ref, res["lr"]))
+            del ref
+        out["train"] = res
+        marks["c_train"] = time.monotonic() - t0
+        del trainer, full, moments
+    leave_world()
+    out["marks"] = {k: round(v, 2) for k, v in marks.items()}
+    Path(f"{work}/{part}_rank{rank}.json").write_text(json.dumps(out))
+    exit_now()
+
+
+def check_stage_launches(label: str, ranks: list[dict], layers: int, key: str) -> None:
+    """Each rank launched its decode kernel once a layer a dispatched step
+    and #2 once a layer a prefill batch, over its stage's ``layers``."""
+    for i, r in enumerate(ranks):
+        got, want = r["launches"], {key: layers * r["steps"], "gqa_fwd": layers * r["prefills"]}
+        check(r["steps"] > 0 and all(got[k] == n for k, n in want.items()),
+              f"pp {label} rank {i}: launches {got}, want {want} ({r['steps']} steps, {r['prefills']} prefills)")
+
+
+def phase_pp(hf_dir: Path, smi: str, tmp: str) -> dict:
+    """Phase 29 (a)-(c), each held against one rank in this process. → the
+    ranks' kernel launches."""
+    from pipelinerl_tpu_torch.models.transformer import tp_heads
+    from pipelinerl_tpu_torch.parallel.collectives import TP
+
+    dev = torch.device("cuda")
+    work = Path(tmp) / "pp"
+    work.mkdir()
+    w = tp_workload(28)
+    rng = np.random.default_rng(29)
+    seg = np.repeat(np.arange(8), rng.multinomial(PP_ROW_L - 31 - 8 * 128, np.ones(8) / 8) + 128)
+    seg = np.concatenate([seg, np.full(31, 8)])
+    torch.save({**w, "row": world_row(seg, 29, signed=False)}, work / "pp_work.pt")
+    t0 = time.monotonic()
+    procs = {part: start_ranks(["--pp-rank", part], work, hf_dir, n, f"{part}_")
+             for part, n in (("a", 2), ("bc", 4))}
+    try:
+        params, model_cfg, tok = launch.build_model(compose("math", tp_args(hf_dir, tmp, 1)), dev)
+        refs, engines = {}, {}
+        for name, layout, p, cfg in (("a_slab", "slab", params, model_cfg), ("a_paged", "paged", params, model_cfg),
+                                     ("cut", "slab", *cut_depth(params, model_cfg, PP_DEPTH))):
+            engine = InferenceEngine(launch.engine_params(p), cfg, tp_engine_cfg(layout), tok.eos_token_id, device=dev)
+            engine.start()
+            refs[name] = pp_greedy(engine, w)
+            if layout == "slab":
+                refs[name]["step_ms"] = pp_step_ms(engine, 29)
+            engine.stop()
+            engines[name] = engine
+        del engines["a_paged"], engines["a_slab"]
+        cut, cut_cfg = cut_depth(params, model_cfg, PP_DEPTH)
+        del params
+        exp = f"{work}/ref_train"
+        trainer = TrainerLoop(compose("math", tp_args(hf_dir, exp, 1)), detached_copy(cut), cut_cfg, exp)
+        reset_counts()
+        refs["train"] = world_step(trainer, [torch.load(work / "pp_work.pt", weights_only=False)["row"]])
+        new, moments = step_state(trainer)
+        # at PP_DEPTH layers the tied table (of whose 151,936 rows the fixture
+        # tokenizer's ids reach 540) holds about half the elements, so the
+        # step's reach is read over the stacked layers, every element of
+        # which has a gradient
+        layers = [(k, p0) for k, p0 in param_leaves(cut) if k.startswith("layers.")]
+        moved = sum(int((new[k] != p0).sum()) for k, p0 in layers) / sum(p0.numel() for _, p0 in layers)
+        moved_all = sum(int((new[k] != p0).sum()) for k, p0 in param_leaves(cut)) / sum(
+            p0.numel() for _, p0 in param_leaves(cut))
+        torch.save({"params": {k: v.cpu() for k, v in new.items()},
+                    "moments": {k: v.cpu() for k, v in moments.items()}}, work / "ref_pp.pt")
+        del trainer, new, moments, cut
+        gc.collect()
+        torch.cuda.empty_cache()
+        refs_s = time.monotonic() - t0
+        (work / "refs.timed").touch()
+    except BaseException:
+        for p in procs["a"] + procs["bc"]:
+            stop_group(p, 10)
+        raise
+    try:
+        a = wait_world_ranks(procs["a"], work, t0 + PP_TIMEOUT, "a_")
+    except BaseException:
+        for p in procs["bc"]:
+            stop_group(p, 10)
+        raise
+    a_s = time.monotonic() - t0
+    (work / "a.done").touch()
+    bc = wait_world_ranks(procs["bc"], work, t0 + PP_TIMEOUT, "bc_")
+    wall = time.monotonic() - t0
+    log(f"pp world on {smi}: backend {a[0]['backend']} (the stage hand-offs broadcast in two-rank groups); "
+        f"wall {wall:.1f} s: the one-rank references {refs_s:.1f} s beside the ranks' start, (a) ended at "
+        f"{a_s:.1f} s, (b)-(c) at {wall:.1f} s; marks {[r['marks'] for r in a]} / {[r['marks'] for r in bc]} s")
+
+    # (a): pp 2 at full depth, bit for bit
+    n_layers = model_cfg.num_layers
+    for layout in ("slab", "paged"):
+        res, ref = [r[layout] for r in a], refs[f"a_{layout}"]
+        equal = sum(g == r for g, r in zip(res[0]["greedy"], ref["greedy"]))
+        log(f"pp (a) {layout}, pp 2 x 12 layers: greedy {res[0]['greedy_s']:.2f} s (one rank {ref['greedy_s']:.2f} s)"
+            + (f", a decode step {res[0]['step_ms']:.2f} ms (one rank {ref['step_ms']:.2f} ms)" if layout == "slab"
+               else "")
+            + f"; {equal} of {len(ref['greedy'])} greedy results equal the one-rank engine's tokens and logprobs bit "
+            f"for bit; stages' layers {[r['layers'] for r in res]}, top leaves {[r['top'] for r in res]}, cache heads "
+            f"{[r['cache_heads'] for r in res]}, peak {[round(r['peak'] / 2**30, 2) for r in res]} GiB; launches "
+            f"{[r['launches'] for r in res]} over {[r['steps'] for r in res]} dispatched steps and "
+            f"{[r['prefills'] for r in res]} prefill batches; window digests {[r['digest'] for r in res]}")
+        check(equal == len(ref["greedy"]), f"pp (a) {layout}: greedy results off the one-rank engine's")
+        check(res[0]["digest"] == res[1]["digest"] != 0, f"pp (a) {layout}: the stages read back other windows")
+        check([r["layers"] for r in res] == [n_layers // 2] * 2 and res[0]["top"] == ["embed"]
+              and res[1]["top"] == ["embed", "final_norm"], f"pp (a) {layout}: stage weights {res}")
+        check_stage_launches(f"(a) {layout}", res, n_layers // 2, "decode" if layout == "slab" else "paged")
+    push = a[0]["slab"]["push"]
+    t = push["timings"]
+    log(f"pp (a) push: {push['bytes'] / 1e6:.1f} MB PWT3 body into rank 0 while 8 requests decode "
+        f"{PP_LIVE_TOKENS} tokens, swapped on both stages {push['swap_s']:.3f} s after the call ({t.get('mode')}, "
+        f"staged {t.get('transfer_s', 0):.3f} s, publish to swap {t.get('publish_to_swap_s', 0):.3f} s); "
+        f"{t.get('windows_during')} windows read back during it, largest gap {t.get('max_window_gap_s', 0):.3f} s "
+        f"against the steady {t.get('steady_window_gap_s')} s; the live requests' (start, end) versions "
+        f"{push['live_versions']}; each stage's checksums equal its slice of the pushed tree: "
+        f"{push['checksums_equal']}; stages' versions {[r['slab']['version'] for r in a]}")
+    check(all(r["slab"]["version"] == 1 for r in a) and push["version"] == 1, f"pp push: versions {push}")
+    check(all(push["checksums_equal"]) and len(push["checksums_equal"]) == 2, f"pp push checksums {push}")
+    check((t.get("windows_during") or 0) > 0, f"pp push: no window read back while it landed: {push}")
+
+    # (b): tp 2 x pp 2 at PP_DEPTH layers; (c): tp 4, heads that do not split
+    ref = refs["cut"]
+    for part, layers, key in (("b", PP_DEPTH // 2, "tp 2 x pp 2"), ("c", PP_DEPTH, "tp 4")):
+        res = [r[part] for r in bc]
+        log(f"pp ({part}) {key} at {PP_DEPTH} layers: greedy {res[0]['greedy_s']:.2f} s (one rank "
+            f"{ref['greedy_s']:.2f} s)" + (f", a decode step {res[0]['step_ms']:.2f} ms (one rank {ref['step_ms']:.2f} "
+                                          f"ms)" if part == "b" else "")
+            + f"; layers {[r['layers'] for r in res]}, cache heads {[r['cache_heads'] for r in res]}, peak "
+            f"{[round(r['peak'] / 2**30, 2) for r in res]} GiB; launches {[r['launches'] for r in res]} over "
+            f"{[r['steps'] for r in res]} steps, {[r['prefills'] for r in res]} prefills; digests "
+            f"{[r['digest'] for r in res]}")
+        check(len({r["digest"] for r in res}) == 1 and res[0]["digest"] != 0, f"pp ({part}): other windows")
+        check(all(r["layers"] == layers for r in res), f"pp ({part}): layers {[r['layers'] for r in res]}")
+        check_stage_launches(f"({part})", res, layers, "decode")
+        cmp = tp_compare(f"pp ({part}) {key}", res[0]["greedy"], ref["greedy"], w["greedy"], engines["cut"])
+        check(cmp["equal"] >= PP_EQUAL, f"pp ({part}): {cmp['equal']} of {cmp['n']} greedy requests equal")
+    heads = [tp_heads(model_cfg, TP(None, r, 4)) for r in range(4)]
+    want_heads = [len(kv) for _, kv in heads]
+    log(f"pp (c) query heads a rank {[h for h, _ in heads]}, KV heads {want_heads} (G "
+        f"{[h // len(kv) for h, kv in heads]})")
+    check([r["c"]["cache_heads"] for r in bc] == want_heads == [1, 4, 1, 1], f"pp (c): cache heads {want_heads}")
+    res, rt = [r["train"] for r in bc], refs["train"]
+    loss_err = abs(res[0]["loss"] - rt["loss"]) / max(abs(rt["loss"]), 1e-30)
+    norm_err = abs(res[0]["grad_norm"] - rt["grad_norm"]) / max(rt["grad_norm"], 1e-30)
+    log(f"pp (c) trainer tp 4 at {PP_DEPTH} layers, an L {PP_ROW_L} row (8 segments) on {smi}: " + "; ".join(
+        f"rank {i} mesh {r['mesh']} wq shard {r['shard']}: pass {[round(x, 3) for x in r['pass_s']]} s, peak "
+        f"{[round(b / 2**30, 2) for b in r['peak']]} GiB, step {r['step_s']:.3f} s, launches {r['launches']}"
+        for i, r in enumerate(res))
+        + f"; one rank: pass {[round(x, 3) for x in rt['pass_s']]} s; loss {res[0]['loss']:.6f} vs {rt['loss']:.6f} "
+        f"(relative {loss_err:.2e}, tolerance {PP_LOSS_RTOL}), grad norm {res[0]['grad_norm']:.6f} vs "
+        f"{rt['grad_norm']:.6f} (relative {norm_err:.2e}, tolerance {WORLD_NORM_RTOL}), worst first moment "
+        f"{res[0]['moment_leaf']} off by {res[0]['moment_rel']:.3e} (tolerance {TP_MOMENT_RTOL}); the reference moved "
+        f"{moved:.4f} of its layers' elements (at least {WORLD_MOVED_FRAC}; {moved_all:.4f} of all), "
+        f"{res[0]['flip_frac']:.3e} off by more than one bf16 step (at most {TP_FLIP_FRAC}), max abs difference "
+        f"{res[0]['param_max_abs']:.3e}")
+    check(all(math.isfinite(r["loss"]) for r in res) and loss_err <= PP_LOSS_RTOL, f"pp (c) loss {res[0]['loss']}")
+    check(norm_err <= WORLD_NORM_RTOL, f"pp (c) grad norm {res[0]['grad_norm']} vs {rt['grad_norm']}")
+    check(res[0]["moment_rel"] <= TP_MOMENT_RTOL, f"pp (c) first moment of {res[0]['moment_leaf']} off")
+    check(moved >= WORLD_MOVED_FRAC, f"pp (c): the reference step moved {moved} of the params")
+    check(res[0]["flip_frac"] <= TP_FLIP_FRAC, f"pp (c): {res[0]['flip_frac']} of the updated params off")
+    want = {"gqa_fwd": 2 * PP_DEPTH, "gqa_dq": PP_DEPTH, "gqa_dkv": PP_DEPTH}
+    check(all(r["launches"][k] == n for r in res for k, n in want.items()), f"pp (c) trainer launches {res}")
+    del engines
+    return {k: sum(r[part]["launches"][k] for r in a for part in ("slab", "paged"))
+            + sum(r[part]["launches"][k] for r in bc for part in ("b", "c", "train")) for k in KERNEL_KEYS + ("paged",)}
+
+
+def pp_main() -> None:
+    """``python3 chip_smoke.py --pp-world``: phases 1-2, then phase 29
+    alone from an ``export_hf`` directory of random Qwen2.5-0.5B weights."""
+    info = phase_device()
+    phase_build()
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        params = init_params(torch.Generator(device=dev).manual_seed(0), QWEN05B_TIED, dev)
+        hf_dir = export_hf(f"{tmp}/hf_in", params, QWEN05B_TIED, HFTokenizer(FIXTURE_TOKENIZER))
+        del params
+        torch.cuda.empty_cache()
+        t0 = time.monotonic()
+        launches = phase_pp(hf_dir, info["smi"], tmp)
+        log(f"phase wall: pp (a)-(c) {time.monotonic() - t0:.1f} s; launches {launches}")
 
 
 def main() -> None:
@@ -4815,6 +5217,10 @@ def main() -> None:
         torch.cuda.empty_cache()
         time_tp_shapes(dev, kernels, tp_shapes)
         lap("tensor parallelism")
+        gc.collect()
+        torch.cuda.empty_cache()
+        paths["pp"] = phase_pp(hf_dir, info["smi"], tmp)
+        lap("pipeline parallelism")
     for record, key in zip(kernels, ("decode", "gqa_fwd", "gqa_dq", "gqa_dkv", "paged")):
         record["launches_by_path"] = {path: c[key] for path, c in paths.items()}
         record["launches"] = sum(record["launches_by_path"].values())
@@ -4835,5 +5241,9 @@ if __name__ == "__main__":
         tp_main()
     elif sys.argv[1:2] == ["--tp-rank"]:
         tp_rank_main(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:7])
+    elif sys.argv[1:2] == ["--pp-world"]:
+        pp_main()
+    elif sys.argv[1:2] == ["--pp-rank"]:
+        pp_rank_main(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), *sys.argv[5:8])
     else:
         main()

@@ -7,11 +7,13 @@ updated in flight by PWT3 pushes to ``/receive_weight_update``; with
 It serves until SIGTERM, then writes its version, counters and kernel
 launches to ``<output_dir>/<kind>/stats_<kind>_<replica>.json``.
 
-One rank of a tp engine (``+me.tp_rank``, ``+me.tp_size``,
-``+me.tp_coordinator``, which the launcher gives each ``engine`` and
-``engine_rank`` job at ``engine.tp`` above 1) joins the engine's world
-(``inference/tp_ranks.py``) and keeps its slice of the weights; rank 0
-serves HTTP and leads, the others follow its commands until it stops.
+One rank of a tp or pp engine (``+me.tp_rank``, its rank in the engine's
+world, ``+me.tp_size``, ``+me.pp_size`` and ``+me.tp_coordinator``, which
+the launcher gives each ``engine`` and ``engine_rank`` job at
+``engine.tp * engine.pp`` above 1) joins the engine's world
+(``inference/tp_ranks.py``) and keeps its stage's slice of the weights;
+rank 0 serves HTTP and leads, the others follow its commands until it
+stops.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ def main(argv: list[str] | None = None) -> None:
     stage_setup(cfg, str(cfg.select("me.kind", "ref_engine" if frozen else "engine")))
     device = stage_device(cfg)
     tp_size, tp_rank = int(cfg.select("me.tp_size", 1) or 1), int(cfg.select("me.tp_rank", 0) or 0)
+    pp_size = int(cfg.select("me.pp_size", 1) or 1)
     if tp_rank > 0:
         # a follower ends when rank 0 stops it (rank 0's SIGTERM does), so
         # that rank 0's last commands still find it
@@ -45,8 +48,9 @@ def main(argv: list[str] | None = None) -> None:
     else:
         exit_on_sigterm()
     world = None
-    if tp_size > 1:
-        world = join_engine_world(tp_rank, tp_size, str(cfg.select("me.tp_coordinator")), torch.device(device))
+    if tp_size * pp_size > 1:
+        world = join_engine_world(tp_rank, tp_size * pp_size, str(cfg.select("me.tp_coordinator")),
+                                  torch.device(device), pp=pp_size)
     params, model_cfg, tokenizer = build_model(cfg, device)
     engine = build_engine(cfg, engine_params(params), model_cfg, tokenizer, device, tp_world=world)
     del params
@@ -70,6 +74,7 @@ def main(argv: list[str] | None = None) -> None:
         write_stats(cfg, {"version": engine.version, "counters": engine.perf_counters(),
                           "push": engine.push_counters(), "last_push": engine.last_push_timings,
                           "kernel_launches": kernel_launches(), "tp_rank": tp_rank, "tp_size": tp_size,
+                          "pp_size": pp_size,
                           "window_digest": engine.window_digest})
         if world is not None:
             leave_world()

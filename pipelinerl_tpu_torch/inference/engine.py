@@ -62,13 +62,16 @@ layouts:
   on the device before the oldest is read back, and the device carries the
   last sampled token of each slot from one window to the next.
 
-- Tensor parallelism (``tp_world``, ``engine.tp`` rank processes,
-  ``tp_ranks.py``): each rank holds its slice of the weights and a cache of
-  its KV heads (``[L, S, T, K_local, Dh]``, or its page pool); rank 0
+- Tensor and pipeline parallelism (``tp_world``, ``engine.tp *
+  engine.pp`` rank processes, ``tp_ranks.py``): each rank holds its
+  stage's layers cut to its tp slice and a cache of those layers' KV heads
+  (``[L/pp, S, T, K_local, Dh]``, or its page pool ``[L/pp, NB, BT,
+  K_local, Dh]``, with the one-rank engine's S, T and NB); rank 0
   schedules and broadcasts each step's inputs, every rank runs the step,
-  and the logits are all-gathered over tp before the sampler, so every
-  rank samples the same tokens. Pushes land through the tree path on
-  every rank.
+  each stage hands its hidden state to the next, and the last stage's
+  logits are all-gathered over tp before its sampler; its tokens go to
+  every rank, so every scheduler reads back the same windows. Pushes land
+  through the tree path on every rank.
 
 The scheduling loop runs on its own thread (``start``) or is driven by
 calling ``step``; ``submit`` returns a ``concurrent.futures.Future`` and is
@@ -98,10 +101,11 @@ from ..models.transformer import (
     forward,
     forward_extend,
     lm_head_logits,
-    replicate_kv,
     tp_kv_heads,
 )
 from ..parallel.collectives import TP, gather_vocab
+from ..parallel.mesh import check_pp_layers
+from ..parallel.sharding import pp_local, tp_cut, tp_local
 from ..models.vision import prepare_vision_inputs, vision_forward, vision_inputs_to
 from ..ops.paged_attention import gather_pages, paged_append, paged_decode_attention
 from ..ops.sampling import sample_fast, sample_masked
@@ -300,18 +304,23 @@ class InferenceEngine:
         device="cuda",
         vision_params: dict | None = None,
         vision_cfg=None,  # models.vision.VisionConfig
-        tp_world: tp_ranks.EngineWorld | None = None,  # this rank of a tp engine
+        tp_world: tp_ranks.EngineWorld | None = None,  # this rank of a tp and/or pp engine
     ):
         self.device = torch.device(device)
         self.model_cfg = model_cfg
         self.cfg = cfg
         self.eos_token_id = eos_token_id
         self.version = version
-        # tensor parallelism: the names, dtypes and whole shapes a push must
-        # carry, then this rank's slice of the weights
+        # tensor and pipeline parallelism: this rank's tp group, its stage,
+        # the names, dtypes and whole shapes a push must carry, then this
+        # rank's slice of the weights
         self.tp_world = tp_world
-        self.tp: TP | None = tp_world.tp if tp_world is not None and tp_world.size > 1 else None
-        self._replicate_kv = self.tp is not None and replicate_kv(model_cfg, self.tp.size)
+        self._multi = tp_world is not None and tp_world.size > 1
+        self.tp: TP | None = tp_world.tp if tp_world is not None and tp_world.tp_size > 1 else None
+        self.pp: tp_ranks.EngineWorld | None = tp_world if tp_world is not None and tp_world.pp > 1 else None
+        if self.pp is not None:
+            check_pp_layers(model_cfg.num_layers, self.pp.pp)
+        self._cut = tp_cut(model_cfg, 1 if self.tp is None else self.tp.size)
         self._push_spec = {name: (str(t.dtype).removeprefix("torch."), tuple(t.shape))
                            for name, t in flatten_params({**params, **({"vision_tower": vision_params}
                                                                        if vision_params is not None else {})})}
@@ -328,7 +337,7 @@ class InferenceEngine:
         self._dispatch_lock = threading.Lock()
 
         S, T = cfg.max_slots, cfg.max_len
-        L = model_cfg.num_layers
+        L = model_cfg.num_layers // (1 if self.pp is None else self.pp.pp)
         K, Dh = tp_kv_heads(model_cfg, self.tp), model_cfg.head_dim_
         # + window: band merges stay in bounds (valid tokens never pass
         # position max_len - 1; the tail is speculative scratch)
@@ -443,17 +452,18 @@ class InferenceEngine:
         # ranks while they stay in lockstep
         self.window_digest = 0
         self._tp_receiver: threading.Thread | None = None
-        if self.tp is not None and self.tp.rank > 0:
+        if self._multi and tp_world.rank > 0:
             self._tp_receiver = threading.Thread(target=self._tp_receive_pushes, daemon=True, name="tp-push-receiver")
             self._tp_receiver.start()
 
     def _local(self, params: dict) -> dict:
-        """This rank's slice of a full model tree (the tree itself at tp 1)."""
-        if self.tp is None:
-            return params
-        from ..parallel.sharding import tp_local
-
-        return tp_local(params, self.tp.rank, self.tp.size, self._replicate_kv)
+        """This rank's slice of a full model tree: its stage's layers and top
+        leaves, cut to its tp slice (the tree itself on one rank)."""
+        if self.pp is not None:
+            params = pp_local(params, self.pp.stage, self.pp.pp)
+        if self.tp is not None:
+            params = tp_local(params, self.tp.rank, self.tp.size, self._cut)
+        return params
 
     # ------------------------------------------------------------------
     # public API (thread-safe)
@@ -472,8 +482,8 @@ class InferenceEngine:
             future.set_result(GenResult([], [], "abort", self.version, self.version, prompt_len))
             return future
         with self._queue_lock:
-            # a tp engine's rank 0 queues it with the next step's command
-            (self._inbox if self.tp is not None else self._queue).append((request, future))
+            # a many-rank engine's rank 0 queues it with the next step's command
+            (self._inbox if self._multi else self._queue).append((request, future))
         self._work_event.set()
         return future
 
@@ -484,7 +494,7 @@ class InferenceEngine:
         if not request_id:
             return
         with self._queue_lock:
-            (self._tp_aborts if self.tp is not None else self._abort_ids).add(request_id)
+            (self._tp_aborts if self._multi else self._abort_ids).add(request_id)
         self._work_event.set()
 
     def update_params(self, params: dict, version: int) -> None:
@@ -494,7 +504,7 @@ class InferenceEngine:
         the tower with it. A tree of numpy arrays goes through the transfer
         thread, which copies it to the engine's device first."""
         leaves = [leaf for _, leaf in flatten_params(params)]
-        if self.tp is not None:
+        if self._multi:
             # every rank lands its slice: the tree goes as a PWT3 body
             self.update_params_serialized(serialize_params(params, version))
             return
@@ -517,7 +527,7 @@ class InferenceEngine:
         Returns the version."""
         groups, tensors, version, base = parse_push_header(body)
         self._validate_push_spec(tensors)
-        if self.tp is not None:  # the tree path on every rank, as JAX's tp engines
+        if self._multi:  # the tree path on every rank, as JAX's tp and pp engines
             self._enqueue_transfer(("tp", body, version))
             return version
         keep = [t for t in tensors if self._pushed(t["name"])]
@@ -903,7 +913,7 @@ class InferenceEngine:
         bucket = next((b for b in self.buckets if b >= n), None)
         if bucket is None:
             raise ValueError(f"sequence of {n} tokens exceeds the largest bucket {self.buckets[-1]}")
-        if self.tp is not None:  # every rank runs it, at the next step
+        if self._multi:  # every rank runs it, at the next step
             return self._tp_job("score", (list(input_ids), float(temperature)))
         return self._score(list(input_ids), temperature)
 
@@ -911,13 +921,14 @@ class InferenceEngine:
         n = len(input_ids)
         padded = torch.zeros((1, self._bucket(n)), dtype=torch.int64)
         padded[0, :n] = torch.tensor(input_ids, dtype=torch.int64)
-        lp = _score_fn(self.params, self.model_cfg, self.attn_impl, padded.to(self.device), temperature, self.tp)
+        lp = _score_fn(self.params, self.model_cfg, self.attn_impl, padded.to(self.device), temperature, self.tp,
+                       self.pp)
         return lp[0, : n - 1].tolist()
 
     def rank_checksums(self) -> list[dict]:
         """Each rank's ``server.param_checksums`` of its live weights, in
-        rank order (one rank at tp 1)."""
-        if self.tp is None:
+        rank order (one rank alone)."""
+        if not self._multi:
             return [self._checksums()]
         return self._tp_job("checksums", None)
 
@@ -951,7 +962,7 @@ class InferenceEngine:
             self._thread.join(timeout=10)
         if self._transfer_thread is not None:
             self._transfer_thread.join(timeout=10)
-        if self.tp is not None and self.tp.rank == 0:  # the workers' loops and receivers end
+        if self._multi and self.tp_world.rank == 0:  # the workers' loops and receivers end
             tp_ranks.send_command(self.tp_world, None)
             tp_ranks.send_push(self.tp_world, None, 0)
 
@@ -1018,11 +1029,11 @@ class InferenceEngine:
     @torch.no_grad()
     def step(self) -> bool:
         """One scheduling iteration: weight swap, aborts, early retirement,
-        admission, one decode window. A tp engine's rank 0 first broadcasts
-        the step's inputs (and skips a step with nothing to do)."""
+        admission, one decode window. A many-rank engine's rank 0 first
+        broadcasts the step's inputs (and skips a step with nothing to do)."""
         with self._dispatch_lock:
             cmd = None
-            if self.tp is not None:
+            if self._multi:
                 cmd = self._tp_lead()
                 if cmd is None:
                     return False
@@ -1089,12 +1100,13 @@ class InferenceEngine:
                 results.append(self._score(*args))
             else:
                 results.append(tp_ranks.gather_to_rank0(self.tp_world, self._checksums()))
-        if self.tp.rank == 0:
+        if self.tp_world.rank == 0:
             for future, result in zip(self._tp_futures, results):
                 future.set_result(result)
 
     def serve_tp_worker(self) -> None:
-        """A tp engine's rank above 0: run rank 0's commands until it stops."""
+        """A many-rank engine's rank above 0: run rank 0's commands until it
+        stops."""
         while True:
             cmd = tp_ranks.receive_command(self.tp_world)
             if cmd is None:
@@ -1108,7 +1120,7 @@ class InferenceEngine:
                 self._tp_run_jobs(cmd)
 
     def _maybe_swap_params(self) -> None:
-        if self.tp is not None:  # the command's swap, on every rank
+        if self._multi:  # the command's swap, on every rank
             swap, self._tp_swap = self._tp_swap, None
             if swap is not None:
                 (self.params, self.version), vision = swap
@@ -1365,12 +1377,12 @@ class InferenceEngine:
             table_rows = torch.from_numpy(self.block_pool.table[slots]).to(dev)
             last_logits = _prefill_paged_fn(
                 self.params, self.model_cfg, self.attn_impl, self.k_pool, self.v_pool,
-                self.cache_lens, ids, lens, slots_t, table_rows, tp=self.tp,
+                self.cache_lens, ids, lens, slots_t, table_rows, tp=self.tp, pp=self.pp,
             )
         else:
             last_logits = _prefill_fn(
                 self.params, self.model_cfg, self.attn_impl, self.k_cache, self.v_cache,
-                self.cache_lens, ids, lens, slots_t, tp=self.tp,
+                self.cache_lens, ids, lens, slots_t, tp=self.tp, pp=self.pp,
             )
         self.prefill_batches += 1
         self._sample_first_tokens(last_logits, slots, [row[1] for row in group])
@@ -1378,7 +1390,7 @@ class InferenceEngine:
             self.total_prefill_tokens += len(request.prompt_ids)
             self._new_slot(slot, request, future)
             if siblings:
-                self._fork_slots(slot, last_logits[b], siblings, sibling_slots)
+                self._fork_slots(slot, _row(last_logits, b), siblings, sibling_slots)
 
     def _prefill_vlm(self, bucket: int, entry: list) -> None:
         """Admit one VLM cluster (the JAX engine's ``_prefill_vlm``): the
@@ -1412,12 +1424,12 @@ class InferenceEngine:
             last_logits = _prefill_vlm_paged_fn(
                 self.params, self.model_cfg, self.attn_impl, self.vision_params, vcfg, self.k_pool, self.v_pool,
                 self.cache_lens, input_ids, lengths, slots_t, torch.from_numpy(self.block_pool.table[[slot]]).to(dev),
-                tp=self.tp, **vlm,
+                tp=self.tp, pp=self.pp, **vlm,
             )
         else:
             last_logits = _prefill_vlm_fn(
                 self.params, self.model_cfg, self.attn_impl, self.vision_params, vcfg, self.k_cache, self.v_cache,
-                self.cache_lens, input_ids, lengths, slots_t, tp=self.tp, **vlm,
+                self.cache_lens, input_ids, lengths, slots_t, tp=self.tp, pp=self.pp, **vlm,
             )
         self.prefill_batches += 1
         self._sample_first_tokens(last_logits, [slot], [request])
@@ -1425,7 +1437,7 @@ class InferenceEngine:
         self._new_slot(slot, request, future)
         self._pos_delta[slot] = delta
         if siblings:
-            self._fork_slots(slot, last_logits[0], siblings, sibling_slots)
+            self._fork_slots(slot, _row(last_logits, 0), siblings, sibling_slots)
 
     def _tail_arrays(self, tail_bucket: int, group: list[tuple]):
         """The padded tails [B, tail_bucket], tail lengths and prefix lengths
@@ -1455,7 +1467,7 @@ class InferenceEngine:
             self.prefill_reused_tokens += n_prefix
             self._new_slot(slot, request, future)
             if siblings:
-                self._fork_slots(slot, last_logits[b], siblings, sibling_slots)
+                self._fork_slots(slot, _row(last_logits, b), siblings, sibling_slots)
 
     def _prefill_extend(self, tail_bucket: int, page_bucket: int, group: list[tuple]) -> None:
         """Admit clusters whose prompts extend cached transcripts, in one
@@ -1479,7 +1491,8 @@ class InferenceEngine:
         last_logits = _prefill_extend_fn(
             self.params, self.model_cfg, self.attn_impl, self.k_pool, self.v_pool, self.cache_lens,
             *self._tail_arrays(tail_bucket, group), torch.tensor(slots, dtype=torch.int64, device=dev),
-            torch.from_numpy(prefix_pages).to(dev), torch.from_numpy(self.block_pool.table[slots]).to(dev), tp=self.tp,
+            torch.from_numpy(prefix_pages).to(dev), torch.from_numpy(self.block_pool.table[slots]).to(dev),
+            tp=self.tp, pp=self.pp,
         )
         self._start_extended(last_logits, group)
 
@@ -1492,15 +1505,20 @@ class InferenceEngine:
         slots = torch.tensor([entry[0] for entry, _ in group], dtype=torch.int64, device=self.device)
         last_logits = _prefill_extend_slab_fn(
             self.params, self.model_cfg, self.attn_impl, pfx_bucket, self.k_cache, self.v_cache,
-            self.cache_lens, *self._tail_arrays(tail_bucket, group), slots, tp=self.tp,
+            self.cache_lens, *self._tail_arrays(tail_bucket, group), slots, tp=self.tp, pp=self.pp,
         )
         self._start_extended(last_logits, group)
 
-    def _sample_first_tokens(self, logits: torch.Tensor, slots: list[int], requests) -> None:
+    def _sample_first_tokens(self, logits: torch.Tensor | None, slots: list[int], requests) -> None:
         """Sample each prefilled row's first token on the device into
-        ``first_info``."""
-        temps, top_p, top_k = self._sampling_arrays(requests)
-        tokens, logprobs = sample_masked(logits, self._generator, temps, top_p, top_k)
+        ``first_info``; at pp above 1 the last stage samples (the stages
+        before it pass no ``logits``) and every rank receives its draws."""
+        tokens = logprobs = None
+        if logits is not None:
+            temps, top_p, top_k = self._sampling_arrays(requests)
+            tokens, logprobs = sample_masked(logits, self._generator, temps, top_p, top_k)
+        if self.pp is not None:
+            tokens, logprobs = tp_ranks.share_sampled(self.pp, tokens, logprobs, len(slots), self.device)
         idx = torch.tensor(slots, dtype=torch.int64, device=self.device)
         self.first_info[idx] = torch.stack(
             [tokens.to(torch.int32), logprobs.float().view(torch.int32)], dim=-1
@@ -1509,7 +1527,7 @@ class InferenceEngine:
     def _fork_slots(
         self,
         src_slot: int,
-        logits_row: torch.Tensor,  # [V] — the source's prefill last-token logits
+        logits_row: torch.Tensor | None,  # [V] — the source's prefill last-token logits (None before the last stage)
         siblings: list[tuple[GenRequest, Future]],
         dst_slots: list[int],
     ) -> None:
@@ -1536,7 +1554,7 @@ class InferenceEngine:
         self.cache_lens[idx] = self.cache_lens[src_slot].clone()
         F = len(dst_slots)
         self._sample_first_tokens(
-            logits_row[None].expand(F, -1), dst_slots, [r for r, _ in siblings]
+            None if logits_row is None else logits_row[None].expand(F, -1), dst_slots, [r for r, _ in siblings]
         )
         for (request, future), slot in zip(siblings, dst_slots):
             self.prefill_reused_tokens += len(request.prompt_ids)
@@ -1716,12 +1734,12 @@ class InferenceEngine:
             capacity = torch.from_numpy(self._slot_capacity.astype(np.int32)).to(dev)
             packed, self._device_tokens = _decode_window_paged_fn(
                 self.params, self.model_cfg, self.decode_attn_impl, window,
-                self.k_pool, self.v_pool, table, capacity, *window_args, tp=self.tp,
+                self.k_pool, self.v_pool, table, capacity, *window_args, tp=self.tp, pp=self.pp,
             )
         else:
             packed, self._device_tokens = _decode_window_fn(
                 self.params, self.model_cfg, self.decode_attn_impl, window, self.cfg.max_len,
-                self.k_cache, self.v_cache, *window_args, tp=self.tp,
+                self.k_cache, self.v_cache, *window_args, tp=self.tp, pp=self.pp,
             )
         self.windows_dispatched += 1
         self.window_slots_dispatched += int(active.sum())
@@ -1803,6 +1821,28 @@ class InferenceEngine:
 # ---------------------------------------------------------------------------
 
 
+def _row(logits: torch.Tensor | None, b: int) -> torch.Tensor | None:
+    return None if logits is None else logits[b]
+
+
+def _stage_in(pp, model_cfg: ModelConfig, shape: tuple, device) -> torch.Tensor | None:
+    """The previous pipeline stage's hidden state of ``shape`` + [D], or
+    None on the first stage (and on one rank): it embeds."""
+    if pp is None or pp.first:
+        return None
+    return tp_ranks.recv_hidden(pp, (*shape, model_cfg.hidden_size), model_cfg.dtype, device)
+
+
+def _stage_out(pp, out: torch.Tensor) -> torch.Tensor | None:
+    """A stage's output: the logits (or normed hidden) of the last stage,
+    as they are; before it, the hidden state goes to the next stage and
+    None comes back."""
+    if pp is None or pp.last:
+        return out
+    tp_ranks.send_hidden(pp, out)
+    return None
+
+
 def _merge_staged(
     cache: torch.Tensor,  # [L, S, T_alloc, K, Dh], updated in place
     staged: torch.Tensor,  # [L, W, S, K, Dh]
@@ -1836,13 +1876,15 @@ def _decode_steps(
     top_k: torch.Tensor | None,
     pos_delta: torch.Tensor,  # [S] mrope decode offset (0 for text slots)
     tp: TP | None = None,
+    pp: tp_ranks.EngineWorld | None = None,
 ):
     """``n_steps`` decode steps with no host read: each sampled token feeds
     the next step on the device, and new K/V go to a [L, W, S, K, Dh] band.
     A VLM slot's rope position is its cache index plus ``pos_delta`` (its
     three mrope rows are equal past the prompt, so the 1D rope serves).
     Under ``tp`` the ranks' logits are gathered before the sampler, so every
-    rank samples the same tokens.
+    rank samples the same tokens. Under ``pp`` each step runs stage by
+    stage, the last samples, and its tokens reach every rank.
     Returns (k_staged, v_staged, tokens [N, S], logprobs [N, S], carry)."""
     L, S = cache_k.shape[0], tokens.shape[0]
     K, Dh = cache_k.shape[-2:]
@@ -1851,17 +1893,23 @@ def _decode_steps(
     win_tokens, win_logprobs = [], []
     for step in range(n_steps):
         positions = (base_lens + step).clamp(max=max_position) + pos_delta
-        logits, k_new, v_new = decode_step_staged(
+        out, k_new, v_new = decode_step_staged(
             params, model_cfg, tokens, positions, cache_k, cache_v,
             base_lens, k_staged, v_staged, step, attn_impl=attn_impl, tp=tp,
+            hidden_in=_stage_in(pp, model_cfg, (S,), tokens.device), last_stage=pp is None or pp.last,
         )
-        logits = gather_vocab(logits, tp)
         k_staged[:, step] = k_new
         v_staged[:, step] = v_new
-        if top_p is not None:
-            new_tokens, logprobs = sample_masked(logits, generator, temperature, top_p, top_k)
-        else:
-            new_tokens, logprobs = sample_fast(logits, generator, temperature)
+        logits = _stage_out(pp, out)
+        new_tokens = logprobs = None
+        if logits is not None:
+            logits = gather_vocab(logits, tp)
+            if top_p is not None:
+                new_tokens, logprobs = sample_masked(logits, generator, temperature, top_p, top_k)
+            else:
+                new_tokens, logprobs = sample_fast(logits, generator, temperature)
+        if pp is not None:
+            new_tokens, logprobs = tp_ranks.share_sampled(pp, new_tokens, logprobs, S, tokens.device)
         tokens = torch.where(active, new_tokens, tokens)
         win_tokens.append(tokens)
         win_logprobs.append(logprobs)
@@ -1896,6 +1944,7 @@ def _decode_window_fn(
     top_k: torch.Tensor | None,
     pos_delta: torch.Tensor,  # [S]
     tp: TP | None = None,
+    pp: tp_ranks.EngineWorld | None = None,
 ):
     """A slab decode window: ``_decode_steps`` over the frozen cache, then
     the band merges into the cache once. Returns the packed window output
@@ -1905,7 +1954,7 @@ def _decode_window_fn(
     base_lens = cache_lens.clone()  # frozen for the whole window
     k_staged, v_staged, win_tokens, win_logprobs, tokens = _decode_steps(
         params, model_cfg, attn_impl, n_steps, k_cache, v_cache, base_lens, T_alloc - 1,
-        tokens, active, generator, temperature, top_p, top_k, pos_delta, tp,
+        tokens, active, generator, temperature, top_p, top_k, pos_delta, tp, pp,
     )
     _merge_staged(k_cache, k_staged, base_lens)
     _merge_staged(v_cache, v_staged, base_lens)
@@ -1933,6 +1982,7 @@ def _decode_window_paged_fn(
     top_k: torch.Tensor | None,
     pos_delta: torch.Tensor,  # [S]
     tp: TP | None = None,
+    pp: tp_ranks.EngineWorld | None = None,
 ):
     """A paged decode window. "ragged" runs kernel #5 through the table at
     every step; "xla" gathers each slot's pages once per window into a
@@ -1958,7 +2008,7 @@ def _decode_window_paged_fn(
         raise ValueError(f"unknown attention implementation {attn_impl!r}")
     k_staged, v_staged, win_tokens, win_logprobs, tokens = _decode_steps(
         params, model_cfg, attn, n_steps, cache_k, cache_v, base_lens, MAXB * BT - 1,
-        tokens, active, generator, temperature, top_p, top_k, pos_delta, tp,
+        tokens, active, generator, temperature, top_p, top_k, pos_delta, tp, pp,
     )
     count = torch.where(active, n_steps, 0)
     paged_append(k_pool, k_staged.transpose(1, 2), block_table, base_lens, count)
@@ -1968,26 +2018,31 @@ def _decode_window_paged_fn(
 
 
 def _prefill_forward(params, model_cfg, attn_impl, input_ids, lengths, positions=None, image_embeds=None,
-                     image_mask=None, tp=None):
+                     image_mask=None, tp=None, pp=None):
     """Forward over B padded prompts (``positions`` default to 0..P-1; a VLM
     row passes its ``[3, 1, P]`` mrope rows and spliced visual tokens).
     Returns (fp32 logits [B, V] of each row's last prompt token, k [L, B, P,
     K, Dh], v): the lm_head runs at one position per row, not over the
-    whole bucket."""
+    whole bucket. Under ``pp``: this stage's layers' K/V, and the logits on
+    the last stage only (None before it)."""
     B, P = input_ids.shape
     if positions is None:
         positions = torch.arange(P, device=input_ids.device)[None, :].expand(B, P)
     segments = torch.zeros((B, P), dtype=torch.int32, device=input_ids.device)
-    normed, (k_new, v_new) = forward(
+    out, (k_new, v_new) = forward(
         params, model_cfg, input_ids, positions, segments, return_kv=True,
         attn_impl=attn_impl, skip_unembed=True, image_embeds=image_embeds, image_mask=image_mask, tp=tp,
+        hidden_in=_stage_in(pp, model_cfg, (B, P), input_ids.device), last_stage=pp is None or pp.last,
     )
-    return _last_logits(params, model_cfg, normed, lengths, tp), k_new, v_new
+    return _last_logits(params, model_cfg, _stage_out(pp, out), lengths, tp), k_new, v_new
 
 
 def _last_logits(params, model_cfg, normed, lengths, tp=None):
     """The whole vocabulary's fp32 logits [B, V] at each row's last token
-    (gathered over tp)."""
+    (gathered over tp); None for a stage before the last (``normed``
+    None)."""
+    if normed is None:
+        return None
     last = normed[torch.arange(normed.shape[0], device=normed.device), lengths - 1]  # [B, D]
     return gather_vocab(lm_head_logits(params, model_cfg, last, tp), tp)
 
@@ -2003,11 +2058,14 @@ def _prefill_fn(
     lengths: torch.Tensor,  # [B] true prompt lengths
     slots: torch.Tensor,  # [B]
     tp: TP | None = None,
+    pp: tp_ranks.EngineWorld | None = None,
     **vlm,  # positions, image_embeds, image_mask of a VLM row
-) -> torch.Tensor:
+) -> torch.Tensor | None:
     """Prefill B padded prompts into their slots' cache prefixes. Returns the
-    fp32 logits [B, V] of each row's last prompt token."""
-    last_logits, k_new, v_new = _prefill_forward(params, model_cfg, attn_impl, input_ids, lengths, tp=tp, **vlm)
+    fp32 logits [B, V] of each row's last prompt token (None before the
+    last pipeline stage)."""
+    last_logits, k_new, v_new = _prefill_forward(params, model_cfg, attn_impl, input_ids, lengths, tp=tp, pp=pp,
+                                                 **vlm)
     P = input_ids.shape[1]
     k_cache[:, slots, :P] = k_new.to(k_cache.dtype)
     v_cache[:, slots, :P] = v_new.to(v_cache.dtype)
@@ -2027,11 +2085,13 @@ def _prefill_paged_fn(
     slots: torch.Tensor,  # [B]
     table_rows: torch.Tensor,  # [B, MAXB] — the rows' freshly allocated pages
     tp: TP | None = None,
+    pp: tp_ranks.EngineWorld | None = None,
     **vlm,  # positions, image_embeds, image_mask of a VLM row
-) -> torch.Tensor:
+) -> torch.Tensor | None:
     """Paged prefill: the forward of ``_prefill_fn``, then each row's prompt
     K/V appended into its pages (pad rows dropped by ``count``)."""
-    last_logits, k_new, v_new = _prefill_forward(params, model_cfg, attn_impl, input_ids, lengths, tp=tp, **vlm)
+    last_logits, k_new, v_new = _prefill_forward(params, model_cfg, attn_impl, input_ids, lengths, tp=tp, pp=pp,
+                                                 **vlm)
     zero = torch.zeros_like(lengths)
     paged_append(k_pool, k_new, table_rows, zero, lengths)
     paged_append(v_pool, v_new, table_rows, zero, lengths)
@@ -2039,24 +2099,33 @@ def _prefill_paged_fn(
     return last_logits
 
 
+def _vision_embeds(vision_params, vision_cfg, vin, pp) -> torch.Tensor | None:
+    """The tower's merged tokens [1, M, D] on the first pipeline stage,
+    which splices them; None on the later stages."""
+    if pp is not None and not pp.first:
+        return None
+    return vision_forward(vision_params, vision_cfg, **vin)[None]
+
+
 def _prefill_vlm_fn(params, model_cfg, attn_impl, vision_params, vision_cfg, k_cache, v_cache, cache_lens,
-                    input_ids, lengths, slots, positions, image_mask, vin, tp=None) -> torch.Tensor:
+                    input_ids, lengths, slots, positions, image_mask, vin, tp=None, pp=None) -> torch.Tensor | None:
     """One-row VLM prefill into the slab (the JAX ``_prefill_vlm_fn``): the
     tower encodes the bucketed patches ``vin``, its merged tokens are
     spliced at ``image_mask`` ([1, P]), and the row runs with mrope
     ``positions`` ([3, 1, P]). Returns the last-token fp32 logits [1, V]."""
-    embeds = vision_forward(vision_params, vision_cfg, **vin)
-    return _prefill_fn(params, model_cfg, attn_impl, k_cache, v_cache, cache_lens, input_ids, lengths, slots, tp,
-                       positions=positions, image_embeds=embeds[None], image_mask=image_mask)
+    embeds = _vision_embeds(vision_params, vision_cfg, vin, pp)
+    return _prefill_fn(params, model_cfg, attn_impl, k_cache, v_cache, cache_lens, input_ids, lengths, slots, tp, pp,
+                       positions=positions, image_embeds=embeds, image_mask=image_mask)
 
 
 def _prefill_vlm_paged_fn(params, model_cfg, attn_impl, vision_params, vision_cfg, k_pool, v_pool, cache_lens,
-                          input_ids, lengths, slots, table_rows, positions, image_mask, vin, tp=None) -> torch.Tensor:
+                          input_ids, lengths, slots, table_rows, positions, image_mask, vin, tp=None,
+                          pp=None) -> torch.Tensor | None:
     """``_prefill_vlm_fn`` into the paged pool (the JAX
     ``_prefill_vlm_paged_fn``)."""
-    embeds = vision_forward(vision_params, vision_cfg, **vin)
+    embeds = _vision_embeds(vision_params, vision_cfg, vin, pp)
     return _prefill_paged_fn(params, model_cfg, attn_impl, k_pool, v_pool, cache_lens, input_ids, lengths, slots,
-                             table_rows, tp, positions=positions, image_embeds=embeds[None], image_mask=image_mask)
+                             table_rows, tp, pp, positions=positions, image_embeds=embeds, image_mask=image_mask)
 
 
 def _prefill_extend_fn(
@@ -2073,20 +2142,22 @@ def _prefill_extend_fn(
     prefix_pages: torch.Tensor,  # [B, n_pages] physical page ids (pad = repeat)
     table_rows: torch.Tensor,  # [B, MAXB] — each slot's full table (for the append)
     tp: TP | None = None,
-) -> torch.Tensor:
+    pp: tp_ranks.EngineWorld | None = None,
+) -> torch.Tensor | None:
     """Prefill of B tails against their cached prefix pages: gather the
     prefixes, run ``forward_extend`` over [prefix | tail], append the tail
     K/V at ``prefix_lens``. Returns the fp32 last-token logits [B, V]."""
     k_pre, v_pre = gather_pages(k_pool, prefix_pages), gather_pages(v_pool, prefix_pages)
     positions = prefix_lens[:, None] + torch.arange(tail_ids.shape[1], device=tail_ids.device)[None, :]
-    normed, (k_new, v_new) = forward_extend(
+    out, (k_new, v_new) = forward_extend(
         params, model_cfg, tail_ids, positions, k_pre, v_pre, prefix_lens,
         attn_impl=attn_impl, skip_unembed=True, tp=tp,
+        hidden_in=_stage_in(pp, model_cfg, tuple(tail_ids.shape), tail_ids.device), last_stage=pp is None or pp.last,
     )
     paged_append(k_pool, k_new, table_rows, prefix_lens, tail_lens)
     paged_append(v_pool, v_new, table_rows, prefix_lens, tail_lens)
     cache_lens[slots] = (prefix_lens + tail_lens).to(torch.int32)
-    return _last_logits(params, model_cfg, normed, tail_lens, tp)
+    return _last_logits(params, model_cfg, _stage_out(pp, out), tail_lens, tp)
 
 
 def _prefill_extend_slab_fn(
@@ -2102,7 +2173,8 @@ def _prefill_extend_slab_fn(
     prefix_lens: torch.Tensor,  # [B] — parked transcript lengths (<= pfx_bucket)
     slots: torch.Tensor,  # [B]
     tp: TP | None = None,
-) -> torch.Tensor:
+    pp: tp_ranks.EngineWorld | None = None,
+) -> torch.Tensor | None:
     """Prefill of B tails against their parked slab slots (the JAX
     ``_prefill_extend_slab_fn``): gather each slot's first ``pfx_bucket``
     rows, run ``forward_extend`` over [prefix | tail] (the rows past the
@@ -2113,25 +2185,34 @@ def _prefill_extend_slab_fn(
     k_pre, v_pre = k_cache[:, slots, :pfx_bucket], v_cache[:, slots, :pfx_bucket]
     Tb = tail_ids.shape[1]
     positions = prefix_lens[:, None] + torch.arange(Tb, device=tail_ids.device)[None, :]
-    normed, (k_new, v_new) = forward_extend(
+    out, (k_new, v_new) = forward_extend(
         params, model_cfg, tail_ids, positions, k_pre, v_pre, prefix_lens,
         attn_impl=attn_impl, skip_unembed=True, tp=tp,
+        hidden_in=_stage_in(pp, model_cfg, tuple(tail_ids.shape), tail_ids.device), last_stage=pp is None or pp.last,
     )
     k_cache[:, slots[:, None], positions] = k_new.to(k_cache.dtype)
     v_cache[:, slots[:, None], positions] = v_new.to(v_cache.dtype)
     cache_lens[slots] = (prefix_lens + tail_lens).to(torch.int32)
-    return _last_logits(params, model_cfg, normed, tail_lens, tp)
+    return _last_logits(params, model_cfg, _stage_out(pp, out), tail_lens, tp)
 
 
 def _score_fn(params: dict, model_cfg: ModelConfig, attn_impl: str, input_ids: torch.Tensor, temperature: float,
-              tp: TP | None = None):
+              tp: TP | None = None, pp: tp_ranks.EngineWorld | None = None):
     """fp32 logprobs [1, P - 1] of ``input_ids[:, 1:]`` from one packed
-    forward over the padded row (the JAX ``_score_fn``)."""
+    forward over the padded row (the JAX ``_score_fn``); under ``pp`` the
+    row runs stage by stage and the last stage's logprobs reach every
+    rank."""
     P = input_ids.shape[1]
     positions = torch.arange(P, device=input_ids.device)[None, :]
     segments = torch.zeros((1, P), dtype=torch.int32, device=input_ids.device)
-    logits = gather_vocab(forward(params, model_cfg, input_ids, positions, segments, attn_impl=attn_impl, tp=tp), tp)
-    return token_logprobs_from_logits(logits, input_ids, temperature)
+    out = forward(params, model_cfg, input_ids, positions, segments, attn_impl=attn_impl, tp=tp,
+                  hidden_in=_stage_in(pp, model_cfg, (1, P), input_ids.device), last_stage=pp is None or pp.last)
+    logits = _stage_out(pp, out)
+    lp = None if logits is None else token_logprobs_from_logits(gather_vocab(logits, tp), input_ids, temperature)
+    if pp is not None:
+        lp = tp_ranks.share_from_last(pp, None if lp is None else lp.float(), (1, P - 1), torch.float32,
+                                      input_ids.device)
+    return lp
 
 
 def _fork_fn(
@@ -2140,10 +2221,12 @@ def _fork_fn(
     src: int,
     dsts: list[int],
 ) -> None:
-    """Clone a freshly prefilled slot's KV rows into ``dsts``."""
+    """Clone a freshly prefilled slot's KV rows into ``dsts`` (the source
+    copied first: at one layer, torch's overlap check takes the source
+    slice and the indexed rows for one region)."""
     idx = torch.tensor(dsts, dtype=torch.int64, device=k_cache.device)
-    k_cache[:, idx] = k_cache[:, src : src + 1]
-    v_cache[:, idx] = v_cache[:, src : src + 1]
+    k_cache[:, idx] = k_cache[:, src : src + 1].clone()
+    v_cache[:, idx] = v_cache[:, src : src + 1].clone()
 
 
 def _copy_pages_fn(
@@ -2153,7 +2236,8 @@ def _copy_pages_fn(
     dsts: list[int],
 ) -> None:
     """Copy one page to each of ``dsts`` (a fork's partial tail page; full
-    pages are shared by refcount)."""
+    pages are shared by refcount), the source copied first as in
+    ``_fork_fn``."""
     idx = torch.tensor(dsts, dtype=torch.int64, device=k_pool.device)
-    k_pool[:, idx] = k_pool[:, src : src + 1]
-    v_pool[:, idx] = v_pool[:, src : src + 1]
+    k_pool[:, idx] = k_pool[:, src : src + 1].clone()
+    v_pool[:, idx] = v_pool[:, src : src + 1].clone()

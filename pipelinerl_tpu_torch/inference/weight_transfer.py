@@ -53,15 +53,16 @@ _DTYPES = {
 }
 
 
-def gather_for_push(params: dict, mesh, replicate_kv: bool = False) -> dict:
+def gather_for_push(params: dict, mesh, cut=None) -> dict:
     """The full tensors a cross-process push serializes: with ``mesh`` None
     the params as they are, else every leaf all-gathered over dp and tp on
-    every rank (a collective: each rank calls it; rank 0 then serializes)."""
+    every rank (a collective: each rank calls it; rank 0 then serializes);
+    ``cut`` is the trainer's ``sharding.TPCut``."""
     if mesh is None:
         return params
-    from ..parallel.sharding import unshard_params
+    from ..parallel.sharding import TPCut, unshard_params
 
-    return unshard_params(params, mesh, replicate_kv)
+    return unshard_params(params, mesh, cut or TPCut())
 
 
 def dtype_name(dtype: torch.dtype) -> str:

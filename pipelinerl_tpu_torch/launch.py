@@ -25,9 +25,9 @@ a shared filesystem). VLM runs are inline only.
 
 A ``parallel`` product dp*cp*tp above 1 (the ``tir`` preset's ``cp: 8``)
 trains as a world of dp*cp*tp trainer ranks, one per device
-(``world.trainer_ranks``), and ``engine.tp`` above 1 serves as that many
-engine rank processes (``inference/tp_ranks.py``; only rank 0 has an HTTP
-port): ``main`` runs such a config in processes mode in the split layout,
+(``world.trainer_ranks``), and ``engine.tp * engine.pp`` above 1 serves
+as that many engine rank processes (``inference/tp_ranks.py``; only rank 0
+has an HTTP port): ``main`` runs such a config in processes mode in the split layout,
 and logs that it switched. JAX drives a whole mesh from one process
 inline; the port's one rank per device cannot share the inline process,
 so the switch is deliberate.
@@ -42,6 +42,7 @@ missing upstream streams from ``debug.streams_from``.
     python3 -m pipelinerl_tpu_torch.launch --config-name=bandit_tpu output_dir=/tmp/run launch_mode=processes [world.trainer_procs=1]
     python3 -m pipelinerl_tpu_torch.launch --config-name=test model_path=<hf dir> output_dir=/tmp/run launch_mode=processes world.trainer_procs=2 parallel.dp=2
     python3 -m pipelinerl_tpu_torch.launch --config-name=test model_path=<hf dir> output_dir=/tmp/run engine.tp=2 parallel.tp=2
+    python3 -m pipelinerl_tpu_torch.launch --config-name=test model_path=<hf dir> output_dir=/tmp/run +engine.pp=2
 
 prints the run's summary as one JSON line, last.
 """
@@ -82,7 +83,7 @@ from .streams_tcp import wait_for_hub
 from .train.rl_loss import RLLossConfig
 from .train.trainer import TrainerLoop, detached_copy, summary
 from .utils import setup_logging
-from .world import WorldMap, engine_tp, parallel_product, refuse_unported, trainer_ranks
+from .world import WorldMap, engine_pp, engine_ranks, engine_tp, parallel_product, trainer_ranks
 
 logger = logging.getLogger(__name__)
 
@@ -190,16 +191,14 @@ def build_engine(cfg: Config, params: dict, model_cfg: ModelConfig, tokenizer, d
                  vision_params: dict | None = None, vision_cfg=None, tp_world=None) -> InferenceEngine:
     """The engine with the JAX package's defaults for keys the config leaves
     out (prefill attention "xla", decode attention "auto"), with the vision
-    tower of a VLM run. At ``engine.tp`` above 1 this process is one rank
-    of the engine (``tp_world``, ``tp_ranks.join_engine_world``), which
-    keeps its slice of ``params``."""
+    tower of a VLM run. At ``engine.tp * engine.pp`` above 1 this process
+    is one rank of the engine (``tp_world``, ``tp_ranks.join_engine_world``),
+    which keeps its stage's slice of ``params``."""
     ecfg = cfg.get("engine", Config({}))
-    from .parallel.mesh import refuse_pp
-
-    refuse_pp(int(ecfg.get("pp", 1)), "engine")
-    tp = engine_tp(cfg)
-    if tp > 1 and (tp_world is None or tp_world.size != tp):
-        raise ValueError(f"engine.tp={tp} runs as {tp} engine rank processes (launch_mode=processes; "
+    n = engine_ranks(cfg)
+    if n > 1 and (tp_world is None or tp_world.size != n or tp_world.pp != engine_pp(cfg)):
+        split = " ".join(f"engine.{k}={v}" for k, v in (("tp", engine_tp(cfg)), ("pp", engine_pp(cfg))) if v > 1)
+        raise ValueError(f"{split} runs as {n} engine rank processes (launch_mode=processes; "
                          "entrypoints.run_engine joins them): pass their tp_world")
     return InferenceEngine(
         params,
@@ -298,9 +297,9 @@ def validate_config(cfg: Config) -> None:
         problems.append(f"debug.mode={debug_mode!r} drops the actor but debug.streams_from is unset — "
                         "nothing would feed the pipeline")
     dp, cp, tp = parallel_product(cfg)
-    if min(dp, cp, tp, engine_tp(cfg)) < 1:
-        problems.append(f"parallel.dp ({dp}), parallel.cp ({cp}), parallel.tp ({tp}) and engine.tp "
-                        f"({engine_tp(cfg)}) must be at least 1")
+    if min(dp, cp, tp, engine_tp(cfg), engine_pp(cfg)) < 1:
+        problems.append(f"parallel.dp ({dp}), parallel.cp ({cp}), parallel.tp ({tp}), engine.tp ({engine_tp(cfg)}) "
+                        f"and engine.pp ({engine_pp(cfg)}) must be at least 1")
     elif seq_length % cp:
         problems.append(f"finetune.seq_length ({seq_length}) must split over parallel.cp ({cp})")
     try:
@@ -309,7 +308,6 @@ def validate_config(cfg: Config) -> None:
         problems.append(str(e))
     if problems:
         raise ValueError("Invalid config:\n- " + "\n- ".join(problems))
-    refuse_unported(cfg)
 
 
 def _stage(target, failures: list, trainer_state: TrainerState, name: str):
@@ -565,8 +563,9 @@ def run_processes(cfg: Config) -> int:
         if job.kind == "trainer":  # its device among the trainer ranks of its host
             peers = [j for j in world_map.jobs_of("trainer") if j.hostname == job.hostname]
             env["LOCAL_RANK"], env["LOCAL_WORLD_SIZE"] = str(peers.index(job)), str(len(peers))
-        elif "tp_rank" in job.extra:  # one rank of a tp engine (NCCL when each has its card)
-            env["LOCAL_RANK"], env["LOCAL_WORLD_SIZE"] = str(job.extra["tp_rank"]), str(job.extra["tp_size"])
+        elif "tp_rank" in job.extra:  # one rank of a tp/pp engine (NCCL when each has its card)
+            ranks = job.extra["tp_size"] * job.extra.get("pp_size", 1)
+            env["LOCAL_RANK"], env["LOCAL_WORLD_SIZE"] = str(job.extra["tp_rank"]), str(ranks)
         (exp_path / job.kind).mkdir(exist_ok=True)
         script = " \\\n  ".join(cmd)
         (exp_path / job.kind / f"start_{name}.sh").write_text(f"#!/bin/sh\n{script}\n")
@@ -670,11 +669,11 @@ def main(argv: list[str] | None = None) -> dict[str, Any]:
             overrides.append(arg)
     cfg = compose(config_name, overrides)
     dp, cp, tp = parallel_product(cfg)
-    if (dp * cp * tp > 1 or engine_tp(cfg) > 1) and str(cfg.get("launch_mode", "inline")) == "inline":
+    if (dp * cp * tp > 1 or engine_ranks(cfg) > 1) and str(cfg.get("launch_mode", "inline")) == "inline":
         setup_logging()
-        logger.info("parallel dp*cp*tp=%d, engine.tp=%d: a trainer world of %d ranks and engines of %d ranks, one "
-                    "per device; running in processes mode (split layout) instead of inline", dp * cp * tp,
-                    engine_tp(cfg), max(dp * cp * tp, 1), engine_tp(cfg))
+        logger.info("parallel dp*cp*tp=%d, engine.tp*pp=%d: a trainer world of %d ranks and engines of %d ranks, "
+                    "one per device; running in processes mode (split layout) instead of inline", dp * cp * tp,
+                    engine_ranks(cfg), max(dp * cp * tp, 1), engine_ranks(cfg))
         cfg["launch_mode"] = "processes"
     if str(cfg.get("launch_mode", "inline")) == "processes":
         rc = run_processes(cfg)

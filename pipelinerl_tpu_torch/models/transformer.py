@@ -22,16 +22,23 @@ takes the place of ``lax.scan``.
 - Tensor parallelism (``tp``, a ``parallel.collectives.TP``): ``forward``,
   ``forward_extend`` and ``decode_step_staged`` run Megatron's splits on
   this rank's slice of the weights (``parallel.sharding.tp_local``). Each
-  rank projects its ``H/tp`` query heads and the KV heads they read (its
-  ``K/tp`` when K splits; otherwise the heads its query heads read, from
-  ``wk``/``wv`` held whole), its ``F/tp`` FFN columns; ``wo`` and ``wdown``
-  are row-parallel, their partial sums all-reduced (g), and their inputs'
-  gradients all-reduced (f). The embedding table is whole; the head is
-  vocabulary-split at ``lm_head_logits``: each rank computes the logits of
-  its ``V/tp`` rows (the rows of the table when tied). The row-parallel
-  partial sums go over the group in fp32 and round once, as one rank's
-  product does. H must split over tp (JAX's GSPMD reshards the other case;
-  ROADMAP Queue 1, item 15).
+  rank projects its query heads (``tp_heads``: contiguous blocks, the
+  first ``H % tp`` ranks one head more, so H need not split over tp) and
+  the KV heads they read (its ``K/tp`` when K splits; otherwise the heads
+  its query heads read, from ``wk``/``wv`` held whole), its ``F/tp`` FFN
+  columns; ``wo`` and ``wdown`` are row-parallel, their partial sums
+  all-reduced (g), and their inputs' gradients all-reduced (f). The
+  embedding table is whole; the head is vocabulary-split at
+  ``lm_head_logits``: each rank computes the logits of its ``V/tp`` rows
+  (the rows of the table when tied). The row-parallel partial sums go over
+  the group in fp32 and round once, as one rank's product does.
+- Pipeline stages (an engine at ``pp`` above 1, ``inference/tp_ranks.py``):
+  ``forward``, ``forward_extend`` and ``decode_step_staged`` run the layers
+  they are given (a stage's, ``parallel.sharding.pp_local``). A later
+  stage passes the previous stage's hidden state as ``hidden_in`` in place
+  of the embedding, and a stage before the last passes
+  ``last_stage=False`` to get its hidden state back in place of the logits;
+  the rope tables come from the positions on every stage.
 """
 
 from __future__ import annotations
@@ -45,7 +52,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import decode_attention_staged, mha_packed
-from ..parallel.collectives import TP, copy_to_tp, count_once, reduce_from_tp
+from ..parallel.collectives import TP, copy_to_tp, count_once, head_counts, reduce_from_tp
 
 _NEG_INF = -1e30
 
@@ -236,28 +243,21 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return (xf * cos[..., None, :] + rotated * sin[..., None, :]).to(x.dtype)
 
 
-def replicate_kv(cfg: ModelConfig, tp_size: int) -> bool:
-    """Whether ``wk``/``wv`` (and their biases) stay whole on every tp rank:
-    K does not split over tp, and each rank selects the KV heads its query
-    heads read (JAX's replicated cache spec, ``engine.py:336-340``)."""
-    return tp_size > 1 and cfg.num_kv_heads % tp_size != 0
-
-
 def tp_heads(cfg: ModelConfig, tp: TP | None) -> tuple[int, list[int] | None]:
     """(this rank's query heads, and the global KV heads they read when K
-    does not split over tp, else None). Query head ``j`` of the rank reads
-    its ``j // (H_local / K_local)``-th KV head; where the heads' groups
-    straddle ranks unevenly, each query head gets its own copy."""
+    does not split over tp, else None). The ranks hold contiguous blocks of
+    query heads, the first ``H % tp`` one more (``collectives.head_counts``).
+    Query head ``j`` of the rank reads its ``j // (H_local / K_local)``-th
+    KV head; where the heads' groups straddle ranks unevenly, each query
+    head gets its own copy."""
     if tp is None or tp.size == 1:
         return cfg.num_heads, None
     H, K, n = cfg.num_heads, cfg.num_kv_heads, tp.size
-    if H % n:
-        raise ValueError(f"num_heads {H} does not split over tp={n}: the port cuts whole query heads "
-                         "(JAX's GSPMD reshards this case; ROADMAP Queue 1, item 15)")
-    Hl = H // n
-    if K % n == 0:
+    counts = head_counts(H, n)
+    Hl, first = counts[tp.rank], sum(counts[: tp.rank])
+    if K % n == 0:  # then H % n == 0 too: each rank holds whole groups
         return Hl, None
-    heads = [(tp.rank * Hl + j) // (H // K) for j in range(Hl)]
+    heads = [(first + j) // (H // K) for j in range(Hl)]
     distinct = sorted(set(heads))
     g = Hl // len(distinct)
     if Hl % len(distinct) == 0 and heads == [distinct[j // g] for j in range(Hl)]:
@@ -387,6 +387,8 @@ def forward(
     image_mask: torch.Tensor | None = None,  # [B, L] bool placeholder positions
     gather_layer: Callable[[dict], dict] | None = None,  # a world's per-layer dp gather
     tp: TP | None = None,  # this rank's tensor-parallel group (its heads, FFN columns, vocabulary rows)
+    hidden_in: torch.Tensor | None = None,  # [B, L, D] a later pipeline stage's input, in place of the embedding
+    last_stage: bool = True,  # False: the hidden state [B, L, D] after these layers in the logits slot
 ):
     """Full forward over packed rows. Returns fp32 logits [B, L, V]; with
     ``return_kv`` also the per-layer keys/values, each [L, B, T, K, Dh]; with
@@ -406,7 +408,10 @@ def forward(
     attention, ``parallel/cp_attention.py``). ``gather_layer`` turns a
     layer's dp slices into its full weights inside the layer's (remat)
     region (``parallel.sharding.layer_gather``). Under ``tp`` the logits
-    are this rank's ``V/tp`` columns and the K/V its heads'."""
+    are this rank's ``V/tp`` columns and the K/V its heads'. A pipeline
+    stage runs the layers of ``params`` from ``hidden_in`` (after the
+    first) and, before the last, returns its hidden state unnormed in the
+    logits slot."""
     if callable(attn_impl):
         attn_fn = attn_impl
     elif attn_impl in ("gqa", "blockwise"):
@@ -421,10 +426,13 @@ def forward(
         raise ValueError(f"unknown attn_impl {attn_impl!r}")
     if remat not in (False, True, "mlp"):
         raise ValueError(f"unknown remat {remat!r}")
-    # the whole table on every tp rank: its gather's backward sums over tp
-    x = count_once(params["embed"][input_ids], tp)
-    if image_embeds is not None:
-        x = splice_image_embeds(x, image_embeds, image_mask)
+    if hidden_in is not None:
+        x = hidden_in
+    else:
+        # the whole table on every tp rank: its gather's backward sums over tp
+        x = count_once(params["embed"][input_ids], tp)
+        if image_embeds is not None:
+            x = splice_image_embeds(x, image_embeds, image_mask)
     cos, sin = positional_cos_sin(cfg, position_ids)
     if position_ids.ndim == 3:
         position_ids = position_ids[0]
@@ -454,7 +462,9 @@ def forward(
         if return_kv:
             ks.append(k)
             vs.append(v)
-    if skip_unembed:
+    if not last_stage:
+        out = x
+    elif skip_unembed:
         out = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     else:
         out = unembed(params, cfg, x, tp)
@@ -493,6 +503,8 @@ def forward_extend(
     attn_impl: str = "xla",  # "xla" (plain torch) | "gqa" (CUDA kernel)
     skip_unembed: bool = False,
     tp: TP | None = None,
+    hidden_in: torch.Tensor | None = None,  # [B, Lt, D] a later pipeline stage's input
+    last_stage: bool = True,  # False: the hidden state after these layers in the logits slot
 ):
     """Prefill of a tail against a cached prefix: only the tail's layers run,
     attending over [prefix | tail]. Tail queries sit at global flat indices
@@ -502,7 +514,8 @@ def forward_extend(
     valid ones, causally invisible to them.
 
     Returns (fp32 logits [B, Lt, V], or the final-norm'd hidden with
-    ``skip_unembed``; (k_tail, v_tail) [L, B, Lt, K, Dh])."""
+    ``skip_unembed``, or the hidden state before the last pipeline stage;
+    (k_tail, v_tail) [L, B, Lt, K, Dh])."""
     if attn_impl == "gqa":
         from ..ops.gqa_attention import mha_packed_gqa as attn_fn
     elif attn_impl == "xla":
@@ -511,7 +524,7 @@ def forward_extend(
         raise ValueError(f"unknown attn_impl {attn_impl!r}")
     B, Lt = input_ids.shape
     Pfx = k_prefix.shape[2]
-    x = params["embed"][input_ids]
+    x = params["embed"][input_ids] if hidden_in is None else hidden_in
     cos, sin = rope_cos_sin(position_ids, cfg.head_dim_, cfg.rope_theta)
     q_seg, kv_seg = extend_segments(prefix_len.to(input_ids.device), Pfx, Lt)
     ks, vs = [], []
@@ -527,7 +540,9 @@ def forward_extend(
         x = x + _mlp(layer, rms_norm(x, layer["ln2"], cfg.rms_norm_eps), tp)
         ks.append(k)
         vs.append(v)
-    if skip_unembed:
+    if not last_stage:
+        out = x
+    elif skip_unembed:
         out = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     else:
         out = unembed(params, cfg, x, tp)
@@ -549,11 +564,15 @@ def decode_step_staged(
     # with the signature of ops/attention.decode_attention_staged (the
     # engine's paged layout closes a block table over it)
     tp: TP | None = None,
+    hidden_in: torch.Tensor | None = None,  # [S, D] a later pipeline stage's input
+    last_stage: bool = True,  # False: the hidden state [S, D] after these layers in the logits slot
 ):
     """One decode step attending over frozen cache + staged band + self.
     Returns (fp32 logits [S, V], k_new [L, S, K, Dh], v_new [L, S, K, Dh]);
     the caller stages the new K/V and merges the band once per window.
-    Under ``tp``: this rank's ``V/tp`` logits and its heads' K/V."""
+    Under ``tp``: this rank's ``V/tp`` logits and its heads' K/V. A
+    pipeline stage before the last returns its hidden state in place of the
+    logits."""
     if callable(attn_impl):
         attn_fn = attn_impl
     elif attn_impl == "ragged":
@@ -562,7 +581,7 @@ def decode_step_staged(
         attn_fn = decode_attention_staged
     else:
         raise ValueError(f"unknown attn_impl {attn_impl!r}")
-    x = params["embed"][tokens]  # [S, D]
+    x = params["embed"][tokens] if hidden_in is None else hidden_in  # [S, D]
     cos, sin = rope_cos_sin(positions, cfg.head_dim_, cfg.rope_theta)  # [S, Dh]
     ks, vs = [], []
     for l, layer in enumerate(_unbind_layers(params)):
@@ -577,7 +596,7 @@ def decode_step_staged(
         x = x + _mlp(layer, rms_norm(x, layer["ln2"], cfg.rms_norm_eps), tp)
         ks.append(k)
         vs.append(v)
-    return unembed(params, cfg, x, tp), torch.stack(ks), torch.stack(vs)
+    return (unembed(params, cfg, x, tp) if last_stage else x), torch.stack(ks), torch.stack(vs)
 
 
 # ---------------------------------------------------------------------------

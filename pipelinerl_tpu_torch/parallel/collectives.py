@@ -55,16 +55,30 @@ def _size(group) -> int:
 # -- plain (no autograd) forms ------------------------------------------------
 
 
-def gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
-    """The group's slices of ``x`` concatenated along ``dim``, rank order."""
+def head_counts(num_heads: int, n: int) -> list[int]:
+    """Query heads per tp rank, in contiguous blocks: the first
+    ``num_heads % n`` ranks take one head more."""
+    return [num_heads // n + (r < num_heads % n) for r in range(n)]
+
+
+def gather(x: torch.Tensor, dim: int, group, sizes: list[int] | None = None) -> torch.Tensor:
+    """The group's slices of ``x`` concatenated along ``dim``, rank order.
+    ``sizes`` gives each rank's length along ``dim`` where they differ (a
+    cut by whole heads): each slice is padded to the largest, gathered in
+    one call, and trimmed."""
     n = _size(group)
     if n == 1:
         return x
     front = x.movedim(dim, 0).contiguous()
-    out = front.new_empty((n * front.shape[0], *front.shape[1:]))
+    width = max(sizes) if sizes else front.shape[0]
+    if width != front.shape[0]:
+        front = torch.cat([front, front.new_zeros((width - front.shape[0], *front.shape[1:]))])
+    out = front.new_empty((n * width, *front.shape[1:]))
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", FutureWarning)  # 2.13's deprecation note
         dist.all_gather_into_tensor(out, front, group=group)
+    if sizes and len(set(sizes)) > 1:
+        out = torch.cat([piece[:size] for piece, size in zip(out.split(width), sizes)])
     return out.movedim(0, dim)
 
 

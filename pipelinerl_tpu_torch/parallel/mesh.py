@@ -12,9 +12,10 @@ Port of the JAX package's ``parallel/mesh.py``. Axes:
   heads and FFN columns (Megatron's column- and row-parallel splits,
   ``models/transformer.py``) and computes the logits of its ``V/tp``
   vocabulary rows;
-- ``pp``: kept in ``AXES`` and ``infer_mesh_shape`` as JAX has it; a mesh
-  with pp above 1 raises (ROADMAP Queue 1, item 15: the JAX trainer has no
-  pp axis, and the engine's stage-to-stage sends are not ported).
+- ``pp``: kept in ``AXES`` and ``infer_mesh_shape`` as JAX has it. The
+  trainer's mesh has no pp axis, as the JAX trainer's has none
+  (``parallel.pp`` is not read). An engine's pipeline stages are ranks of
+  the engine's own world (``engine_layout``, ``inference/tp_ranks.py``).
 
 JAX drives a whole mesh from one process; the port runs one rank process
 per device, so ``make_mesh(dp, cp, tp)`` needs a process group of
@@ -52,18 +53,32 @@ def infer_mesh_shape(
     return (n_devices // (tp * cp * pp), cp, tp, pp)
 
 
-def refuse_pp(pp: int = 1, node: str = "parallel") -> None:
-    if int(pp) > 1:
-        raise NotImplementedError(
-            f"{node}.pp > 1 is not ported yet: pipeline parallelism waits for ROADMAP Queue 1, item 15 "
-            "(the engine's stage-to-stage sends; the JAX trainer has no pp axis)")
+def check_pp_layers(num_layers: int, pp: int) -> None:
+    """The stacked layers must split into ``pp`` equal stages (JAX's
+    engine raises the same)."""
+    if num_layers % pp:
+        raise ValueError(f"num_layers {num_layers} not divisible by pp={pp}")
 
 
-def make_mesh(dp: int, cp: int = 1, tp: int = 1, pp: int = 1) -> DeviceMesh:
+def engine_layout(rank: int, tp: int, pp: int) -> tuple[int, int]:
+    """(stage, tp rank) of an engine world's rank: ``rank = stage·tp +
+    tp_rank``, a tp group per stage and a pp group per tp rank."""
+    if not 0 <= rank < tp * pp:
+        raise ValueError(f"engine rank {rank} outside a world of tp*pp={tp * pp}")
+    return rank // tp, rank % tp
+
+
+def engine_groups(tp: int, pp: int) -> tuple[list[list[int]], list[list[int]]]:
+    """The ranks of each stage's tp group, and of each pp group (one per
+    tp rank, in stage order)."""
+    return ([[s * tp + t for t in range(tp)] for s in range(pp)],
+            [[s * tp + t for s in range(pp)] for t in range(tp)])
+
+
+def make_mesh(dp: int, cp: int = 1, tp: int = 1) -> DeviceMesh:
     """A ``(dp, cp, tp)`` DeviceMesh over the default process group, whose
     world size must be ``dp * cp * tp``. Its device type is the backend's
     (gloo's ranks may share a card; the mesh only names their groups)."""
-    refuse_pp(pp)
     world = dist.get_world_size()
     if dp * cp * tp != world:
         raise ValueError(f"a ({dp}, {cp}, {tp}) mesh needs {dp * cp * tp} ranks, the world has {world}")

@@ -2,12 +2,23 @@
 by rows over dp and contiguous slices of the sequence over cp.
 
 Port of the JAX package's ``parallel/sharding.py``. The rule table is
-JAX's; the port acts on its ``dp`` and ``tp`` entries (``pp`` names the
-stacked-layer dim a pipeline split would cut, ROADMAP Queue 1 item 15). A
-spec is a tuple of axis names (or None) per dim, as
-``jax.sharding.PartitionSpec`` is. Where K does not split over tp
-(``replicate_kv``), ``wk``/``wv``/``bk``/``bv`` drop their ``tp`` entry and
-stay whole on every tp rank, as JAX's engine replicates such a cache.
+JAX's; the trainer acts on its ``dp`` and ``tp`` entries, and an engine's
+pipeline stage on its ``pp`` entry (``pp_local``). A spec is a tuple of
+axis names (or None) per dim, as ``jax.sharding.PartitionSpec`` is. A
+``TPCut`` says how a model's attention leaves cut over tp beyond the
+table:
+
+- where K does not split over tp (``replicate_kv``), ``wk``/``wv``/
+  ``bk``/``bv`` drop their ``tp`` entry and stay whole on every tp rank, as
+  JAX's engine replicates such a cache;
+- the query-head leaves ``wq``/``bq`` (columns) and ``wo`` (rows) cut in
+  whole heads: rank r takes ``collectives.head_counts(H, tp)[r]``
+  contiguous heads, the first ``H % tp`` ranks one more than the rest, so
+  an ``H`` that does not split over tp runs (JAX cuts the flat ``H*Dh``
+  columns in equal chunks and lets GSPMD reshard the heads; both compute
+  the same function). ``q_norm`` is per ``Dh`` and stays whole. The
+  gathers of such a leaf pad each rank's piece to the largest
+  (``collectives.gather``'s ``sizes``).
 
 The params are a dict of stacked ``[L, ...]`` tensors, not ``nn.Module``s,
 so FSDP2's ``fully_shard`` does not apply as is. The port uses explicit
@@ -52,13 +63,14 @@ target (``rl_loss`` reads the halo under cp).
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Callable
 
 import numpy as np
 import torch
 
 from . import collectives
-from .mesh import axis_group, axis_rank, axis_size
+from .mesh import axis_group, axis_rank, axis_size, check_pp_layers
 
 # the spec of each param leaf, per dim; layer leaves carry the stacked-layer
 # dim first
@@ -89,24 +101,53 @@ _VALUE_HEAD_SPECS = {"w": ("dp", None), "b": (None,)}
 
 # the leaves whole on every tp rank when K does not split over tp
 _KV_LEAVES = ("wk", "wv", "bk", "bv")
+# the leaves cut by query heads along their tp dim
+_HEAD_LEAVES = ("wq", "bq", "wo")
 # whole leaves that each tp rank applies to its own heads: partial gradients
 _TP_PARTIAL = ("q_norm", "k_norm")
 
 
-def _layer_spec(name: str, replicate_kv: bool) -> tuple:
+@dataclass(frozen=True)
+class TPCut:
+    """How a model's attention leaves cut over tp: ``replicate_kv`` keeps
+    the KV leaves whole on every rank; ``num_heads``/``head_dim`` (0: equal
+    chunks) cut the query-head leaves in whole heads."""
+
+    replicate_kv: bool = False
+    num_heads: int = 0
+    head_dim: int = 0
+
+    def sizes(self, name: str, n: int) -> list[int] | None:
+        """Each tp rank's length of leaf ``name``'s tp dim when the ranks'
+        pieces differ, else None (equal chunks)."""
+        if name not in _HEAD_LEAVES or n == 1 or not self.num_heads or self.num_heads % n == 0:
+            return None
+        return [h * self.head_dim for h in collectives.head_counts(self.num_heads, n)]
+
+
+def tp_cut(model_cfg, n: int) -> TPCut:
+    """The ``TPCut`` of a ``ModelConfig`` over ``n`` tp ranks: K that does
+    not split keeps its KV leaves whole, and each rank selects the KV heads
+    its query heads read (JAX's replicated cache spec, ``engine.py:336-340``)."""
+    if model_cfg is None or n == 1:
+        return TPCut()
+    return TPCut(model_cfg.num_kv_heads % n != 0, model_cfg.num_heads, model_cfg.head_dim_)
+
+
+def _layer_spec(name: str, cut: TPCut) -> tuple:
     spec = _LAYER_SPECS[name]
-    if replicate_kv and name in _KV_LEAVES:
+    if cut.replicate_kv and name in _KV_LEAVES:
         return tuple(None if a == "tp" else a for a in spec)
     return spec
 
 
-def param_partition_specs(params: dict, replicate_kv: bool = False) -> dict:
+def param_partition_specs(params: dict, cut: TPCut = TPCut()) -> dict:
     """The spec of every leaf, in the params' structure (the rule table's;
-    with ``replicate_kv`` the KV leaves have no tp dim)."""
+    with ``cut.replicate_kv`` the KV leaves have no tp dim)."""
     specs: dict = {}
     for name, value in params.items():
         if name == "layers":
-            specs["layers"] = {k: _layer_spec(k, replicate_kv) for k in value}
+            specs["layers"] = {k: _layer_spec(k, cut) for k in value}
         elif name == "value_head":
             specs["value_head"] = dict(_VALUE_HEAD_SPECS)
         else:
@@ -115,7 +156,8 @@ def param_partition_specs(params: dict, replicate_kv: bool = False) -> dict:
 
 
 def _map(fn, params: dict, specs: dict) -> dict:
-    return {k: _map(fn, v, specs[k]) if isinstance(v, dict) else fn(v, specs[k]) for k, v in params.items()}
+    """``fn(leaf, spec, name)`` over the tree, ``name`` the leaf's key."""
+    return {k: _map(fn, v, specs[k]) if isinstance(v, dict) else fn(v, specs[k], k) for k, v in params.items()}
 
 
 def dp_dim(spec: tuple) -> int | None:
@@ -126,57 +168,95 @@ def tp_dim(spec: tuple) -> int | None:
     return spec.index("tp") if "tp" in spec else None
 
 
-def _cut(p: torch.Tensor, d: int | None, n: int, r: int) -> torch.Tensor:
+def tp_piece(p: torch.Tensor, d: int | None, n: int, r: int, sizes: list[int] | None = None) -> torch.Tensor:
+    """Rank ``r``'s piece of ``p`` along dim ``d`` over ``n`` ranks: equal
+    chunks, or contiguous pieces of ``sizes`` (a cut by whole heads)."""
     if d is None or n == 1:
         return p
+    if sizes is not None:
+        return p.narrow(d, sum(sizes[:r]), sizes[r])
     if p.shape[d] % n:
         raise ValueError(f"a leaf of shape {tuple(p.shape)} does not split {n} ways along dim {d}")
     return p.chunk(n, dim=d)[r]
 
 
-def shard_params(params: dict, mesh, replicate_kv: bool = False) -> dict:
+def shard_params(params: dict, mesh, cut: TPCut = TPCut()) -> dict:
     """This rank's slice of every leaf along its dp and tp dims (whole
     along an axis the spec lacks), as new leaf tensors that share no
     storage."""
+    n_tp = axis_size(mesh, "tp")
 
-    def cut(p: torch.Tensor, spec: tuple) -> torch.Tensor:
-        for axis, d in (("dp", dp_dim(spec)), ("tp", tp_dim(spec))):
-            p = _cut(p.detach(), d, axis_size(mesh, axis), axis_rank(mesh, axis))
+    def piece(p: torch.Tensor, spec: tuple, name: str) -> torch.Tensor:
+        p = tp_piece(p.detach(), dp_dim(spec), axis_size(mesh, "dp"), axis_rank(mesh, "dp"))
+        p = tp_piece(p, tp_dim(spec), n_tp, axis_rank(mesh, "tp"), cut.sizes(name, n_tp))
         return p.clone()
 
-    return _map(cut, params, param_partition_specs(params, replicate_kv))
+    return _map(piece, params, param_partition_specs(params, cut))
 
 
-def tp_local(params: dict, rank: int, size: int, replicate_kv: bool = False) -> dict:
+def _pass_specs(params: dict, cut: TPCut) -> dict:
+    """The specs of a tp pass's layout: the embedding table whole."""
+    specs = param_partition_specs(params, cut)
+    return {**specs, "embed": (None, None)} if "embed" in specs else specs
+
+
+def tp_local(params: dict, rank: int, size: int, cut: TPCut = TPCut()) -> dict:
     """One tp rank's weights of a full tree, in the layout a pass runs on:
-    each layer leaf and the head cut along their tp dim, the embedding
-    table and the whole leaves as they are (copies that share no storage
-    with ``params`` where cut, the same tensors elsewhere)."""
+    each layer leaf and the head cut along their tp dim (the query-head
+    leaves by whole heads), the embedding table and the whole leaves as
+    they are (copies that share no storage with ``params`` where cut, the
+    same tensors elsewhere)."""
 
-    def cut(p: torch.Tensor, spec: tuple) -> torch.Tensor:
+    def piece(p: torch.Tensor, spec: tuple, name: str) -> torch.Tensor:
         d = tp_dim(spec)
-        return p if d is None or size == 1 else _cut(p, d, size, rank).clone()
+        return p if d is None or size == 1 else tp_piece(p, d, size, rank, cut.sizes(name, size)).clone()
 
-    specs = param_partition_specs(params, replicate_kv)
-    specs = {**specs, "embed": (None, None)} if "embed" in specs else specs
-    return _map(cut, params, specs)
+    return _map(piece, params, _pass_specs(params, cut))
 
 
 @torch.no_grad()
-def untp_local(params: dict, group, replicate_kv: bool = False) -> dict:
+def untp_local(params: dict, group, cut: TPCut = TPCut()) -> dict:
     """The inverse of ``tp_local`` on every rank of ``group`` (the tp
     group): each cut leaf all-gathered along its tp dim."""
-    specs = param_partition_specs(params, replicate_kv)
-    specs = {**specs, "embed": (None, None)} if "embed" in specs else specs
+    n = collectives._size(group)
 
-    def full(p, spec):
+    def full(p, spec, name):
         d = tp_dim(spec)
-        return p.detach() if d is None else collectives.gather(p.detach(), d, group)
+        return p.detach() if d is None else collectives.gather(p.detach(), d, group, cut.sizes(name, n))
 
-    return _map(full, params, specs)
+    return _map(full, params, _pass_specs(params, cut))
 
 
-def gather_params(shards: dict, mesh, replicate_kv: bool = False) -> dict:
+def pp_local(params: dict, stage: int, pp: int) -> dict:
+    """One pipeline stage's weights of a full tree: the stacked layers
+    ``[stage·L/pp, (stage+1)·L/pp)``, the embedding table on the first
+    stage (and on the last when the head is tied to it), ``final_norm`` and
+    ``lm_head`` on the last stage, other top leaves as they are. The layer
+    slices are copies that share no storage with ``params``; the tree
+    itself at pp 1."""
+    if pp == 1:
+        return params
+    L = next(iter(params["layers"].values())).shape[0]
+    check_pp_layers(L, pp)
+    n = L // pp
+    first, last = stage == 0, stage == pp - 1
+    tied = "lm_head" not in params
+    out = {}
+    for k, v in params.items():
+        if k == "layers":
+            out[k] = {name: w[stage * n:(stage + 1) * n].clone() for name, w in v.items()}
+        elif k == "embed":
+            if first or (last and tied):
+                out[k] = v
+        elif k in ("final_norm", "lm_head"):
+            if last:
+                out[k] = v
+        else:
+            out[k] = v
+    return out
+
+
+def gather_params(shards: dict, mesh, cut: TPCut = TPCut()) -> dict:
     """The weights of a pass: the sliced top leaves all-gathered over dp,
     the embedding table over tp as well (differentiable: the backward
     reduce-scatters), the head keeping its tp columns, the stacked layers
@@ -189,13 +269,13 @@ def gather_params(shards: dict, mesh, replicate_kv: bool = False) -> dict:
                 p = collectives.all_gather(p, d, axis_group(mesh, axis))
         return p
 
-    specs = param_partition_specs(shards, replicate_kv)
+    specs = param_partition_specs(shards, cut)
     out = {}
     for k, v in shards.items():
         if k == "layers":
             out[k] = v
         elif k == "value_head":
-            out[k] = _map(lambda p, s: full(p, s, ("dp",)), v, specs[k])
+            out[k] = _map(lambda p, s, _: full(p, s, ("dp",)), v, specs[k])
         else:
             out[k] = full(v, specs[k], ("dp", "tp") if k == "embed" else ("dp",))
     return out
@@ -226,19 +306,20 @@ def layer_gather(mesh) -> Callable[[dict], dict] | None:
 
 
 @torch.no_grad()
-def unshard_params(shards: dict, mesh, replicate_kv: bool = False, axes: tuple = ("dp", "tp")) -> dict:
+def unshard_params(shards: dict, mesh, cut: TPCut = TPCut(), axes: tuple = ("dp", "tp")) -> dict:
     """The inverse of ``shard_params``: the full leaves, on every rank
     (gathered over ``axes`` only: ``("dp",)`` keeps the tp slices)."""
 
-    def full(p, spec):
+    def full(p, spec, name):
         p = p.detach()
         for axis in axes:
             d = spec.index(axis) if axis in spec else None
             if d is not None:
-                p = collectives.gather(p, d, axis_group(mesh, axis))
+                sizes = cut.sizes(name, axis_size(mesh, "tp")) if axis == "tp" else None
+                p = collectives.gather(p, d, axis_group(mesh, axis), sizes)
         return p
 
-    return _map(full, shards, param_partition_specs(shards, replicate_kv))
+    return _map(full, shards, param_partition_specs(shards, cut))
 
 
 def _walk_leaves(tree: dict, fn) -> list:
@@ -255,9 +336,9 @@ def _walk_leaves(tree: dict, fn) -> list:
     return out
 
 
-def leaf_specs(shards: dict, replicate_kv: bool = False) -> list[tuple]:
+def leaf_specs(shards: dict, cut: TPCut = TPCut()) -> list[tuple]:
     """The specs in ``trainer.param_leaves`` order."""
-    specs = param_partition_specs(shards, replicate_kv)
+    specs = param_partition_specs(shards, cut)
 
     def spec(path):
         node = specs
@@ -268,11 +349,17 @@ def leaf_specs(shards: dict, replicate_kv: bool = False) -> list[tuple]:
     return _walk_leaves(shards, spec)
 
 
-def tp_partial_leaves(shards: dict, replicate_kv: bool = False) -> list[bool]:
+def tp_partial_leaves(shards: dict, cut: TPCut = TPCut()) -> list[bool]:
     """Per leaf in ``trainer.param_leaves`` order: whether tp peers each
     hold part of its gradient (whole leaves read by each rank's own heads)."""
-    partial = _TP_PARTIAL + (_KV_LEAVES if replicate_kv else ())
+    partial = _TP_PARTIAL + (_KV_LEAVES if cut.replicate_kv else ())
     return _walk_leaves(shards, lambda path: path[0] == "layers" and path[-1] in partial)
+
+
+def leaf_tp_sizes(shards: dict, cut: TPCut, n: int) -> list[list[int] | None]:
+    """Per leaf in ``trainer.param_leaves`` order: each tp rank's length of
+    its tp dim where the pieces differ (``TPCut.sizes``), else None."""
+    return _walk_leaves(shards, lambda path: cut.sizes(path[-1], n) if path[0] == "layers" else None)
 
 
 @torch.no_grad()

@@ -107,11 +107,11 @@ def make_sharded_train_step(
     and cp slice (``sharding.shard_batch``). The returned loss and metrics
     are the global batch's, ``grad_norm`` the global norm, on every rank;
     the shards are updated in place."""
-    from ..models.transformer import replicate_kv
     from ..train.trainer import param_leaves
+    from .sharding import tp_cut
 
     attn = make_cp_attention(mesh, num_kv_heads=model_cfg.num_kv_heads) if axis_size(mesh, "cp") > 1 else "xla"
-    kv = replicate_kv(model_cfg, axis_size(mesh, "tp"))
+    kv = tp_cut(model_cfg, axis_size(mesh, "tp"))
 
     def step_fn(params, opt_state, batch, step, sentinel):
         leaves = [p for _, p in param_leaves(params)]

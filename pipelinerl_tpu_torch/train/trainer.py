@@ -5,8 +5,9 @@ world.
 
 Port of the JAX package's ``train/trainer.py`` ``TrainerLoop``, with its
 memory snapshots and step profile (``utils/memory_debug.py``, per rank).
-Left out: ``pp`` above 1, which raises (ROADMAP Queue 1, item 15; the JAX
-trainer has no pp axis either).
+``parallel.pp`` is not read, as the JAX trainer, which has no pp axis,
+does not read it: a trainer at pp above 1 logs one line and trains as at
+pp 1.
 
 A trainer world (``torch.distributed`` joined, ``parallel/multihost.py``)
 runs a ``(world / (cp * tp), cp, tp)`` mesh, one rank per device:
@@ -17,7 +18,8 @@ runs a ``(world / (cp * tp), cp, tp)`` mesh, one rank per device:
   the layers one at a time over dp inside the forward (again in the
   backward under remat), whose backward reduce-scatters the gradients;
   under tp each rank keeps its heads, FFN columns and vocabulary rows
-  (Megatron's splits, ``models/transformer.py``); under LoRA the frozen
+  (Megatron's splits, ``models/transformer.py``; the query heads by whole
+  heads, ``sharding.TPCut``, so H need not split over tp); under LoRA the frozen
   base is gathered over dp for a pass and the adapters' product cut to the
   rank's tp slice. AdamW and Lion update the rank's slices, Adafactor
   gathers a leaf to compute its factored moments over the whole of it;
@@ -81,17 +83,19 @@ from ..models.vision import prepare_vision_inputs, vision_forward, vision_inputs
 from ..inference.weight_transfer import gather_for_push
 from ..parallel import collectives
 from ..parallel.cp_attention import make_cp_attention
-from ..models.transformer import replicate_kv
-from ..parallel.mesh import axis_group, axis_rank, axis_size, refuse_pp
+from ..parallel.mesh import axis_group, axis_rank, axis_size
 from ..parallel.multihost import make_multihost_mesh
 from ..parallel.sharding import (
     cp_slice,
     gather_params,
     layer_gather,
     leaf_specs,
+    leaf_tp_sizes,
     shard_params,
+    tp_cut,
     tp_dim,
     tp_partial_leaves,
+    tp_piece,
     unshard_params,
     untp_local,
 )
@@ -235,11 +239,14 @@ def resolve_attn_impl(name: str, seq_length: int, device: torch.device, mesh=Non
 
 def parallel_shape(cfg: Config, world: int) -> tuple[int, int, int]:
     """(dp, cp, tp) of the trainer from ``parallel`` and the world size,
-    with the JAX trainer's checks: ``pp`` above 1 raises (item 15), cp * tp
-    needs as many ranks of the world, and dp must be a multiple of the
-    world's dp ranks. A world with no ``parallel`` product is all dp."""
+    with the JAX trainer's checks: cp * tp needs as many ranks of the
+    world, and dp must be a multiple of the world's dp ranks. A world with
+    no ``parallel`` product is all dp. ``pp`` is not read (one line says
+    so), as the JAX trainer's mesh has no pp axis."""
     par = cfg.get("parallel") or Config({})
-    refuse_pp(int(par.get("pp", 1)))
+    if int(par.get("pp", 1) or 1) > 1:
+        logger.info("parallel.pp=%s is not read: the JAX trainer has no pp axis, so this trains as at pp 1",
+                    par.get("pp"))
     dp, cp, tp = int(par.get("dp", 1)), int(par.get("cp", 1)), int(par.get("tp", 1))
     if dp * cp * tp == 1 and world > 1:
         dp = world
@@ -284,8 +291,9 @@ class TrainerLoop:
         n_dp = self.world // (self.cp * self.tp)
         self.dp_local = self.dp // n_dp
         self.mesh = make_multihost_mesh(n_dp, self.cp, self.tp) if self.world > 1 else None
-        # K that does not split over tp: wk/wv stay whole on every tp rank
-        self.replicate_kv = replicate_kv(model_cfg, self.tp) if model_cfg is not None else False
+        # the attention leaves' tp cut: whole heads, and wk/wv whole on every
+        # tp rank where K does not split
+        self.cut = tp_cut(model_cfg, self.tp)
         if vision_params is not None:
             for _, p in param_leaves(vision_params):
                 p.requires_grad_(False)
@@ -306,15 +314,15 @@ class TrainerLoop:
             generator = torch.Generator(device=device).manual_seed(int(cfg.get("seed", 0)) + 7)
             params = init_lora_params(generator, params, self.lora_cfg)
             # the adapters are small: replicated; the frozen base is sharded
-            self.frozen_params = (shard_params(self.frozen_params, self.mesh, self.replicate_kv) if self.mesh
+            self.frozen_params = (shard_params(self.frozen_params, self.mesh, self.cut) if self.mesh
                                   else self.frozen_params)
         elif self.mesh is not None:
-            params = shard_params(params, self.mesh, self.replicate_kv)
+            params = shard_params(params, self.mesh, self.cut)
         # the rule table's spec of each trainable leaf; replicated adapters,
         # whose gradients tp peers hold in part (each sees its slice)
         n_leaves = len(param_leaves(params))
-        self._specs = leaf_specs(params, self.replicate_kv) if self._sharded_params() else [(None,)] * n_leaves
-        self._tp_partial = (tp_partial_leaves(params, self.replicate_kv) if self._sharded_params()
+        self._specs = leaf_specs(params, self.cut) if self._sharded_params() else [(None,)] * n_leaves
+        self._tp_partial = (tp_partial_leaves(params, self.cut) if self._sharded_params()
                             else [self.tp > 1] * n_leaves)
         self.params = params
         self._leaves = [p for _, p in param_leaves(params)]
@@ -368,30 +376,33 @@ class TrainerLoop:
         if self.mesh is None:
             return [None] * len(self._leaves)
         axes = [(axis_group(self.mesh, a), axis_size(self.mesh, a), axis_rank(self.mesh, a), a) for a in ("dp", "tp")]
+        tp_sizes = (leaf_tp_sizes(self.params, self.cut, self.tp) if self._sharded_params()
+                    else [None] * len(self._specs))
 
-        def view(spec):
-            cuts = [(g, n, r, spec.index(a)) for g, n, r, a in axes if a in spec and n > 1]
+        def view(spec, sizes):
+            cuts = [(g, n, r, spec.index(a), sizes if a == "tp" else None)
+                    for g, n, r, a in axes if a in spec and n > 1]
             if not cuts:
                 return None
 
             def to_full(x):
-                for g, _, _, d in cuts:
-                    x = collectives.gather(x, d, g)
+                for g, _, _, d, s in cuts:
+                    x = collectives.gather(x, d, g, s)
                 return x
 
             def to_local(x):
-                for _, n, r, d in cuts:
-                    x = x.chunk(n, dim=d)[r]
+                for _, n, r, d, s in cuts:
+                    x = tp_piece(x, d, n, r, s)
                 return x.contiguous()
 
             return to_full, to_local
 
-        return [view(s) for s in self._specs]
+        return [view(spec, sizes) for spec, sizes in zip(self._specs, tp_sizes)]
 
     def _tp_cut(self, name: str, full: torch.Tensor) -> torch.Tensor:
         """This tp rank's slice of a whole layer leaf ``name``."""
-        d = tp_dim(leaf_specs({"layers": {name: full}}, self.replicate_kv)[0])
-        return full if d is None else full.chunk(self.tp, dim=d)[axis_rank(self.mesh, "tp")]
+        d = tp_dim(leaf_specs({"layers": {name: full}}, self.cut)[0])
+        return tp_piece(full, d, self.tp, axis_rank(self.mesh, "tp"), self.cut.sizes(name, self.tp))
 
     def model_params(self) -> dict:
         """The weights the model runs on: the trainable params, or under LoRA
@@ -404,12 +415,12 @@ class TrainerLoop:
         if self.lora_cfg.enabled:
             if self.mesh is None:
                 return merge_lora(self.frozen_params, self.params, self.lora_cfg)
-            frozen = unshard_params(self.frozen_params, self.mesh, self.replicate_kv, axes=("dp",))
+            frozen = unshard_params(self.frozen_params, self.mesh, self.cut, axes=("dp",))
             if self.tp > 1:
                 frozen["embed"] = collectives.gather(frozen["embed"], 1, axis_group(self.mesh, "tp"))
                 return merge_lora(frozen, self.params, self.lora_cfg, local=self._tp_cut)
             return merge_lora(frozen, self.params, self.lora_cfg)
-        return gather_params(self.params, self.mesh, self.replicate_kv) if self.mesh else self.params
+        return gather_params(self.params, self.mesh, self.cut) if self.mesh else self.params
 
     @torch.no_grad()
     def served_params(self) -> dict:
@@ -417,9 +428,9 @@ class TrainerLoop:
         (every rank of a world joins the gathers) without the value head,
         which is the trainer's alone."""
         if not self.lora_cfg.enabled:
-            params = gather_for_push(self.params, self.mesh, self.replicate_kv)
+            params = gather_for_push(self.params, self.mesh, self.cut)
         elif self.tp > 1:
-            params = untp_local(self.model_params(), axis_group(self.mesh, "tp"), self.replicate_kv)
+            params = untp_local(self.model_params(), axis_group(self.mesh, "tp"), self.cut)
         else:
             params = self.model_params()
         return {k: v for k, v in params.items() if k != "value_head"}
@@ -451,7 +462,7 @@ class TrainerLoop:
     def gathered_state(self) -> tuple[list[tuple[str, torch.Tensor]], dict]:
         """The full trainable leaves by name and the optimizer's state dict
         over them (a world's slices gathered; every rank joins)."""
-        named = param_leaves(unshard_params(self.params, self.mesh, self.replicate_kv) if self._sharded_params()
+        named = param_leaves(unshard_params(self.params, self.mesh, self.cut) if self._sharded_params()
                              else self.params)
         return named, self._optimizer_state(0)(self.optimizer.state_dict())
 

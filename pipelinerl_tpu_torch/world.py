@@ -20,12 +20,14 @@ Port of the JAX package's ``world.py``. ``world.hosts`` lists the hosts
   whatever ``trainer_procs`` says (``trainer_ranks``), and the trainer
   partitions are one per dp rank (``num_trainers``): cp and tp peers read
   the same one.
-- ``engine.tp`` above 1: each engine (and the reference engine) is
-  ``engine.tp`` rank jobs on its host: rank 0 is the ``engine`` job with its
-  port (the only HTTP URL), ranks above 0 are ``engine_rank`` jobs with no
-  port; each carries ``tp_rank``, ``tp_size`` and ``tp_coordinator`` (the
-  host's ``world.engine_tp_port`` plus the engine's index). Such a config
-  runs the split layout (one trainer job at least).
+- ``engine.tp`` or ``engine.pp`` above 1: each engine (and the reference
+  engine) is ``engine.tp * engine.pp`` rank jobs on its host: rank 0 is the
+  ``engine`` job with its port (the only HTTP URL), ranks above 0 are
+  ``engine_rank`` jobs with no port; each carries ``tp_rank`` (its rank in
+  the engine's world, ``stage·tp + tp rank``), ``tp_size``,
+  ``tp_coordinator`` (the host's ``world.engine_tp_port`` plus the engine's
+  index) and, at pp above 1, ``pp_size``. Such a config runs the split
+  layout (one trainer job at least).
 
 Beside them: a ``stream_hub`` on the head host when ``world.stream_hub``
 says so (``"auto"``: more than one host), through which every topic then
@@ -34,10 +36,8 @@ rides; a ``ref_engine`` (frozen weights, the KL reference policy) when
 ``world.env_replicas`` ``environment`` jobs when ``environment`` or
 ``environment_class`` is set; and the host-only ``actor`` and
 ``preprocessor`` jobs, spread round-robin over the hosts. ``to_config()``
-lists the jobs as the JAX package lists them.
-
-Refused, naming its ROADMAP Queue 1 item: ``parallel.pp`` and
-``engine.pp`` above 1 (item 15).
+lists the jobs as the JAX package lists them. ``parallel.pp`` is not read,
+as the JAX package reads it nowhere.
 """
 
 from __future__ import annotations
@@ -67,15 +67,6 @@ class Job:
                 **self.extra}
 
 
-def refuse_unported(cfg: Config) -> None:
-    """Raise for the deployments the port does not run yet: pipeline
-    parallelism, in the trainer or the engine."""
-    from .parallel.mesh import refuse_pp
-
-    for node in ("parallel", "engine"):
-        refuse_pp(int(cfg.select(f"{node}.pp", 1) or 1), node)
-
-
 def parallel_product(cfg: Config) -> tuple[int, int, int]:
     """(dp, cp, tp) of the ``parallel`` node (1, 1, 1 when absent)."""
     par = cfg.get("parallel") or Config({})
@@ -86,10 +77,19 @@ def engine_tp(cfg: Config) -> int:
     return int(cfg.select("engine.tp", 1) or 1)
 
 
+def engine_pp(cfg: Config) -> int:
+    return int(cfg.select("engine.pp", 1) or 1)
+
+
+def engine_ranks(cfg: Config) -> int:
+    """The rank processes of one engine: ``engine.tp * engine.pp``."""
+    return engine_tp(cfg) * engine_pp(cfg)
+
+
 def trainer_ranks(cfg: Config) -> int:
     """The trainer jobs: dp*cp*tp when that product is above 1 (one rank per
-    device), else ``world.trainer_procs`` (at least one beside a tp
-    engine)."""
+    device), else ``world.trainer_procs`` (at least one beside an engine
+    of many ranks)."""
     procs = int(cfg.select("world.trainer_procs", 0) or 0)
     dp, cp, tp = parallel_product(cfg)
     if dp * cp * tp > 1:
@@ -97,7 +97,7 @@ def trainer_ranks(cfg: Config) -> int:
             raise ValueError(f"world.trainer_procs={procs} but parallel dp*cp*tp={dp * cp * tp}: "
                              "the port runs one trainer rank per device")
         return dp * cp * tp
-    return max(procs, 1) if engine_tp(cfg) > 1 else procs
+    return max(procs, 1) if engine_ranks(cfg) > 1 else procs
 
 
 def _fraction_split(n_hosts: int, actor_fraction: float, finetune_fraction: float) -> int:
@@ -111,7 +111,6 @@ def _fraction_split(n_hosts: int, actor_fraction: float, finetune_fraction: floa
 
 class WorldMap:
     def __init__(self, cfg: Config):
-        refuse_unported(cfg)
         world = cfg.get("world", Config({}))
         self.hosts: list[str] = list(world.get("hosts", ["127.0.0.1"]))
         self.replicas = int(world.get("replicas", 1))
@@ -119,6 +118,7 @@ class WorldMap:
         _, cp, tp = parallel_product(cfg)
         self.trainer_group = cp * tp  # trainer ranks that read one partition
         self.engine_tp = engine_tp(cfg)
+        self.engine_pp = engine_pp(cfg)
         self.actor_fraction = float(world.get("actor_fraction", 0) or 0)
         self.finetune_fraction = float(world.get("finetune_fraction", 0) or 0)
         self.env_replicas = int(world.get("env_replicas", 1))
@@ -172,13 +172,14 @@ class WorldMap:
         self.jobs.append(Job(kind="preprocessor", replica_idx=0, hostname=self.hosts[0]))
 
     def _add_engine(self, kind: str, replica: int, hostname: str, port: int, tp_port: int, **extra) -> None:
-        """An engine job, and at ``engine.tp`` above 1 its rank jobs on the
-        same host (``engine_rank``, no port)."""
-        n = self.engine_tp
+        """An engine job, and at ``engine.tp * engine.pp`` above 1 its rank
+        jobs on the same host (``engine_rank``, no port)."""
+        n = self.engine_tp * self.engine_pp
         if n == 1:
             self.jobs.append(Job(kind=kind, replica_idx=replica, hostname=hostname, port=port, extra=extra))
             return
-        ranks = {"tp_size": n, "tp_coordinator": f"{hostname}:{tp_port}"}
+        ranks = {"tp_size": self.engine_tp, "tp_coordinator": f"{hostname}:{tp_port}",
+                 **({"pp_size": self.engine_pp} if self.engine_pp > 1 else {})}
         self.jobs.append(Job(kind=kind, replica_idx=replica, hostname=hostname, port=port,
                              extra={**extra, **ranks, "tp_rank": 0}))
         base = sum(1 for j in self.jobs if j.kind == "engine_rank")

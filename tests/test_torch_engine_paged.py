@@ -333,13 +333,13 @@ def test_build_engine_builds_the_paged_layout():
 
 
 def test_build_engine_still_refuses_engine_tp():
-    """One process cannot build a tp engine: ``engine.tp=2`` runs as two
-    rank processes (``test_torch_engine_tp.py``), and ``build_engine``
-    without their world says so; ``engine.pp`` still raises, naming item
-    15."""
-    with pytest.raises(ValueError, match="runs as 2 engine rank processes"):
+    """One process cannot build a tp or a pp engine: ``engine.tp=2`` and
+    ``engine.pp=2`` each run as two rank processes
+    (``test_torch_engine_tp.py``, ``test_torch_engine_pp.py``), and
+    ``build_engine`` without their world says so."""
+    with pytest.raises(ValueError, match="engine.tp=2 runs as 2 engine rank processes"):
         _built(["engine.tp=2", "engine.kv_layout=paged"])
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(ValueError, match="engine.pp=2 runs as 2 engine rank processes"):
         _built(["engine.pp=2", "engine.kv_layout=paged"])
 
 

@@ -4,9 +4,9 @@ tp 2 on conftest's virtual devices: greedy tokens and logprobs on the slab
 and paged layouts (GRPO forks, a prefix reuse), a sampled batch, a push
 while decoding (each rank's weights equal its slice of the pushed tree),
 ``score_tokens``, an abort, the ranks' agreement window by window, a model
-whose K does not split over tp, and the ``launch`` paths: the DRY_RUN job
-list with engine and trainer ranks on their card slots, and ``bandit_cpu``
-at ``engine.tp=2 parallel.tp=2``.
+whose K does not split over tp, one whose H does not split over tp 4, and
+the ``launch`` paths: the DRY_RUN job list with engine and trainer ranks on
+their card slots, and ``bandit_cpu`` at ``engine.tp=2 parallel.tp=2``.
 
 fp32 on the CPU: the ranks' sums run in another order than one device's,
 so logprobs agree within ``LP_ATOL`` and greedy tokens exactly."""
@@ -129,8 +129,10 @@ def _rank_engine(rank, n, data, out, layout, shape):
     torch.save(result, f"{out}/rank{rank}.pt")
 
 
-def tp_world_run(tmp_path: Path, layout: str, shape: dict | None = None) -> tuple[list[dict], dict, dict]:
-    """→ (each rank's results, the params as numpy, the workload)."""
+def tp_world_run(tmp_path: Path, layout: str, shape: dict | None = None, n: int = 2) -> tuple[list[dict], dict,
+                                                                                                 dict]:
+    """``n`` engine ranks → (each rank's results, the params as numpy, the
+    workload)."""
     import jax
 
     from pipelinerl_tpu.models.transformer import ModelConfig, init_params
@@ -140,10 +142,10 @@ def tp_world_run(tmp_path: Path, layout: str, shape: dict | None = None) -> tupl
                                                                                 dtype=np.float32)))
     w = workload()
     torch.save({"params": params, "workload": w}, tmp_path / "data.pt")
-    run_world("test_torch_engine_tp:_rank_engine", 2, {"data": str(tmp_path / "data.pt"), "out": str(tmp_path),
+    run_world("test_torch_engine_tp:_rank_engine", n, {"data": str(tmp_path / "data.pt"), "out": str(tmp_path),
                                                        "layout": layout, "shape": shape},
               timeout=240.0, pythonpath=[HERE])
-    return [torch.load(tmp_path / f"rank{r}.pt", weights_only=False) for r in range(2)], params, w
+    return [torch.load(tmp_path / f"rank{r}.pt", weights_only=False) for r in range(n)], params, w
 
 
 def assert_same(got: list[dict], want: list[dict], atol: float = LP_ATOL) -> None:
@@ -185,12 +187,13 @@ def test_tp_engine_matches_tp1_and_jax_tp2(tmp_path, layout):
         assert sums == param_checksums(tp_local(pushed, rank, 2)), f"rank {rank}"
 
     for key, scale in (("greedy", 1.0), ("after_push", 0.5)):
-        assert_same(r0[key], jax_tp2_greedy(params_np, KW, layout, w[key], scale))
+        assert_same(r0[key], jax_greedy(params_np, KW, layout, w[key], scale))
 
 
-def jax_tp2_greedy(params_np: dict, shape: dict, layout: str, prompts: list, scale: float) -> list[dict]:
-    """The JAX engine at tp 2 (a mesh of two virtual devices) on ``scale``
-    times the weights: greedy results of ``prompts``."""
+def jax_greedy(params_np: dict, shape: dict, layout: str, prompts: list, scale: float, tp: int = 2,
+               pp: int = 1) -> list[dict]:
+    """The JAX engine on a ``(tp, pp)`` mesh of virtual devices, on
+    ``scale`` times the weights: greedy results of ``prompts``."""
     import jax
     import jax.numpy as jnp
 
@@ -199,10 +202,10 @@ def jax_tp2_greedy(params_np: dict, shape: dict, layout: str, prompts: list, sca
 
     engine = je.InferenceEngine(jax.tree.map(lambda a: jnp.asarray(a) * scale, params_np),
                                 jt.ModelConfig(dtype=jnp.float32, **shape),
-                                je.EngineConfig(cache_dtype=jnp.float32, tp=2, max_slots=4, max_len=96,
+                                je.EngineConfig(cache_dtype=jnp.float32, tp=tp, pp=pp, max_slots=4, max_len=96,
                                                 prefill_buckets=(32, 64), decode_window=4, window_pipeline_depth=1,
                                                 kv_layout=layout, kv_block_size=16), eos_token_id=EOS)
-    assert engine.mesh is not None
+    assert (engine.mesh is not None) == (tp * pp > 1)
     futures = [engine.submit(je.GenRequest(list(p), je.SamplingParams(temperature=0.0, max_tokens=10)))
                for p in prompts]
     return [{"tokens": r.token_ids, "logprobs": r.logprobs, "finish": r.finish_reason} for r in drain(engine, futures)]
@@ -222,19 +225,28 @@ def test_tp_engine_with_kv_heads_that_do_not_split(tmp_path):
     ref = drive(one, params, w, push=False)
     assert_same(ranks[0]["greedy"], ref["greedy"])
     assert_same(ranks[0]["after_push"], ref["after_push"])
-    assert_same(ranks[0]["greedy"], jax_tp2_greedy(params_np, {**KW, **shape}, "slab", w["greedy"], 1.0))
+    assert_same(ranks[0]["greedy"], jax_greedy(params_np, {**KW, **shape}, "slab", w["greedy"], 1.0))
 
 
-def test_tp_engine_refuses_heads_that_do_not_split():
-    """H 6 over tp 4 raises, naming why (``tt.tp_heads``); the JAX engine's
-    GSPMD accepts such a mesh (``test_torch_tensor_parallel``)."""
-    from pipelinerl_tpu_torch.inference.tp_ranks import EngineWorld
-
-    cfg = tt.ModelConfig(**{**KW, "num_heads": 6, "num_kv_heads": 2, "hidden_size": 48}, dtype=torch.float32)
-    params = tt.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
-    with pytest.raises(ValueError, match="num_heads 6 does not split over tp=4"):
-        te.InferenceEngine(params, cfg, engine_cfg("slab"), eos_token_id=EOS, device="cpu",
-                           tp_world=EngineWorld(1, 4, None, None, None))
+def test_tp_engine_refuses_heads_that_do_not_split(tmp_path):
+    """H 6 (K 2) over tp 4, which the port once refused: the ranks hold 2,
+    2, 1 and 1 query heads (``tt.tp_heads``) and caches of 1, 2, 1 and 1
+    KV heads; greedy tokens equal the port's at tp 1 and the JAX engine's
+    at tp 4 (GSPMD reshards its flat head columns), logprobs within
+    ``LP_ATOL``; every rank read back the same windows."""
+    shape = {"num_heads": 6, "num_kv_heads": 2, "hidden_size": 48}
+    ranks, params_np, w = tp_world_run(tmp_path, "slab", shape, n=4)
+    assert [r["cache_heads"] for r in ranks] == [1, 2, 1, 1]
+    assert [r["wq"] for r in ranks] == [(2, 48, 16), (2, 48, 16), (2, 48, 8), (2, 48, 8)]
+    assert len({r["digest"] for r in ranks}) == 1 and ranks[0]["digest"] != 0
+    cfg = tt.ModelConfig(**{**KW, **shape}, dtype=torch.float32)
+    params = tt.params_from_numpy(params_np, cfg, "cpu")
+    one = te.InferenceEngine(params, cfg, engine_cfg("slab"), eos_token_id=EOS, device="cpu")
+    ref = drive(one, params, w, push=False)
+    assert_same(ranks[0]["greedy"], ref["greedy"])
+    assert_same(ranks[0]["after_push"], ref["after_push"])
+    assert ranks[0]["version"] == PUSH_VERSION
+    assert_same(ranks[0]["greedy"], jax_greedy(params_np, {**KW, **shape}, "slab", w["greedy"], 1.0, tp=4))
 
 
 def test_dry_run_lists_engine_and_trainer_ranks_on_their_slots(tmp_path, monkeypatch):

@@ -3,8 +3,9 @@ the rule table's dp and tp cuts and their round trip, Megatron's f and g
 operators, the vocabulary-parallel statistics of the loss, one
 ``TrainerLoop`` step at tp 2, dp 2 x tp 2 and cp 2 x tp 2 (LoRA included)
 against JAX's ``TrainerLoop`` on a mesh of virtual CPU devices, a model
-whose K does not split over tp, and the ``H % tp`` refusal beside JAX
-accepting it.
+whose K does not split over tp, one whose H does not split over tp 4 (the
+forward and a step against JAX's GSPMD resharding, a tp 4 world's
+checkpoint through the gather of unequal head pieces).
 
 Each world is ``parallel.multihost.run_world``: one CPU process per rank
 (one torch thread, a timeout) that imports this module for its rank
@@ -262,9 +263,9 @@ def jax_adapters(params_np: dict) -> dict:
 
 def test_uneven_kv_heads_at_tp(tmp_path):
     """K 1 over tp 2 (and K 3 over tp 2, H 6): each rank holds the KV heads
-    its query heads read from the whole ``wk``/``wv``; one step matches
-    JAX's mesh (its cache spec replicates such heads, and GSPMD reshards the
-    weights)."""
+    its query heads read from the whole ``wk``/``wv``; the forward logits and
+    one step match JAX's mesh (its cache spec replicates such heads, and
+    GSPMD reshards the weights)."""
     run_uneven(tmp_path, dict(num_heads=4, num_kv_heads=1))
     run_uneven(tmp_path / "k3", dict(num_heads=6, num_kv_heads=3, hidden_size=48))
 
@@ -276,8 +277,14 @@ def _rank_uneven(rank, n, data, out, shape):
     d = torch.load(data, weights_only=False)
     cfg = tt.ModelConfig(**{**TINY, **shape}, dtype=torch.float32)
     mesh = make_mesh(1, 1, n)
-    kv = tt.replicate_kv(cfg, n)
-    shards = sharding.shard_params(tt.params_from_numpy(d["params"], cfg, "cpu"), mesh, kv)
+    kv = sharding.tp_cut(cfg, n)
+    full = tt.params_from_numpy(d["params"], cfg, "cpu")
+    tp = tp_context(mesh)
+    batch = {k: torch.from_numpy(d["batch"][k]) for k in ("input_ids", "position_ids", "segment_ids")}
+    with torch.no_grad():
+        logits = collectives.gather_vocab(tt.forward(sharding.tp_local(full, rank, n, kv), cfg, batch["input_ids"],
+                                                     batch["position_ids"], batch["segment_ids"], tp=tp), tp)
+    shards = sharding.shard_params(full, mesh, kv)
     for _, p in param_leaves(shards):
         p.requires_grad_(True)
 
@@ -289,15 +296,18 @@ def _rank_uneven(rank, n, data, out, shape):
     full = sharding.unshard_params(shards, mesh, kv)
     if rank == 0:
         torch.save({"loss": float(loss), "grad_norm": float(metrics["grad_norm"]), "wk": tuple(shards["layers"]["wk"].shape),
-                    "params": {k: v.numpy() for k, v in param_leaves(full)}}, f"{out}/rank0.pt")
+                    "params": {k: v.numpy() for k, v in param_leaves(full)}, "logits": logits.numpy()},
+                   f"{out}/rank0.pt")
 
 
-def run_uneven(tmp_path: Path, shape: dict) -> None:
+def run_uneven(tmp_path: Path, shape: dict, tp: int = 2) -> None:
+    """One forward and one AdamW step on ``tp`` ranks against JAX's tp
+    mesh: logits, loss, grad norm and every updated param within 1e-5."""
     import jax
     import jax.numpy as jnp
     import optax
 
-    from pipelinerl_tpu.models.transformer import ModelConfig, init_params
+    from pipelinerl_tpu.models.transformer import ModelConfig, forward, init_params
     from pipelinerl_tpu.parallel import make_mesh as j_mesh, make_sharded_train_step as j_step, shard_batch as j_sb
     from pipelinerl_tpu.parallel import shard_params as j_shard
     from pipelinerl_tpu.train.rl_loss import RLLossConfig
@@ -308,12 +318,15 @@ def run_uneven(tmp_path: Path, shape: dict) -> None:
     params = jax.tree.map(np.asarray, init_params(jax.random.key(0), jcfg))
     batch = tiny_batch(2, 32, np.random.default_rng(0))
     torch.save({"params": params, "batch": batch}, tmp_path / "data.pt")
-    world("_rank_uneven", 2, data=str(tmp_path / "data.pt"), out=str(tmp_path), shape=shape)
+    world("_rank_uneven", tp, data=str(tmp_path / "data.pt"), out=str(tmp_path), shape=shape)
     got = torch.load(tmp_path / "rank0.pt", weights_only=False)
-    mesh = j_mesh(n_devices=2, tp=2)
+    mesh = j_mesh(n_devices=tp, tp=tp)
     optimizer = optax.adamw(1e-3)
     step = j_step(jcfg, RLLossConfig(batch_size=2), optimizer, max_step=10, remat=False)
     jp = j_shard(jax.tree.map(jnp.asarray, params), mesh)
+    with mesh:
+        logits = forward(jp, jcfg, *(jnp.asarray(batch[k]) for k in ("input_ids", "position_ids", "segment_ids")))
+    np.testing.assert_allclose(got["logits"], np.asarray(logits), rtol=RTOL, atol=ATOL)
     with mesh:
         jp, _, loss, metrics = step(jp, jax.jit(optimizer.init)(jp), j_sb(batch, mesh), jnp.zeros(()),
                                     jnp.asarray(0.0))
@@ -324,24 +337,79 @@ def run_uneven(tmp_path: Path, shape: dict) -> None:
         np.testing.assert_allclose(got["params"][name], ref, rtol=RTOL, atol=ATOL, err_msg=name)
 
 
-def test_heads_that_do_not_split_raise_where_jax_reshards():
-    """H 6 over tp 4: the port refuses, naming why; JAX's GSPMD takes the
-    same model on a tp 4 mesh and reshards the heads."""
+UNEVEN_HEADS = {"num_heads": 6, "num_kv_heads": 2, "hidden_size": 48}
+
+
+def test_heads_that_do_not_split_raise_where_jax_reshards(tmp_path):
+    """H 6 over tp 4, where the port once refused and JAX's GSPMD reshards
+    the flat head columns: the ranks hold contiguous blocks of 2, 2, 1 and 1
+    query heads (at G 2, 1, 1, 1 over the KV heads they read), and the
+    forward logits and one step's loss, grad norm and params are within
+    1e-5 of JAX's tp 4 mesh."""
+    cfg = tt.ModelConfig(**{**TINY, **UNEVEN_HEADS}, dtype=torch.float32)
+    assert [tt.tp_heads(cfg, collectives.TP(None, r, 4)) for r in range(4)] == [(2, [0]), (2, [0, 1]), (1, [1]),
+                                                                                (1, [1])]
+    assert sharding.tp_cut(cfg, 4).sizes("wq", 4) == [16, 16, 8, 8]
+    run_uneven(tmp_path, UNEVEN_HEADS, tp=4)
+
+
+def _rank_uneven_ckpt(rank, n, exp, data, out, steps, resume):
+    set_streams_backend("files")
+    from test_torch_trainer_world import OVERRIDES
+
+    cfg = compose("bandit_cpu", [f"output_dir={exp}", *OVERRIDES, f"parallel.tp={n}",
+                                 "finetune.save_checkpoint_steps=1"])
+    model_cfg = tt.ModelConfig(**{**TINY, **UNEVEN_HEADS}, dtype=torch.float32)
+    trainer = TrainerLoop(cfg, tt.params_from_numpy(torch.load(data, weights_only=False), model_cfg, "cpu"),
+                          model_cfg, exp)
+    if resume:
+        assert trainer.try_resume()
+    else:
+        trainer.run(max_steps=steps)
+    named, state = trainer.gathered_state()
+    if rank == 0:
+        torch.save({"params": {k: v.numpy() for k, v in named}, "metrics": trainer.metrics.__dict__,
+                    "exp_avg": {i: s["exp_avg"].numpy() for i, s in state["state"].items()}}, f"{out}/rank0.pt")
+    torch.save({"wq": tuple(trainer.params["layers"]["wq"].shape)}, f"{out}/shape{rank}.pt")
+
+
+def test_tp4_checkpoint_with_heads_that_do_not_split(tmp_path):
+    """A tp 4 world at H 6 saves after one step through the gather of
+    unequal head pieces (rank 0 writes it); a second tp 4 world and a single
+    process each resume it: the same params and Adam moments, bit for bit;
+    the saved params are one step away from the initial ones."""
     import jax
-    import jax.numpy as jnp
 
-    from pipelinerl_tpu.models.transformer import ModelConfig, forward, init_params
-    from pipelinerl_tpu.parallel import make_mesh as j_mesh, shard_params as j_shard
+    from pipelinerl_tpu.models.transformer import ModelConfig, init_params
+    from test_torch_trainer_world import OVERRIDES, write_rows
 
-    shape = {**TINY, "num_heads": 6, "num_kv_heads": 2, "hidden_size": 48}
-    cfg = tt.ModelConfig(**shape, dtype=torch.float32)
-    with pytest.raises(ValueError, match="num_heads 6 does not split over tp=4"):
-        tt.tp_heads(cfg, collectives.TP(None, 0, 4))
-    jcfg = ModelConfig(**shape, dtype=jnp.float32)
-    params = j_shard(init_params(jax.random.key(0), jcfg), j_mesh(n_devices=4, tp=4))
-    ids = jnp.ones((1, 8), jnp.int32)
-    logits = forward(params, jcfg, ids, jnp.arange(8)[None], jnp.zeros((1, 8), jnp.int32))
-    assert logits.shape == (1, 8, 128) and bool(jnp.isfinite(logits).all())
+    exp = tmp_path / "port"
+    write_rows(exp, 4, 1)
+    params_np = jax.tree.map(np.asarray, init_params(jax.random.key(0), ModelConfig(**{**TINY, **UNEVEN_HEADS},
+                                                                                   dtype=np.float32)))
+    torch.save(params_np, tmp_path / "params.pt")
+    for name, steps, resume in (("a", 1, False), ("b", 0, True)):
+        (tmp_path / name).mkdir()
+        world("_rank_uneven_ckpt", 4, exp=str(exp), data=str(tmp_path / "params.pt"), out=str(tmp_path / name),
+              steps=steps, resume=resume)
+    a, b = (torch.load(tmp_path / x / "rank0.pt", weights_only=False) for x in "ab")
+    assert [torch.load(tmp_path / "a" / f"shape{r}.pt")["wq"] for r in range(4)] == [(2, 48, 16)] * 2 + [(2, 48, 8)] * 2
+    assert a["metrics"]["completed_steps"] == 1 and b["metrics"]["completed_steps"] == 1
+    assert sorted(a["params"]) == sorted(name for name, _ in param_leaves(tt.params_from_numpy(
+        params_np, tt.ModelConfig(**{**TINY, **UNEVEN_HEADS}, dtype=torch.float32), "cpu")))
+    assert a["params"]["layers.wq"].shape == params_np["layers"]["wq"].shape
+    assert not np.array_equal(a["params"]["layers.wq"], params_np["layers"]["wq"])
+    for name in a["params"]:
+        np.testing.assert_array_equal(b["params"][name], a["params"][name])
+    for i in a["exp_avg"]:
+        np.testing.assert_array_equal(b["exp_avg"][i], a["exp_avg"][i])
+    set_streams_backend("files")
+    cfg = compose("bandit_cpu", [f"output_dir={exp}", *OVERRIDES])
+    model_cfg = tt.ModelConfig(**{**TINY, **UNEVEN_HEADS}, dtype=torch.float32)
+    trainer = TrainerLoop(cfg, tt.params_from_numpy(params_np, model_cfg, "cpu"), model_cfg, str(exp))
+    assert trainer.try_resume() and trainer.metrics.completed_steps == 1
+    for name, p in param_leaves(trainer.params):
+        np.testing.assert_array_equal(p.detach().numpy(), a["params"][name])
 
 
 def test_tp_world_checkpoint_saves_and_resumes(tmp_path):

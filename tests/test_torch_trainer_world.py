@@ -4,8 +4,8 @@
 a world's checkpoint saved and resumed (by a world and by one process);
 ``gather_for_push`` against the unsharded params; the WorldMap's trainer
 jobs and the split layout's start scripts against JAX's; the preprocessor's
-partitions per dp rank; and the refusals of pp, which name item 15, beside
-the tp layouts that replaced the tp refusals."""
+partitions per dp rank; and ``parallel.pp`` and ``engine.pp``, once
+refused, beside the tp layouts that replaced the tp refusals."""
 
 import json
 from pathlib import Path
@@ -232,19 +232,39 @@ def test_preprocessor_writes_one_partition_per_dp_rank(tmp_path):
 
 @pytest.mark.parametrize("where", ["trainer_tp", "trainer_pp", "engine_tp", "engine_pp", "worldmap"])
 def test_tp_and_pp_refusals_name_item_15(tmp_path, where):
-    """pp above 1 still raises, naming item 15, in the trainer, the engine
-    and the WorldMap; tp is ported: a trainer world of dp*cp*tp ranks, an
-    engine of tp rank jobs (rank 0 alone an HTTP URL; one process without
-    its rank world is refused, naming the rank processes)."""
+    """The layouts once refused, each as the JAX package runs it: the
+    trainer at ``parallel.pp=2`` trains as at pp 1 (neither package reads
+    it) and matches JAX's TrainerLoop; ``engine.pp`` and ``engine.tp`` lay
+    out engines of rank jobs (rank 0 alone an HTTP URL; one process without
+    its rank world is refused, naming the rank processes); a trainer world
+    of dp*cp*tp ranks; the WorldMap at ``parallel.pp=2`` is JAX's."""
     from pipelinerl_tpu_torch.launch import build_engine, validate_config
     from pipelinerl_tpu_torch.train.trainer import parallel_shape
 
     if where == "trainer_pp":
         cfg = compose("bandit_cpu", [f"output_dir={tmp_path}", "+parallel.pp=2"])
-        with pytest.raises(NotImplementedError, match="item 15"):
-            TrainerLoop(cfg, {"embed": torch.zeros(2, 2)}, None, str(tmp_path))
-        with pytest.raises(NotImplementedError, match="item 15"):
-            validate_config(cfg)
+        validate_config(cfg)
+        assert parallel_shape(cfg, 1) == (1, 1, 1)
+        got = {}
+        for pp in (2, 1):
+            exp = tmp_path / f"port_pp{pp}"
+            write_rows(exp, 8, 1)
+            cfg = compose("bandit_cpu", [f"output_dir={exp}", *OVERRIDES, f"+parallel.pp={pp}"])
+            model_cfg = tt.ModelConfig(**TINY, dtype=torch.float32)
+            trainer = TrainerLoop(cfg, tt.params_from_numpy(tiny_params_np(), model_cfg, "cpu"), model_cfg, str(exp))
+            trainer.run(max_steps=2)
+            got[pp] = (trainer.metrics, {k: v.detach().numpy() for k, v in param_leaves(trainer.params)})
+        (m, params), (m1, params1) = got[2], got[1]
+        assert (m.completed_steps, m.samples, m.train_loss, m.grad_norm) == (m1.completed_steps, m1.samples,
+                                                                             m1.train_loss, m1.grad_norm)
+        for name, p in params.items():
+            np.testing.assert_array_equal(p, params1[name])
+        ref_metrics, ref_params = jax_mesh_trainer(tmp_path, ["parallel.pp=2"])
+        assert (m.completed_steps, m.samples) == (ref_metrics.completed_steps, ref_metrics.samples) == (2, 16)
+        np.testing.assert_allclose(m.train_loss, ref_metrics.train_loss, rtol=RTOL, atol=1e-7)
+        np.testing.assert_allclose(m.grad_norm, ref_metrics.grad_norm, rtol=RTOL)
+        for name, ref in ref_params.items():
+            np.testing.assert_allclose(params[name], ref, rtol=RTOL, atol=ATOL, err_msg=name)
     elif where == "trainer_tp":
         cfg = compose("bandit_cpu", [f"output_dir={tmp_path}", "+parallel.tp=2"])
         validate_config(cfg)
@@ -253,7 +273,12 @@ def test_tp_and_pp_refusals_name_item_15(tmp_path, where):
             parallel_shape(cfg, 1)
     elif where == "engine_pp":
         cfg = compose("bandit_cpu", [f"output_dir={tmp_path}", "+engine.pp=2"])
-        with pytest.raises(NotImplementedError, match="item 15"):
+        validate_config(cfg)
+        wm = WorldMap(Config(dict(cfg.to_dict(), launch_mode="processes")))
+        assert [(j.kind, j.extra.get("tp_rank"), j.extra.get("pp_size")) for j in wm.jobs if "engine" in j.kind] == [
+            ("engine", 0, 2), ("engine_rank", 1, 2)]
+        assert wm.llm_urls == ["http://127.0.0.1:8080"] and wm.trainer_procs == 1
+        with pytest.raises(ValueError, match="engine.pp=2 runs as 2 engine rank processes"):
             build_engine(cfg, {}, None, None, "cpu")
     elif where == "engine_tp":
         cfg = compose("bandit_cpu", [f"output_dir={tmp_path}", "+engine.tp=2"])
@@ -268,8 +293,12 @@ def test_tp_and_pp_refusals_name_item_15(tmp_path, where):
         cfg = compose("bandit_cpu", [f"output_dir={tmp_path}", "launch_mode=processes", "+parallel.tp=2"])
         wm = WorldMap(cfg)
         assert [j.extra["num_processes"] for j in wm.jobs_of("trainer")] == [2, 2] and wm.num_trainers == 1
-        with pytest.raises(NotImplementedError, match="item 15"):
-            WorldMap(compose("bandit_cpu", [f"output_dir={tmp_path}", "launch_mode=processes", "+parallel.pp=2"]))
+        from pipelinerl_tpu.config import compose as j_compose
+        from pipelinerl_tpu.world import WorldMap as JWorldMap
+
+        ov = [f"output_dir={tmp_path}", "launch_mode=processes", "+parallel.pp=2"]
+        port, ref = WorldMap(compose("bandit_cpu", ov)), JWorldMap(j_compose("conf", "bandit_cpu", ov))
+        assert port.to_config() == ref.to_config() and port.num_trainers == ref.num_trainers
 
 
 def test_tir_preset_validates_and_dry_runs_eight_ranks(tmp_path, monkeypatch):

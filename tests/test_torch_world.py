@@ -3,7 +3,7 @@
 partitions for the same world settings, on one host and over host lists
 (round-robin placement, the stream hub, environment replicas, the
 actor/finetune host split, a trainer world of two processes);
-``parallel.pp`` > 1 raises with its ROADMAP item."""
+``parallel.pp`` above 1, which neither package reads."""
 
 import pytest
 
@@ -66,10 +66,14 @@ def test_worldmap_equals_jax(name):
     assert [j.is_local for j in port.jobs] == [j.is_local for j in ref.jobs]
 
 
-@pytest.mark.parametrize("overrides,item", [
-    (["+parallel.pp=2"], "item 15"),
+@pytest.mark.parametrize("overrides,same_as", [
+    (["+parallel.pp=2"], []),
 ])
-def test_unported_layouts_raise(overrides, item):
-    cfg = compose("bandit_cpu", [*overrides, "output_dir=/tmp/unused", "launch_mode=processes"])
-    with pytest.raises(NotImplementedError, match=item):
-        WorldMap(cfg)
+def test_unported_layouts_raise(overrides, same_as):
+    """The layouts the port once refused: ``parallel.pp=2`` lays out the
+    jobs that JAX's WorldMap lays out for it, and that either package lays
+    out without it (the JAX package reads no ``parallel.pp``)."""
+    cfg, jcfg = pair(overrides)
+    port, ref = WorldMap(cfg), JWorldMap(jcfg)
+    assert port.to_config() == ref.to_config() == WorldMap(pair(same_as)[0]).to_config()
+    assert port.llm_urls == ref.llm_urls and port.num_trainers == ref.num_trainers
