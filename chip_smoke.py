@@ -180,11 +180,15 @@ Phases, each of which stops the script on failure:
    chartqa preset's serving and training shapes with the cuts in
    ``VLM_CUTS`` and Qwen2.5-VL-3B's published ``preprocessor_config.json``:
    (a) chartqa prompts with raw 600x800, 900x900 and 780x1,000 RGB images,
-   each sent as a PNG data URL (``multimodal_message``) and decoded,
-   resized and patchified by the port's image pipeline into 609, 1,024 and
-   1,008 merged tokens (a data URL's features equal its array's bit for
-   bit; each prompt carries t*h*w/4 image pads; host seconds per size
-   logged), all finish, the VLM prefill on #2 at Dh 128; (b) the
+   the first group's sent as a PNG data URL (``multimodal_message``), the
+   others' as the committed JPEGs (a baseline 4:2:0 chart at 900x900, a
+   progressive 4:4:4 one at 780x1,000), decoded, resized and patchified by
+   the port's image pipeline into 609, 1,024 and 1,008 merged tokens (each
+   size's PNG data URL's features equal its array's bit for bit, each
+   JPEG decodes to PIL's RGB, its committed SHA-256, and its data URL's
+   features equal its pixels'; each prompt carries t*h*w/4 image pads;
+   host seconds per image logged), all finish, the VLM prefill on #2 at
+   Dh 128; (b) the
    engine's logprobs of 4 completions against the trainer's forward of the
    same spliced [1, 8,192] rows; (c) a step on those rows (vlm_bandit's
    reward), #2-#4 launched, the tower's gradients nonzero; (d) the
@@ -255,7 +259,21 @@ Phases, each of which stops the script on failure:
    against one rank under phase 28's near-tie rule with at least 19 of 24
    equal, launches on every rank; (c) also one pass of an L 4,096 row and
    one AdamW step at ``parallel.tp=4`` held against one rank as phase 28's
-   (c).
+   (c);
+30. Llama-3.2-1B width (the published ``config.json``: V 128,256, D 2,048,
+   F 8,192, 16 layers, H 32, K 8, Dh 64, tied, its ``rope_scaling`` unread
+   as in JAX) from an ``export_hf`` directory of random bf16 weights with
+   the committed Llama-3-style tokenizer (its specials at 128,000-128,255,
+   the padded-vocabulary guard over the rest): the ``test`` preset through
+   ``launch`` for 2 steps in a child process (engine prefill and decode,
+   the trainer's steps, the pushes; after 28 (d), beside phases 18-23),
+   #1-#4 launched, prompts that open with ``<|begin_of_text|>``; the
+   committed tokenizer families (Llama 3, SentencePiece with
+   Prepend/Replace and with Metaspace) give AutoTokenizer's committed ids
+   for fixed chats and prompts (BOS added), and ``decode_jpeg`` gives PIL's
+   RGB of the committed JPEGs. Then #1 at its slab, #2 at its prefill
+   bucket and #2-#4 on a row it trained on, at H 32, K 8 (G 4), Dh 64,
+   against their plain versions and timed beside SDPA and their bounds.
 Then one JSON line of kernel numbers, and last the result line.
 
 ``python3 chip_smoke.py --http-load URL N TOKENS OUT`` and
@@ -268,7 +286,10 @@ ranks (N=4 on a host with four cards, over NCCL); ``python3 chip_smoke.py
 ``python3 chip_smoke.py --tp-world`` runs phase 28 alone after phases 1-2;
 ``python3 chip_smoke.py --pp-rank PART RANK WORLD HOST:PORT DIR HF_DIR`` is
 a rank of phase 29, and ``python3 chip_smoke.py --pp-world`` runs phase 29
-alone after phases 1-2.
+alone after phases 1-2; ``python3 chip_smoke.py --llama3-run WORK OUT`` is
+phase 30's child, and ``python3 chip_smoke.py --llama3`` runs phase 30 alone
+after phases 1-2; ``python3 chip_smoke.py --profile-study N`` runs phase 19 N
+times beside 27 (d) after phases 1-2 (ROADMAP Queue 3's profiler study).
 
 It needs a CUDA device and raises without one; it never falls back to the CPU.
 """
@@ -276,8 +297,10 @@ It needs a CUDA device and raises without one; it never falls back to the CPU.
 from __future__ import annotations
 
 import asyncio
+import base64
 import dataclasses
 import gc
+import hashlib
 import json
 import math
 import os
@@ -3235,6 +3258,13 @@ def start_launch(cmd: list[str], out: str) -> tuple[subprocess.Popen, float]:
     return proc, t0
 
 
+def job_logs(exp: str, chars: int = 2000) -> str:
+    """The end of each job log a processes-mode run wrote under
+    ``<exp>/logs/``, for a failure's message."""
+    return "\n".join(f"--- {p.name}: {p.read_text(errors='replace')[-chars:]}"
+                     for p in sorted(Path(exp, "logs").glob("*.out")))
+
+
 def finish_launch(run: tuple[subprocess.Popen, float], exp: str, out: str, timeout: float) -> tuple[int, str, str,
                                                                                                      float, list]:
     """Wait for a ``start_launch`` run, then kill what it left; → (exit
@@ -3336,6 +3366,10 @@ QWEN25VL3B_CONFIG = {
 # GB a layer (the next bucket, 4,096 tokens, would hold 17.2 GB)
 VLM_SIZES = [(600, 800), (900, 900), (780, 1000)]
 VLM_GRIDS = [(1, 42, 58), (1, 64, 64), (1, 56, 72)]
+# the groups of these sizes send committed JPEGs (chart images; a baseline
+# 4:2:0 file and a progressive 4:4:4 one, ``tests/test_torch_jpeg.py``
+# builds them) as data URLs; the image gates run PNG at all three sizes
+VLM_JPEGS = {(900, 900): "chart_900x900_baseline_420.jpg", (780, 1000): "chart_780x1000_progressive_444.jpg"}
 # Qwen2.5-VL-3B-Instruct's published preprocessor_config.json
 QWEN25VL3B_PREPROCESSOR = {
     "min_pixels": 3136, "max_pixels": 12845056, "patch_size": 14, "temporal_patch_size": 2, "merge_size": 2,
@@ -3474,15 +3508,25 @@ def vlm_first_token_reward(problem: dict, token_ids: list[int], vocab: int) -> t
 def vlm_problems(n_groups: int) -> list[dict]:
     """chartqa problems over raw uint8 RGB images, one of ``VLM_SIZES``
     each: noise N(0, 40) about a grey of 128 plus 48 times a sign that
-    vlm_bandit's reward reads."""
+    vlm_bandit's reward reads (also under ``noise``). The groups of
+    ``VLM_JPEGS``' sizes carry the committed JPEG instead, as a pre-built
+    message with its data URL (and its decoded pixels under ``image``)."""
+    from pipelinerl_tpu_torch.inference.image_pipeline import decode_jpeg
+
     rng = np.random.default_rng(0)
     problems = []
     for g in range(n_groups):
         h, w = VLM_SIZES[g % len(VLM_SIZES)]
         sign = 1 if g % 2 == 0 else -1
         pixels = np.clip(rng.normal(128 + 48 * sign, 40, (h, w, 3)), 0, 255).astype(np.uint8)
-        problems.append({"question": f"What is the value of bar {g}?", "answer": str(g), "sign": sign,
-                         "image": pixels})
+        problem = {"question": f"What is the value of bar {g}?", "answer": str(g), "sign": sign, "image": pixels,
+                   "noise": pixels}
+        if (h, w) in VLM_JPEGS:
+            data = (FIXTURE_TOKENIZER.parent / "jpeg" / VLM_JPEGS[h, w]).read_bytes()
+            url = "data:image/jpeg;base64," + base64.b64encode(data).decode()
+            problem.update(image=decode_jpeg(data), jpeg=VLM_JPEGS[h, w], message={"role": "user", "content": [
+                {"type": "image_url", "image_url": {"url": url}}, {"type": "text", "text": problem["question"]}]})
+        problems.append(problem)
     return problems
 
 
@@ -3490,16 +3534,18 @@ def check_image_route(hf_dir: Path, problems: list[dict], tok, smi: str) -> dict
     """Phase 26's image gates: each size goes through ``multimodal_message``
     as a PNG data URL and through ``HFVisualProcessor``; its features equal
     those of the same array bit for bit, and its grid is the one
-    ``smart_resize`` gives. Logs each size's host seconds (encode, decode,
-    preprocess). Returns {size: grid}."""
+    ``smart_resize`` gives. Then each JPEG group's data URL: its decode is
+    PIL's RGB (the committed SHA-256) and its features are its pixels'.
+    Logs each image's host seconds (encode, decode, preprocess). Returns
+    {size: grid}."""
     from pipelinerl_tpu_torch.domains.chartqa.chartqa import multimodal_message
-    from pipelinerl_tpu_torch.inference.image_pipeline import ImageProcessor, decode_png
+    from pipelinerl_tpu_torch.inference.image_pipeline import ImageProcessor, decode_image, decode_png
     from pipelinerl_tpu_torch.inference.processor import HFVisualProcessor, image_source
 
     image_proc = ImageProcessor.from_pretrained(hf_dir)
     grids = {}
     for size, grid in zip(VLM_SIZES, VLM_GRIDS):
-        image = next(p["image"] for p in problems if p["image"].shape[:2] == size)
+        image = next(p["noise"] for p in problems if p["noise"].shape[:2] == size)
         t0 = time.monotonic()
         url_msg = multimodal_message(image, "q")
         t1 = time.monotonic()
@@ -3520,6 +3566,30 @@ def check_image_route(hf_dir: Path, problems: list[dict], tok, smi: str) -> dict
               and np.array_equal(from_url["pixel_values"], pixels),
               f"the {size} data URL's features differ from the array's")
         grids[size] = grid
+    digests = json.loads((FIXTURE_TOKENIZER.parent / "jpeg" / "digests.json").read_text())
+    checked = set()
+    for problem in problems:
+        if "jpeg" not in problem or problem["jpeg"] in checked:
+            continue
+        checked.add(problem["jpeg"])
+        part = problem["message"]["content"][0]
+        t0 = time.monotonic()
+        rgb = decode_image(image_source(part))
+        t1 = time.monotonic()
+        _, from_url = HFVisualProcessor(hf_dir, tok)([problem["message"]])
+        t2 = time.monotonic()
+        _, from_array = HFVisualProcessor(hf_dir, tok)([{"role": "user", "content": [
+            {"type": "image", "image": rgb}, {"type": "text", "text": "q"}]}])
+        size = rgb.shape[:2]
+        log(f"image {size[0]}x{size[1]}: JPEG data URL ({problem['jpeg']}, "
+            f"{len(part['image_url']['url']) / 1e6:.2f} MB) decoded in {t1 - t0:.3f} s, through the processor in "
+            f"{t2 - t1:.3f} s (host seconds) to grid {[int(x) for x in from_url['image_grid_thw'][0]]}; on {smi}")
+        check(hashlib.sha256(rgb.tobytes()).hexdigest() == digests[problem["jpeg"]],
+              f"{problem['jpeg']} does not decode to PIL's RGB")
+        check(np.array_equal(from_url["pixel_values"], from_array["pixel_values"])
+              and np.array_equal(from_url["image_grid_thw"], [grids[size]]),
+              f"the {size} JPEG data URL's features differ from its pixels'")
+    check(len(checked) == len(VLM_JPEGS), f"JPEG groups {checked}")
     return grids
 
 
@@ -4216,7 +4286,8 @@ def phase_world_launch(smi: str, tmp: str, run: tuple[subprocess.Popen, float]) 
     0. Returns the ranks' launches."""
     exp = f"{tmp}/world_launch"
     returncode, stdout, stderr, wall, left = finish_launch(run, exp, exp, 300)
-    check(returncode == 0, f"(d) the trainer world through launch exited {returncode}: {stderr[-3000:]}")
+    check(returncode == 0, f"(d) the trainer world through launch exited {returncode}: {stderr[-3000:]}\n"
+          f"{job_logs(exp)}")
     check(not left, f"(d) children outlived the launcher: {left}")
     jobs = json.loads(stdout.strip().splitlines()[-1])["jobs"]
     engine, ranks = jobs["engine_0"], [jobs["trainer_0"], jobs["trainer_1"]]
@@ -4636,16 +4707,19 @@ def phase_tp(hf_dir: Path, smi: str, tmp: str, seg: np.ndarray, padding: int) ->
     return launches, {"snapshots": snapshots, "segment_ids": seg, "padding": padding}
 
 
-def start_after(first: tuple[subprocess.Popen, float],
+def start_after(first: tuple[subprocess.Popen, float] | Callable[[], tuple | None],
                 start: Callable[[], tuple[subprocess.Popen, float]]) -> Callable[..., tuple | None]:
-    """Call ``start`` on a thread once ``first``'s process has ended. → a
-    function that waits for that call and returns its run; given
-    ``cancel=True`` it keeps the call from being made, or stops its run."""
+    """Call ``start`` on a thread once ``first``'s process has ended
+    (``first`` a run, or a function that returns one once it has started,
+    as this function's result does). → a function that waits for that call
+    and returns its run; given ``cancel=True`` it keeps the call from being
+    made, or stops its run."""
     runs: list = []
     cancelled = threading.Event()
 
     def chain() -> None:
-        while first[0].poll() is None and not cancelled.is_set():
+        run = first() if callable(first) else first
+        while run is not None and run[0].poll() is None and not cancelled.is_set():
             time.sleep(0.5)
         if not cancelled.is_set():
             runs.append(start())
@@ -4684,7 +4758,7 @@ def phase_tp_launch(smi: str, tmp: str, run: tuple[subprocess.Popen, float]) -> 
     digest, every push from trainer rank 0 lands. → the jobs' launches."""
     exp = f"{tmp}/tp_launch"
     returncode, stdout, stderr, wall, left = finish_launch(run, exp, exp, 400)
-    check(returncode == 0, f"(d) the tp run through launch exited {returncode}: {stderr[-3000:]}")
+    check(returncode == 0, f"(d) the tp run through launch exited {returncode}: {stderr[-3000:]}\n{job_logs(exp)}")
     check(not left, f"(d) children outlived the launcher: {left}")
     jobs = json.loads(stdout.strip().splitlines()[-1])["jobs"]
     engine, follower = jobs["engine_0"], jobs["engine_rank_0"]
@@ -5079,6 +5153,231 @@ def pp_main() -> None:
         log(f"phase wall: pp (a)-(c) {time.monotonic() - t0:.1f} s; launches {launches}")
 
 
+# -- phase 30: Llama-3.2-1B width; the tokenizer families and JPEG fixtures ---
+
+# Llama-3.2-1B's published config.json
+# (https://huggingface.co/meta-llama/Llama-3.2-1B/blob/main/config.json),
+# written out by hand; weights random from seed 0. Its rope_scaling
+# (rope_type llama3) is read by neither package's loader (ROADMAP Queue 3)
+LLAMA32_1B_CONFIG = {
+    "architectures": ["LlamaForCausalLM"], "attention_bias": False, "attention_dropout": 0.0, "bos_token_id": 128000,
+    "eos_token_id": 128001, "head_dim": 64, "hidden_act": "silu", "hidden_size": 2048, "initializer_range": 0.02,
+    "intermediate_size": 8192, "max_position_embeddings": 131072, "mlp_bias": False, "model_type": "llama",
+    "num_attention_heads": 32, "num_hidden_layers": 16, "num_key_value_heads": 8, "pretraining_tp": 1,
+    "rms_norm_eps": 1e-05, "rope_scaling": {"factor": 32.0, "high_freq_factor": 4.0, "low_freq_factor": 1.0,
+                                            "original_max_position_embeddings": 8192, "rope_type": "llama3"},
+    "rope_theta": 500000.0, "tie_word_embeddings": True, "torch_dtype": "bfloat16", "use_cache": True,
+    "vocab_size": 128256,
+}
+LLAMA32_1B = ModelConfig(
+    vocab_size=128_256, hidden_size=2048, intermediate_size=8192, num_layers=16, num_heads=32, num_kv_heads=8,
+    head_dim=64, rope_theta=500_000.0, rms_norm_eps=1e-5, tie_word_embeddings=True, dtype=torch.bfloat16,
+    hf_architecture="LlamaForCausalLM")
+LLAMA32_1B_PARAMS = 1_235_814_400  # the published model, tied
+LLAMA3_HEADS = (LLAMA32_1B.num_heads, LLAMA32_1B.num_kv_heads, LLAMA32_1B.head_dim_)
+FIXTURES = FIXTURE_TOKENIZER.parent
+FAMILIES = ("llama3_tokenizer", "sp_tokenizer", "sp_metaspace_tokenizer")
+# the test preset's cuts for phase 30, as phase 14 cuts it (each logged
+# beside the preset's value): 32 new tokens (500), 2 steps (100), no save,
+# an entropy bonus (0.0) so a random model's steps have a gradient, the
+# kernels' route (xla)
+LLAMA3_CUTS = {"llm.parameters.max_tokens": 32, "finetune.max_train_steps": 2, "finetune.save_checkpoint_steps": 0,
+               "finetune.rl.entropy_bonus": 0.001, "engine.attn_impl": "gqa", "finetune.attn_impl": "gqa"}
+
+
+def llama3_run_main(work: str, out: str) -> None:
+    """``python3 chip_smoke.py --llama3-run WORK OUT``: phase 30's child. An
+    HF directory at Llama-3.2-1B width (``export_hf`` of random bf16 weights
+    from seed 0 with the committed Llama-3-style tokenizer, then the
+    published ``config.json``), and the ``test`` preset through
+    ``launch.main`` on it; the result, with the kernels' launches and the
+    shapes the kernel rows need, as JSON in ``OUT``."""
+    dev = torch.device("cuda")
+    tok = HFTokenizer(FIXTURES / "llama3_tokenizer")
+    params = init_params(torch.Generator(device=dev).manual_seed(0), LLAMA32_1B, dev)
+    n_params = sum(t.numel() for _, t in param_leaves(params))
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    hf_dir = export_hf(Path(work) / "hf", params, LLAMA32_1B, tok)
+    write_s = time.monotonic() - t0
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    (hf_dir / "config.json").write_text(json.dumps(LLAMA32_1B_CONFIG, indent=2))
+    exp = str(Path(work) / "run")
+    made: list = []
+    stats, passes, shape, wall, launches = run_rows_recorded(cut_args("test", LLAMA3_CUTS, hf_dir, exp), made)
+    trainer = made[0]
+    samples = actor_samples(exp)
+    prompts = [[i for i, label in zip(s["input_ids"], s["labels"]) if label == -100] for s in samples]
+    with open(f"{exp}/metrics/trainer_0.jsonl") as f:
+        norms = [json.loads(line)["grad_norm"] for line in f]
+    seq = compose("test", ["output_dir=/x"]).finetune.seq_length
+    row = max((p for p in passes if p["length"] == seq), key=lambda p: int(p["segment_ids"].max()))
+    mc = trainer.model_cfg
+    result = {
+        "params": n_params, "bytes": (hf_dir / "model.safetensors").stat().st_size, "write_s": write_s,
+        "config": [mc.hf_architecture, mc.vocab_size, mc.valid_vocab, mc.num_layers, mc.num_heads, mc.num_kv_heads,
+                   mc.head_dim_, mc.rope_theta, mc.rms_norm_eps, mc.tie_word_embeddings],
+        "tokenizer": len(tok), "stats": stats, "wall": wall, "launches": launches, "engine": shape,
+        "passes": [{"s": p["s"], "peak": p["peak"], "length": p["length"], "step": p["step"]} for p in passes],
+        "losses": train_losses(exp), "grad_norms": norms, "sampled": sampled_ids(exp),
+        "prompt_heads": sorted({tuple(p[:2]) for p in prompts}), "prompt_lens": sorted({len(p) for p in prompts}),
+        "segment_ids": row["segment_ids"].tolist(), "padding": row["padding"],
+        "peak_gib": torch.cuda.max_memory_reserved() / 2**30,
+    }
+    Path(out).write_text(json.dumps(result))
+    exit_now()
+
+
+def start_llama3_launch(tmp: str) -> tuple[subprocess.Popen, float]:
+    """Phase 30's run in a child process (``llama3_run_main``); it goes
+    after 28 (d) beside phases 18-23, and ``phase_llama3`` reads it."""
+    work = Path(f"{tmp}/llama3")
+    work.mkdir(parents=True, exist_ok=True)
+    return start_launch([sys.executable, str(Path(__file__).resolve()), "--llama3-run", str(work),
+                         str(work / "result.json")], str(work / "child"))
+
+
+def check_fixtures(smi: str) -> None:
+    """Phase 30's host checks: the committed tokenizer families give the
+    ids ``AutoTokenizer`` gave for the committed chats and prompts (the
+    prompts with BOS where transformers adds it), and ``decode_jpeg`` of
+    the committed JPEGs gives the SHA-256 of PIL's RGB."""
+    from pipelinerl_tpu_torch.inference.image_pipeline import decode_jpeg
+
+    committed = json.loads((FIXTURES / "tokenizer_ids.json").read_text(encoding="utf-8"))
+    for name in FAMILIES:
+        tok = HFTokenizer(FIXTURES / name)
+        chats = committed["messages"]["llama3" if name == "llama3_tokenizer" else "mistral"]
+        t0 = time.monotonic()
+        got = {chat: tok.apply_chat_template(messages, add_generation_prompt=True, date_string=committed["date_string"],
+                                             tools=committed["tools"] if chat == "tool_call" else None)
+               for chat, messages in chats.items()}
+        encoded = [tok.encode(p) for p in committed["prompts"]]
+        spent = time.monotonic() - t0
+        want = committed["ids"][name]
+        log(f"tokenizer {name} ({len(tok)} entries, bos {tok.bos_token_id}, eos {tok.eos_token_id}): "
+            f"{len(got)} chats ({sum(map(len, got.values()))} ids) and {len(encoded)} prompts equal AutoTokenizer's "
+            f"committed ids: {got == want['chat'] and encoded == want['encode']}, in {spent:.3f} host s")
+        check(got == want["chat"], f"{name}: the chat ids differ from AutoTokenizer's")
+        check(encoded == want["encode"] and all(ids[0] == tok.bos_token_id for ids in encoded),
+              f"{name}: encode differs from AutoTokenizer's or adds no BOS")
+    digests = json.loads((FIXTURES / "jpeg" / "digests.json").read_text())
+    for name, digest in digests.items():
+        data = (FIXTURES / "jpeg" / name).read_bytes()
+        t0 = time.monotonic()
+        rgb = decode_jpeg(data)
+        spent = time.monotonic() - t0
+        same = hashlib.sha256(rgb.tobytes()).hexdigest() == digest
+        log(f"JPEG {name} ({len(data)} bytes): decode_jpeg to {rgb.shape[0]}x{rgb.shape[1]} in {spent:.3f} host s, "
+            f"its SHA-256 equal to PIL's RGB: {same}; on {smi}")
+        check(same, f"{name} does not decode to PIL's RGB")
+
+
+def phase_llama3(smi: str, tmp: str, run: tuple[subprocess.Popen, float]) -> tuple[dict, dict]:
+    """Phase 30: ``start_llama3_launch``'s run, the ``test`` preset at
+    Llama-3.2-1B width for 2 steps (engine prefill and decode, the
+    trainer's steps, the pushes); then the fixtures on this host. Returns
+    (launches, the shapes the kernel rows need)."""
+    work = f"{tmp}/llama3"
+    returncode, stdout, stderr, wall, left = finish_launch(run, work, f"{work}/child", 900)
+    check(returncode == 0, f"phase 30's child exited {returncode}: {(stdout + stderr)[-3000:]}")
+    r = json.loads(Path(f"{work}/result.json").read_text())
+    for line in stdout.splitlines():
+        if "preset cuts" in line:
+            log(line.split("] ", 1)[-1] if line.startswith("[") else line)
+    stats, actor = r["stats"], r["stats"]["actor"]
+    rows = [p for p in r["passes"] if p["length"] == compose("test", ["output_dir=/x"]).finetune.seq_length]
+    log(f"Llama-3.2-1B width (tied, bf16, {r['params']:,} params): export_hf wrote {r['bytes']} bytes in "
+        f"{r['write_s']:.1f} s; read back as {r['config']} with the {r['tokenizer']}-entry Llama-3-style tokenizer")
+    log(f"test preset at Llama-3.2-1B width through launch.main (2 steps): {r['wall']:.1f} s wall, "
+        f"{actor['samples_written']} samples, {actor['output_tokens']} sampled tokens, "
+        f"{actor['output_tokens'] / r['wall']:.1f} useful tokens/s; engine S {r['engine'][0]} W {r['engine'][1]} "
+        f"T_alloc {r['engine'][2]}; prompt lengths {r['prompt_lens']}, first ids {r['prompt_heads']}; "
+        f"{len(rows)} passes at L {rows[0]['length'] if rows else '-'}: {[round(p['s'] * 1e3, 1) for p in rows]} ms, "
+        f"peak {[round(p['peak'] / 2**30, 2) for p in rows]} GiB (child's peak reserved {r['peak_gib']:.2f} GiB); "
+        f"losses {r['losses']}, grad norms {r['grad_norms']}, version {stats['trainer']['last_broadcasted_version']}; "
+        f"max sampled id {max(r['sampled'])} (valid_vocab {r['config'][2]}); launches {r['launches']}; child wall "
+        f"{wall:.1f} s; on {smi}")
+    check(r["params"] == LLAMA32_1B_PARAMS, f"{r['params']:,} params, Llama-3.2-1B has {LLAMA32_1B_PARAMS:,}")
+    check(r["config"] == ["LlamaForCausalLM", 128256, r["tokenizer"], 16, 32, 8, 64, 500000.0, 1e-5, True],
+          f"the directory read back as {r['config']}")
+    check(stats["trainer"]["completed_steps"] == 2 and all(map(math.isfinite, r["losses"]))
+          and min(r["grad_norms"]) > 0, f"Llama trainer {stats['trainer']}, losses {r['losses']}")
+    check(stats["trainer"]["last_broadcasted_version"] > 0, "no weights were pushed to the engine")
+    check(all(r["launches"][k] for k in ("decode", "gqa_fwd", "gqa_dq", "gqa_dkv")), f"launches {r['launches']}")
+    check(r["prompt_heads"] == [[128000, 128006]], f"prompts start {r['prompt_heads']}, not <|begin_of_text|> and "
+          "a header at their published ids")
+    check(max(r["sampled"]) < r["config"][2], f"a sampled id reached valid_vocab: {max(r['sampled'])}")
+    check(not left, f"phase 30's child left {left}")
+    check_fixtures(smi)
+    return r["launches"], {"engine": tuple(r["engine"]), "prompt_lens": r["prompt_lens"],
+                           "segment_ids": np.asarray(r["segment_ids"]), "padding": r["padding"]}
+
+
+def time_llama3_shapes(dev, kernels: list[dict], shapes: dict) -> None:
+    """#1 at phase 30's slab (live lengths of its prompts plus up to 32
+    tokens), #2 at its prefill bucket (B 8) and #2-#4 on a row it trained
+    on, at H 32, K 8 (G 4), Dh 64, each against its plain version and timed
+    beside SDPA and its bound."""
+    lens = shapes["prompt_lens"]
+    time_slab(dev, kernels, "llama3_slab_shape", shapes["engine"], (min(lens), max(lens) + 32), 30, heads=LLAMA3_HEADS)
+    bucket = min(b for b in compose("test", ["output_dir=/x"]).engine.prefill_buckets if b >= max(lens))
+    time_prefill(dev, kernels, "llama3_prefill", 8, bucket, 30, heads=LLAMA3_HEADS)
+    time_train_row(dev, kernels, "llama3_row_shape", shapes["segment_ids"], shapes["padding"], 30, heads=LLAMA3_HEADS)
+
+
+def profile_study_main(n: int) -> None:
+    """``python3 chip_smoke.py --profile-study N``: phases 1-2, then phase 19
+    N times as the full smoke runs it, each beside 27 (d)'s processes (an
+    engine job and two trainer ranks), from an ``export_hf`` directory of
+    random Qwen2.5-0.5B weights: the study of the segfault seen once under
+    phase 19's profiler (ROADMAP Queue 3)."""
+    info = phase_device()
+    dev = torch.device("cuda")
+    phase_build()
+    with tempfile.TemporaryDirectory() as tmp:
+        params = init_params(torch.Generator(device=dev).manual_seed(0), QWEN05B_TIED, dev)
+        hf_dir = export_hf(f"{tmp}/hf_in", params, QWEN05B_TIED, HFTokenizer(FIXTURE_TOKENIZER))
+        del params
+        torch.cuda.empty_cache()
+        for i in range(n):
+            work = f"{tmp}/run{i}"
+            Path(work).mkdir()
+            t0 = time.monotonic()
+            world = start_world_launch(hf_dir, work)
+            try:
+                launches = phase_multi_domain(hf_dir, info["smi"], work)
+            except BaseException:
+                stop_group(world[0])
+                raise
+            phase_world_launch(info["smi"], work, world)
+            log(f"profile study: run {i + 1} of {n} passed in {time.monotonic() - t0:.1f} s; launches {launches}")
+            # each inline run leaves its trainer and engine in reference
+            # cycles: without a collection the sixth run's 27 (d) ran out
+            # of device memory
+            gc.collect()
+            torch.cuda.empty_cache()
+
+
+def llama3_main() -> None:
+    """``python3 chip_smoke.py --llama3``: phases 1-2, then phase 30 alone
+    and its kernel rows."""
+    info = phase_device()
+    dev = torch.device("cuda")
+    phase_build()
+    kernels = [{"max_abs_err": 0.0} for _ in range(5)]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.monotonic()
+        launches, shapes = phase_llama3(info["smi"], tmp, start_llama3_launch(tmp))
+        log(f"phase wall: Llama-3.2-1B width {time.monotonic() - t0:.1f} s; launches {launches}")
+        t1 = time.monotonic()
+        time_llama3_shapes(dev, kernels, shapes)
+        log(f"phase wall: Llama-3.2-1B kernel rows {time.monotonic() - t1:.1f} s")
+    log(json.dumps({"kernels": kernels}))
+
+
 def main() -> None:
     marks = [time.monotonic()]
 
@@ -5145,6 +5444,10 @@ def main() -> None:
         # card beside their 33; the kernel rows wait until they have ended
         world_launch = start_world_launch(hf_dir, tmp)
         tp_launch = start_after(world_launch, lambda: start_tp_launch(hf_dir, tmp))
+        # phase 30 after 28 (d): its 1.24 B model's trainer and engine
+        # reserve about 30 GiB, which the card has beside phases 18-23 and
+        # one of the three runs at a time
+        llama_launch = start_after(tp_launch, lambda: start_llama3_launch(tmp))
         try:
             paths["math"], math_shapes = phase_math(hf_dir, info["smi"], tmp)
             lap("math")
@@ -5166,17 +5469,21 @@ def main() -> None:
             lap("coding, miniwob, deep_research")
             paths["trainer_world_launch"] = phase_world_launch(info["smi"], tmp, world_launch)
             paths["tp_launch"] = phase_tp_launch(info["smi"], tmp, tp_launch())
+            lap("trainer world (d) and tp (d), the rest of their wall beside phases 18-23")
+            paths["llama3"], llama_shapes = phase_llama3(info["smi"], tmp, llama_launch())
         except BaseException:
             if world_launch[0].poll() is None:
                 stop_group(world_launch[0])
             tp_launch(cancel=True)
+            llama_launch(cancel=True)
             raise
-        lap("trainer world (d) and tp (d), the rest of their wall beside phases 18-23")
+        lap("Llama-3.2-1B width (phase 30), the rest of its wall after 28 (d)")
         gc.collect()
         torch.cuda.empty_cache()
         time_math_shapes(dev, kernels, math_shapes)
         time_tir_shapes(dev, kernels, tir_shapes)
-        lap("math and tir kernel rows")
+        time_llama3_shapes(dev, kernels, llama_shapes)
+        lap("math, tir and Llama-3.2-1B kernel rows")
         torch.cuda.empty_cache()
         paths["logic_processes"] = phase_logic_processes(hf_dir, info["smi"], tmp)
         lap("logic in processes mode")
@@ -5245,5 +5552,11 @@ if __name__ == "__main__":
         pp_main()
     elif sys.argv[1:2] == ["--pp-rank"]:
         pp_rank_main(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), *sys.argv[5:8])
+    elif sys.argv[1:2] == ["--llama3-run"]:
+        llama3_run_main(sys.argv[2], sys.argv[3])
+    elif sys.argv[1:2] == ["--llama3"]:
+        llama3_main()
+    elif sys.argv[1:2] == ["--profile-study"]:
+        profile_study_main(int(sys.argv[2]))
     else:
         main()

@@ -1,5 +1,5 @@
-"""Qwen2.5-VL's image pipeline on numpy and the stdlib: PNG in, the image
-processor's ``pixel_values`` and ``image_grid_thw`` out.
+"""Qwen2.5-VL's image pipeline on numpy and the stdlib: PNG or JPEG in, the
+image processor's ``pixel_values`` and ``image_grid_thw`` out.
 
 It stands in for what ``PIL.Image.open(...).convert("RGB")`` and
 transformers' ``Qwen2VLImageProcessor`` do for the JAX package
@@ -13,6 +13,14 @@ transformers' ``Qwen2VLImageProcessor`` do for the JAX package
   grey clipped at 255). The row filters run as one numpy step per
   anti-diagonal of the image: pixel (r, x) needs only (r, x-1), (r-1, x)
   and (r-1, x-1), so every row advances at once, whatever its filter.
+- ``decode_jpeg``: what PIL's ``convert("RGB")`` gives on libjpeg-turbo,
+  bit for bit. The entropy decoder (baseline, extended and progressive
+  Huffman, with restart intervals) is the one bit-serial part: it reads a
+  32-bit window at each bit position of the unstuffed data and a 16-bit
+  lookahead table that gives a code's symbol and length at once. The
+  islow IDCT runs as two integer matrix passes over every block, then
+  libjpeg-turbo's fancy upsampling and fixed-point colour tables.
+- ``decode_image``: PNG or JPEG by the file's first bytes.
 - ``smart_resize``: transformers' copy, factor ``patch_size * merge_size``.
 - ``resize_bicubic``: PIL's two-pass 8-bit bicubic (``Resample.c``): the
   a = -0.5 cubic with its support widened by the downscale factor,
@@ -34,12 +42,15 @@ imports no torch: the host-only actor runs it.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import struct
+from array import array
 import zlib
 from dataclasses import dataclass
 from pathlib import Path
+from typing import Sequence
 
 import numpy as np
 
@@ -56,10 +67,36 @@ BICUBIC = 3  # PIL's Resampling.BICUBIC, the image processor's ``resample``
 PRECISION_BITS = 32 - 8 - 2  # PIL's fixed point for 8-bit resampling
 
 
+_MAGIC = ((PNG_SIGNATURE, "PNG"), (b"\xff\xd8\xff", "JPEG"), (b"GIF87a", "GIF"), (b"GIF89a", "GIF"),
+          (b"BM", "BMP"), (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"))
+
+
+def image_kind(data: bytes) -> str:
+    """The format an image file's first bytes name."""
+    for magic, kind in _MAGIC:
+        if data.startswith(magic):
+            return kind
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        return "WebP"
+    return f"unknown format (starts {data[:8]!r})"
+
+
 def unsupported_format(data: bytes) -> ValueError:
-    """The refusal of an image that is not a PNG."""
-    kind = "a JPEG image" if data[:3] == b"\xff\xd8\xff" else f"an image that is not a PNG (starts {data[:8]!r})"
-    return ValueError(f"{kind}: only PNG is decoded without PIL; other image formats are {OTHER_FORMATS_ITEM}")
+    """The refusal of an image that is neither PNG nor JPEG."""
+    return ValueError(f"a {image_kind(data)} image: only PNG and JPEG are decoded without PIL; other image formats "
+                      f"are {OTHER_FORMATS_ITEM}")
+
+
+def decode_image(data: bytes) -> np.ndarray:
+    """The RGB uint8 image [H, W, 3] of a PNG or JPEG file, by its first
+    bytes; any other format raises, naming ROADMAP item 16."""
+    data = bytes(data)
+    kind = image_kind(data)
+    if kind == "PNG":
+        return decode_png(data)
+    if kind == "JPEG":
+        return decode_jpeg(data)
+    raise unsupported_format(data)
 
 
 # -- PNG decode ----------------------------------------------------------------
@@ -68,7 +105,8 @@ def unsupported_format(data: bytes) -> ValueError:
 def _chunks(data: bytes):
     """(type, payload) of each chunk, CRCs checked, up to and with IEND."""
     if data[:8] != PNG_SIGNATURE:
-        raise unsupported_format(data)
+        raise unsupported_format(data) if image_kind(data) != "JPEG" else ValueError(
+            "not a PNG but a JPEG file: decode_image reads both")
     pos = 8
     while True:
         if pos + 8 > len(data):
@@ -227,6 +265,577 @@ def decode_png(data: bytes) -> np.ndarray:
         pos += size
         image[y0::dy, x0::dx] = _samples(_unfilter(rows, bpp), w, depth, channels)
     return _to_rgb(image, color, depth, palette)
+
+
+# -- JPEG decode ---------------------------------------------------------------
+
+JPEG_SOI = b"\xff\xd8"
+# the natural (row-major) index of each zigzag position, and 16 more entries
+# at 63 that absorb a run past the block's end, as libjpeg's table does
+_ZIGZAG = [8 * i + s - i if s % 2 else 8 * i + s - i for s in range(15)
+           for i in (range(max(0, s - 7), min(s, 7) + 1) if s % 2 else range(min(s, 7), max(0, s - 7) - 1, -1))]
+NATURAL = _ZIGZAG + [63] * 16
+# the standard tables of the JPEG standard's Annex K.3: (bits[1..16],
+# values), which libjpeg-turbo uses for a table a file leaves undefined
+STD_HUFFMAN = {
+    (0, 0): ((0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0), tuple(range(12))),
+    (0, 1): ((0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0), tuple(range(12))),
+    (1, 0): ((0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7D), bytes.fromhex(
+        "01 02 03 00 04 11 05 12 21 31 41 06 13 51 61 07 22 71 14 32 81 91 a1 08 23 42 b1 c1 15 52 d1 f0 24 33 62 72"
+        " 82 09 0a 16 17 18 19 1a 25 26 27 28 29 2a 34 35 36 37 38 39 3a 43 44 45 46 47 48 49 4a 53 54 55 56 57 58 59"
+        " 5a 63 64 65 66 67 68 69 6a 73 74 75 76 77 78 79 7a 83 84 85 86 87 88 89 8a 92 93 94 95 96 97 98 99 9a a2 a3"
+        " a4 a5 a6 a7 a8 a9 aa b2 b3 b4 b5 b6 b7 b8 b9 ba c2 c3 c4 c5 c6 c7 c8 c9 ca d2 d3 d4 d5 d6 d7 d8 d9 da e1 e2"
+        " e3 e4 e5 e6 e7 e8 e9 ea f1 f2 f3 f4 f5 f6 f7 f8 f9 fa")),
+    (1, 1): ((0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77), bytes.fromhex(
+        "00 01 02 03 11 04 05 21 31 06 12 41 51 07 61 71 13 22 32 81 08 14 42 91 a1 b1 c1 09 23 33 52 f0 15 62 72 d1"
+        " 0a 16 24 34 e1 25 f1 17 18 19 1a 26 27 28 29 2a 35 36 37 38 39 3a 43 44 45 46 47 48 49 4a 53 54 55 56 57 58"
+        " 59 5a 63 64 65 66 67 68 69 6a 73 74 75 76 77 78 79 7a 82 83 84 85 86 87 88 89 8a 92 93 94 95 96 97 98 99 9a"
+        " a2 a3 a4 a5 a6 a7 a8 a9 aa b2 b3 b4 b5 b6 b7 b8 b9 ba c2 c3 c4 c5 c6 c7 c8 c9 ca d2 d3 d4 d5 d6 d7 d8 d9 da"
+        " e2 e3 e4 e5 e6 e7 e8 e9 ea f2 f3 f4 f5 f6 f7 f8 f9 fa")),
+}
+# libjpeg's islow IDCT (jidctint.c): CONST_BITS 13, PASS1_BITS 2
+_FIX = {"0_298631336": 2446, "0_390180644": 3196, "0_541196100": 4433, "0_765366865": 6270, "0_899976223": 7373,
+        "1_175875602": 9633, "1_501321110": 12299, "1_847759065": 15137, "1_961570560": 16069,
+        "2_053119869": 16819, "2_562915447": 20995, "3_072711026": 25172}
+
+
+def _islow_1d(x: list[int]) -> list[int]:
+    """One pass of ``jpeg_idct_islow`` on eight inputs (frequencies 0-7),
+    before its descale: integer sums only, so linear."""
+    f = _FIX
+    z1 = (x[2] + x[6]) * f["0_541196100"]
+    tmp2 = z1 - x[6] * f["1_847759065"]
+    tmp3 = z1 + x[2] * f["0_765366865"]
+    tmp0 = (x[0] + x[4]) << 13
+    tmp1 = (x[0] - x[4]) << 13
+    tmp10, tmp13, tmp11, tmp12 = tmp0 + tmp3, tmp0 - tmp3, tmp1 + tmp2, tmp1 - tmp2
+    t0, t1, t2, t3 = x[7], x[5], x[3], x[1]
+    z1, z2, z3, z4 = t0 + t3, t1 + t2, t0 + t2, t1 + t3
+    z5 = (z3 + z4) * f["1_175875602"]
+    t0, t1, t2, t3 = t0 * f["0_298631336"], t1 * f["2_053119869"], t2 * f["3_072711026"], t3 * f["1_501321110"]
+    z1, z2 = z1 * -f["0_899976223"], z2 * -f["2_562915447"]
+    z3, z4 = z3 * -f["1_961570560"] + z5, z4 * -f["0_390180644"] + z5
+    t0, t1, t2, t3 = t0 + z1 + z3, t1 + z2 + z4, t2 + z2 + z3, t3 + z1 + z4
+    return [tmp10 + t3, tmp11 + t2, tmp12 + t1, tmp13 + t0, tmp13 - t0, tmp12 - t1, tmp11 - t2, tmp10 - t3]
+
+
+# the pass as an 8x8 integer matrix: output r = sum_k W[r, k] * input k
+_IDCT_W = np.array([_islow_1d([int(k == j) for k in range(8)]) for j in range(8)], np.float64).T
+# libjpeg's post-IDCT range limit over a descaled value's low 10 bits:
+# x + 128 clamped for |x| < 512, then the table's wrap
+_IDCT_LIMIT = np.concatenate([np.arange(128, 256), np.full(384, 255), np.zeros(384), np.arange(128)]).astype(np.uint8)
+# jdcolor.c's YCbCr → RGB tables (SCALEBITS 16, ONE_HALF rounding)
+_X = np.arange(256, dtype=np.int64) - 128
+_CR_R = (int(1.40200 * 65536 + 0.5) * _X + 32768) >> 16
+_CB_B = (int(1.77200 * 65536 + 0.5) * _X + 32768) >> 16
+_CR_G = -int(0.71414 * 65536 + 0.5) * _X
+_CB_G = -int(0.34414 * 65536 + 0.5) * _X + 32768
+
+
+def jpeg_refusal(what: str) -> ValueError:
+    return ValueError(f"a JPEG image with {what}: only baseline, extended and progressive Huffman-coded 8-bit JPEG "
+                      f"is decoded without PIL; the rest is {OTHER_FORMATS_ITEM}")
+
+
+@functools.lru_cache(maxsize=64)
+def _huffman(bits: bytes | tuple, values: bytes | tuple, dc: bool) -> array:
+    """A 16-bit lookahead table: entry ``(length << 8) | symbol`` for every
+    16-bit window that starts with a code, 0 where none does."""
+    if sum(bits) > 256 or len(values) != sum(bits):
+        raise ValueError(f"corrupt JPEG: a Huffman table of {sum(bits)} codes for {len(values)} values")
+    if dc and any(v > 15 for v in values):
+        raise ValueError("corrupt JPEG: a DC Huffman table with a symbol above 15")
+    table = np.zeros(1 << 16, np.int32)
+    code = n = 0
+    for length in range(1, 17):
+        for _ in range(bits[length - 1]):
+            if code >= 1 << length:
+                raise ValueError("corrupt JPEG: a Huffman table whose codes overflow their lengths")
+            table[code << (16 - length) : (code + 1) << (16 - length)] = (length << 8) | values[n]
+            code += 1
+            n += 1
+        code <<= 1
+    return array("i", table.tobytes())
+
+
+@dataclass
+class _Component:
+    ident: int
+    h: int
+    v: int
+    tq: int
+    quant: np.ndarray | None = None  # latched at the component's first scan
+    coef: array | None = None  # int32 [bh_pad * bw_pad * 64] in natural order
+    bw: int = 0  # blocks per row (and rows) the component holds
+    bh: int = 0
+    bw_pad: int = 0  # padded to whole MCUs
+    bh_pad: int = 0
+
+
+class _Bits:
+    """The entropy-coded data of one scan, unstuffed, its restart
+    intervals laid end to end: ``win[p]`` is the 32 bits from bit ``p``
+    on, ``starts``/``ends`` each interval's first and last bit."""
+
+    def __init__(self, data: np.ndarray, pos: int):
+        ff = np.flatnonzero(data[pos:-1] == 0xFF) + pos
+        keep = np.ones(len(data), bool)
+        cuts, end = [pos], None
+        self.markers: list[int] = []
+        for i in ff.tolist():
+            if not keep[i]:
+                continue
+            nxt = int(data[i + 1])
+            if nxt == 0x00:
+                keep[i + 1] = False
+            elif 0xD0 <= nxt <= 0xD7:
+                keep[i : i + 2] = False
+                cuts.append(i)
+                self.markers.append(nxt - 0xD0)
+            elif nxt == 0xFF:
+                keep[i] = False
+            else:
+                end = i
+                break
+        if end is None:
+            raise ValueError("truncated JPEG: the file ends inside a scan's entropy-coded data")
+        self.end = end
+        keep[:pos] = False
+        keep[end:] = False
+        before = np.cumsum(keep) - keep  # kept bytes before each byte
+        self.starts = [8 * int(before[c]) for c in cuts]
+        self.ends = self.starts[1:] + [8 * int(keep.sum())]
+        buf = np.concatenate([data[keep], np.zeros(5, np.uint8)]).astype(np.uint64)
+        word = (buf[:-4] << 32) | (buf[1:-3] << 24) | (buf[2:-2] << 16) | (buf[3:-1] << 8) | buf[4:]
+        shifts = np.arange(8, 0, -1, dtype=np.uint64)
+        self.win = array("I", ((word[:-1, None] >> shifts) & 0xFFFFFFFF).astype(np.uint32).tobytes())
+
+
+def _scan_blocks(comps: list[_Component], in_scan: list[int], hmax: int, vmax: int, width: int,
+                 height: int) -> tuple[list[int], list[int], int]:
+    """The scan's blocks in order: (slot in the scan, base offset of the
+    block's coefficients) of each, and the blocks of an MCU."""
+    if len(in_scan) == 1:
+        c = comps[in_scan[0]]
+        base = ((np.arange(c.bh)[:, None] * c.bw_pad + np.arange(c.bw)[None, :]) * 64).ravel()
+        return [0] * base.size, base.tolist(), 1
+    mcux, mcuy = -(-width // (8 * hmax)), -(-height // (8 * vmax))
+    slots, bases = [], []
+    for slot, ci in enumerate(in_scan):
+        c = comps[ci]
+        my, mx, y, x = np.meshgrid(np.arange(mcuy), np.arange(mcux), np.arange(c.v), np.arange(c.h), indexing="ij")
+        bases.append((((my * c.v + y) * c.bw_pad + mx * c.h + x) * 64).reshape(mcuy * mcux, -1))
+        slots.append(np.full_like(bases[-1], slot))
+    return np.concatenate(slots, 1).ravel().tolist(), np.concatenate(bases, 1).ravel().tolist(), \
+        sum(comps[ci].h * comps[ci].v for ci in in_scan)
+
+
+def _decode_scan(bits: _Bits, order: tuple[list[int], list[int], int], coefs: list, dc_tabs: list, ac_tabs: list,
+                 restart: int, ss: int, se: int, ah: int, al: int, progressive: bool) -> None:
+    """Decode one scan's MCUs into the components' coefficients, in the
+    JPEG standard's order (libjpeg's ``decode_mcu`` and jdphuff.c's four
+    progressive passes)."""
+    win = bits.win
+    n_int = len(bits.starts)
+    interval = 0
+    pos = bits.starts[0]
+    preds = [0] * len(coefs)
+    eobrun = 0
+    p1, m1 = 1 << al, -1 << al
+    nat = NATURAL
+    slots, bases, per_mcu = order
+    every = restart * per_mcu
+    for i, slot, base in zip(range(len(bases)), slots, bases):
+        if every and i and i % every == 0:
+            if pos > bits.ends[interval]:
+                raise ValueError(f"corrupt JPEG: restart interval {interval} needs more bits than it holds")
+            interval += 1
+            if interval >= n_int:
+                raise ValueError(f"corrupt JPEG: a scan of {len(bases) // per_mcu} MCUs holds {n_int} restart "
+                                 f"intervals of {restart}")
+            if bits.markers[interval - 1] != (interval - 1) % 8:
+                raise ValueError(f"corrupt JPEG: restart marker RST{bits.markers[interval - 1]} where "
+                                 f"RST{(interval - 1) % 8} belongs")
+            pos = bits.starts[interval]
+            preds = [0] * len(coefs)
+            eobrun = 0
+        coef = coefs[slot]
+        if not progressive or (ss == 0 and ah == 0):
+            w = win[pos]
+            e = dc_tabs[slot][w >> 16]
+            if not e:
+                raise ValueError(f"corrupt JPEG: a DC Huffman code outside its table at bit {pos}")
+            ln, s = e >> 8, e & 255
+            if s:
+                diff = (w >> (32 - ln - s)) & ((1 << s) - 1)
+                if diff < 1 << (s - 1):
+                    diff -= (1 << s) - 1
+                pos += ln + s
+            else:
+                diff = 0
+                pos += ln
+            preds[slot] += diff
+            coef[base] = preds[slot] << al if progressive else preds[slot]
+            if progressive:
+                continue
+            actab = ac_tabs[slot]
+            k = 1
+            while k < 64:
+                w = win[pos]
+                e = actab[w >> 16]
+                if not e:
+                    raise ValueError(f"corrupt JPEG: an AC Huffman code outside its table at bit {pos}")
+                ln, rs = e >> 8, e & 255
+                s = rs & 15
+                if s:
+                    k += rs >> 4
+                    v = (w >> (32 - ln - s)) & ((1 << s) - 1)
+                    coef[base + nat[k]] = v - (1 << s) + 1 if v < 1 << (s - 1) else v
+                    pos += ln + s
+                    k += 1
+                elif rs == 0xF0:
+                    pos += ln
+                    k += 16
+                else:
+                    pos += ln
+                    break
+        elif ss == 0:  # DC refinement: one bit
+            if win[pos] >> 31:
+                coef[base] |= p1
+            pos += 1
+        elif ah == 0:  # AC first pass
+            if eobrun:
+                eobrun -= 1
+                continue
+            actab = ac_tabs[slot]
+            k = ss
+            while k <= se:
+                w = win[pos]
+                e = actab[w >> 16]
+                if not e:
+                    raise ValueError(f"corrupt JPEG: an AC Huffman code outside its table at bit {pos}")
+                ln, rs = e >> 8, e & 255
+                r, s = rs >> 4, rs & 15
+                if s:
+                    k += r
+                    v = (w >> (32 - ln - s)) & ((1 << s) - 1)
+                    coef[base + nat[k]] = (v - (1 << s) + 1 if v < 1 << (s - 1) else v) * p1
+                    pos += ln + s
+                elif r == 15:
+                    pos += ln
+                    k += 15
+                else:
+                    eobrun = (1 << r) - 1
+                    if r:
+                        eobrun += (w >> (32 - ln - r)) & ((1 << r) - 1)
+                    pos += ln + r
+                    break
+                k += 1
+        else:  # AC refinement
+            k = ss
+            if not eobrun:
+                actab = ac_tabs[slot]
+                while k <= se:
+                    w = win[pos]
+                    e = actab[w >> 16]
+                    if not e:
+                        raise ValueError(f"corrupt JPEG: an AC Huffman code outside its table at bit {pos}")
+                    ln, rs = e >> 8, e & 255
+                    r, s = rs >> 4, rs & 15
+                    pos += ln
+                    if s:
+                        if s != 1:
+                            raise ValueError(f"corrupt JPEG: a refinement coefficient of size {s}")
+                        s = p1 if win[pos] >> 31 else m1
+                        pos += 1
+                    elif r != 15:
+                        eobrun = 1 << r
+                        if r:
+                            eobrun += win[pos] >> (32 - r)
+                            pos += r
+                        break
+                    while k <= se:
+                        at = base + nat[k]
+                        c = coef[at]
+                        if c:
+                            if win[pos] >> 31 and not c & p1:
+                                coef[at] = c + (p1 if c >= 0 else m1)
+                            pos += 1
+                        else:
+                            if r == 0:
+                                break
+                            r -= 1
+                        k += 1
+                    if s:
+                        coef[base + nat[k]] = s
+                    k += 1
+            if eobrun:
+                while k <= se:
+                    at = base + nat[k]
+                    c = coef[at]
+                    if c:
+                        if win[pos] >> 31 and not c & p1:
+                            coef[at] = c + (p1 if c >= 0 else m1)
+                        pos += 1
+                    k += 1
+                eobrun -= 1
+    if pos > bits.ends[interval]:
+        raise ValueError(f"corrupt JPEG: the scan needs {pos - bits.ends[interval]} bits more than it holds")
+
+
+def _idct(coef: array, quant: np.ndarray, bh: int, bw: int) -> np.ndarray:
+    """``jpeg_idct_islow`` of every block at once: the dequantized
+    coefficients through the pass matrix down the columns, descaled by 11
+    bits, along the rows, descaled by 18 and range-limited. Float64 holds
+    every product and sum exactly. → the plane [bh * 8, bw * 8] uint8."""
+    blocks = np.frombuffer(coef, np.int32).reshape(-1, 8, 8) * quant.reshape(8, 8)
+    ws = (np.matmul(_IDCT_W, blocks).astype(np.int64) + (1 << 10)) >> 11
+    out = (np.matmul(ws.astype(np.float64), _IDCT_W.T).astype(np.int64) + (1 << 17)) >> 18
+    pixels = _IDCT_LIMIT[out & 1023]
+    return pixels.reshape(bh, bw, 8, 8).transpose(0, 2, 1, 3).reshape(bh * 8, bw * 8)
+
+
+def _upsample(plane: np.ndarray, hr: int, vr: int) -> np.ndarray:
+    """libjpeg-turbo's upsampling of one component by (hr, vr): "fancy"
+    triangular h2v1 and h2v2 (for components wider than 2 samples) and
+    h1v2, box replication otherwise; the edge rows and columns repeat."""
+    p = plane.astype(np.int32)
+    h, w = p.shape
+    if (hr, vr) == (1, 1):
+        return plane
+    if (hr, vr) == (1, 2):
+        up, down = np.vstack([p[:1], p[:-1]]), np.vstack([p[1:], p[-1:]])
+        out = np.empty((2 * h, w), np.int32)
+        out[0::2], out[1::2] = (3 * p + up + 1) >> 2, (3 * p + down + 2) >> 2
+        return out.astype(np.uint8)
+    if (hr, vr) in ((2, 1), (2, 2)) and w > 2:
+        if vr == 1:
+            rows = [(p, (1, 2))]
+        else:
+            up, down = np.vstack([p[:1], p[:-1]]), np.vstack([p[1:], p[-1:]])
+            rows = [(3 * p + up, (8, 7)), (3 * p + down, (8, 7))]
+        out = np.empty((vr * h, 2 * w), np.int32)
+        for v, (t, (b0, b1)) in enumerate(rows):
+            left, right = np.hstack([t[:, :1], t[:, :-1]]), np.hstack([t[:, 1:], t[:, -1:]])
+            shift = 2 if vr == 1 else 4
+            out[v::vr, 0::2] = (3 * t + left + b0) >> shift
+            out[v::vr, 1::2] = (3 * t + right + b1) >> shift
+        return out.astype(np.uint8)
+    return np.repeat(np.repeat(plane, vr, axis=0), hr, axis=1)
+
+
+def _cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:
+    """PIL's ``convert("RGB")`` of a CMYK image (``cmyk2rgb``)."""
+    c = cmyk.astype(np.int32)
+    nk = 255 - c[..., 3:]
+    t = c[..., :3] * nk + 128
+    return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)
+
+
+def decode_jpeg(data: bytes) -> np.ndarray:
+    """The RGB uint8 image [H, W, 3] of a JPEG file, as PIL's
+    ``Image.open(...).convert("RGB")`` gives it on libjpeg-turbo, bit for
+    bit: baseline, extended (SOF1) and progressive (SOF2) Huffman coding,
+    restart intervals, any integral sampling, grey, YCbCr, RGB, CMYK and
+    YCCK (inverted, as PIL reads Adobe files, then PIL's CMYK → RGB). The
+    islow IDCT, fancy upsampling and the fixed-point colour tables are
+    libjpeg-turbo's; a progressive file is complete before output, so no
+    block smoothing applies; EXIF orientation is not applied. A truncated
+    or corrupt file raises ``ValueError`` saying what is wrong; arithmetic
+    coding, 12-bit samples and lossless JPEG raise, naming ROADMAP item
+    16."""
+    raw = bytes(data)
+    if raw[:2] != JPEG_SOI:
+        raise unsupported_format(raw) if image_kind(raw) != "PNG" else ValueError(
+            "not a JPEG but a PNG file: decode_image reads both")
+    buf = np.frombuffer(raw + b"\x00", np.uint8)
+    pos = 2
+    qt: dict[int, np.ndarray] = {}
+    dc_t: dict[int, list] = {}
+    ac_t: dict[int, list] = {}
+    comps: list[_Component] = []
+    frame = None
+    restart = 0
+    jfif = adobe = False
+    transform = None
+    seen_scan = False
+    while True:
+        while pos < len(raw) and raw[pos] == 0xFF and pos + 1 < len(raw) and raw[pos + 1] == 0xFF:
+            pos += 1  # fill bytes before a marker
+        if pos + 2 > len(raw):
+            raise ValueError(f"truncated JPEG: the file ends at byte {len(raw)} before EOI")
+        if raw[pos] != 0xFF:
+            raise ValueError(f"corrupt JPEG: byte {pos} is 0x{raw[pos]:02x}, not a marker")
+        marker = raw[pos + 1]
+        pos += 2
+        if marker == 0xD9:
+            break
+        if 0xD0 <= marker <= 0xD7 or marker in (0x01, 0xD8):
+            raise ValueError(f"corrupt JPEG: marker 0x{marker:02x} outside a scan at byte {pos - 2}")
+        if pos + 2 > len(raw):
+            raise ValueError(f"truncated JPEG: the file ends inside marker 0x{marker:02x}'s length")
+        (length,) = struct.unpack(">H", raw[pos : pos + 2])
+        seg = raw[pos + 2 : pos + length]
+        if length < 2 or pos + length > len(raw):
+            raise ValueError(f"truncated JPEG: marker 0x{marker:02x} of {length} bytes at byte {pos - 2} runs past "
+                             f"the file's {len(raw)} bytes")
+        pos += length
+        if marker in (0xC0, 0xC1, 0xC2):
+            if frame is not None:
+                raise ValueError("corrupt JPEG: a second frame header")
+            if len(seg) < 6:
+                raise ValueError("corrupt JPEG: a short frame header")
+            precision, height, width, nf = struct.unpack(">BHHB", seg[:6])
+            if precision != 8:
+                raise jpeg_refusal(f"{precision}-bit samples")
+            if not height or not width:
+                raise jpeg_refusal(f"a {width}x{height} frame (a DNL marker)") if not height else \
+                    ValueError("corrupt JPEG: a frame of width 0")
+            if nf not in (1, 3, 4) or len(seg) < 6 + 3 * nf:
+                raise ValueError(f"corrupt JPEG: a frame of {nf} components" if nf in (1, 3, 4) else
+                                 f"a JPEG image of {nf} components, which PIL does not open either")
+            for i in range(nf):
+                ident, hv, tq = seg[6 + 3 * i : 9 + 3 * i]
+                h, v = hv >> 4, hv & 15
+                if not (1 <= h <= 4 and 1 <= v <= 4) or tq > 3:
+                    raise ValueError(f"corrupt JPEG: component {ident} sampling {h}x{v}, table {tq}")
+                comps.append(_Component(ident, h, v, tq))
+            frame = (marker == 0xC2, height, width)
+        elif 0xC3 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
+            kinds = {0xC3: "lossless coding (SOF3)", 0xC5: "differential coding", 0xC6: "differential coding",
+                     0xC7: "differential lossless coding"}
+            raise jpeg_refusal(kinds.get(marker, f"arithmetic coding (SOF{marker - 0xC0})"))
+        elif marker == 0xCC:
+            raise jpeg_refusal("arithmetic coding (a DAC marker)")
+        elif marker == 0xC4:
+            i = 0
+            while i < len(seg):
+                if i + 17 > len(seg):
+                    raise ValueError("corrupt JPEG: a short Huffman table")
+                tc, th = seg[i] >> 4, seg[i] & 15
+                counts = seg[i + 1 : i + 17]
+                values = seg[i + 17 : i + 17 + sum(counts)]
+                if tc > 1 or th > 3 or len(values) < sum(counts):
+                    raise ValueError(f"corrupt JPEG: Huffman table class {tc} id {th} of {sum(counts)} values")
+                (ac_t if tc else dc_t)[th] = _huffman(bytes(counts), bytes(values), dc=not tc)
+                i += 17 + sum(counts)
+        elif marker == 0xDB:
+            i = 0
+            while i < len(seg):
+                pq, tq = seg[i] >> 4, seg[i] & 15
+                n = 128 if pq else 64
+                if pq > 1 or tq > 3 or i + 1 + n > len(seg):
+                    raise ValueError(f"corrupt JPEG: quantization table {tq} of precision {pq}")
+                zz = np.frombuffer(seg[i + 1 : i + 1 + n], ">u2" if pq else np.uint8).astype(np.float64)
+                table = np.zeros(64)
+                table[_ZIGZAG] = zz
+                qt[tq] = table
+                i += 1 + n
+        elif marker == 0xDD:
+            if len(seg) < 2:
+                raise ValueError("corrupt JPEG: a short restart interval")
+            (restart,) = struct.unpack(">H", seg[:2])
+        elif marker == 0xE0:
+            jfif = jfif or (len(seg) >= 14 and seg[:5] == b"JFIF\x00")
+        elif marker == 0xEE:
+            if len(seg) >= 12 and seg[:5] == b"Adobe":
+                adobe, transform = True, seg[11]
+        elif marker == 0xDC:
+            raise jpeg_refusal("a DNL marker")
+        elif marker == 0xDA:
+            if frame is None:
+                raise ValueError("corrupt JPEG: a scan before the frame header")
+            progressive, height, width = frame
+            hmax, vmax = max(c.h for c in comps), max(c.v for c in comps)
+            if not seen_scan:
+                mcux, mcuy = -(-width // (8 * hmax)), -(-height // (8 * vmax))
+                for c in comps:
+                    c.bw = -(-(-(-width * c.h // hmax)) // 8)
+                    c.bh = -(-(-(-height * c.v // vmax)) // 8)
+                    c.bw_pad, c.bh_pad = mcux * c.h, mcuy * c.v
+                    c.coef = array("i", bytes(4 * c.bw_pad * c.bh_pad * 64))
+                seen_scan = True
+            ns = seg[0] if seg else 0
+            if not 1 <= ns <= 4 or len(seg) < 4 + 2 * ns:
+                raise ValueError(f"corrupt JPEG: a scan of {ns} components")
+            ids = {c.ident: i for i, c in enumerate(comps)}
+            in_scan, dcs, acs = [], [], []
+            for j in range(ns):
+                cs, t = seg[1 + 2 * j : 3 + 2 * j]
+                if cs not in ids:
+                    raise ValueError(f"corrupt JPEG: a scan names component {cs}, which the frame lacks")
+                in_scan.append(ids[cs])
+                dcs.append(t >> 4)
+                acs.append(t & 15)
+            ss, se, a = seg[1 + 2 * ns : 4 + 2 * ns]
+            ah, al = a >> 4, a & 15
+            if progressive:
+                bad = (ss > se or se > 63 or (ss == 0 and se != 0) or (ss and ns != 1) or al > 13
+                       or (ah and ah != al + 1))
+            else:
+                bad = ss != 0 or se != 63 or ah or al
+            if bad:
+                raise ValueError(f"corrupt JPEG: a scan with Ss {ss}, Se {se}, Ah {ah}, Al {al}")
+            if len(in_scan) > 1 and sum(comps[i].h * comps[i].v for i in in_scan) > 10:
+                raise ValueError("corrupt JPEG: an MCU of more than 10 blocks")
+            for i in in_scan:
+                if comps[i].quant is None:
+                    if comps[i].tq not in qt:
+                        raise ValueError(f"corrupt JPEG: quantization table {comps[i].tq} is not defined")
+                    comps[i].quant = qt[comps[i].tq]
+
+            def table(tables, cls, t):
+                if t in tables:
+                    return tables[t]
+                if (cls, t) in STD_HUFFMAN:
+                    return _huffman(*map(bytes, STD_HUFFMAN[cls, t]), dc=not cls)
+                raise ValueError(f"corrupt JPEG: Huffman table {t} is not defined")
+
+            need_dc = not progressive or (ss == 0 and ah == 0)
+            need_ac = not progressive or ss > 0
+            dc_tabs = [table(dc_t, 0, t) if need_dc else None for t in dcs]
+            ac_tabs = [table(ac_t, 1, t) if need_ac else None for t in acs]
+            bits = _Bits(buf, pos)
+            order = _scan_blocks(comps, in_scan, hmax, vmax, width, height)
+            _decode_scan(bits, order, [comps[i].coef for i in in_scan], dc_tabs, ac_tabs, restart,
+                         ss, se, ah, al, progressive)
+            pos = bits.end
+        # APPn, COM and other segments carry nothing the decode needs
+    if not seen_scan:
+        raise ValueError("corrupt JPEG: no scan before EOI")
+    _, height, width = frame
+    hmax, vmax = max(c.h for c in comps), max(c.v for c in comps)
+    planes = []
+    for c in comps:
+        if hmax % c.h or vmax % c.v:
+            raise ValueError(f"a JPEG image with fractional sampling ({c.h}x{c.v} of {hmax}x{vmax}), which "
+                             "libjpeg does not decode either")
+        if c.quant is None:
+            raise ValueError(f"corrupt JPEG: component {c.ident} is in no scan")
+        plane = _idct(c.coef, c.quant, c.bh_pad, c.bw_pad)
+        plane = plane[: -(-height * c.v // vmax), : -(-width * c.h // hmax)]
+        planes.append(_upsample(plane, hmax // c.h, vmax // c.v)[:height, :width])
+    if len(comps) == 1:
+        return np.repeat(planes[0][..., None], 3, axis=2)
+    if len(comps) == 3:
+        if jfif:
+            ycc = True
+        elif adobe:
+            ycc = transform != 0
+        else:
+            ycc = [c.ident for c in comps] != [82, 71, 66]
+        if not ycc:
+            return np.stack(planes, axis=-1)
+        y, cb, cr = (p.astype(np.int64) for p in planes)
+        rgb = np.stack([y + _CR_R[cr], y + ((_CB_G[cb] + _CR_G[cr]) >> 16), y + _CB_B[cb]], axis=-1)
+        return np.clip(rgb, 0, 255).astype(np.uint8)
+    if adobe and transform != 0:  # YCCK → CMYK (jdcolor.c ycck_cmyk_convert)
+        y, cb, cr = (p.astype(np.int64) for p in planes[:3])
+        cmy = 255 - np.clip(np.stack([y + _CR_R[cr], y + ((_CB_G[cb] + _CR_G[cr]) >> 16), y + _CB_B[cb]], -1), 0, 255)
+        cmyk = np.concatenate([cmy, planes[3][..., None]], axis=-1)
+    else:
+        cmyk = np.stack(planes, axis=-1)
+    return _cmyk_to_rgb(255 - cmyk.astype(np.int32))
 
 
 # -- PNG encode ----------------------------------------------------------------

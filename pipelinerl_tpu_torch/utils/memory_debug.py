@@ -33,6 +33,7 @@ import gc
 import json
 import logging
 import os
+import sys
 import time
 from pathlib import Path
 from typing import Any
@@ -65,10 +66,22 @@ def _host_memory() -> dict[str, int]:
 
 def _tensor_census() -> tuple[int, int]:
     """(distinct storages, their bytes) of the CPU tensors the garbage
-    collector reaches."""
+    collector reaches. ``gc.get_objects()`` also returns what other threads
+    are still building, such as a tuple that ``tuple(generator)`` will
+    resize, which raises ``SystemError`` once a second reference exists: the
+    walk keeps the GIL (no forced hand-off) until only the tensors are held,
+    so no other thread runs while it holds the rest."""
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e6)
+    try:
+        objects = gc.get_objects()
+        tensors = [obj for obj in objects if issubclass(type(obj), torch.Tensor)]
+        del objects
+    finally:
+        sys.setswitchinterval(switch)
     seen: dict[int, int] = {}
-    for obj in gc.get_objects():
-        if issubclass(type(obj), torch.Tensor) and obj.device.type == "cpu" and obj.layout == torch.strided:
+    for obj in tensors:
+        if obj.device.type == "cpu" and obj.layout == torch.strided:
             storage = obj.untyped_storage()
             seen[storage.data_ptr()] = storage.nbytes()
     return len(seen), sum(seen.values())

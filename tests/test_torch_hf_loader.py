@@ -171,3 +171,42 @@ def test_vlm_and_unknown_architectures_raise(tmp_path):
     (path / "config.json").write_text(json.dumps(config))
     with pytest.raises(ValueError, match="Unsupported architecture"):
         tl.load_model_config(path)
+
+# Llama-3.2-1B's published config.json
+# (https://huggingface.co/meta-llama/Llama-3.2-1B/blob/main/config.json)
+LLAMA32_1B = {
+    "architectures": ["LlamaForCausalLM"], "attention_bias": False, "attention_dropout": 0.0, "bos_token_id": 128000,
+    "eos_token_id": 128001, "head_dim": 64, "hidden_act": "silu", "hidden_size": 2048, "initializer_range": 0.02,
+    "intermediate_size": 8192, "max_position_embeddings": 131072, "mlp_bias": False, "model_type": "llama",
+    "num_attention_heads": 32, "num_hidden_layers": 16, "num_key_value_heads": 8, "pretraining_tp": 1,
+    "rms_norm_eps": 1e-05, "rope_scaling": {"factor": 32.0, "high_freq_factor": 4.0, "low_freq_factor": 1.0,
+                                            "original_max_position_embeddings": 8192, "rope_type": "llama3"},
+    "rope_theta": 500000.0, "tie_word_embeddings": True, "torch_dtype": "bfloat16", "use_cache": True,
+    "vocab_size": 128256,
+}
+# Mistral-7B-v0.1's published config.json, its sliding window of 4,096
+MISTRAL_7B_V01 = {
+    "architectures": ["MistralForCausalLM"], "bos_token_id": 1, "eos_token_id": 2, "hidden_act": "silu",
+    "hidden_size": 4096, "initializer_range": 0.02, "intermediate_size": 14336, "max_position_embeddings": 32768,
+    "model_type": "mistral", "num_attention_heads": 32, "num_hidden_layers": 32, "num_key_value_heads": 8,
+    "rms_norm_eps": 1e-05, "rope_theta": 10000.0, "sliding_window": 4096, "tie_word_embeddings": False,
+    "torch_dtype": "bfloat16", "use_cache": True, "vocab_size": 32000,
+}
+
+
+@pytest.mark.parametrize("config", [LLAMA32_1B, MISTRAL_7B_V01], ids=["llama32_rope_scaling", "mistral_sliding_window"])
+def test_shared_loader_faults_are_pinned(tmp_path, config):
+    """Both packages read these published configs to the same
+    ``ModelConfig``, and both leave out what neither implements: Llama 3.2's
+    ``rope_scaling`` (``rope_type`` llama3, factor 32: plain RoPE at
+    ``rope_theta``) and Mistral v0.1's ``sliding_window`` (full causal
+    attention). Faults of the reference, kept so that the port stays equal
+    to it (ROADMAP Queue 3)."""
+    (tmp_path / "config.json").write_text(json.dumps(config))
+    jcfg, tcfg = jl.load_model_config(tmp_path), tl.load_model_config(tmp_path)
+    assert_configs_agree(jcfg, tcfg)
+    assert tcfg.mrope_section is None and jcfg.mrope_section is None
+    assert tcfg.rope_theta == config["rope_theta"] and tcfg.hf_architecture == config["architectures"][0]
+    assert not any("scaling" in f or "window" in f for f in tt.ModelConfig.__dataclass_fields__)
+    assert not any("scaling" in f or "window" in f for f in jt.ModelConfig.__dataclass_fields__)
+    assert (tcfg.head_dim_, tcfg.num_kv_heads) == ((64, 8) if "rope_scaling" in config else (128, 8))

@@ -167,7 +167,7 @@ def test_save_pretrained_round_trip(fixture_pair, tmp_path):
     assert again.encode(text) == ours.encode(text) and len(again) == len(ours)
 
 
-@pytest.mark.parametrize("component", ["model", "normalizer", "pre_tokenizer", "decoder"])
+@pytest.mark.parametrize("component", ["model", "normalizer", "pre_tokenizer", "decoder", "post_processor"])
 def test_unsupported_components_raise_and_name_themselves(tmp_path, component):
     import json
     import shutil
@@ -176,7 +176,9 @@ def test_unsupported_components_raise_and_name_themselves(tmp_path, component):
         shutil.copyfile(FIXTURE / name, tmp_path / name)
     spec = json.loads((tmp_path / "tokenizer.json").read_text())
     spec[component] = {"model": {"type": "WordPiece", "vocab": {}}, "normalizer": {"type": "Lowercase"},
-                       "pre_tokenizer": {"type": "Whitespace"}, "decoder": {"type": "WordPiece"}}[component]
+                       "pre_tokenizer": {"type": "Whitespace"}, "decoder": {"type": "WordPiece"},
+                       "post_processor": {"type": "BertProcessing", "sep": ["<|im_end|>", 539],
+                                          "cls": ["<|im_start|>", 538]}}[component]
     (tmp_path / "tokenizer.json").write_text(json.dumps(spec))
     with pytest.raises(NotImplementedError, match=spec[component]["type"]):
         HFTokenizer(tmp_path)

@@ -162,3 +162,41 @@ def test_bandit_cpu_inline_writes_jax_records_and_a_trace(tmp_path):
     assert phases(port) == phases(jax) == seen
     assert list((port / "profile").glob("rank0.*.pt.trace.json"))
     assert any(p.is_file() for p in (jax / "profile").rglob("*"))
+
+
+def test_tensor_census_beside_a_thread_building_tuples():
+    """The CPU census walks ``gc.get_objects()``, which also returns a tuple
+    another thread is still growing (``tuple(generator)``, its generator
+    releasing the GIL in a torch op); holding it past a GIL hand-off made
+    that thread's resize raise ``SystemError`` and killed an inline run's
+    engine thread mid-prefill, so the run hung. Two seconds of censuses
+    beside such a thread: none of its tuples breaks, and the census sees
+    the tensors."""
+    import threading
+    import time
+
+    from pipelinerl_tpu_torch.utils.memory_debug import _tensor_census
+
+    rows = torch.randn(8, 64, 64)
+    errors: list[str] = []
+    stop = threading.Event()
+
+    def build() -> None:
+        while not stop.is_set():
+            try:
+                tuple(t.matmul(t) for t in rows.unbind(0))
+            except SystemError as e:
+                errors.append(repr(e))
+                return
+
+    thread = threading.Thread(target=build, daemon=True)
+    thread.start()
+    censuses, t0 = [], time.monotonic()
+    try:
+        while time.monotonic() - t0 < 2.0 and not errors:
+            censuses.append(_tensor_census())
+    finally:
+        stop.set()
+        thread.join(timeout=10)
+    assert not errors, errors
+    assert censuses and all(n >= 1 and nbytes >= rows.nbytes for n, nbytes in censuses)

@@ -4,8 +4,8 @@ vision tokens added, Qwen2.5-VL's chat template, Qwen2.5-VL-3B's
 ``preprocessor_config.json``): for a raw image the JAX processor
 (transformers' ``Qwen2_5_VLProcessor``) gives ids and features; the port
 gives the same ids and the same features bit for bit, for a PIL image, PNG
-bytes, a data URL PIL wrote and uint8 arrays, and the same ids for the
-features themselves. A truncated PNG and a JPEG raise; chartqa's message
+and JPEG bytes, data URLs PIL wrote and uint8 arrays, and the same ids for
+the features themselves. A truncated PNG and a GIF raise; chartqa's message
 of an array reads alike in both processors. The toy processors agree
 too."""
 
@@ -111,19 +111,27 @@ def png_bytes(img) -> bytes:
     return buf.getvalue()
 
 
-def jpeg_url(img) -> str:
+def jpeg_bytes(img, **kw) -> bytes:
     buf = io.BytesIO()
-    img.save(buf, format="JPEG")
-    return "data:image/jpeg;base64," + base64.b64encode(buf.getvalue()).decode()
+    img.save(buf, format="JPEG", **kw)
+    return buf.getvalue()
 
 
-@pytest.mark.parametrize("case", ["truncated", "jpeg", "zeros"])
+def data_url(img, fmt: str) -> str:
+    buf = io.BytesIO()
+    img.save(buf, format=fmt)
+    return f"data:image/{fmt.lower()};base64," + base64.b64encode(buf.getvalue()).decode()
+
+
+@pytest.mark.parametrize("case", ["truncated", "jpeg", "gif", "zeros"])
 def test_raw_images_refuse_naming_the_image_pipeline(vl_dir, jax_processor, case):
-    """Truncated PNG bytes raise naming the fault, a JPEG data URL raises
-    naming ROADMAP item 16 (other image formats), and a zeros array gives
-    JAX's ids and features."""
-    if case == "zeros":
-        part = {"type": "image", "image": np.zeros((4, 4, 3), np.uint8)}
+    """Truncated PNG bytes raise naming the fault, a GIF data URL raises
+    naming ROADMAP item 16 (other image formats), and a zeros array and a
+    JPEG data URL (which item 16 once held) give JAX's ids and
+    features."""
+    if case in ("zeros", "jpeg"):
+        part = ({"type": "image", "image": np.zeros((4, 4, 3), np.uint8)} if case == "zeros" else
+                {"type": "image_url", "image_url": {"url": data_url(image((40, 30), 0), "JPEG")}})
         want_ids, want = jax_processor([{"role": "user", "content": [part]}])
         ids, got = HFVisualProcessor(vl_dir)([{"role": "user", "content": [part]}])
         assert ids == want_ids
@@ -133,7 +141,7 @@ def test_raw_images_refuse_naming_the_image_pipeline(vl_dir, jax_processor, case
     if case == "truncated":
         part, match = {"type": "image", "image": png_bytes(image((40, 30), 0))[:300]}, "truncated PNG"
     else:
-        part, match = {"type": "image_url", "image_url": {"url": jpeg_url(image((40, 30), 0))}}, "JPEG.*item 16"
+        part, match = {"type": "image_url", "image_url": {"url": data_url(image((40, 30), 0), "GIF")}}, "GIF.*item 16"
     with pytest.raises(ValueError, match=match):
         HFVisualProcessor(vl_dir)([{"role": "user", "content": [part]}])
     with pytest.raises(ValueError, match=match):
@@ -141,19 +149,23 @@ def test_raw_images_refuse_naming_the_image_pipeline(vl_dir, jax_processor, case
 
 
 def raw_parts(img):
-    """One image in each form the JAX processor takes."""
-    data = png_bytes(img)
-    return {"pil": img, "png": data, "url": "data:image/png;base64," + base64.b64encode(data).decode()}
+    """One image in each form the JAX processor takes: PNG and JPEG files
+    (4:2:0 baseline and progressive), as bytes and data URLs."""
+    data, jpeg = png_bytes(img), jpeg_bytes(img, quality=90)
+    progressive = jpeg_bytes(img, quality=75, subsampling=2, progressive=True)
+    return {"pil": img, "png": data, "url": "data:image/png;base64," + base64.b64encode(data).decode(),
+            "jpeg": jpeg, "jpeg_url": "data:image/jpeg;base64," + base64.b64encode(jpeg).decode(),
+            "progressive_url": "data:image/jpeg;base64," + base64.b64encode(progressive).decode()}
 
 
-@pytest.mark.parametrize("form", ["pil", "png", "url"])
+@pytest.mark.parametrize("form", ["pil", "png", "url", "jpeg", "jpeg_url", "progressive_url"])
 @pytest.mark.parametrize("sizes,system", [([(100, 140)], True), ([(300, 200)], False), ([(56, 56), (90, 180)], True)])
 def test_raw_images_give_jax_ids_and_features(vl_dir, jax_processor, form, sizes, system):
-    """PIL images, PNG bytes and PIL-written data URLs: ids and
-    ``pixel_values`` equal to JAX's bit for bit (the same integer resize
-    and the same float32 arithmetic in the same order)."""
+    """PIL images, PNG and JPEG bytes and PIL-written data URLs: ids and
+    ``pixel_values`` equal to JAX's bit for bit (the same decode, the same
+    integer resize and the same float32 arithmetic in the same order)."""
     imgs = [raw_parts(image(s, i))[form] for i, s in enumerate(sizes)]
-    if form == "url":
+    if form.endswith("url"):
         user = [{"type": "image_url", "image_url": {"url": u}} for u in imgs]
         msgs = ([{"role": "system", "content": "Answer in a box."}] if system else []) + [
             {"role": "user", "content": user + [{"type": "text", "text": "What is shown here?"}]}]
