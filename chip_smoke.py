@@ -179,16 +179,18 @@ Phases, each of which stops the script on failure:
    ``build_processor``) with ``finetune.train_vision_tower``, at the
    chartqa preset's serving and training shapes with the cuts in
    ``VLM_CUTS`` and Qwen2.5-VL-3B's published ``preprocessor_config.json``:
-   (a) chartqa prompts with raw 600x800, 900x900 and 780x1,000 RGB images,
-   the first group's sent as a PNG data URL (``multimodal_message``), the
-   others' as the committed JPEGs (a baseline 4:2:0 chart at 900x900, a
-   progressive 4:4:4 one at 780x1,000), decoded, resized and patchified by
-   the port's image pipeline into 609, 1,024 and 1,008 merged tokens (each
-   size's PNG data URL's features equal its array's bit for bit, each
-   JPEG decodes to PIL's RGB, its committed SHA-256, and its data URL's
-   features equal its pixels'; each prompt carries t*h*w/4 image pads;
-   host seconds per image logged), all finish, the VLM prefill on #2 at
-   Dh 128; (b) the
+   (a) chartqa prompts with 600x800, 900x900 and 780x1,000 chart images
+   sent as the committed files' data URLs (a lossy WebP with an ALPH chunk
+   at 600x800, a baseline 4:2:0 JPEG at 900x900, a progressive 4:4:4 one
+   at 780x1,000), decoded, resized and patchified by the port's image
+   pipeline into 609, 1,024 and 1,008 merged tokens (each size's raw RGB
+   as a PNG data URL gives its array's features bit for bit; each
+   committed file, and a GIF, an RLE8 BMP, an LZW TIFF with the
+   predictor, a JPEG-in-TIFF and a lossless WebP beside them, decodes to
+   PIL's RGB, its committed SHA-256, and its data URL's features equal its
+   pixels'; each prompt carries t*h*w/4 image pads; host seconds per
+   image and the decodes the rollouts made logged), all finish, the VLM
+   prefill on #2 at Dh 128; (b) the
    engine's logprobs of 4 completions against the trainer's forward of the
    same spliced [1, 8,192] rows; (c) a step on those rows (vlm_bandit's
    reward), #2-#4 launched, the tower's gradients nonzero; (d) the
@@ -270,8 +272,10 @@ Phases, each of which stops the script on failure:
    #1-#4 launched, prompts that open with ``<|begin_of_text|>``; the
    committed tokenizer families (Llama 3, SentencePiece with
    Prepend/Replace and with Metaspace) give AutoTokenizer's committed ids
-   for fixed chats and prompts (BOS added), and ``decode_jpeg`` gives PIL's
-   RGB of the committed JPEGs. Then #1 at its slab, #2 at its prefill
+   for fixed chats and prompts (BOS added), and ``decode_jpeg`` and
+   ``decode_image`` give PIL's RGB of the committed JPEGs and of the GIF,
+   BMP, TIFF and WebP charts, each decode timed. Then #1 at its slab, #2
+   at its prefill
    bucket and #2-#4 on a row it trained on, at H 32, K 8 (G 4), Dh 64,
    against their plain versions and timed beside SDPA and their bounds.
 Then one JSON line of kernel numbers, and last the result line.
@@ -298,6 +302,8 @@ from __future__ import annotations
 
 import asyncio
 import base64
+import collections
+import contextlib
 import dataclasses
 import gc
 import hashlib
@@ -3370,6 +3376,13 @@ VLM_GRIDS = [(1, 42, 58), (1, 64, 64), (1, 56, 72)]
 # 4:2:0 file and a progressive 4:4:4 one, ``tests/test_torch_jpeg.py``
 # builds them) as data URLs; the image gates run PNG at all three sizes
 VLM_JPEGS = {(900, 900): "chart_900x900_baseline_420.jpg", (780, 1000): "chart_780x1000_progressive_444.jpg"}
+# the 600x800 group sends the committed lossy WebP with an ALPH chunk, and
+# the image gates run one committed file of each other format the port
+# reads beside PNG and JPEG (``tests/test_torch_image_fixtures.py`` builds
+# them all under fixtures/images/)
+VLM_WEBP = {(600, 800): "chart_600x800_lossy_alpha.webp"}
+GATE_IMAGES = ("chart_480x640.gif", "chart_480x640_rle8.bmp", "chart_480x640_lzw_predictor.tif",
+               "chart_480x640_jpeg.tif", "chart_480x640_lossless.webp")
 # Qwen2.5-VL-3B-Instruct's published preprocessor_config.json
 QWEN25VL3B_PREPROCESSOR = {
     "min_pixels": 3136, "max_pixels": 12845056, "patch_size": 14, "temporal_patch_size": 2, "merge_size": 2,
@@ -3509,9 +3522,10 @@ def vlm_problems(n_groups: int) -> list[dict]:
     """chartqa problems over raw uint8 RGB images, one of ``VLM_SIZES``
     each: noise N(0, 40) about a grey of 128 plus 48 times a sign that
     vlm_bandit's reward reads (also under ``noise``). The groups of
-    ``VLM_JPEGS``' sizes carry the committed JPEG instead, as a pre-built
-    message with its data URL (and its decoded pixels under ``image``)."""
-    from pipelinerl_tpu_torch.inference.image_pipeline import decode_jpeg
+    ``VLM_JPEGS``' and ``VLM_WEBP``'s sizes carry the committed file
+    instead, as a pre-built message with its data URL (its decoded pixels
+    under ``image``, its folder and name under ``file``)."""
+    from pipelinerl_tpu_torch.inference.image_pipeline import decode_image
 
     rng = np.random.default_rng(0)
     problems = []
@@ -3521,25 +3535,50 @@ def vlm_problems(n_groups: int) -> list[dict]:
         pixels = np.clip(rng.normal(128 + 48 * sign, 40, (h, w, 3)), 0, 255).astype(np.uint8)
         problem = {"question": f"What is the value of bar {g}?", "answer": str(g), "sign": sign, "image": pixels,
                    "noise": pixels}
-        if (h, w) in VLM_JPEGS:
-            data = (FIXTURE_TOKENIZER.parent / "jpeg" / VLM_JPEGS[h, w]).read_bytes()
-            url = "data:image/jpeg;base64," + base64.b64encode(data).decode()
-            problem.update(image=decode_jpeg(data), jpeg=VLM_JPEGS[h, w], message={"role": "user", "content": [
+        if (h, w) in VLM_JPEGS or (h, w) in VLM_WEBP:
+            folder, name, mime = (("jpeg", VLM_JPEGS[h, w], "jpeg") if (h, w) in VLM_JPEGS else
+                                  ("images", VLM_WEBP[h, w], "webp"))
+            data = (FIXTURE_TOKENIZER.parent / folder / name).read_bytes()
+            url = f"data:image/{mime};base64," + base64.b64encode(data).decode()
+            problem.update(image=decode_image(data), file=(folder, name), message={"role": "user", "content": [
                 {"type": "image_url", "image_url": {"url": url}}, {"type": "text", "text": problem["question"]}]})
         problems.append(problem)
     return problems
+
+
+@contextlib.contextmanager
+def counting_decodes():
+    """Count the image files the visual processors decode, by format,
+    while the block runs: → the running Counter."""
+    from pipelinerl_tpu_torch.inference import processor as processor_mod
+    from pipelinerl_tpu_torch.inference.image_pipeline import image_kind
+
+    decodes, decode = collections.Counter(), processor_mod.decode_image
+
+    def counted(data):
+        decodes[image_kind(bytes(data))] += 1
+        return decode(data)
+
+    processor_mod.decode_image = counted
+    try:
+        yield decodes
+    finally:
+        processor_mod.decode_image = decode
 
 
 def check_image_route(hf_dir: Path, problems: list[dict], tok, smi: str) -> dict[tuple[int, int], tuple]:
     """Phase 26's image gates: each size goes through ``multimodal_message``
     as a PNG data URL and through ``HFVisualProcessor``; its features equal
     those of the same array bit for bit, and its grid is the one
-    ``smart_resize`` gives. Then each JPEG group's data URL: its decode is
-    PIL's RGB (the committed SHA-256) and its features are its pixels'.
-    Logs each image's host seconds (encode, decode, preprocess). Returns
-    {size: grid}."""
+    ``smart_resize`` gives. Then each committed-file group's data URL (the
+    JPEGs, the lossy WebP with alpha) and each of ``GATE_IMAGES`` (a GIF,
+    an RLE8 BMP, an LZW TIFF with the predictor, a JPEG-in-TIFF, a lossless
+    WebP): its decode is PIL's RGB (the committed SHA-256) and its
+    features are those of its pixels (a gate file's pixels as
+    ``multimodal_message`` sends them). Logs each image's host seconds
+    (encode, decode, preprocess). Returns {size: grid}."""
     from pipelinerl_tpu_torch.domains.chartqa.chartqa import multimodal_message
-    from pipelinerl_tpu_torch.inference.image_pipeline import ImageProcessor, decode_image, decode_png
+    from pipelinerl_tpu_torch.inference.image_pipeline import ImageProcessor, decode_image, decode_png, image_kind
     from pipelinerl_tpu_torch.inference.processor import HFVisualProcessor, image_source
 
     image_proc = ImageProcessor.from_pretrained(hf_dir)
@@ -3566,12 +3605,13 @@ def check_image_route(hf_dir: Path, problems: list[dict], tok, smi: str) -> dict
               and np.array_equal(from_url["pixel_values"], pixels),
               f"the {size} data URL's features differ from the array's")
         grids[size] = grid
-    digests = json.loads((FIXTURE_TOKENIZER.parent / "jpeg" / "digests.json").read_text())
     checked = set()
     for problem in problems:
-        if "jpeg" not in problem or problem["jpeg"] in checked:
+        if "file" not in problem or problem["file"] in checked:
             continue
-        checked.add(problem["jpeg"])
+        checked.add(problem["file"])
+        folder, name = problem["file"]
+        digests = json.loads((FIXTURE_TOKENIZER.parent / folder / "digests.json").read_text())
         part = problem["message"]["content"][0]
         t0 = time.monotonic()
         rgb = decode_image(image_source(part))
@@ -3581,15 +3621,32 @@ def check_image_route(hf_dir: Path, problems: list[dict], tok, smi: str) -> dict
         _, from_array = HFVisualProcessor(hf_dir, tok)([{"role": "user", "content": [
             {"type": "image", "image": rgb}, {"type": "text", "text": "q"}]}])
         size = rgb.shape[:2]
-        log(f"image {size[0]}x{size[1]}: JPEG data URL ({problem['jpeg']}, "
+        log(f"image {size[0]}x{size[1]}: {image_kind(image_source(part))} data URL ({name}, "
             f"{len(part['image_url']['url']) / 1e6:.2f} MB) decoded in {t1 - t0:.3f} s, through the processor in "
             f"{t2 - t1:.3f} s (host seconds) to grid {[int(x) for x in from_url['image_grid_thw'][0]]}; on {smi}")
-        check(hashlib.sha256(rgb.tobytes()).hexdigest() == digests[problem["jpeg"]],
-              f"{problem['jpeg']} does not decode to PIL's RGB")
+        check(hashlib.sha256(rgb.tobytes()).hexdigest() == digests[name], f"{name} does not decode to PIL's RGB")
         check(np.array_equal(from_url["pixel_values"], from_array["pixel_values"])
               and np.array_equal(from_url["image_grid_thw"], [grids[size]]),
-              f"the {size} JPEG data URL's features differ from its pixels'")
-    check(len(checked) == len(VLM_JPEGS), f"JPEG groups {checked}")
+              f"the {size} {name} data URL's features differ from its pixels'")
+    check(len(checked) == len(VLM_JPEGS) + len(VLM_WEBP), f"committed-file groups {checked}")
+    digests = json.loads((FIXTURE_TOKENIZER.parent / "images" / "digests.json").read_text())
+    for name in GATE_IMAGES:
+        data = (FIXTURE_TOKENIZER.parent / "images" / name).read_bytes()
+        url = "data:image/x;base64," + base64.b64encode(data).decode()
+        t0 = time.monotonic()
+        rgb = decode_image(data)
+        t1 = time.monotonic()
+        _, from_url = HFVisualProcessor(hf_dir, tok)([{"role": "user", "content": [
+            {"type": "image_url", "image_url": {"url": url}}, {"type": "text", "text": "q"}]}])
+        t2 = time.monotonic()
+        _, from_pixels = HFVisualProcessor(hf_dir, tok)([multimodal_message(rgb, "q")])
+        log(f"image gate {name} ({image_kind(data)}, {len(data)} bytes): decoded to {rgb.shape[0]}x{rgb.shape[1]} "
+            f"in {t1 - t0:.3f} s, its data URL through the processor in {t2 - t1:.3f} s (host seconds) to grid "
+            f"{[int(x) for x in from_url['image_grid_thw'][0]]}; on {smi}")
+        check(hashlib.sha256(rgb.tobytes()).hexdigest() == digests[name], f"{name} does not decode to PIL's RGB")
+        check(np.array_equal(from_url["pixel_values"], from_pixels["pixel_values"])
+              and np.array_equal(from_url["image_grid_thw"], from_pixels["image_grid_thw"]),
+              f"{name}'s data URL's features differ from its pixels' as a PNG data URL")
     return grids
 
 
@@ -3609,8 +3666,9 @@ def phase_vlm_3b(dev, smi: str, tmp: str) -> tuple[dict, dict]:
     loaded by ``launch._is_vlm_checkpoint``, ``build_model``,
     ``build_vision`` and ``build_processor`` (with the published
     ``preprocessor_config.json``); the preset's engine (S 16, max_len 8,192,
-    buckets 1,024-8,192, flash) serves chartqa prompts whose raw RGB images
-    travel as PNG data URLs through the port's image pipeline; a step trains
+    buckets 1,024-8,192, flash) serves chartqa prompts whose chart images
+    travel as the committed WebP and JPEG files' data URLs through the
+    port's image pipeline; a step trains
     on unpacked [1, 8,192] rows; then the
     trainer's tree goes to the engine as one PWT3 body while 8 requests
     decode. Gates (a)-(e) are checked in turn. Returns (launches, the shapes
@@ -3678,7 +3736,10 @@ def phase_vlm_3b(dev, smi: str, tmp: str) -> tuple[dict, dict]:
     attempts = int(cfg.attempts)
     n_train = int(cfg.finetune.max_train_steps) * int(cfg.finetune.samples_per_step)
     problems = vlm_problems(max(len(VLM_SIZES), -(-n_train // attempts)))
-    grids = check_image_route(hf_dir, problems, tok, smi)
+    t0 = time.monotonic()
+    with counting_decodes() as decodes:
+        grids = check_image_route(hf_dir, problems, tok, smi)
+    log(f"image gates: {time.monotonic() - t0:.1f} host s, the processors' decodes {dict(decodes)}")
     llm = InProcessLLM(engine, tok, dict(cfg.llm.parameters.items()), processor=processor)
     engine.start()
     reset_counts()
@@ -3688,10 +3749,16 @@ def phase_vlm_3b(dev, smi: str, tmp: str) -> tuple[dict, dict]:
         return await asyncio.gather(*(generate_chartqa_rollout(cfg, llm, p, None)
                                       for p in problems for _ in range(attempts)))
 
-    results = asyncio.run(rollouts())
+    with counting_decodes() as decodes:
+        results = asyncio.run(rollouts())
     torch.cuda.synchronize()
     roll_s = time.monotonic() - t0
     launches = counts()
+    decodes = dict(decodes)
+    n_webp = sum(1 for p in problems if p.get("file", ("", ""))[1] in VLM_WEBP.values())
+    log(f"VLM rollouts decoded {decodes} image files (the WebP groups' {n_webp * attempts} rollouts each send the "
+        f"lossy WebP with alpha)")
+    check(decodes.get("WebP", 0) >= n_webp * attempts > 0, f"the WebP group's rollouts made {decodes} decodes")
     texts = [r.training_texts[0] for r in results]
     out_tokens = sum(t.output_tokens for t in texts)
     prompt_lens = sorted({t.prompt_tokens for t in texts})
@@ -5242,9 +5309,11 @@ def start_llama3_launch(tmp: str) -> tuple[subprocess.Popen, float]:
 def check_fixtures(smi: str) -> None:
     """Phase 30's host checks: the committed tokenizer families give the
     ids ``AutoTokenizer`` gave for the committed chats and prompts (the
-    prompts with BOS where transformers adds it), and ``decode_jpeg`` of
-    the committed JPEGs gives the SHA-256 of PIL's RGB."""
-    from pipelinerl_tpu_torch.inference.image_pipeline import decode_jpeg
+    prompts with BOS where transformers adds it), ``decode_jpeg`` of the
+    committed JPEGs and ``decode_image`` of the committed GIF, BMP, TIFF
+    and WebP charts give the SHA-256 of PIL's RGB; each decode's host
+    seconds logged."""
+    from pipelinerl_tpu_torch.inference.image_pipeline import decode_image, decode_jpeg, image_kind
 
     committed = json.loads((FIXTURES / "tokenizer_ids.json").read_text(encoding="utf-8"))
     for name in FAMILIES:
@@ -5272,6 +5341,16 @@ def check_fixtures(smi: str) -> None:
         same = hashlib.sha256(rgb.tobytes()).hexdigest() == digest
         log(f"JPEG {name} ({len(data)} bytes): decode_jpeg to {rgb.shape[0]}x{rgb.shape[1]} in {spent:.3f} host s, "
             f"its SHA-256 equal to PIL's RGB: {same}; on {smi}")
+        check(same, f"{name} does not decode to PIL's RGB")
+    digests = json.loads((FIXTURES / "images" / "digests.json").read_text())
+    for name, digest in digests.items():
+        data = (FIXTURES / "images" / name).read_bytes()
+        t0 = time.monotonic()
+        rgb = decode_image(data)
+        spent = time.monotonic() - t0
+        same = hashlib.sha256(rgb.tobytes()).hexdigest() == digest
+        log(f"{image_kind(data)} {name} ({len(data)} bytes): decode_image to {rgb.shape[0]}x{rgb.shape[1]} in "
+            f"{spent:.3f} host s, its SHA-256 equal to PIL's RGB: {same}; on {smi}")
         check(same, f"{name} does not decode to PIL's RGB")
 
 

@@ -1,5 +1,6 @@
-"""Qwen2.5-VL's image pipeline on numpy and the stdlib: PNG or JPEG in, the
-image processor's ``pixel_values`` and ``image_grid_thw`` out.
+"""Qwen2.5-VL's image pipeline on numpy and the stdlib: a PNG, JPEG, GIF,
+BMP, WebP or TIFF file in, the image processor's ``pixel_values`` and
+``image_grid_thw`` out.
 
 It stands in for what ``PIL.Image.open(...).convert("RGB")`` and
 transformers' ``Qwen2VLImageProcessor`` do for the JAX package
@@ -20,7 +21,9 @@ transformers' ``Qwen2VLImageProcessor`` do for the JAX package
   lookahead table that gives a code's symbol and length at once. The
   islow IDCT runs as two integer matrix passes over every block, then
   libjpeg-turbo's fancy upsampling and fixed-point colour tables.
-- ``decode_image``: PNG or JPEG by the file's first bytes.
+- ``decode_image``: the file's first bytes pick the decoder: PNG and JPEG
+  here, GIF (``image_gif``), BMP (``image_bmp``), WebP (``image_webp``)
+  and TIFF (``image_tiff``), each what PIL's ``convert("RGB")`` gives.
 - ``smart_resize``: transformers' copy, factor ``patch_size * merge_size``.
 - ``resize_bicubic``: PIL's two-pass 8-bit bicubic (``Resample.c``): the
   a = -0.5 cubic with its support widened by the downscale factor,
@@ -36,8 +39,9 @@ transformers' ``Qwen2VLImageProcessor`` do for the JAX package
   chosen by the least sum of absolute signed bytes, as PIL's encoder
   chooses, so the port's own files carry all five filters.
 
-Other image formats raise, naming ROADMAP Queue 1 item 16. This module
-imports no torch: the host-only actor runs it.
+Other image formats (and the variants of these that are not read yet)
+raise, naming ROADMAP Queue 1 item 16. This module imports no torch: the
+host-only actor runs it.
 """
 
 from __future__ import annotations
@@ -68,7 +72,7 @@ PRECISION_BITS = 32 - 8 - 2  # PIL's fixed point for 8-bit resampling
 
 
 _MAGIC = ((PNG_SIGNATURE, "PNG"), (b"\xff\xd8\xff", "JPEG"), (b"GIF87a", "GIF"), (b"GIF89a", "GIF"),
-          (b"BM", "BMP"), (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"))
+          (b"BM", "BMP"), (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"), (b"II+\x00", "TIFF"), (b"MM\x00+", "TIFF"))
 
 
 def image_kind(data: bytes) -> str:
@@ -81,22 +85,42 @@ def image_kind(data: bytes) -> str:
     return f"unknown format (starts {data[:8]!r})"
 
 
+DECODED_FORMATS = "PNG, JPEG, GIF, BMP, WebP and TIFF"
+
+
 def unsupported_format(data: bytes) -> ValueError:
-    """The refusal of an image that is neither PNG nor JPEG."""
-    return ValueError(f"a {image_kind(data)} image: only PNG and JPEG are decoded without PIL; other image formats "
-                      f"are {OTHER_FORMATS_ITEM}")
+    """The refusal of an image in a format no decoder here reads."""
+    return ValueError(f"a {image_kind(data)} image: only {DECODED_FORMATS} are decoded without PIL; other image "
+                      f"formats are {OTHER_FORMATS_ITEM}")
+
+
+def _decoders() -> dict:
+    """The decoder of each format the port reads, by ``image_kind``."""
+    from . import image_bmp, image_gif, image_tiff, image_webp
+
+    return {"PNG": decode_png, "JPEG": decode_jpeg, "GIF": image_gif.decode_gif, "BMP": image_bmp.decode_bmp,
+            "WebP": image_webp.decode_webp, "TIFF": image_tiff.decode_tiff}
+
+
+def wrong_decoder(data: bytes, expected: str) -> ValueError:
+    """The refusal of a file handed to another format's decoder, naming
+    the one that reads it."""
+    decode = _decoders().get(image_kind(data))
+    if decode is None:
+        return unsupported_format(data)
+    return ValueError(f"not a {expected} but a {image_kind(data)} file: {decode.__module__.rsplit('.', 1)[1]}."
+                      f"{decode.__name__} reads it (decode_image picks it)")
 
 
 def decode_image(data: bytes) -> np.ndarray:
-    """The RGB uint8 image [H, W, 3] of a PNG or JPEG file, by its first
-    bytes; any other format raises, naming ROADMAP item 16."""
+    """The RGB uint8 image [H, W, 3] of a PNG, JPEG, GIF, BMP, WebP or TIFF
+    file, by its first bytes, as PIL's ``convert("RGB")`` gives it; any
+    other format raises, naming ROADMAP item 16."""
     data = bytes(data)
-    kind = image_kind(data)
-    if kind == "PNG":
-        return decode_png(data)
-    if kind == "JPEG":
-        return decode_jpeg(data)
-    raise unsupported_format(data)
+    decode = _decoders().get(image_kind(data))
+    if decode is None:
+        raise unsupported_format(data)
+    return decode(data)
 
 
 # -- PNG decode ----------------------------------------------------------------
@@ -105,8 +129,7 @@ def decode_image(data: bytes) -> np.ndarray:
 def _chunks(data: bytes):
     """(type, payload) of each chunk, CRCs checked, up to and with IEND."""
     if data[:8] != PNG_SIGNATURE:
-        raise unsupported_format(data) if image_kind(data) != "JPEG" else ValueError(
-            "not a PNG but a JPEG file: decode_image reads both")
+        raise wrong_decoder(data, "PNG")
     pos = 8
     while True:
         if pos + 8 > len(data):
@@ -646,8 +669,7 @@ def decode_jpeg(data: bytes) -> np.ndarray:
     16."""
     raw = bytes(data)
     if raw[:2] != JPEG_SOI:
-        raise unsupported_format(raw) if image_kind(raw) != "PNG" else ValueError(
-            "not a JPEG but a PNG file: decode_image reads both")
+        raise wrong_decoder(raw, "JPEG")
     buf = np.frombuffer(raw + b"\x00", np.uint8)
     pos = 2
     qt: dict[int, np.ndarray] = {}

@@ -12,12 +12,13 @@ port's ``HFTokenizer`` (an image part becomes ``<|vision_start|>
 <|image_pad|><|vision_end|>``) and expands each ``<|image_pad|>`` into one
 per merged visual token, as Qwen2.5-VL's processor does. An image part is
 what the JAX ``decode_message_image`` accepts: an ``image_url`` part with a
-``data:`` URL, or ``{"type": "image", "image": ...}`` with PNG or JPEG bytes, a
+``data:`` URL, or ``{"type": "image", "image": ...}`` with PNG, JPEG, GIF,
+BMP, WebP or TIFF bytes, a
 uint8 array (``[H, W]`` grey, ``[H, W, 3]`` RGB, ``[H, W, 4]`` RGBA, as
 ``Image.fromarray`` reads them) or an object with ``__array_interface__``
-(a PIL image). Raw images go through ``inference/image_pipeline.py`` (PNG
-or JPEG decode, ``smart_resize``, PIL's bicubic resize, rescale and normalize,
-patchify) with the checkpoint's ``preprocessor_config.json``. An image
+(a PIL image). Raw images go through ``inference/image_pipeline.py`` (the
+file's decode, ``smart_resize``, PIL's bicubic resize, rescale and
+normalize, patchify) with the checkpoint's ``preprocessor_config.json``. An image
 part may also carry the image processor's output, ``{"pixel_values":
 [N, patch_dim], "image_grid_thw": [t, h, w]}``, which passes as it is.
 """
@@ -31,7 +32,7 @@ from typing import Any, Protocol
 
 import numpy as np
 
-from .image_pipeline import ImageProcessor, decode_image
+from .image_pipeline import DECODED_FORMATS, ImageProcessor, decode_image
 
 
 class VisualProcessorLike(Protocol):
@@ -77,8 +78,8 @@ def image_source(part: dict) -> Any:
 
 def source_features(source: Any, image_processor: ImageProcessor | None) -> dict:
     """The ``{"pixel_values", "image_grid_thw"}`` of what an image part
-    holds: the features themselves, or a raw image (PNG or JPEG bytes, an array, an
-    object with ``__array_interface__``) decoded to RGB and run through
+    holds: the features themselves, or a raw image (an image file's bytes,
+    an array, an object with ``__array_interface__``) decoded to RGB and run through
     ``image_processor``; a raw image without one raises."""
     if isinstance(source, dict) and "pixel_values" in source and "image_grid_thw" in source:
         return source
@@ -87,10 +88,9 @@ def source_features(source: Any, image_processor: ImageProcessor | None) -> dict
     elif isinstance(source, np.ndarray) or hasattr(source, "__array_interface__"):
         rgb = array_to_rgb(source)
     else:
-        raise ValueError(f"an image of type {type(source).__name__}: pass PNG or JPEG bytes, a data: URL, a uint8 "
-                         "array or "
-                         'the image processor\'s features {"pixel_values": [N, patch_dim], "image_grid_thw": '
-                         "[t, h, w]}")
+        raise ValueError(f"an image of type {type(source).__name__}: pass the bytes of a {DECODED_FORMATS} file, a "
+                         'data: URL, a uint8 array or the image processor\'s features {"pixel_values": [N, patch_dim], '
+                         '"image_grid_thw": [t, h, w]}')
     if image_processor is None:
         raise ValueError("a raw image needs the checkpoint's preprocessor_config.json (the image processor's "
                          "settings), and there is none")

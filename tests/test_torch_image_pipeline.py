@@ -183,8 +183,10 @@ def test_corrupt_files_raise_saying_what_is_wrong():
     data[45] ^= 0xFF  # a byte of the first IDAT's payload
     with pytest.raises(ValueError, match="fails its CRC"):
         ip.decode_png(bytes(data))
-    with pytest.raises(ValueError, match="GIF image.*item 16"):
+    with pytest.raises(ValueError, match="not a PNG but a GIF file: image_gif.decode_gif reads it"):
         ip.decode_png(b"GIF89a" + b"\0" * 64)
+    with pytest.raises(ValueError, match="unknown format.*item 16"):
+        ip.decode_png(b"P6\n2 2\n255\n" + b"\0" * 12)
     with pytest.raises(ValueError, match="bit depth 16 with colour type 3"):
         ip.decode_png(ip.PNG_SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", 2, 2, 16, 3, 0, 0, 0))
                       + chunk(b"IEND", b""))

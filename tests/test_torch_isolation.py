@@ -206,15 +206,29 @@ IMAGES_CHILD = textwrap.dedent(
     image = (np.arange(60 * 90 * 3) % 251).astype(np.uint8).reshape(60, 90, 3)
     (feats,) = extract_images([multimodal_message(image, "q")], ImageProcessor())
     print("FEATURES", list(feats["pixel_values"].shape), feats["image_grid_thw"])
+
+    import json
+    from pathlib import Path
+    from pipelinerl_tpu_torch.inference import image_bmp, image_gif, image_lzw, image_tiff, image_webp
+    from pipelinerl_tpu_torch.inference.image_pipeline import decode_image
+
+    images = Path("pipelinerl_tpu_torch/fixtures/images")
+    for name in sorted(json.loads((images / "digests.json").read_text())):
+        print("DECODED", name, list(decode_image((images / name).read_bytes()).shape))
     """
 )
 
 
 def test_image_pipeline_imports_no_torch():
     """The host-only actor decodes and preprocesses images: the image
-    pipeline, the visual processors and chartqa run with torch, PIL and
-    transformers refused."""
+    pipeline, its GIF, BMP, TIFF, WebP and LZW decoders (each committed
+    chart fixture decoded), the visual processors and chartqa run with
+    torch, PIL and transformers refused."""
     proc = subprocess.run([sys.executable, "-c", IMAGES_CHILD], cwd=ROOT, capture_output=True, text=True, timeout=120,
                           env={"PATH": "/usr/bin:/bin", "OMP_NUM_THREADS": "1"})
     assert proc.returncode == 0, proc.stderr
     assert "FEATURES [24, 1176] [1, 4, 6]" in proc.stdout, proc.stdout
+    for name, shape in (("chart_600x800_lossy_alpha.webp", [600, 800, 3]), ("chart_480x640.gif", [480, 640, 3]),
+                        ("chart_480x640_rle8.bmp", [480, 640, 3]), ("chart_480x640_lzw_predictor.tif", [480, 640, 3]),
+                        ("chart_480x640_jpeg.tif", [480, 640, 3]), ("chart_480x640_lossless.webp", [480, 640, 3])):
+        assert f"DECODED {name} {shape}" in proc.stdout, proc.stdout

@@ -7,7 +7,7 @@ below writes for what PIL's encoder does not offer (4:4:0 and other
 sampling factors, separate scans, the standard tables left undefined,
 SOF1, YCCK, Adobe RGB, component-id colour spaces). Truncated and corrupt
 files raise saying what is wrong; arithmetic coding, 12-bit samples,
-lossless JPEG and the other formats raise naming ROADMAP item 16.
+lossless JPEG and the formats not read yet raise naming ROADMAP item 16.
 
 The committed JPEGs under ``pipelinerl_tpu_torch/fixtures/jpeg/`` (phase
 26's chart images) are what ``build_fixture_jpegs`` writes, and
@@ -391,10 +391,12 @@ def _patched_frame(marker: int = None, precision: int = None) -> bytes:
 
 
 @pytest.mark.parametrize("case", ["arithmetic", "arithmetic_progressive", "lossless", "12_bit", "dac", "gif", "webp",
-                                  "bmp", "tiff"])
+                                  "bmp", "tiff", "ico", "ppm", "tga", "tiff_float"])
 def test_refused_variants_name_item_16(case):
-    """Arithmetic coding, 12-bit samples and lossless JPEG, and the other
-    formats, raise naming ROADMAP item 16."""
+    """Arithmetic coding, 12-bit samples and lossless JPEG, and the formats
+    still not read (ICO, PPM, TGA, float TIFF), raise naming ROADMAP item
+    16; GIF, WebP, BMP and TIFF, which item 16 held until they were
+    ported, decode as PIL decodes them."""
     data = {"arithmetic": lambda: _patched_frame(marker=0xC9), "arithmetic_progressive": lambda: _patched_frame(0xCA),
             "lossless": lambda: _patched_frame(marker=0xC3), "12_bit": lambda: _patched_frame(precision=12),
             "dac": lambda: good_jpeg()[:2] + _segment(0xCC, b"\x00\x10") + good_jpeg()[2:]}.get(case)
@@ -406,10 +408,16 @@ def test_refused_variants_name_item_16(case):
             ip.decode_jpeg(data)
         return
     buf = io.BytesIO()
-    Image.fromarray(noise(12, 12, 14)).save(buf, case.upper())
-    with pytest.raises(ValueError, match="item 16"):
+    if case == "tiff_float":
+        Image.fromarray(noise(12, 12, 14)[..., 0].astype(np.float32)).save(buf, "TIFF")
+    else:
+        Image.fromarray(noise(12, 12, 14)).save(buf, case.upper())
+    if case in ("gif", "webp", "bmp", "tiff"):
+        assert ip.image_kind(buf.getvalue()) == {"gif": "GIF", "webp": "WebP", "bmp": "BMP", "tiff": "TIFF"}[case]
+        np.testing.assert_array_equal(ip.decode_image(buf.getvalue()), pil_rgb(buf.getvalue()))
+        return
+    with pytest.raises(ValueError, match="float samples.*item 16" if case == "tiff_float" else "item 16"):
         ip.decode_image(buf.getvalue())
-    assert ip.image_kind(buf.getvalue()) == {"gif": "GIF", "webp": "WebP", "bmp": "BMP", "tiff": "TIFF"}[case]
 
 
 def test_decode_image_routes_by_magic():

@@ -5,9 +5,10 @@ vision tokens added, Qwen2.5-VL's chat template, Qwen2.5-VL-3B's
 (transformers' ``Qwen2_5_VLProcessor``) gives ids and features; the port
 gives the same ids and the same features bit for bit, for a PIL image, PNG
 and JPEG bytes, data URLs PIL wrote and uint8 arrays, and the same ids for
-the features themselves. A truncated PNG and a GIF raise; chartqa's message
-of an array reads alike in both processors. The toy processors agree
-too."""
+the features themselves; and for GIF, BMP, TIFF and WebP files as bytes
+and data URLs, small ones PIL wrote and the committed chart fixtures. A
+truncated PNG and a PPM raise; chartqa's message of an array reads alike
+in both processors. The toy processors agree too."""
 
 import base64
 import io
@@ -123,15 +124,15 @@ def data_url(img, fmt: str) -> str:
     return f"data:image/{fmt.lower()};base64," + base64.b64encode(buf.getvalue()).decode()
 
 
-@pytest.mark.parametrize("case", ["truncated", "jpeg", "gif", "zeros"])
+@pytest.mark.parametrize("case", ["truncated", "jpeg", "gif", "zeros", "ppm"])
 def test_raw_images_refuse_naming_the_image_pipeline(vl_dir, jax_processor, case):
-    """Truncated PNG bytes raise naming the fault, a GIF data URL raises
-    naming ROADMAP item 16 (other image formats), and a zeros array and a
-    JPEG data URL (which item 16 once held) give JAX's ids and
+    """Truncated PNG bytes raise naming the fault, a PPM data URL raises
+    naming ROADMAP item 16 (other image formats), and a zeros array and
+    JPEG and GIF data URLs (which item 16 once held) give JAX's ids and
     features."""
-    if case in ("zeros", "jpeg"):
+    if case in ("zeros", "jpeg", "gif"):
         part = ({"type": "image", "image": np.zeros((4, 4, 3), np.uint8)} if case == "zeros" else
-                {"type": "image_url", "image_url": {"url": data_url(image((40, 30), 0), "JPEG")}})
+                {"type": "image_url", "image_url": {"url": data_url(image((40, 30), 0), case.upper())}})
         want_ids, want = jax_processor([{"role": "user", "content": [part]}])
         ids, got = HFVisualProcessor(vl_dir)([{"role": "user", "content": [part]}])
         assert ids == want_ids
@@ -141,7 +142,7 @@ def test_raw_images_refuse_naming_the_image_pipeline(vl_dir, jax_processor, case
     if case == "truncated":
         part, match = {"type": "image", "image": png_bytes(image((40, 30), 0))[:300]}, "truncated PNG"
     else:
-        part, match = {"type": "image_url", "image_url": {"url": data_url(image((40, 30), 0), "GIF")}}, "GIF.*item 16"
+        part, match = {"type": "image_url", "image_url": {"url": data_url(image((40, 30), 0), "PPM")}}, "item 16"
     with pytest.raises(ValueError, match=match):
         HFVisualProcessor(vl_dir)([{"role": "user", "content": [part]}])
     with pytest.raises(ValueError, match=match):
@@ -226,6 +227,64 @@ def test_chartqa_message_of_an_array_reads_alike_in_both_processors(vl_dir, jax_
         assert ids == want_ids
         np.testing.assert_array_equal(got["pixel_values"], want["pixel_values"])
         np.testing.assert_array_equal(got["image_grid_thw"], want["image_grid_thw"])
+
+
+def format_bytes(img, fmt: str) -> bytes:
+    """``img`` as a file of one of the formats the port reads beside PNG
+    and JPEG, written by PIL (the BMP by the BMP tests' RLE8 encoder)."""
+    from tests.test_torch_bmp import encode_bmp
+
+    if fmt == "bmp_rle8":
+        quantized = img.convert("RGB").quantize(32)
+        table = np.asarray(quantized.getpalette(), np.uint8).reshape(-1, 3)
+        return encode_bmp(np.asarray(quantized), 8, compression=1, table=table)
+    kw = {"gif": ("GIF", {}), "tiff_lzw": ("TIFF", dict(compression="tiff_lzw", tiffinfo={317: 2})),
+          "tiff_jpeg": ("TIFF", dict(compression="jpeg", quality=85)), "webp_lossless": ("WEBP", dict(lossless=True)),
+          "webp_lossy_alpha": ("WEBP", dict(quality=80))}[fmt]
+    buf = io.BytesIO()
+    (img.convert("RGBA") if fmt == "webp_lossy_alpha" else img).save(buf, kw[0], **kw[1])
+    return buf.getvalue()
+
+
+NEW_FORMATS = ["gif", "bmp_rle8", "tiff_lzw", "tiff_jpeg", "webp_lossless", "webp_lossy_alpha"]
+
+
+@pytest.mark.parametrize("form", ["bytes", "url"])
+@pytest.mark.parametrize("fmt", NEW_FORMATS)
+def test_other_formats_give_jax_ids_and_features(vl_dir, jax_processor, fmt, form):
+    """GIF, BMP, TIFF and WebP files at 64x64 and under, as bytes and as
+    data URLs: the JAX package opens them with PIL, the port with its own
+    decoders; ids and features equal bit for bit."""
+    rgba = np.random.default_rng(11).integers(0, 256, (48, 64, 4)).astype(np.uint8)
+    rgba[..., 3] = np.linspace(0, 255, 64, dtype=np.uint8)[None, :]
+    img = Image.fromarray(rgba).convert("RGB") if fmt != "webp_lossy_alpha" else Image.fromarray(rgba, "RGBA")
+    data = format_bytes(img, fmt)
+    part = ({"type": "image", "image": data} if form == "bytes" else
+            {"type": "image_url", "image_url": {"url": "data:image/x;base64," + base64.b64encode(data).decode()}})
+    msgs = [{"role": "user", "content": [part, {"type": "text", "text": "What is shown here?"}]}]
+    want_ids, want = jax_processor(msgs)
+    ids, got = HFVisualProcessor(vl_dir)(msgs)
+    assert ids == want_ids
+    np.testing.assert_array_equal(got["pixel_values"], want["pixel_values"])
+    np.testing.assert_array_equal(got["image_grid_thw"], want["image_grid_thw"])
+
+
+@pytest.mark.parametrize("name", ["chart_600x800_lossy_alpha.webp", "chart_480x640.gif", "chart_480x640_rle8.bmp",
+                                  "chart_480x640_lzw_predictor.tif", "chart_480x640_jpeg.tif",
+                                  "chart_480x640_lossless.webp"])
+def test_committed_chart_fixtures_give_jax_ids_and_features(vl_dir, jax_processor, name):
+    """One larger image per format: the committed chart files phase 26
+    sends, as data URLs through both processors."""
+    from tests.test_torch_image_fixtures import FIXTURES
+
+    url = "data:image/x;base64," + base64.b64encode((FIXTURES / name).read_bytes()).decode()
+    msgs = [{"role": "user", "content": [{"type": "image_url", "image_url": {"url": url}},
+                                         {"type": "text", "text": "What is the value of the third bar?"}]}]
+    want_ids, want = jax_processor(msgs)
+    ids, got = HFVisualProcessor(vl_dir)(msgs)
+    assert ids == want_ids
+    np.testing.assert_array_equal(got["pixel_values"], want["pixel_values"])
+    np.testing.assert_array_equal(got["image_grid_thw"], want["image_grid_thw"])
 
 
 def test_toy_processors_equal_jax():
