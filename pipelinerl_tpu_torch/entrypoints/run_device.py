@@ -33,7 +33,8 @@ def main(argv: list[str] | None = None) -> None:
     engine.start()
     server = InferenceServer(engine, tokenizer)
     server.start(port=int(cfg.select("me.port", 8080)))
-    trainer = TrainerLoop(cfg, params, model_cfg, exp_path, weight_update_cb=engine.update_params)
+    trainer = TrainerLoop(cfg, params, model_cfg, exp_path, weight_update_cb=engine.update_params,
+                          device_quiesce=engine.quiesced)
     stats: dict = {}
     try:
         trainer.run()

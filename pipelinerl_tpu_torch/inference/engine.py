@@ -89,7 +89,7 @@ import zlib
 from collections import deque
 from concurrent.futures import Future
 from dataclasses import dataclass, field
-from typing import Any
+from typing import Any, ContextManager
 
 import numpy as np
 import torch
@@ -1020,6 +1020,12 @@ class InferenceEngine:
     # ------------------------------------------------------------------
     # engine loop
     # ------------------------------------------------------------------
+    def quiesced(self) -> ContextManager:
+        """A context in which this engine launches nothing on the device: it
+        waits for the step in flight, and the next waits for the context to
+        end (the step profiler's trace starts and stops under it)."""
+        return self._dispatch_lock
+
     def _run(self) -> None:
         while not self._stop.is_set():
             if not self.step():

@@ -1,6 +1,6 @@
-"""Qwen2.5-VL's image pipeline on numpy and the stdlib: a PNG, JPEG, GIF,
-BMP, WebP or TIFF file in, the image processor's ``pixel_values`` and
-``image_grid_thw`` out.
+"""Qwen2.5-VL's image pipeline on numpy and the stdlib: an image file (PNG,
+JPEG, GIF, BMP, WebP, TIFF, ICO, CUR, Netpbm, TGA, QOI, PCX, SGI, XBM or
+XPM) in, the image processor's ``pixel_values`` and ``image_grid_thw`` out.
 
 It stands in for what ``PIL.Image.open(...).convert("RGB")`` and
 transformers' ``Qwen2VLImageProcessor`` do for the JAX package
@@ -22,8 +22,13 @@ transformers' ``Qwen2VLImageProcessor`` do for the JAX package
   islow IDCT runs as two integer matrix passes over every block, then
   libjpeg-turbo's fancy upsampling and fixed-point colour tables.
 - ``decode_image``: the file's first bytes pick the decoder: PNG and JPEG
-  here, GIF (``image_gif``), BMP (``image_bmp``), WebP (``image_webp``)
-  and TIFF (``image_tiff``), each what PIL's ``convert("RGB")`` gives.
+  here, GIF (``image_gif``), BMP (``image_bmp``), WebP (``image_webp``),
+  TIFF (``image_tiff``), ICO and CUR (``image_ico``), Netpbm
+  (``image_netpbm``), QOI (``image_qoi``), PCX (``image_pcx``), SGI
+  (``image_sgi``), XBM and XPM (``image_xbm``), and TGA
+  (``image_tga``, which has no magic) where the rest decline, as
+  ``Image.open`` tries its plugins; each what PIL's ``convert("RGB")``
+  gives.
 - ``smart_resize``: transformers' copy, factor ``patch_size * merge_size``.
 - ``resize_bicubic``: PIL's two-pass 8-bit bicubic (``Resample.c``): the
   a = -0.5 cubic with its support widened by the downscale factor,
@@ -71,21 +76,58 @@ BICUBIC = 3  # PIL's Resampling.BICUBIC, the image processor's ``resample``
 PRECISION_BITS = 32 - 8 - 2  # PIL's fixed point for 8-bit resampling
 
 
+# (first bytes, format) by PIL's format names; the last group names formats
+# PIL opens that no decoder here reads, for the refusal's message
 _MAGIC = ((PNG_SIGNATURE, "PNG"), (b"\xff\xd8\xff", "JPEG"), (b"GIF87a", "GIF"), (b"GIF89a", "GIF"),
-          (b"BM", "BMP"), (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"), (b"II+\x00", "TIFF"), (b"MM\x00+", "TIFF"))
+          (b"BM", "BMP"), (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"), (b"II+\x00", "TIFF"), (b"MM\x00+", "TIFF"),
+          (b"\0\0\2\0", "CUR"), (b"\0\0\1\0", "ICO"), (b"qoif", "QOI"), (b"\x01\xda", "SGI"),
+          (b"/* XPM */", "XPM"),
+          (b"%!PS", "EPS"), (b"\xc5\xd0\xd3\xc6", "EPS"), (b"BUFR", "BUFR"), (b"ZCZC", "BUFR"), (b"GRIB", "GRIB"),
+          (b"\x89HDF\r\n\x1a\n", "HDF5"), (b"\x00\x00\x01\xb3", "MPEG"), (b"\xd7\xcd\xc6\x9a\x00\x00", "WMF"),
+          (b"DDS ", "DDS"), (b"8BPS", "PSD"), (b"\xff\x4f\xff\x51", "JPEG2000"),
+          (b"\x00\x00\x00\x0cjP  \r\n\x87\n", "JPEG2000"))
+
+
+class Declined(ValueError):
+    """A file that is not in a decoder's format after all: where Pillow's
+    plugin raises ``SyntaxError`` (or ``IndexError``, ``TypeError``,
+    ``struct.error``) in ``_open``, ``Image.open`` goes on to the plugins
+    after it, and ``decode_image`` goes on to the decoders after this one
+    (TGA, which has no magic, last)."""
+
+
+def _magic_kinds(data: bytes) -> list[str]:
+    """Every format whose first bytes ``data`` has, as PIL's plugins
+    accept them."""
+    kinds = [kind for magic, kind in _MAGIC if data.startswith(magic)]
+    if kinds in (["CUR"], ["ICO"]) and data[4:6] in (b"", b"\0", b"\0\0"):  # no entries: Pillow goes on
+        kinds = []
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        kinds.append("WebP")
+    if data[:1] == b"\x0a" and data[1:2] in (b"\0", b"\2", b"\3", b"\5"):
+        kinds.append("PCX")
+    if data[:1] == b"P" and data[1:2] and data[1] in b"0123456fy":
+        kinds.append("PPM")
+    if data[:16].lstrip().startswith(b"#define"):
+        kinds.append("XBM")
+    if data[4:8] == b"ftyp" and data[8:12] in (b"avif", b"avis"):
+        kinds.append("AVIF")
+    return kinds
 
 
 def image_kind(data: bytes) -> str:
-    """The format an image file's first bytes name."""
-    for magic, kind in _MAGIC:
-        if data.startswith(magic):
-            return kind
-    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
-        return "WebP"
-    return f"unknown format (starts {data[:8]!r})"
+    """The format an image file's first bytes name (TGA, which has no
+    magic, where its header holds)."""
+    kinds = _magic_kinds(data)
+    if kinds:
+        return kinds[0]
+    from .image_tga import tga_header
+
+    return "TGA" if tga_header(data) else f"unknown format (starts {data[:8]!r})"
 
 
-DECODED_FORMATS = "PNG, JPEG, GIF, BMP, WebP and TIFF"
+DECODED_FORMATS = ("PNG, JPEG, GIF, BMP, WebP, TIFF, ICO, CUR, Netpbm (PBM, PGM, PPM and grey PFM), TGA, QOI, PCX, "
+                   "SGI, XBM and XPM")
 
 
 def unsupported_format(data: bytes) -> ValueError:
@@ -96,10 +138,14 @@ def unsupported_format(data: bytes) -> ValueError:
 
 def _decoders() -> dict:
     """The decoder of each format the port reads, by ``image_kind``."""
-    from . import image_bmp, image_gif, image_tiff, image_webp
+    from . import image_bmp, image_gif, image_ico, image_netpbm, image_pcx, image_qoi, image_sgi, image_tga
+    from . import image_tiff, image_webp, image_xbm
 
     return {"PNG": decode_png, "JPEG": decode_jpeg, "GIF": image_gif.decode_gif, "BMP": image_bmp.decode_bmp,
-            "WebP": image_webp.decode_webp, "TIFF": image_tiff.decode_tiff}
+            "WebP": image_webp.decode_webp, "TIFF": image_tiff.decode_tiff, "CUR": image_ico.decode_cur,
+            "ICO": image_ico.decode_ico, "PCX": image_pcx.decode_pcx, "PPM": image_netpbm.decode_netpbm,
+            "QOI": image_qoi.decode_qoi, "SGI": image_sgi.decode_sgi, "TGA": image_tga.decode_tga,
+            "XBM": image_xbm.decode_xbm, "XPM": image_xbm.decode_xpm}
 
 
 def wrong_decoder(data: bytes, expected: str) -> ValueError:
@@ -113,14 +159,21 @@ def wrong_decoder(data: bytes, expected: str) -> ValueError:
 
 
 def decode_image(data: bytes) -> np.ndarray:
-    """The RGB uint8 image [H, W, 3] of a PNG, JPEG, GIF, BMP, WebP or TIFF
-    file, by its first bytes, as PIL's ``convert("RGB")`` gives it; any
-    other format raises, naming ROADMAP item 16."""
+    """The RGB uint8 image [H, W, 3] of an image file in any format of
+    ``DECODED_FORMATS``, as PIL's ``Image.open(...).convert("RGB")`` gives
+    it: the decoders whose magic the first bytes hold, in turn, then TGA,
+    as ``Image.open`` tries its plugins; any other format raises, naming
+    ROADMAP item 16."""
     data = bytes(data)
-    decode = _decoders().get(image_kind(data))
-    if decode is None:
-        raise unsupported_format(data)
-    return decode(data)
+    decoders = _decoders()
+    for kind in [*_magic_kinds(data), "TGA"]:
+        if kind not in decoders:
+            raise unsupported_format(data)
+        try:
+            return decoders[kind](data)
+        except Declined:
+            continue
+    raise unsupported_format(data)
 
 
 # -- PNG decode ----------------------------------------------------------------

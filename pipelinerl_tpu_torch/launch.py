@@ -419,7 +419,8 @@ def run_inline(cfg: Config, device="cuda") -> dict[str, Any]:
     if "trainer" in stages:
         trainer = TrainerLoop(cfg, params, model_cfg, exp_path,
                               weight_update_cb=engine.update_params if engine is not None else None,
-                              vision_params=vision_params, vision_cfg=vision_cfg)
+                              vision_params=vision_params, vision_cfg=vision_cfg,
+                              device_quiesce=engine.quiesced if engine is not None else None)
         threads.append(threading.Thread(target=_stage(trainer.run, failures, trainer_state, "trainer"),
                                         args=(int(cfg.finetune.get("max_train_steps", 100)),), name="trainer",
                                         daemon=True))

@@ -71,7 +71,7 @@ import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Any, Callable
+from typing import Any, Callable, ContextManager
 
 import numpy as np
 import torch
@@ -269,6 +269,7 @@ class TrainerLoop:
         weight_update_cb: Callable[[dict, int], None] | None = None,
         vision_params: dict | None = None,
         vision_cfg=None,  # models.vision.VisionConfig
+        device_quiesce: Callable[[], ContextManager] | None = None,
     ):
         ft = cfg.finetune
         self.world = dist.get_world_size() if dist.is_initialized() else 1
@@ -278,6 +279,10 @@ class TrainerLoop:
         self.model_cfg = model_cfg
         self.exp_path = exp_path
         self.weight_update_cb = weight_update_cb
+        # a context in which no other thread of this process launches on the
+        # card (an inline run's engine: ``InferenceEngine.quiesced``); the
+        # step profiler starts and stops its trace under it
+        self.device_quiesce = device_quiesce
         self.metrics = TrainingMetrics()
         # the vision tower of VLM rows: frozen, or trained with the rest as
         # params["vision_tower"] under finetune.train_vision_tower
@@ -617,7 +622,7 @@ class TrainerLoop:
         target_steps = min(self.max_train_steps, max_steps if max_steps is not None else self.max_train_steps)
         mlog = MetricsLogger(self.exp_path, f"trainer_{self.rank}")
         memdbg = create_memory_debugger(self.cfg, self.exp_path, self.rank, self.device)
-        self.profiler = create_step_profiler(self.cfg, self.exp_path, self.rank, self.device)
+        self.profiler = create_step_profiler(self.cfg, self.exp_path, self.rank, self.device, self.device_quiesce)
         reader = StreamReader(self.input_spec, poll_interval=0.01)
         writer = StreamWriter(SingleStreamSpec(exp_path=self.exp_path, topic="weight_update_request"))
         # a loader thread tails the stream and decodes messages off the step

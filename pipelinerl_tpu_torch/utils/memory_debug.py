@@ -24,11 +24,16 @@ The profiler wraps the steps in ``torch.profiler.profile`` (CPU activity,
 plus CUDA on a card) and writes a TensorBoard-readable trace with
 ``tensorboard_trace_handler`` under ``<exp>/profile``, the rank in the
 worker name. On a card a trace without device events raises: a CPU-only
-trace would hide the device.
+trace would hide the device. The trace starts and stops under ``quiesce``
+(a context in which no other thread of the process launches on the card:
+an inline run's engine thread): CUPTI's start and teardown raced the
+engine thread's launches and crashed the process (SIGSEGV at the trace's
+stop, the engine thread mid-decode).
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import logging
@@ -36,7 +41,7 @@ import os
 import sys
 import time
 from pathlib import Path
-from typing import Any
+from typing import Any, Callable, ContextManager
 
 import torch
 
@@ -159,8 +164,9 @@ class StepProfiler:
     ``out_dir`` as ``rank<rank>.<time>.pt.trace.json``."""
 
     def __init__(self, out_dir: str | Path, start_step: int, num_steps: int, rank: int = 0,
-                 device: torch.device | None = None):
+                 device: torch.device | None = None, quiesce: Callable[[], ContextManager] | None = None):
         self.out_dir = str(out_dir)
+        self.quiesce = quiesce or contextlib.nullcontext
         self.start_step = start_step
         self.stop_step = start_step + num_steps
         self.rank = rank
@@ -179,7 +185,8 @@ class StepProfiler:
             self._prof = torch.profiler.profile(
                 activities=activities,
                 on_trace_ready=torch.profiler.tensorboard_trace_handler(self.out_dir, worker_name=f"rank{self.rank}"))
-            self._prof.start()
+            with self.quiesce():
+                self._prof.start()
             self.active = True
             logger.info("torch profiler trace started (steps %d..%d) -> %s",
                         self.start_step, self.stop_step - 1, self.out_dir)
@@ -194,11 +201,12 @@ class StepProfiler:
             return
         self.active = False
         before = set(Path(self.out_dir).glob(f"rank{self.rank}.*.pt.trace.json"))
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        t0 = time.monotonic()
-        self._prof.stop()  # calls the trace handler, which writes the file
-        self.export_s = time.monotonic() - t0
+        with self.quiesce():
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            t0 = time.monotonic()
+            self._prof.stop()  # calls the trace handler, which writes the file
+            self.export_s = time.monotonic() - t0
         written = sorted(set(Path(self.out_dir).glob(f"rank{self.rank}.*.pt.trace.json")) - before)
         self.trace_path = written[-1] if written else None
         device_events = 0
@@ -227,11 +235,12 @@ class NullProfiler:
         pass
 
 
-def create_step_profiler(cfg: Any, exp_path: str, rank: int = 0, device: torch.device | None = None):
+def create_step_profiler(cfg: Any, exp_path: str, rank: int = 0, device: torch.device | None = None,
+                         quiesce: Callable[[], ContextManager] | None = None):
     """A ``StepProfiler`` writing under ``<exp>/profile`` when
     ``finetune.profile.enabled``, else a ``NullProfiler``."""
     prof = cfg.select("finetune.profile") if hasattr(cfg, "select") else None
     if not prof or not prof.get("enabled", False):
         return NullProfiler()
     return StepProfiler(Path(exp_path) / "profile", start_step=int(prof.get("start_step", 2)),
-                        num_steps=int(prof.get("num_steps", 3)), rank=rank, device=device)
+                        num_steps=int(prof.get("num_steps", 3)), rank=rank, device=device, quiesce=quiesce)

@@ -186,6 +186,8 @@ def test_corrupt_files_raise_saying_what_is_wrong():
     with pytest.raises(ValueError, match="not a PNG but a GIF file: image_gif.decode_gif reads it"):
         ip.decode_png(b"GIF89a" + b"\0" * 64)
     with pytest.raises(ValueError, match="unknown format.*item 16"):
+        ip.decode_png(b"\x7fELF\x02\x01\x01" + b"\0" * 20)
+    with pytest.raises(ValueError, match="not a PNG but a PPM file: image_netpbm.decode_netpbm reads it"):
         ip.decode_png(b"P6\n2 2\n255\n" + b"\0" * 12)
     with pytest.raises(ValueError, match="bit depth 16 with colour type 3"):
         ip.decode_png(ip.PNG_SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", 2, 2, 16, 3, 0, 0, 0))

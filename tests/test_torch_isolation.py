@@ -11,6 +11,8 @@ environment servers and the stream hub) import no kernel; the image
 pipeline, the visual processors and chartqa import no torch;
 ``chip_smoke.main`` raises where there is no CUDA card."""
 
+import json
+import re
 import subprocess
 import sys
 import textwrap
@@ -210,25 +212,44 @@ IMAGES_CHILD = textwrap.dedent(
     import json
     from pathlib import Path
     from pipelinerl_tpu_torch.inference import image_bmp, image_gif, image_lzw, image_tiff, image_webp
+    from pipelinerl_tpu_torch.inference import image_ico, image_netpbm, image_pcx, image_qoi, image_sgi
+    from pipelinerl_tpu_torch.inference import image_tga, image_xbm
     from pipelinerl_tpu_torch.inference.image_pipeline import decode_image
+    from pipelinerl_tpu_torch.inference.processor import array_to_rgb
+
+    class Raw:  # a PIL image's mode and samples, as the port sees one
+        def __init__(self, array, mode, palette):
+            self.array, self.mode, self.palette = array, mode, palette
+            self.__array_interface__ = array.__array_interface__
+
+        def getpalette(self):
+            return self.palette
 
     images = Path("pipelinerl_tpu_torch/fixtures/images")
+    palette = np.load(images / "raw_96x128_PA_palette.npy").tolist()
     for name in sorted(json.loads((images / "digests.json").read_text())):
-        print("DECODED", name, list(decode_image((images / name).read_bytes()).shape))
+        if name.endswith(".npy"):
+            array, kind = np.load(images / name), name[len("raw_96x128_") : -len(".npy")]
+            raw = array if kind.islower() else Raw(array, kind.replace("I16", "I;16"), palette)
+            print("DECODED", name, list(array_to_rgb(raw).shape))
+        else:
+            print("DECODED", name, list(decode_image((images / name).read_bytes()).shape))
     """
 )
 
 
 def test_image_pipeline_imports_no_torch():
     """The host-only actor decodes and preprocesses images: the image
-    pipeline, its GIF, BMP, TIFF, WebP and LZW decoders (each committed
-    chart fixture decoded), the visual processors and chartqa run with
-    torch, PIL and transformers refused."""
+    pipeline, its GIF, BMP, TIFF, WebP, LZW, ICO, Netpbm, TGA, QOI, PCX,
+    SGI, XBM and XPM decoders (each committed chart fixture decoded, each
+    raw one through ``array_to_rgb``), the visual processors and chartqa
+    run with torch, PIL and transformers refused."""
     proc = subprocess.run([sys.executable, "-c", IMAGES_CHILD], cwd=ROOT, capture_output=True, text=True, timeout=120,
                           env={"PATH": "/usr/bin:/bin", "OMP_NUM_THREADS": "1"})
     assert proc.returncode == 0, proc.stderr
     assert "FEATURES [24, 1176] [1, 4, 6]" in proc.stdout, proc.stdout
-    for name, shape in (("chart_600x800_lossy_alpha.webp", [600, 800, 3]), ("chart_480x640.gif", [480, 640, 3]),
-                        ("chart_480x640_rle8.bmp", [480, 640, 3]), ("chart_480x640_lzw_predictor.tif", [480, 640, 3]),
-                        ("chart_480x640_jpeg.tif", [480, 640, 3]), ("chart_480x640_lossless.webp", [480, 640, 3])):
+    names = json.loads((ROOT / "pipelinerl_tpu_torch" / "fixtures" / "images" / "digests.json").read_text())
+    assert len(names) >= 31
+    for name in names:  # each decodes to the height and width its name gives
+        shape = [*map(int, re.search(r"_(\d+)x(\d+)", name).groups()), 3]
         assert f"DECODED {name} {shape}" in proc.stdout, proc.stdout

@@ -7,7 +7,7 @@ gives the same ids and the same features bit for bit, for a PIL image, PNG
 and JPEG bytes, data URLs PIL wrote and uint8 arrays, and the same ids for
 the features themselves; and for GIF, BMP, TIFF and WebP files as bytes
 and data URLs, small ones PIL wrote and the committed chart fixtures. A
-truncated PNG and a PPM raise; chartqa's message of an array reads alike
+truncated PNG and a DDS raise; chartqa's message of an array reads alike
 in both processors. The toy processors agree too."""
 
 import base64
@@ -124,13 +124,13 @@ def data_url(img, fmt: str) -> str:
     return f"data:image/{fmt.lower()};base64," + base64.b64encode(buf.getvalue()).decode()
 
 
-@pytest.mark.parametrize("case", ["truncated", "jpeg", "gif", "zeros", "ppm"])
+@pytest.mark.parametrize("case", ["truncated", "jpeg", "gif", "zeros", "ppm", "dds"])
 def test_raw_images_refuse_naming_the_image_pipeline(vl_dir, jax_processor, case):
-    """Truncated PNG bytes raise naming the fault, a PPM data URL raises
+    """Truncated PNG bytes raise naming the fault, a DDS data URL raises
     naming ROADMAP item 16 (other image formats), and a zeros array and
-    JPEG and GIF data URLs (which item 16 once held) give JAX's ids and
-    features."""
-    if case in ("zeros", "jpeg", "gif"):
+    JPEG, GIF and PPM data URLs (which item 16 once held) give JAX's ids
+    and features."""
+    if case in ("zeros", "jpeg", "gif", "ppm"):
         part = ({"type": "image", "image": np.zeros((4, 4, 3), np.uint8)} if case == "zeros" else
                 {"type": "image_url", "image_url": {"url": data_url(image((40, 30), 0), case.upper())}})
         want_ids, want = jax_processor([{"role": "user", "content": [part]}])
@@ -142,7 +142,7 @@ def test_raw_images_refuse_naming_the_image_pipeline(vl_dir, jax_processor, case
     if case == "truncated":
         part, match = {"type": "image", "image": png_bytes(image((40, 30), 0))[:300]}, "truncated PNG"
     else:
-        part, match = {"type": "image_url", "image_url": {"url": data_url(image((40, 30), 0), "PPM")}}, "item 16"
+        part, match = {"type": "image_url", "image_url": {"url": data_url(image((40, 30), 0), "DDS")}}, "item 16"
     with pytest.raises(ValueError, match=match):
         HFVisualProcessor(vl_dir)([{"role": "user", "content": [part]}])
     with pytest.raises(ValueError, match=match):
@@ -271,7 +271,10 @@ def test_other_formats_give_jax_ids_and_features(vl_dir, jax_processor, fmt, for
 
 @pytest.mark.parametrize("name", ["chart_600x800_lossy_alpha.webp", "chart_480x640.gif", "chart_480x640_rle8.bmp",
                                   "chart_480x640_lzw_predictor.tif", "chart_480x640_jpeg.tif",
-                                  "chart_480x640_lossless.webp"])
+                                  "chart_480x640_lossless.webp", "chart_256x256.ico", "chart_96x128.cur",
+                                  "chart_240x320.ppm", "chart_240x320_rle.tga", "chart_240x320.qoi",
+                                  "chart_240x320.pcx", "chart_240x320_rle.sgi", "chart_240x320.xbm",
+                                  "chart_240x320.xpm"])
 def test_committed_chart_fixtures_give_jax_ids_and_features(vl_dir, jax_processor, name):
     """One larger image per format: the committed chart files phase 26
     sends, as data URLs through both processors."""
@@ -300,3 +303,131 @@ def test_toy_processors_equal_jax():
     assert ids == want_ids
     for k in want:
         np.testing.assert_array_equal(got[k], want[k])
+
+
+# -- raw images of every dtype and mode, and the formats ported after WebP -----
+
+
+RAW_DTYPES = ["int8", "uint16", "int16", "int32", "uint32", "float32", "float64"]
+RAW_MODES = ["CMYK", "YCbCr", "HSV", "I;16", "I", "F", "PA", "RGBX", "RGBa"]
+
+
+def raw_array(dtype: str, shape=(64, 90), seed: int = 12) -> np.ndarray:
+    """A 2-D array of ``dtype`` whose values run past [0, 255] both ways."""
+    rng = np.random.default_rng(seed)
+    values = rng.standard_normal(shape) * 150 + 120
+    if np.dtype(dtype).kind == "f":
+        values.flat[:4] = [np.nan, np.inf, -1e9, 254.9]
+        return values.astype(dtype)
+    info = np.iinfo(dtype)
+    return np.clip(np.round(values), info.min, info.max).astype(dtype)
+
+
+def mode_image(mode: str, shape=(64, 90), seed: int = 13) -> Image.Image:
+    """A PIL image in ``mode`` of random samples (a random palette for
+    PA)."""
+    rng = np.random.default_rng(seed)
+    if mode in ("I;16", "I", "F"):
+        values = raw_array({"I;16": "<u2", "I": "<i4", "F": "<f4"}[mode].replace("<", ""), shape, seed)
+        image = Image.new(mode, shape[::-1])
+        image.frombytes(values.astype({"I;16": "<u2", "I": "<i4", "F": "<f4"}[mode]).tobytes())
+        return image
+    channels = {"CMYK": 4, "YCbCr": 3, "HSV": 3, "PA": 2, "RGBX": 4, "RGBa": 4}[mode]
+    image = Image.frombytes(mode, shape[::-1], rng.integers(0, 256, (*shape, channels), dtype=np.uint8).tobytes())
+    if mode == "PA":
+        image.putpalette(rng.integers(0, 256, 3 * 200).tolist())
+    return image
+
+
+def assert_same_features(vl_dir, jax_processor, part):
+    msgs = [{"role": "user", "content": [part, {"type": "text", "text": "What is shown here?"}]}]
+    want_ids, want = jax_processor(msgs)
+    ids, got = HFVisualProcessor(vl_dir)(msgs)
+    assert ids == want_ids
+    np.testing.assert_array_equal(got["pixel_values"], want["pixel_values"])
+    np.testing.assert_array_equal(got["image_grid_thw"], want["image_grid_thw"])
+
+
+@pytest.mark.parametrize("dtype", RAW_DTYPES)
+def test_arrays_of_every_dtype_give_jax_features(vl_dir, jax_processor, dtype):
+    """2-D arrays PIL reads as I;16, I and F: ``Image.fromarray`` then
+    ``convert("RGB")`` in JAX, ``array_to_rgb`` in the port."""
+    assert_same_features(vl_dir, jax_processor, {"type": "image", "image": raw_array(dtype)})
+
+
+@pytest.mark.parametrize("mode", RAW_MODES)
+def test_pil_images_of_every_mode_give_jax_features(vl_dir, jax_processor, mode):
+    assert_same_features(vl_dir, jax_processor, {"type": "image", "image": mode_image(mode)})
+
+
+def raster_file(fmt: str) -> bytes:
+    """A 48x64 image in each format ported after WebP: PIL writes what it
+    writes, the tests' encoders the rest."""
+    from tests.test_torch_ico import dib_entry, encode_icon
+    from tests.test_torch_qoi_pcx_sgi import encode_sgi
+    from tests.test_torch_xbm_xpm import encode_xpm
+
+    rng = np.random.default_rng(14)
+    rgb = rng.integers(0, 256, (48, 64, 3), dtype=np.uint8)
+    if fmt == "cur":
+        return encode_icon([(64, 48, 0, 24, dib_entry(rgb, 24, mask=False))], kind=2)
+    if fmt == "sgi_rle":
+        return encode_sgi(np.moveaxis(rgb, -1, 0).astype(np.int64), 1, True)
+    if fmt == "xpm":
+        return encode_xpm(rng.integers(0, 40, (48, 64)), ["#%06x" % v for v in rng.integers(0, 2**24, 40)], 1)
+    image, pil_fmt, kw = Image.fromarray(rgb), fmt.split("_")[0].upper(), {}
+    if fmt == "ico_bmp":
+        kw = {"sizes": [(32, 32), (64, 64)], "bitmap_format": "bmp"}
+    elif fmt == "ppm_16":
+        image, pil_fmt = Image.fromarray(rng.integers(0, 65536, (48, 64), dtype=np.uint16)), "PPM"
+    elif fmt == "tga_rle":
+        kw = {"compression": "tga_rle"}
+    elif fmt == "pcx_p":
+        image = image.quantize(60)
+    elif fmt == "xbm":
+        image = image.convert("1")
+    buf = io.BytesIO()
+    image.save(buf, pil_fmt, **kw)
+    return buf.getvalue()
+
+
+RASTER_FORMATS = ["ico_bmp", "cur", "ppm", "ppm_16", "tga_rle", "qoi", "pcx_p", "sgi_rle", "xbm", "xpm"]
+
+
+@pytest.mark.parametrize("form", ["bytes", "url"])
+@pytest.mark.parametrize("fmt", RASTER_FORMATS)
+def test_raster_formats_give_jax_ids_and_features(vl_dir, jax_processor, fmt, form):
+    data = raster_file(fmt)
+    part = ({"type": "image", "image": data} if form == "bytes" else
+            {"type": "image_url", "image_url": {"url": "data:image/x;base64," + base64.b64encode(data).decode()}})
+    assert_same_features(vl_dir, jax_processor, part)
+
+
+def refused(case: str):
+    """What PIL itself refuses: an int64 array, a La image, an EPS without
+    Ghostscript, the stub formats, bytes no plugin (TGA last) accepts."""
+    if case == "int64":
+        return np.zeros((8, 8), np.int64)
+    if case == "La":
+        return Image.fromarray(np.zeros((8, 8, 2), np.uint8), "La")
+    return {"eps": b"%!PS-Adobe-3.0 EPSF-3.0\n%%BoundingBox: 0 0 16 16\nshowpage\n%%EOF\n",
+            "bufr": b"BUFR" + bytes(60), "grib": b"GRIB" + bytes(60), "hdf5": b"\x89HDF\r\n\x1a\n" + bytes(60),
+            "mpeg": b"\x00\x00\x01\xb3\x01\x00\x10\x13" + bytes(60),
+            "wmf": b"\xd7\xcd\xc6\x9a\x00\x00" + bytes(16) + b"\x01\x00\x09\x00\x00\x03" + bytes(60),
+            "headerless": b"\x00\x02\x07" + bytes(9) + b"\x10\x00\x10\x00\x18\x00" + bytes(800),
+            "headerless_depth": b"\x00\x00\x02" + bytes(9) + b"\x10\x00\x10\x00\x0c\x00" + bytes(800)}[case]
+
+
+@pytest.mark.parametrize("case", ["int64", "La", "eps", "bufr", "grib", "hdf5", "mpeg", "wmf", "headerless",
+                                  "headerless_depth"])
+def test_what_pil_refuses_both_processors_refuse(vl_dir, jax_processor, case):
+    """Both packages fail on each; the port names ROADMAP item 16."""
+    source = refused(case)
+    if isinstance(source, bytes):
+        with pytest.raises(Exception):
+            Image.open(io.BytesIO(source)).convert("RGB")
+    msgs = [{"role": "user", "content": [{"type": "image", "image": source}, {"type": "text", "text": "q"}]}]
+    with pytest.raises(Exception):
+        jax_processor(msgs)
+    with pytest.raises(ValueError, match="item 16"):
+        HFVisualProcessor(vl_dir)(msgs)
